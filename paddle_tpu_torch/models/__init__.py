@@ -1,0 +1,4 @@
+"""Models (counterparts of paddle_tpu/models)."""
+from .convert import load_jax_state_dict
+from .generation import GenerationMixin, init_kv_cache
+from .llama import LlamaConfig, LlamaForCausalLM

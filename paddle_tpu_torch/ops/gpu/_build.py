@@ -1,0 +1,128 @@
+"""Builds the package's CUDA sources and loads them with ctypes.
+
+Every `csrc/<name>.cu` compiles with nvcc into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), named by a
+hash of the sources and flags, in `build/` beside the package (listed in
+.gitignore). A library that is already there is loaded as it is. `build_all`
+starts one nvcc per source at once and waits for them all; `load` builds a
+missing library on first use. Triton's cache goes to the same directory
+unless TRITON_CACHE_DIR says otherwise, so a run writes nothing outside the
+checkout.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if cand and os.path.isfile(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "of paddle_tpu_torch are built from source")
+    return found
+
+
+def sources() -> Dict[str, Path]:
+    return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(sources()[name].read_bytes())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> Dict[str, dict]:
+    """Compile every source (or those named) that has no library yet, one
+    nvcc process per source, all started together. Returns
+    {name: {"seconds": wall seconds, "log": nvcc's ptxas report}}; a
+    library that was already built reports 0 seconds and no log. Raises
+    RuntimeError with nvcc's output when a build fails."""
+    srcs = sources()
+    names = list(srcs) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, dict] = {}
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in names:
+            target = _lib_path(name)
+            if target.exists():
+                out[name] = {"seconds": 0.0, "log": ""}
+                continue
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, target)
+        for name, (proc, tmp, target) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, target)
+            out[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = _libs[name] = ctypes.CDLL(str(path))
+        return lib
+
+
+def import_triton():
+    """Import triton with its cache inside the build directory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    return triton, tl
+
+
+def check_status(status: int, what: str) -> None:
+    """Raise when a C entry point returned a nonzero cudaError_t."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def stream_ptr(t) -> Optional[int]:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

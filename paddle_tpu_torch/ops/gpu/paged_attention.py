@@ -1,0 +1,172 @@
+"""Ragged paged decode attention: the CUDA kernel in csrc/paged_attention.cu
+and its plain PyTorch version.
+
+Replaces paddle_tpu/ops/pallas/paged_attention.py `_decode_kernel` (via
+`_paged_pallas`). The source's header says what bounds the kernel on the
+H100 (bytes: every live K/V row read once) and how its design answers that.
+The plain version is the counterpart of `paged_attention_xla`, the
+reference's dense-gather oracle.
+
+    q            [slots, q_heads, d]
+    k/v_pages    [num_blocks, block_size, kv_heads, d]
+    block_tables [slots, max_blocks] int32 page ids per slot (0 = null page)
+    context_lens [slots] int32 valid tokens including the current one
+
+GQA: kv head h serves q heads [h*g, (h+1)*g), g = q_heads // kv_heads.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+MAX_G = 8           # query rows per kv head the kernel's block holds
+MAX_HEAD_DIM = 256  # the reference's supports() gate
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Split-count choice (choose_kv_splits). The kernel's 128-thread block uses
+# <= 52 registers a thread and ~9.6 KB of shared memory, so about 9 blocks
+# are resident on an SM; aim for 8 per SM. A split walks at least
+# SPLIT_MIN_TOKENS of the table's span, so the combine stays small beside it.
+BLOCKS_PER_SM = 8
+SPLIT_MIN_TOKENS = 256
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens,
+                          scale=None):
+    """Dense gather of each slot's pages, mask past context_lens, fp32
+    softmax; output in q's dtype. A slot with context 0 gets the softmax of
+    an all-masked row (the mean of its gathered V), as the reference does."""
+    slots, hq, d = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    max_ctx = block_tables.shape[1] * bs
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(slots, max_ctx, hkv, d).float()
+    v = v_pages[bt].reshape(slots, max_ctx, hkv, d).float()
+    qg = q.reshape(slots, hkv, g, d).float()
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k) * scale
+    live = (torch.arange(max_ctx, device=q.device)[None, :]
+            < context_lens.to(torch.int64)[:, None])
+    sc = torch.where(live[:, None, None, :], sc, torch.tensor(
+        NEG_INF, dtype=sc.dtype, device=sc.device))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    return out.to(q.dtype).reshape(slots, hq, d)
+
+
+def _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits):
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} must be "
+                         f"[slots, q_heads, d] and pages "
+                         f"{tuple(k_pages.shape)} [blocks, block_size, "
+                         f"kv_heads, d]")
+    slots, hq, d = q.shape
+    nb, bs, hkv, dk = k_pages.shape
+    if v_pages.shape != k_pages.shape or dk != d:
+        raise ValueError("paged_attention: k/v pages and q disagree on shape")
+    if hq % hkv or not 1 <= hq // hkv <= MAX_G or d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention kernel takes q_heads/kv_heads in "
+                         f"[1, {MAX_G}] and d <= {MAX_HEAD_DIM}; got "
+                         f"q_heads={hq}, kv_heads={hkv}, d={d}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
+                        f"q and pages of one dtype; got {q.dtype}, "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise TypeError("paged_attention: block_tables and context_lens must "
+                        "be int32")
+    if block_tables.shape[0] != slots or tuple(context_lens.shape) != (slots,):
+        raise ValueError("paged_attention: block_tables/context_lens do not "
+                         "match the slot count")
+    if not 1 <= kv_splits <= block_tables.shape[1]:
+        raise ValueError("more splits than pages")
+    for t in (q, k_pages, v_pages, block_tables, context_lens):
+        if t.device != q.device:
+            raise ValueError("paged_attention: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError("paged_attention kernel takes contiguous tensors")
+
+
+def choose_kv_splits(slots, kv_heads, max_blocks, block_size, sm_count):
+    """Split-K count for one decode step, from what the wrapper sees without
+    reading the context lengths back to the host: enough (slot, kv_head,
+    split) blocks to fill every SM BLOCKS_PER_SM deep, but no more splits
+    than SPLIT_MIN_TOKENS-long runs fit in the table's span. The kernel cuts
+    each slot's live context into that many equal runs. (The reference
+    leaves the count to its autotuner, paged_attention_tuned.)"""
+    fill = -(-BLOCKS_PER_SM * sm_count // (slots * kv_heads))
+    span = max(1, max_blocks * block_size // SPLIT_MIN_TOKENS)
+    return max(1, min(fill, span, max_blocks))
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _entry():
+    fn = _build.load("paged_attention").paged_attention_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
+            kv_splits):
+    _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits)
+    slots, hq, d = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    g = hq // hkv
+    out = torch.empty_like(q)
+    if kv_splits > 1:
+        part_acc = torch.empty(slots * hkv * kv_splits * g * d,
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(slots * hkv * kv_splits * g * 2,
+                              dtype=torch.float32, device=q.device)
+        pa, pml = part_acc.data_ptr(), part_ml.data_ptr()
+    else:
+        pa = pml = None
+    status = _entry()(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        pa, pml, slots, hkv, g, d, bs, block_tables.shape[1], kv_splits,
+        float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
+    _build.check_status(status, "paged_attention_decode")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                    scale=None, kv_splits=None):
+    """One decode step of ragged paged attention; returns [slots, q_heads,
+    d] in q's dtype. CUDA tensors launch the kernel, split-K over each
+    slot's context into `kv_splits` runs (None: choose_kv_splits); CPU
+    tensors take the plain version. A slot with context 0 gets zeros from
+    the kernel and the mean of its gathered V from the plain version (as
+    from the reference's two paths); the engine never asks for one."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                     context_lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: no kernel for {q.device}")
+    if kv_splits is None:
+        kv_splits = choose_kv_splits(
+            q.shape[0], k_pages.shape[2], block_tables.shape[1],
+            k_pages.shape[1], _sm_count(q.device))
+    return _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
+                   int(kv_splits))
+
+
+paged_attention.launches = 0

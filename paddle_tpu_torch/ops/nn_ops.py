@@ -1,0 +1,184 @@
+"""Counterparts of the paddle_tpu/ops/kernels/nn_ops.py ops on the serving
+path: RMSNorm, RoPE (contiguous and per-token), the reference attention
+composition, and the cache-carrying decode attentions.
+
+Each op launches its Hopper kernel (ops/gpu/) for CUDA tensors and takes the
+kernel's plain version for CPU tensors. Index semantics follow the
+reference's JAX ones where the serving engine relies on them: scatters drop
+out-of-bounds rows, and dynamic slices clamp their start. KV caches and
+pages are updated in place (JAX returns new arrays and donates the old ones)
+and returned for the same call shape.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .gpu.fused_norm import fused_rms_norm
+from .gpu.paged_attention import paged_attention
+from .gpu.rope import fused_rope, fused_rope_packed
+
+
+# ---------------------------------------------------------------------- norm
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """nn_ops.rms_norm:215. A 1-D weight goes through the kernel (plain
+    version on the CPU), as the reference sends it to the Pallas kernel."""
+    if weight is not None and weight.dim() == 1:
+        return fused_rms_norm(x, weight, epsilon)
+    xf = x.float()
+    y = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True)
+                          + epsilon)).to(x.dtype)
+    if weight is not None:
+        y = y * weight
+    return y
+
+
+# ----------------------------------------------------------------- attention
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 is_causal=False, scale=None):
+    """nn_ops.scaled_dot_product_attention:727 as the reference computes it
+    off the TPU, i.e. its `_sdpa_xla` composition (:776; the Pallas flash
+    path rejects masks, and the flash kernels are not on the serving path),
+    in plain torch with the [b, s, h, d] layout: logits in the input dtype,
+    then fp32; masked entries take finfo(float32).min; the causal mask is
+    aligned bottom-right; probabilities are cast to the query dtype before
+    P.V. Inference only: no dropout."""
+    b, sq, h, d = query.shape
+    sk = key.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q = query.transpose(1, 2)
+    k = key.transpose(1, 2)
+    v = value.transpose(1, 2)
+    logits = (torch.matmul(q, k.transpose(-1, -2)) * scale).float()
+    neg = torch.finfo(torch.float32).min
+    if is_causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=query.device).tril(diagonal=sk - sq)
+        logits = logits.masked_fill(~mask, neg)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, neg)
+        else:
+            logits = logits + attn_mask.float()
+    probs = torch.softmax(logits, dim=-1).to(query.dtype)
+    return torch.matmul(probs, v).transpose(1, 2)
+
+
+# ------------------------------------------------------------------- rope
+def _seq_major(c):
+    return c.dim() == 2 or (c.dim() == 4 and c.shape[0] == 1
+                            and c.shape[2] == 1)
+
+
+def rotary_position_embedding(q, k, cos, sin, rotate_half=True):
+    """nn_ops.rotary_position_embedding:801. q, k [b, s, h, d]; cos, sin
+    [s, d] or [1, s, 1, d] go through the kernel; other layouts take the
+    `_rope_xla` composition."""
+    fused_ok = (rotate_half and _seq_major(cos) and _seq_major(sin)
+                and q.shape[1] == (cos.shape[1] if cos.dim() == 4
+                                   else cos.shape[0]))
+    if fused_ok:
+        if cos.dim() == 4:
+            cos = cos.reshape(cos.shape[1], cos.shape[3])
+            sin = sin.reshape(sin.shape[1], sin.shape[3])
+        return fused_rope(q, k, cos.float().contiguous(),
+                          sin.float().contiguous())
+    return _rope_xla(q, k, cos, sin, rotate_half)
+
+
+def _rope_xla(q, k, cos, sin, rotate_half):
+    """nn_ops._rope_xla:828, with its type promotion (an fp32 table makes
+    the output fp32)."""
+    def rot(x):
+        if rotate_half:
+            half = x.shape[-1] // 2
+            return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+        x1 = x[..., 0::2]
+        x2 = x[..., 1::2]
+        return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+
+    cos = cos[None, :, None, :] if cos.dim() == 2 else cos
+    sin = sin[None, :, None, :] if sin.dim() == 2 else sin
+    return q * cos + rot(q) * sin, k * cos + rot(k) * sin
+
+
+def rotary_position_embedding_packed(q, k, cos, sin, pos):
+    """nn_ops.rotary_position_embedding_packed:1191: q, k [b, s, h, d],
+    cos/sin TABLES [P, d], per-token positions pos [b, s] (clamped to
+    [0, P-1] as the TPU kernel clamps)."""
+    return fused_rope_packed(q, k, cos.float().contiguous(),
+                             sin.float().contiguous(),
+                             pos.to(torch.int32).contiguous())
+
+
+# ------------------------------------------------- cached decode attention
+def cached_multihead_attention(q, k, v, k_cache, v_cache, pos, scale=None):
+    """nn_ops.cached_multihead_attention:845. q [b, sq, hq, d]; k, v
+    [b, sq, hkv, d]; caches [b, max_len, hkv, d], written IN PLACE.
+
+    `pos` is a scalar (int or 0-d tensor: tokens already cached) or a
+    per-row int vector [b] for ragged batched prefill. Scalar form: the new
+    K/V land at [pos, pos+sq) with the start clamped to [0, max_len - sq]
+    (lax.dynamic_update_slice), and query i sees keys <= pos + i (with the
+    unclamped pos, as the reference masks). Vector form: row r's tokens land
+    at pos[r] + i; writes past max_len are dropped (JAX scatter semantics)
+    and row r's query i sees keys <= pos[r] + i.
+    Returns (out [b, sq, hq, d], k_cache, v_cache)."""
+    b, sq, hq, d = q.shape
+    max_len, hkv = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    ar_len = torch.arange(max_len, device=dev)
+    ar_sq = torch.arange(sq, device=dev)
+    if torch.is_tensor(pos) and pos.dim() == 1 and pos.shape[0] == b:
+        idx = pos.to(device=dev, dtype=torch.int64)[:, None] + ar_sq[None]
+        keep = (idx >= 0) & (idx < max_len)
+        rows = torch.arange(b, device=dev)[:, None].expand(b, sq)
+        k_cache[rows[keep], idx[keep]] = k[keep].to(k_cache.dtype)
+        v_cache[rows[keep], idx[keep]] = v[keep].to(v_cache.dtype)
+        attn_mask = (ar_len[None, None, :] <= idx[:, :, None])[:, None]
+    else:
+        p = int(pos)
+        start = min(max(p, 0), max_len - sq)
+        k_cache[:, start:start + sq] = k.to(k_cache.dtype)
+        v_cache[:, start:start + sq] = v.to(v_cache.dtype)
+        attn_mask = (ar_len[None, :] <= p + ar_sq[:, None])[None, None]
+    k_all, v_all = k_cache, v_cache
+    if hkv != hq:
+        rep = hq // hkv
+        k_all = k_all.repeat_interleave(rep, dim=2)
+        v_all = v_all.repeat_interleave(rep, dim=2)
+    out = scaled_dot_product_attention(q, k_all.to(q.dtype),
+                                       v_all.to(q.dtype), attn_mask, False,
+                                       scale)
+    return out, k_cache, v_cache
+
+
+def paged_cached_attention(q, k, v, k_pages, v_pages, block_table, seq_lens,
+                           scale=None):
+    """nn_ops.paged_cached_attention:901, the single-token decode step:
+    write each slot's new K/V at (block_table[seq // bs], seq % bs) IN
+    PLACE, then attend each slot's query over its seq_lens + 1 tokens with
+    the paged decode kernel. q [slots, 1, hq, d]; k, v [slots, 1, hkv, d];
+    pages [num_blocks, block_size, hkv, d]; block_table [slots, max_blocks]
+    int32; seq_lens [slots] int32. The block-table column is clamped to the
+    table, as the reference's gather clamps. Idle slots (all-null tables,
+    length 0) write and read the null block 0; their outputs are garbage
+    the engine ignores. Returns (out [slots, 1, hq, d], k_pages, v_pages)."""
+    slots, sq, hq, d = q.shape
+    if sq != 1:
+        raise NotImplementedError(
+            "paged_cached_attention with a multi-token (speculative verify) "
+            "window needs the verify kernel (paddle_tpu/ops/pallas/"
+            "paged_attention.py _verify_kernel), which is not ported yet")
+    bs = k_pages.shape[1]
+    seq_lens = seq_lens.to(torch.int32)
+    col = torch.clamp(seq_lens // bs, max=block_table.shape[1] - 1).long()
+    page = block_table.gather(1, col[:, None])[:, 0].long()
+    off = (seq_lens % bs).long()
+    k_pages[page, off] = k[:, 0].to(k_pages.dtype)
+    v_pages[page, off] = v[:, 0].to(v_pages.dtype)
+    out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                          block_table, seq_lens + 1, scale)
+    return out[:, None], k_pages, v_pages

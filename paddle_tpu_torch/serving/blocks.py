@@ -1,0 +1,383 @@
+"""Paged KV-cache block allocator (host-side bookkeeping) with automatic
+prefix caching (counterpart of paddle_tpu/serving/blocks.py:101).
+
+The device pool (paged.py) is a fixed array of NUM_BLOCKS fixed-size token
+blocks; this allocator owns which block belongs to which sequence. The free
+list is a stack (LIFO reuse), a sequence's block table is a list, and
+free() releases the whole table in one pass.
+
+Block 0 is reserved as the NULL block: inactive decode slots point their
+block tables at it so the decode step can write their (masked, garbage) KV
+somewhere harmless without branching. It is never handed out, never cached
+and never read as live context.
+
+Prefix caching (vLLM-style, over FULL blocks only):
+
+  * every block is refcounted; a block may appear in several sequences'
+    tables at once (shared prompt prefix);
+  * a prompt is chain-hashed per full block (blake2b over the previous
+    block's digest + this block's token ids), so a block's key identifies
+    the whole prefix up to and including it;
+  * `register_prefix` publishes a finished prefill's full prompt blocks;
+    `reserve_prefix` returns a table whose head is the shared cached blocks,
+    and the engine prefills only the unmatched suffix;
+  * a hashed block whose refcount drops to zero parks in an LRU pool of
+    evictable cached blocks, still matchable; capacity pressure reclaims
+    from the LRU tail only after the free list is empty;
+  * full blocks are immutable; the one exception, a prompt that is ENTIRELY
+    cached (its re-decoded last token would land in the final shared
+    block), is handled by copy-on-write: `reserve_prefix` forks that block.
+
+The reference's KV-streaming (export_prefix / import_block), speculative
+rollback and incremental append_token wait for the slices that use them.
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+from ..observability.registry import counter as _counter, gauge as _gauge
+
+_BLOCKS_TOTAL = _gauge("serving_kv_blocks_total",
+                       "KV pool size in blocks (excl. the null block).")
+_BLOCKS_USED = _gauge("serving_kv_blocks_used",
+                      "KV blocks currently assigned to sequences.")
+_BLOCKS_FREE = _gauge("serving_kv_blocks_free", "KV blocks on the free list.")
+_BLOCKS_CACHED = _gauge("serving_kv_cached_blocks",
+                        "Evictable prefix-cache blocks (hashed, refcount 0).")
+_TOKENS = _gauge("serving_kv_tokens", "Live KV tokens across all sequences.")
+_OCCUPANCY = _gauge("serving_kv_occupancy", "used / allocatable KV blocks.")
+_FRAG = _gauge("serving_kv_fragmentation",
+               "1 - tokens/(used*block_size): tail waste of partially "
+               "filled last blocks.")
+_PREFIX_HITS = _counter("serving_prefix_cache_hits_total",
+                        "Admissions that matched >=1 cached prefix block.")
+_PREFIX_MISSES = _counter("serving_prefix_cache_misses_total",
+                          "Admissions that matched no cached block.")
+_PREFIX_HIT_TOKENS = _counter("serving_prefix_hit_tokens_total",
+                              "Prompt tokens served from the prefix cache "
+                              "(prefill skipped).")
+_PREFIX_EVICTIONS = _counter("serving_prefix_evictions_total",
+                             "Cached blocks reclaimed under capacity "
+                             "pressure.")
+_PREFIX_DEDUPS = _counter("serving_prefix_dedup_blocks_total",
+                          "Private prefilled blocks swapped for an "
+                          "already-indexed twin at register time.")
+
+
+class BlockAllocator:
+    """Host-side allocator over a pool of `num_blocks` blocks of
+    `block_size` tokens each. Block ids index the device pool directly."""
+
+    NULL_BLOCK = 0
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 prefix_cache: bool = True):
+        if num_blocks < 2:
+            raise ValueError("need at least 2 blocks (one is the null block)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.prefix_cache = bool(prefix_cache)
+        # stack: LIFO reuse; block 0 reserved (never handed out)
+        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._tables: Dict[object, List[int]] = {}
+        self._lens: Dict[object, int] = {}
+        # refcounts for LIVE blocks only (block in >=1 table or pinned)
+        self._ref: Dict[int, int] = {}
+        # content addressing: block -> chain digest, digest -> block
+        self._digest: Dict[int, bytes] = {}
+        self._index: Dict[bytes, int] = {}
+        # refcount-0 hashed blocks, LRU order (oldest first = evict first)
+        self._evictable: "OrderedDict[int, None]" = OrderedDict()
+        # copy-on-write source pins: seq_id -> blocks held alive beyond the
+        # table so the engine can copy them before any eviction
+        self._extra: Dict[object, List[int]] = {}
+        self._tokens = 0            # running sum of _lens (O(1) publish)
+        # register_prefix dedup swaps: [(table_index, private, canonical)]
+        self.last_dedup: List[Tuple[int, int, int]] = []
+        self._publish()
+
+    # -- capacity ---------------------------------------------------------
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return len(self._ref)
+
+    @property
+    def cached_blocks(self) -> int:
+        return len(self._evictable)
+
+    @property
+    def available_blocks(self) -> int:
+        """Blocks a new reservation can claim: free + evictable cached."""
+        return len(self._free) + len(self._evictable)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return -(-int(n_tokens) // self.block_size)  # ceil div
+
+    # -- content addressing -----------------------------------------------
+    def chain_digest(self, prev: bytes, tokens) -> bytes:
+        """One link of the chain hash: commits to `prev` (the previous full
+        block's digest, b"" at the chain head) plus this block's ids."""
+        h = hashlib.blake2b(prev, digest_size=16)
+        for t in tokens:
+            h.update(int(t).to_bytes(8, "little", signed=True))
+        return h.digest()
+
+    def block_hashes(self, tokens) -> List[bytes]:
+        """Chain digests for every FULL block of `tokens`."""
+        out: List[bytes] = []
+        prev = b""
+        bs = self.block_size
+        for i in range(len(tokens) // bs):
+            prev = self.chain_digest(prev, tokens[i * bs:(i + 1) * bs])
+            out.append(prev)
+        return out
+
+    def _match(self, tokens) -> List[int]:
+        """Longest run of cached blocks covering a prefix of `tokens`."""
+        if not self.prefix_cache:
+            return []
+        matched: List[int] = []
+        for key in self.block_hashes(tokens):
+            blk = self._index.get(key)
+            if blk is None:
+                break
+            matched.append(blk)
+        return matched
+
+    def can_reserve_prefix(self, tokens, total_tokens: int) -> bool:
+        """Admission gate: do the suffix's new blocks fit beside the matched
+        blocks that must be revived out of the evictable pool?"""
+        matched = self._match(tokens)
+        revive = sum(1 for b in matched if b in self._evictable)
+        plen = len(tokens)
+        m = len(matched)
+        need = self.blocks_for(max(int(total_tokens), plen, 1)) - m
+        if m and m * self.block_size >= plen:
+            need += 1
+        return need + revive <= self.available_blocks
+
+    # -- block pool internals ---------------------------------------------
+    def _pop_block(self) -> int:
+        """A blank block: the free stack first, then evict the LRU cached
+        block (dropping its index entry)."""
+        if self._free:
+            return self._free.pop()
+        if self._evictable:
+            blk, _ = self._evictable.popitem(last=False)   # oldest first
+            key = self._digest.pop(blk)
+            del self._index[key]
+            _PREFIX_EVICTIONS.inc()
+            return blk
+        raise MemoryError("KV pool exhausted")
+
+    def _claim(self, need: int) -> List[int]:
+        if need > self.available_blocks:
+            raise MemoryError(
+                f"KV pool exhausted: need {need} blocks, "
+                f"{self.available_blocks} available")
+        out = []
+        for _ in range(need):
+            blk = self._pop_block()
+            self._ref[blk] = 1
+            out.append(blk)
+        return out
+
+    def _decref(self, blk: int) -> bool:
+        """Drop one reference; True when the block left the live set."""
+        n = self._ref[blk] - 1
+        if n > 0:
+            self._ref[blk] = n
+            return False
+        del self._ref[blk]
+        if blk in self._digest and self.prefix_cache:
+            self._evictable[blk] = None          # newest at the LRU tail
+        else:
+            self._free.append(blk)
+        return True
+
+    def _revive(self, blk: int) -> None:
+        """Take a matched block live (cached -> referenced, or +1 ref)."""
+        if blk in self._ref:
+            self._ref[blk] += 1
+        else:
+            del self._evictable[blk]
+            self._ref[blk] = 1
+
+    # -- lifecycle --------------------------------------------------------
+    def reserve_prefix(self, seq_id, tokens,
+                       total_tokens: int) -> Tuple[List[int], int,
+                                                   Optional[int], int]:
+        """Claim the worst-case table for a new sequence (`total_tokens`),
+        its head reusing cached blocks that match the prompt's full-block
+        prefix. Returns `(table, matched_tokens, cow_src, new_blocks)`:
+
+          * `matched_tokens`: prompt tokens whose KV is already resident;
+          * `cow_src`: when the ENTIRE prompt matched, the shared source of
+            the forked last block (pinned until free(seq_id));
+          * `new_blocks`: blocks claimed from the pool.
+        """
+        if seq_id in self._tables:
+            raise KeyError(f"sequence {seq_id!r} already allocated")
+        plen = len(tokens)
+        matched = self._match(tokens)
+        m = len(matched)
+        total = self.blocks_for(max(int(total_tokens), plen, 1))
+        full_match = bool(m) and m * self.block_size >= plen
+        need = total - m + (1 if full_match else 0)
+        revive = sum(1 for b in matched if b in self._evictable)
+        if need + revive > self.available_blocks:
+            raise MemoryError(
+                f"KV pool exhausted: need {need} blocks beside {revive} "
+                f"revivals, {self.available_blocks} available")
+        # revive FIRST: _pop_block must never evict a block we matched
+        for blk in matched:
+            self._revive(blk)
+        fresh = self._claim(need)
+        cow_src: Optional[int] = None
+        if full_match:
+            cow_src = matched[-1]
+            table = matched[:-1] + [fresh[0]] + fresh[1:]
+            self._extra.setdefault(seq_id, []).append(cow_src)
+        else:
+            table = matched + fresh
+        self._tables[seq_id] = table
+        self._lens[seq_id] = plen
+        self._tokens += plen
+        matched_tokens = min(m * self.block_size, plen)
+        if m:
+            _PREFIX_HITS.inc()
+            _PREFIX_HIT_TOKENS.inc(matched_tokens)
+        elif self.prefix_cache:
+            _PREFIX_MISSES.inc()
+        self._publish()
+        return table, matched_tokens, cow_src, need
+
+    def register_prefix(self, seq_id, tokens) -> int:
+        """Publish a prefilled prompt's full blocks into the hash index.
+        Call AFTER the prefix KV is in the pool pages. Idempotent. A block
+        whose key is already indexed under another block (two identical
+        prompts prefilled concurrently) is swapped for the canonical one
+        (live dedup), recorded in `last_dedup` as (table_index, private,
+        canonical) so the caller can redirect its block-table row. Returns
+        how many blocks were newly indexed."""
+        if not self.prefix_cache:
+            return 0
+        table = self._tables[seq_id]
+        added = 0
+        self.last_dedup = []
+        for i, key in enumerate(self.block_hashes(tokens)):
+            blk = table[i]
+            if blk == self.NULL_BLOCK or blk in self._digest:
+                continue
+            canon = self._index.get(key)
+            if canon is not None and canon != blk:
+                self._revive(canon)
+                table[i] = canon
+                self._decref(blk)
+                self.last_dedup.append((i, blk, canon))
+                _PREFIX_DEDUPS.inc()
+                continue
+            self._digest[blk] = key
+            self._index[key] = blk
+            added += 1
+        if self.last_dedup:
+            self._publish()
+        return added
+
+    def free(self, seq_id) -> int:
+        """Release a sequence's references: unhashed blocks go back to the
+        free stack, hashed ones park in the evictable LRU pool. Returns how
+        many blocks left the live set."""
+        table = self._tables.pop(seq_id)
+        self._tokens -= self._lens.pop(seq_id)
+        released = 0
+        for blk in reversed(table):      # LIFO: reuse hottest first
+            released += self._decref(blk)
+        for blk in self._extra.pop(seq_id, ()):
+            released += self._decref(blk)
+        self._publish()
+        return released
+
+    # -- introspection ----------------------------------------------------
+    def table(self, seq_id) -> List[int]:
+        return list(self._tables[seq_id])
+
+    def sequences(self):
+        return list(self._tables)
+
+    def check_invariants(self) -> None:
+        """Conservation + sharing invariants (raises AssertionError)."""
+        allocatable = self.num_blocks - 1
+        live = set(self._ref)
+        ev = set(self._evictable)
+        free = set(self._free)
+        if (live & ev) or (live & free) or (ev & free):
+            raise AssertionError("a block is in two pools at once")
+        if len(live) + len(ev) + len(free) != allocatable:
+            raise AssertionError(
+                f"conservation violated: {len(live)}+{len(ev)}+{len(free)} "
+                f"!= {allocatable}")
+        if self.NULL_BLOCK in live | ev | free or \
+                self.NULL_BLOCK in self._digest:
+            raise AssertionError("the null block left its reservation")
+        readers: Dict[int, int] = {}
+        for t in list(self._tables.values()) + list(self._extra.values()):
+            for b in t:
+                readers[b] = readers.get(b, 0) + 1
+        for b, r in readers.items():
+            if self._ref.get(b, 0) != r:
+                raise AssertionError(
+                    f"block {b}: refcount {self._ref.get(b, 0)} != {r} "
+                    f"readers")
+        if set(readers) != live:
+            raise AssertionError("a live block has no reader")
+        if {v: k for k, v in self._index.items()} != self._digest:
+            raise AssertionError("index and digest maps disagree")
+        if not ev <= set(self._digest):
+            raise AssertionError("an evictable block is not hashed")
+        if self._tokens != sum(self._lens.values()):
+            raise AssertionError("token count drifted")
+
+    def conservation_ok(self) -> bool:
+        """O(1) conservation law: every allocatable block is in exactly one
+        of live / evictable / free."""
+        return (len(self._ref) + len(self._evictable) + len(self._free)
+                == self.num_blocks - 1)
+
+    def occupancy_report(self) -> dict:
+        allocatable = self.num_blocks - 1
+        used = self.used_blocks
+        tokens = self._tokens
+        cap = used * self.block_size
+        return {
+            "conservation_ok": self.conservation_ok(),
+            "num_blocks": allocatable,
+            "block_size": self.block_size,
+            "used_blocks": used,
+            "free_blocks": len(self._free),
+            "cached_blocks": len(self._evictable),
+            "sequences": len(self._tables),
+            "tokens": tokens,
+            "occupancy": used / allocatable if allocatable else 0.0,
+            "fragmentation": max(0.0, 1.0 - tokens / cap) if cap else 0.0,
+        }
+
+    def _publish(self):
+        allocatable = self.num_blocks - 1
+        used = len(self._ref)
+        cap = used * self.block_size
+        _BLOCKS_TOTAL.set(allocatable)
+        _BLOCKS_USED.set(used)
+        _BLOCKS_FREE.set(len(self._free))
+        _BLOCKS_CACHED.set(len(self._evictable))
+        _TOKENS.set(self._tokens)
+        _OCCUPANCY.set(used / allocatable if allocatable else 0.0)
+        _FRAG.set(max(0.0, 1.0 - self._tokens / cap) if cap else 0.0)

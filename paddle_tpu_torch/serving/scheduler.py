@@ -1,0 +1,174 @@
+"""Continuous-batching scheduler (host-side policy, no device code;
+counterpart of paddle_tpu/serving/scheduler.py:56,156).
+
+Requests flow queued -> prefill -> running -> finished, and the engine calls
+one Scheduler tick per decode step: admission happens between decode steps,
+prefill is chunked and interleaved with decode, and a finished sequence's
+blocks and slot are freed immediately.
+
+Admission uses worst-case KV reservation: a request is admitted only when
+the blocks for min(prompt + max_new_tokens, max_model_len) fit beside every
+admitted request's reservation (blocks already in the prefix cache cost
+nothing), so decode never runs out of blocks mid-flight.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional
+
+from ..observability.registry import counter as _counter, gauge as _gauge
+
+_ADMITTED = _counter("serving_requests_admitted_total",
+                     "Requests admitted into the running batch.")
+_FINISHED = _counter("serving_requests_finished_total",
+                     "Requests finished (by reason).", labelnames=("reason",))
+_QUEUED = _gauge("serving_queue_depth", "Requests waiting for admission.")
+_RUNNING = _gauge("serving_running_sequences",
+                  "Sequences in prefill or decode.")
+
+_req_counter = itertools.count()
+
+
+class Request:
+    """One generation request and its lifecycle timestamps
+    (time.monotonic(); queue time = prefill_start - arrival, TTFT =
+    first_token - arrival)."""
+
+    def __init__(self, prompt: List[int], max_new_tokens: int = 16,
+                 temperature: float = 0.0, eos_token_id: Optional[int] = None,
+                 request_id: Optional[str] = None):
+        self.request_id = (request_id if request_id is not None
+                           else f"req-{next(_req_counter)}")
+        self.prompt = [int(t) for t in prompt]
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.eos_token_id = eos_token_id
+        self.output_tokens: List[int] = []
+        self.state = "queued"
+        self.finish_reason: Optional[str] = None
+        self.slot: Optional[int] = None
+        self.arrival_time = time.monotonic()
+        self.prefill_start: Optional[float] = None
+        self.first_token_time: Optional[float] = None
+        self.finish_time: Optional[float] = None
+        # engine-owned prefill progress (tokens of prompt already run)
+        self.prefill_pos = 0
+        self.prefix_matched = 0       # prompt tokens served from the cache
+        self._cow_src = None          # shared block forked at admission
+        self._ws_caches = None        # contiguous prefill workspace
+        self._reserved_blocks = 0
+
+    def ttft_seconds(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.arrival_time
+
+
+class Scheduler:
+    """Owns request state transitions + slot/block accounting. The engine
+    drives it: admit() between decode steps, next_prefill() for chunked
+    prefill work, start_running()/finish() on transitions."""
+
+    def __init__(self, allocator, max_slots: int, max_model_len: int):
+        self.allocator = allocator
+        self.max_slots = int(max_slots)
+        self.max_model_len = int(max_model_len)
+        self.waiting: Deque[Request] = deque()
+        self.prefilling: List[Request] = []
+        self.running: Dict[int, Request] = {}   # slot -> request
+        self._free_slots = list(range(self.max_slots - 1, -1, -1))
+        self._reserved_blocks = 0
+
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) + 1 > self.max_model_len:
+            raise ValueError(
+                f"prompt of {len(req.prompt)} tokens leaves no room under "
+                f"max_model_len={self.max_model_len}")
+        if len(req.prompt) == 0:
+            raise ValueError("empty prompt")
+        self.waiting.append(req)
+        self._publish()
+
+    def admit(self) -> List[Request]:
+        """Move waiting requests into prefill while a slot AND a worst-case
+        KV reservation fit (FCFS). The whole reservation becomes the block
+        table now, its head any cached shared prefix; the engine prefills
+        from req.prefill_pos (= matched tokens)."""
+        admitted = []
+        while self.waiting and self._free_slots:
+            req = self.waiting[0]
+            total = min(len(req.prompt) + req.max_new_tokens,
+                        self.max_model_len)
+            if not self.allocator.can_reserve_prefix(req.prompt, total):
+                break
+            self.waiting.popleft()
+            req.slot = self._free_slots.pop()
+            _, matched, cow_src, new_blocks = self.allocator.reserve_prefix(
+                req.request_id, req.prompt, total)
+            req.prefix_matched = matched
+            req.prefill_pos = matched
+            req._cow_src = cow_src
+            req._reserved_blocks = new_blocks
+            self._reserved_blocks += new_blocks
+            req.state = "prefill"
+            req.prefill_start = time.monotonic()
+            self.prefilling.append(req)
+            admitted.append(req)
+            _ADMITTED.inc()
+        self._publish()
+        return admitted
+
+    def next_prefill(self) -> Optional[Request]:
+        """The request that gets this tick's prefill chunk (FCFS)."""
+        return self.prefilling[0] if self.prefilling else None
+
+    def start_running(self, req: Request) -> None:
+        """Prefill done (first token sampled, prefix scattered to pages)."""
+        self.prefilling.remove(req)
+        req.state = "running"
+        req.first_token_time = time.monotonic()
+        self.running[req.slot] = req
+        self._publish()
+
+    def finish(self, req: Request, reason: str) -> None:
+        """Evict: free blocks + slot immediately, whatever state the request
+        was in."""
+        if req.state == "queued":
+            try:
+                self.waiting.remove(req)
+            except ValueError:
+                pass
+        elif req.state == "prefill":
+            self.prefilling.remove(req)
+        elif req.state == "running":
+            self.running.pop(req.slot, None)
+        if req.slot is not None:
+            self._free_slots.append(req.slot)
+            req.slot = None
+        if req.request_id in self.allocator.sequences():
+            self.allocator.free(req.request_id)
+        self._reserved_blocks -= req._reserved_blocks
+        req._reserved_blocks = 0
+        req._ws_caches = None
+        req._cow_src = None
+        req.state = "finished"
+        req.finish_reason = reason
+        req.finish_time = time.monotonic()
+        _FINISHED.inc(reason=reason)
+        self._publish()
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.prefilling or self.running)
+
+    def counts(self) -> dict:
+        return {"waiting": len(self.waiting),
+                "prefilling": len(self.prefilling),
+                "running": len(self.running),
+                "free_slots": len(self._free_slots),
+                "reserved_blocks": self._reserved_blocks}
+
+    def _publish(self):
+        _QUEUED.set(len(self.waiting))
+        _RUNNING.set(len(self.prefilling) + len(self.running))

@@ -1,0 +1,285 @@
+"""The port's kernel modules against the JAX reference, on the CPU.
+
+paddle_tpu_torch wraps each Hopper kernel with a plain PyTorch version that
+runs for CPU tensors; these tests hold that plain version against the JAX
+Pallas kernel it replaces (in interpret mode, as tests/test_pallas.py runs
+it) and against the reference's XLA fallback, on the same numpy inputs.
+The CUDA/Triton kernels themselves are held against the same plain versions
+on the card by chip_smoke.py.
+
+Tolerances: float32 compares to 1e-5 absolute (both sides do the same fp32
+arithmetic, in a different summation order); bfloat16 compares to one or two
+bf16 roundings of the output (2**-7 relative), since both sides round the
+same fp32 result once, and the reference's XLA RMSNorm fallback rounds once
+more (before the weight multiply), where the kernel and the port do not.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops.kernels import nn_ops as jops
+from paddle_tpu.ops.pallas import fused_norm as jnorm
+from paddle_tpu.ops.pallas import paged_attention as jpaged
+from paddle_tpu.ops.pallas import rope as jrope
+from paddle_tpu_torch.ops import nn_ops as tops
+from paddle_tpu_torch.ops.gpu import fused_norm, paged_attention, rope
+
+F32_TOL = 1e-5
+BF16_REL = 2.0 ** -7   # one bf16 rounding, relative
+
+DTYPES = [(np.float32, jnp.float32, torch.float32),
+          ("bf16", jnp.bfloat16, torch.bfloat16)]
+
+
+def _pair(a, jdt, tdt):
+    """The same values as a JAX array and a torch tensor of one dtype."""
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a).astype(jdt), torch.from_numpy(a.copy()).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, tdt, roundings=1):
+    got, want = _np(got), _np(want)
+    assert np.isfinite(got).all()
+    if tdt == torch.float32:
+        np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+    else:
+        tol = roundings * BF16_REL * np.maximum(np.abs(want), 1e-2)
+        assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+
+
+def _rope_tables(P, d, theta=10000.0):
+    inv = 1.0 / theta ** (np.arange(0, d, 2, dtype=np.float32) / d)
+    f = np.outer(np.arange(P, dtype=np.float32), inv)
+    emb = np.concatenate([f, f], -1)
+    return np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
+
+
+# ---------------------------------------------------------------- RMSNorm
+@pytest.mark.parametrize("shape", [(2, 7, 128), (300, 64)])
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
+def test_rms_norm_plain_matches_pallas_and_xla(shape, dt):
+    _, jdt, tdt = dt
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    jx, tx = _pair(x, jdt, tdt)
+    jw, tw = _pair(w, jdt, tdt)
+    got = fused_norm.fused_rms_norm(tx, tw, 1e-5)
+    assert got.dtype == tdt and got.shape == tx.shape
+    # the Pallas kernel: fp32 all the way, one final cast
+    pallas = jnorm.fused_rms_norm(jx, jw, 1e-5, 256, True)
+    _close(got, pallas, tdt)
+    # the XLA fallback casts before the weight multiply: one more rounding
+    xla = jops.rms_norm(jx, jw, 1e-5)
+    _close(got, xla, tdt, roundings=2)
+    if tdt == torch.bfloat16:
+        # the port follows the kernel's formula, not the fallback's: it
+        # equals the Pallas kernel bit for bit (up to rare fp32 summation-
+        # order flips), where the fallback differs in ~1/4 of the elements
+        assert (_np(got) != _np(pallas)).mean() <= 0.005
+        assert (_np(got) != _np(xla)).mean() > 0.05
+    # the op routes a 1-D weight through the kernel module
+    _close(tops.rms_norm(tx, tw, 1e-5), got, tdt)
+
+
+# -------------------------------------------------------------------- RoPE
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
+def test_rope_plain_matches_pallas_and_xla(dt):
+    _, jdt, tdt = dt
+    rng = np.random.default_rng(1)
+    b, s, h, hkv, d = 2, 8, 4, 2, 16
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    cos, sin = _rope_tables(s + 5, d)
+    cos, sin = cos[5:], sin[5:]        # a window that does not start at 0
+    jq, tq = _pair(q, jdt, tdt)
+    jk, tk = _pair(k, jdt, tdt)
+    tq_o, tk_o = rope.fused_rope(tq, tk, torch.from_numpy(cos),
+                                 torch.from_numpy(sin))
+    jq_o, jk_o = jrope.fused_rope(jq, jk, jnp.asarray(cos), jnp.asarray(sin),
+                                  interpret=True)
+    _close(tq_o, jq_o, tdt)
+    _close(tk_o, jk_o, tdt)
+    _close(tq_o, jrope._apply_xla(jq, jnp.asarray(cos), jnp.asarray(sin),
+                                  1.0), tdt)
+    # the op takes [s, d] and [1, s, 1, d] tables through the kernel module
+    oq, ok = tops.rotary_position_embedding(
+        tq, tk, torch.from_numpy(cos)[None, :, None],
+        torch.from_numpy(sin)[None, :, None])
+    _close(oq, tq_o, tdt)
+    _close(ok, tk_o, tdt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
+def test_rope_packed_plain_matches_pallas_and_xla(dt):
+    _, jdt, tdt = dt
+    rng = np.random.default_rng(2)
+    b, s, h, d, P = 2, 8, 4, 16, 24
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, 2, d)).astype(np.float32)
+    cos, sin = _rope_tables(P, d)
+    # row 0 runs past the table (P-1 = 23): the kernel clamps to the last row
+    pos = np.stack([np.arange(20, 20 + s), rng.integers(0, P, s)])
+    pos = pos.astype(np.int32)
+    jq, tq = _pair(q, jdt, tdt)
+    jk, tk = _pair(k, jdt, tdt)
+    tc, ts, tp = (torch.from_numpy(cos), torch.from_numpy(sin),
+                  torch.from_numpy(pos))
+    tq_o, tk_o = rope.fused_rope_packed(tq, tk, tc, ts, tp)
+    jq_o, jk_o = jrope.fused_rope_packed(jq, jk, jnp.asarray(cos),
+                                         jnp.asarray(sin), jnp.asarray(pos),
+                                         interpret=True)
+    _close(tq_o, jq_o, tdt)
+    _close(tk_o, jk_o, tdt)
+    # the XLA fallback gathers with jnp.take, which fills NaN past the
+    # table instead of clamping: compare it on the in-range row only
+    jx = jrope._xla_packed(jq[1:], jnp.asarray(pos[1:]), jnp.asarray(cos),
+                           jnp.asarray(sin), 1.0)
+    _close(tq_o[1:], jx, tdt)
+    oq, _ = tops.rotary_position_embedding_packed(tq, tk, tc, ts, tp)
+    _close(oq, tq_o, tdt)
+
+
+# --------------------------------------------------------- paged attention
+def _paged_case(rng, slots=4, hq=4, hkv=2, d=16, bs=4, maxb=6):
+    nb = slots * maxb + 1
+    kp = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
+    q = rng.standard_normal((slots, hq, d)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, nb))
+    bt = perm[:slots * maxb].reshape(slots, maxb).astype(np.int32)
+    cl = np.array([maxb * bs, 5, 1, 13], np.int32)[:slots]
+    # ragged: table entries past each context are null pages; the last slot
+    # is idle (all-null table, context 1: it reads the null block)
+    for r in range(slots):
+        bt[r, -(-cl[r] // bs):] = 0
+    bt[-1] = 0
+    cl[-1] = 1
+    return q, kp, vp, bt, cl
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
+def test_paged_attention_plain_matches_pallas_and_xla(dt):
+    _, jdt, tdt = dt
+    q, kp, vp, bt, cl = _paged_case(np.random.default_rng(3))
+    jq, tq = _pair(q, jdt, tdt)
+    jk, tk = _pair(kp, jdt, tdt)
+    jv, tv = _pair(vp, jdt, tdt)
+    got = paged_attention.paged_attention(
+        tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(cl))
+    assert got.dtype == tdt and got.shape == tq.shape
+    for splits in (1, 2):
+        want = jpaged.paged_attention(jq, jk, jv, jnp.asarray(bt),
+                                      jnp.asarray(cl), kv_splits=splits,
+                                      interpret=True)
+        _close(got, want, tdt)
+    _close(got, jpaged.paged_attention_xla(jq, jk, jv, jnp.asarray(bt),
+                                           jnp.asarray(cl)), tdt)
+
+
+def test_paged_attention_rejects_what_the_kernel_does_not_take():
+    q, kp, vp, bt, cl = _paged_case(np.random.default_rng(4))
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, cl)]
+    # shape and dtype checks run before any launch (no card needed)
+    with pytest.raises(ValueError):
+        paged_attention._check(args[0][:, :3], *args[1:], 1)
+    with pytest.raises(TypeError):
+        paged_attention._check(*args[:3], args[3].long(), args[4], 1)
+    with pytest.raises(ValueError):
+        paged_attention._check(*args, 99)
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention(*[a.to("meta") for a in args])
+
+
+@pytest.mark.parametrize("slots,kv_heads,max_blocks,block_size,want", [
+    (8, 32, 128, 16, 5),      # Llama-2-7B serving: ceil(8 * 132 / 256)
+    (1, 32, 128, 16, 8),      # one slot: capped by 2048 / 256-token runs
+    (64, 32, 128, 16, 1),     # enough (slot, head) blocks without splits
+    (3, 8, 3, 16, 1),         # a table shorter than one run
+    (2, 1, 4, 128, 2),        # four 128-token pages hold two runs
+])
+def test_kv_split_choice(slots, kv_heads, max_blocks, block_size, want):
+    assert paged_attention.choose_kv_splits(
+        slots, kv_heads, max_blocks, block_size, 132) == want
+
+
+# ------------------------------------------------- cache-carrying attention
+def test_paged_cached_attention_appends_and_attends_like_jax():
+    rng = np.random.default_rng(5)
+    q, kp, vp, bt, cl = _paged_case(rng)
+    slots, hq, d = q.shape
+    hkv = kp.shape[2]
+    seq = cl - 1                            # tokens already cached
+    q1 = q[:, None]
+    k1 = rng.standard_normal((slots, 1, hkv, d)).astype(np.float32)
+    v1 = rng.standard_normal((slots, 1, hkv, d)).astype(np.float32)
+    jo, jk, jv = jops.paged_cached_attention(
+        jnp.asarray(q1), jnp.asarray(k1), jnp.asarray(v1), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(bt), jnp.asarray(seq))
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    to, tk2, tv2 = tops.paged_cached_attention(
+        torch.from_numpy(q1), torch.from_numpy(k1), torch.from_numpy(v1),
+        tk, tv, torch.from_numpy(bt), torch.from_numpy(seq))
+    assert tk2 is tk and tv2 is tv          # pages updated in place
+    _close(to, jo, torch.float32)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    with pytest.raises(NotImplementedError, match="verify kernel"):
+        tops.paged_cached_attention(
+            torch.zeros(slots, 2, hq, d), torch.zeros(slots, 2, hkv, d),
+            torch.zeros(slots, 2, hkv, d), tk, tv, torch.from_numpy(bt),
+            torch.from_numpy(seq))
+
+
+def _cma_inputs(rng, b, sq, max_len, hq=4, hkv=2, d=8):
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, sq, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sq, hkv, d)).astype(np.float32)
+    kc = rng.standard_normal((b, max_len, hkv, d)).astype(np.float32)
+    vc = rng.standard_normal((b, max_len, hkv, d)).astype(np.float32)
+    return q, k, v, kc, vc
+
+
+@pytest.mark.parametrize("pos", [
+    0, 5,
+    # pos + sq runs past max_len: the write start clamps to max_len - sq
+    # (lax.dynamic_update_slice) while the mask keeps the unclamped pos
+    11,
+    # per-row offsets; row 1's last positions fall past max_len and are
+    # dropped (JAX scatter semantics)
+    np.array([0, 12, 3], np.int32)],
+    ids=["scalar0", "scalar5", "scalar_clamped", "per_row_dropped"])
+def test_cached_multihead_attention_matches_jax(pos):
+    rng = np.random.default_rng(6)
+    b, sq, max_len = 3, 4, 14
+    q, k, v, kc, vc = _cma_inputs(rng, b, sq, max_len)
+    jo, jk, jv = jops.cached_multihead_attention(
+        *[jnp.asarray(a) for a in (q, k, v, kc, vc)], jnp.asarray(pos))
+    tpos = torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    to, tk2, tv2 = tops.cached_multihead_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        tk, tv, tpos)
+    assert tk2 is tk and tv2 is tv
+    _close(to, jo, torch.float32)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_sdpa_causal_is_aligned_bottom_right():
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 3, 2, 8)).astype(np.float32)
+    kv = rng.standard_normal((2, 5, 2, 8)).astype(np.float32)
+    want = jops._sdpa_xla(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv),
+                          None, 0.0, True, False, 8 ** -0.5)
+    got = tops.scaled_dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(kv),
+        is_causal=True)
+    _close(got, want, torch.float32)
