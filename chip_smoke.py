@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path on one H100 and hold each of its
-hand-written kernels against its plain PyTorch version.
+"""Drive paddle_tpu_torch's serving and training paths on one H100 and hold
+each of its hand-written kernels against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -8,24 +8,38 @@ Phases, each printing one JSON line (any failure exits non-zero before the
 final line):
 
   1. device  - the card's name and power limit (nvidia-smi); capability 9.0
-  2. build   - nvcc builds every CUDA source under paddle_tpu_torch/csrc/
+  2. build   - nvcc builds every CUDA source under paddle_tpu_torch/csrc/,
+               one process per source, all at once
   3. kernels - each kernel against its plain version on the card, in bf16
-               and fp32, at the serving path's shapes: max |error| within the
-               stated tolerance, and median time (CUDA events) beside the
-               plain version's, one PyTorch library call's where one computes
-               the same function (a yardstick only; the port never calls it),
+               and fp32, at its path's shapes: max |error| within the stated
+               tolerance, and median time (CUDA events) beside the plain
+               version's, one PyTorch library call's where one computes the
+               same function (a yardstick only; the port never calls it),
                and the bound: the larger of bytes moved / 3.35 TB/s and
                operations / the peak rate of the input type. Paged decode
                runs at the main path's shapes with the split count the
-               wrapper chooses there and with one split
+               wrapper chooses there and with one split; flash attention at
+               GPT-3 1.3B's (b 4, s 2048, h 16, d 128, causal), at d 64 and
+               non-causal with sq != sk; AdamW over GPT-3 1.3B's flat size
+               and a ragged small one
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy
-  5. slice   - the main path: Llama-2-7B at full depth in bf16 served by
+  5. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
                ServingEngine (8 slots, 16-token blocks, 2048 context) over 10
                requests (prompts 16-1024 tokens, two sharing a 256-token
                prefix, one repeated for a copy-on-write hit), 64 new tokens
-               each; every kernel's launch count over this phase must be > 0
+               each; every serving kernel's launch count over this phase
+               must be > 0
+  6. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+               three TrainSteps (AdamW, global-norm clip) on the card and the
+               same three on the CPU (plain versions) from the same weights
+               and batch; losses and parameters must agree (bounds below)
+  7. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
+               AdamW, batch 4 x 2048 through TrainStep: one warm-up step and
+               three timed steps on one repeated batch; loss, step time,
+               tokens/s, peak memory and launches per step; every training
+               kernel's launch count over this phase must be > 0
 
 The last two lines are the kernel summary {"kernels": [...]} and
 {"ok": true, "device": {...}}. Exits non-zero without them when no CUDA
@@ -96,19 +110,31 @@ def _tol(dtype):
     return (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2.0 ** -7)
 
 
-def _compare(name, shape, dtype, got, want):
+def _compare(name, shape, dtype, got, want, tol=None):
+    """Max |got - want| over a tensor or a tuple of tensors. Without `tol`
+    the bound is _tol(dtype)'s atol + rtol |want|; with tol = {dtype: (rtol,
+    rms)} it is rtol |want| + rms * RMS(want), float32 outputs (lse)
+    taking the float32 entry."""
     import torch
 
-    atol, rtol = _tol(dtype)
+    if isinstance(got, (tuple, list)):
+        return max(_compare(name, shape, dtype, g, w, tol)
+                   for g, w in zip(got, want))
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    ok = bool(torch.isfinite(g).all()) and bool(
-        (err <= atol + rtol * w.abs()).all())
+    if tol is None:
+        atol, rtol = _tol(dtype)
+        limit = atol + rtol * w.abs()
+        said = f"atol {atol}, rtol {rtol:.3g}"
+    else:
+        rtol, rms = tol[got.dtype]
+        limit = rtol * w.abs() + rms * w.square().mean().sqrt()
+        said = f"rtol {rtol:.3g}, {rms:.3g} x RMS"
+    ok = bool(torch.isfinite(g).all()) and bool((err <= limit).all())
     if not ok:
         raise AssertionError(f"{name} {shape} {dtype}: kernel disagrees with "
                              f"the plain version (max abs err "
-                             f"{err.max().item():.3g}, atol {atol}, rtol "
-                             f"{rtol:.3g})")
+                             f"{err.max().item():.3g}, {said})")
     return float(err.max())
 
 
@@ -206,6 +232,118 @@ def paged_case(torch, gen, dtype, slots, hq, hkv, d, bs, ctx_lens,
         nops=4 * live * hq * d)
 
 
+# Flash attention: both sides compute in fp32 from the same inputs. fp32
+# sums over up to s = 2048 products in another order (and the forward's
+# online softmax rescales as it goes), so outputs differ by up to ~1e-4 of
+# their RMS (measured 1.6e-4 for dK at the main shape): fp32 bound 1e-5 of
+# the value + 1e-3 of the RMS. bf16: one bf16 rounding (2**-7) of the value
+# and of the RMS, as in tests/test_torch_flash.py.
+def _flash_tol(torch):
+    return {torch.float32: (1e-5, 1e-3), torch.bfloat16: (2.0 ** -7,
+                                                          2.0 ** -7)}
+
+
+def flash_cases(torch, gen, dtype, b, sq, sk, h, d, causal):
+    """Three cases (forward, dQ, dK/dV) on one set of inputs."""
+    from paddle_tpu_torch.ops.gpu import flash_attention as fa
+
+    def rnd(s):
+        return torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+
+    q, k, v, do = rnd(sq), rnd(sk), rnd(sk), rnd(sq)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    delta = fa.attention_delta(o, do)
+    # yardsticks: SDPA in its [b, h, s, d] layout, forward and backward
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qt.requires_grad_(True)
+    kt.requires_grad_(True)
+    vt.requires_grad_(True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale)
+
+    out_t = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out_t, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk   # unmasked (q, k)
+    es = q.element_size()
+    tensor = b * h * d * es
+    rows = b * h * sq * 4                   # one fp32 lse / delta row
+    shape = [b, sq, sk, h, d, "causal" if causal else "full"]
+    ops = b * h * d * pairs
+    tol = _flash_tol(torch)
+    args = (q, k, v, do, lse, delta, scale, causal)
+    return [
+        dict(name="flash_fwd", shape=shape, tol=tol,
+             kernel=lambda: fa.flash_fwd(q, k, v, scale, causal),
+             plain=lambda: fa.flash_fwd_plain(q, k, v, scale, causal),
+             library=lambda: sdpa().detach(),
+             nbytes=tensor * (2 * sq + 2 * sk) + rows, nops=4 * ops),
+        dict(name="flash_dq", shape=shape, tol=tol,
+             kernel=lambda: fa.flash_dq(*args),
+             plain=lambda: fa.flash_dq_plain(*args), library=sdpa_bwd,
+             nbytes=tensor * (3 * sq + 2 * sk) + 2 * rows, nops=6 * ops),
+        dict(name="flash_dkv", shape=shape, tol=tol,
+             kernel=lambda: fa.flash_dkv(*args),
+             plain=lambda: fa.flash_dkv_plain(*args), library=sdpa_bwd,
+             nbytes=tensor * (2 * sq + 4 * sk) + 2 * rows, nops=8 * ops),
+    ]
+
+
+def gpt_numel(cfg):
+    """Parameters of a GPTForCausalLM (tied head) from its config."""
+    H, inter = cfg.hidden_size, cfg.intermediate_size
+    per_layer = (4 * H + 3 * H * H + 3 * H + H * H + H + H * inter + inter
+                 + inter * H + H)
+    return ((cfg.vocab_size + cfg.max_position_embeddings) * H
+            + cfg.num_layers * per_layer + 2 * H)
+
+
+def adamw_case(torch, gen, n):
+    """AdamW over one flat fp32 group of n elements at step 3 with a
+    device-scalar gradient scale (the clip's). The kernel updates clones,
+    the plain version the originals, both in place; then each is timed in
+    place again. Both do the same fp32 operations on the same scalars: 1e-6
+    of the value + 1e-6 of the RMS (an FMA here and there)."""
+    from paddle_tpu_torch.ops.gpu import fused_adamw as fw
+
+    p = torch.randn(n, device="cuda", generator=gen)
+    g = torch.randn(n, device="cuda", generator=gen)
+    m = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    v = 0.01 * torch.rand(n, device="cuda", generator=gen)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    scale = torch.tensor(0.5, device="cuda")
+    kw = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              bias_correction1=1 - 0.9 ** 3,
+              bias_correction2=1 - 0.999 ** 3, grad_scale=scale)
+    steps = torch.tensor(3.0, device="cuda")
+
+    def check():
+        got = fw.fused_adamw(kp, g, km, kv, **kw)
+        want = fw.adamw_plain(p, g, m, v, **kw)
+        return got, want
+
+    def library():
+        torch._fused_adamw_([kp], [g], [km], [kv], [], [steps], lr=1e-4,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False,
+                            grad_scale=None, found_inf=None)
+
+    big = n > 1 << 26
+    return dict(name="adamw", shape=[n], check=check,
+                tol={torch.float32: (1e-6, 1e-6)},
+                kernel=lambda: fw.fused_adamw(kp, g, km, kv, **kw),
+                plain=lambda: fw.adamw_plain(p, g, m, v, **kw),
+                library=library, nbytes=28 * n, nops=15 * n,
+                iters=3 if big else 20, reps=3 if big else 5)
+
+
+
 def _tables(torch, P, d, theta=10000.0):
     inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                         device="cuda") / d))
@@ -215,17 +353,26 @@ def _tables(torch, P, d, theta=10000.0):
 
 
 def run_case(torch, case, dtype):
-    got, want = case["kernel"](), case["plain"]()
+    if "check" in case:
+        got, want = case["check"]()
+    else:
+        got, want = case["kernel"](), case["plain"]()
     torch.cuda.synchronize()
-    err = _compare(case["name"], case["shape"], dtype, got, want)
+    tol = case.get("tol")
+    err = _compare(case["name"], case["shape"], dtype, got, want, tol)
+    del got, want
     lib = case["library"]
     b_ms, b_by = bound_ms(case["nbytes"], case["nops"], dtype)
+    reps = dict(iters=case.get("iters", 20), reps=case.get("reps", 5))
     row = {
         "phase": "kernels", "name": case["name"], "shape": case["shape"],
         "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-        "tolerance": dict(zip(("atol", "rtol"), _tol(dtype))),
-        "ms": time_ms(case["kernel"]), "plain_ms": time_ms(case["plain"]),
-        "library_ms": time_ms(lib) if lib is not None else None,
+        "tolerance": (dict(zip(("atol", "rtol"), _tol(dtype))) if tol is None
+                      else {str(k).replace("torch.", ""): dict(
+                          zip(("rtol", "rms"), v)) for k, v in tol.items()}),
+        "ms": time_ms(case["kernel"], **reps),
+        "plain_ms": time_ms(case["plain"], **reps),
+        "library_ms": time_ms(lib, **reps) if lib is not None else None,
         "bound_ms": b_ms, "bound_by": b_by,
     }
     emit(row)
@@ -260,6 +407,27 @@ def kernels_phase(torch):
             if key is not None and dtype == torch.bfloat16:
                 rows[key] = row
             del case
+        cases = None
+        torch.cuda.empty_cache()
+        # training: GPT-3 1.3B's attention (main path), bench.py's "large"
+        # preset's head size, and non-causal attention with sq != sk
+        for geo, main in (((4, 2048, 2048, 16, 128, True), True),
+                          ((8, 1024, 1024, 16, 64, True), False),
+                          ((2, 1024, 2048, 16, 128, False), False)):
+            for case in flash_cases(torch, gen, dtype, *geo):
+                row = run_case(torch, case, dtype)
+                if main and dtype == torch.bfloat16:
+                    rows[case["name"]] = row
+                del case
+            torch.cuda.empty_cache()
+    # AdamW runs in fp32 only: GPT-3 1.3B's one flat group, a ragged one
+    from paddle_tpu_torch.models import GPTConfig
+
+    for n, main in ((gpt_numel(GPTConfig.gpt3_1p3b()), True),
+                    (1_000_003, False)):
+        row = run_case(torch, adamw_case(torch, gen, n), torch.float32)
+        if main:
+            rows["adamw"] = row
         torch.cuda.empty_cache()
     return rows
 
@@ -380,6 +548,149 @@ def slice_phase(torch, cfg, device, dtype, engine_kw, new_tokens,
     }
 
 
+# ------------------------------------------------------------ training path
+def _gpt_step(torch, model, opt, device, amp_on):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+
+    def loss_fn(ids):
+        with amp.auto_cast(enable=amp_on, level="O1", dtype="bfloat16"):
+            return model(ids, labels=ids)
+
+    return TrainStep(model, loss_fn, opt, device=device)
+
+
+def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
+    """Three fp32 TrainSteps of a 2-layer full-width GPT on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batch. Losses must agree to 1e-4 relative. Parameters: Adam divides
+    each first moment by the root of the second, so its first step moves
+    every element by lr in the sign of its gradient, whatever the
+    gradient's size; an element whose gradient sits at fp32 rounding noise
+    can step the other way on the other device, and so can one whose
+    gradients nearly cancel later. Two such runs end at most 2 lr per step
+    apart, hence every element within 2 lr * steps; the mean difference
+    must stay under 1e-2 lr (1e-7, some fifty fp32 roundings of a weight
+    of 0.02), which rounding alone meets. Elements that step apart also
+    move the loss: at lr 1e-4 the third loss differed by 3.9e-4 relative
+    (the second by 3.7e-6), so the phase runs at lr 1e-5, where that
+    effect shrinks with the steps."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_layers = 2
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (batch, seq))
+    models = {"cuda": GPTForCausalLM(cfg, device="cuda", seed=SEED),
+              "cpu": GPTForCausalLM(cfg, device="cpu", seed=SEED)}
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["cuda"].state_dict().items()})
+    losses = {}
+    for device, model in models.items():
+        opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = _gpt_step(torch, model, opt, device, amp_on=False)
+        losses[device] = [step(ids) for _ in range(steps)]
+    got = [float(x) for x in losses["cuda"]]
+    want = [float(x) for x in losses["cpu"]]
+    rel = max(abs(g / w - 1) for g, w in zip(got, want))
+    cpu = dict(models["cpu"].named_parameters())
+    worst, total, count = 0.0, 0.0, 0
+    for name, p in models["cuda"].named_parameters():
+        diff = (p.detach().cpu() - cpu[name].detach()).abs()
+        worst = max(worst, float(diff.max()))
+        total += float(diff.sum())
+        count += diff.numel()
+    bounds = {"loss_rel": 1e-4, "param_max": 2 * lr * steps,
+              "param_mean": 1e-2 * lr}
+    row = {"phase": "train_parity", "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "batch": [batch, seq], "lr": lr,
+           "loss_card": got, "loss_cpu": want, "max_rel_loss_diff": rel,
+           "max_param_diff": worst, "mean_param_diff": total / count,
+           "bounds": bounds}
+    if not all(np.isfinite(got)) or rel > bounds["loss_rel"] \
+            or worst > bounds["param_max"] \
+            or total / count > bounds["param_mean"]:
+        raise AssertionError(f"card and CPU training differ: {row}")
+    return row
+
+
+def train_slice_phase(torch, reset, counts, batch=4, seq=2048, steps=3,
+                      lr=1e-4):
+    """Main path 2: GPT-3 1.3B, amp O1 (bf16 matmuls and attention, fp32
+    parameters), AdamW as bench.py drives it, through TrainStep; one
+    warm-up step, then `steps` timed steps on the same batch."""
+    import math
+
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, seed=SEED)
+    opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01)
+    step = _gpt_step(torch, model, opt, None, amp_on=True)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != gpt_numel(cfg):
+        raise AssertionError(f"{n_params} parameters, {gpt_numel(cfg)} "
+                             f"expected")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t1 = time.perf_counter()
+    losses = [step(ids)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    peak_first = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    launches = counts()
+    losses = [float(x) for x in losses]
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing} ({launches})")
+    if not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - math.log(cfg.vocab_size)) > 0.5 \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"GPT-3 1.3B losses {losses}: the first should "
+                             f"be within 0.5 of ln(vocab) = "
+                             f"{math.log(cfg.vocab_size):.3f} and the last "
+                             f"below it")
+    groups = len(opt._groups)
+    per_step = {k: v / (steps + 1) for k, v in launches.items()}
+    want = {"flash_fwd": cfg.num_layers, "flash_dq": cfg.num_layers,
+            "flash_dkv": cfg.num_layers, "adamw": groups}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{want}")
+    step_s = wall / steps
+    return {
+        "phase": "train_slice", "model": "GPT-3 1.3B", "params": n_params,
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "amp": "O1 bfloat16", "batch": [batch, seq], "init_s": init_s,
+        "warmup_step_s": warm_s, "losses": losses, "step_s": step_s,
+        "tokens_per_s": batch * seq / step_s,
+        "peak_mem_bytes": max(peak_first, torch.cuda.max_memory_allocated()),
+        "peak_mem_bytes_timed_steps": torch.cuda.max_memory_allocated(),
+        "adamw_groups": groups, "launches": launches,
+        "launches_per_step": per_step,
+    }
+
+
 KERNELS = {
     "rms_norm": ("triton", "paddle_tpu_torch/ops/gpu/fused_norm.py",
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
@@ -389,7 +700,17 @@ KERNELS = {
                     "paddle_tpu/ops/pallas/rope.py:126"),
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:50"),
+    "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                  "paddle_tpu/ops/pallas/flash_attention.py:53"),
+    "flash_dq": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:137"),
+    "flash_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                  "paddle_tpu/ops/pallas/flash_attention.py:177"),
+    "adamw": ("triton", "paddle_tpu_torch/ops/gpu/fused_adamw.py",
+              "paddle_tpu/ops/pallas/fused_adamw.py:21"),
 }
+SERVING = ("rms_norm", "rope", "rope_packed", "paged_decode")
+TRAINING = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
 
 
 def main():
@@ -440,8 +761,17 @@ def main():
              max_model_len=2048),
         new_tokens=64, wave1_lens=(16, 64, 128, 512, 768, 1024, 288, 356),
         prefix_len=256, reset=gpu.reset_launch_counts,
-        counts=gpu.launch_counts)
+        counts=lambda: gpu.launch_counts(SERVING))
     emit(summary)
+    torch.cuda.empty_cache()
+
+    emit(train_parity_phase(torch))
+    torch.cuda.empty_cache()
+
+    train = train_slice_phase(torch, gpu.reset_launch_counts,
+                              lambda: gpu.launch_counts(TRAINING))
+    emit(train)
+    launches = {**summary["launches"], **train["launches"]}
 
     print(card, flush=True)
     kernels = []
@@ -449,7 +779,7 @@ def main():
         r = rows[name]
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": summary["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -1,7 +1,8 @@
 """Runtime flag registry (counterpart of paddle_tpu/core/flags.py).
 
-One typed registry with an environment override (FLAGS_xxx). Only the flags
-the serving slice reads are defined here, by the modules that read them.
+One typed registry with an environment override (FLAGS_xxx). The kernel
+switches are defined here (reference core/flags.py:90,99); the serving
+flags are defined by the modules that read them.
 """
 from __future__ import annotations
 
@@ -53,3 +54,11 @@ def set_flags(flags: Dict[str, Any]):
         if f is None:
             raise KeyError(f"Unknown flag {name!r}; known: {sorted(_registry)}")
         f.value = _coerce(f.type, v)
+
+
+define_flag("use_flash_attention", True,
+            "scaled_dot_product_attention takes the flash kernels when "
+            "supports() admits the shapes.")
+define_flag("use_fused_adamw", True,
+            "AdamW.step updates each parameter group with one fused kernel "
+            "launch; off, it runs the reference's per-parameter Adam rule.")

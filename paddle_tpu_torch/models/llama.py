@@ -222,6 +222,10 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                                              config.vocab_size,
                                              has_bias=False, **factory))
         self._init_weights(seed)
+        # Serving only for now: the RMSNorm and RoPE kernels have no
+        # backward yet (ROADMAP queue 1, "Llama training"), so the model's
+        # parameters stay frozen until that slice lands.
+        self.requires_grad_(False)
         self.eval()
 
     @torch.no_grad()

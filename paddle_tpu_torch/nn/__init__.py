@@ -1,3 +1,5 @@
 """Layers (counterparts of paddle_tpu/nn and fleet/mp_layers)."""
-from .layers import ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding
-from .norm import RMSNorm
+from .clip import ClipGradByGlobalNorm
+from .layers import (ColumnParallelLinear, Dropout, Embedding,
+                     RowParallelLinear, VocabParallelEmbedding)
+from .norm import LayerNorm, RMSNorm

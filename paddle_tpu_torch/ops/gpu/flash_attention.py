@@ -1,0 +1,260 @@
+"""Flash attention: the CUDA kernels in csrc/flash_attention.cu, their plain
+PyTorch versions and the autograd Function that joins them.
+
+Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (via `_fwd`),
+`_dq_kernel` and `_dkv_kernel` (via `_bwd`). The source's header says what
+bounds the kernels on the H100 and how their design answers it. The plain
+versions are the counterparts of the reference's XLA pair `_dense_fwd` /
+`_dense_bwd`, split the way the kernels are.
+
+    q                 [b, sq, h, d]
+    k, v              [b, sk, h, d]
+    o, dq             [b, sq, h, d] in q's dtype; dk, dv [b, sk, h, d]
+    lse, delta        [b * h, sq] float32
+
+The causal mask is top-left aligned (query i sees keys j <= i), as the TPU
+kernel's is; `supports()` keeps causal attention with sq != sk on the
+composition, whose mask is bottom-right aligned.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The reference's block sizes: its gate admits only sequences they divide.
+BLOCK_Q = 128
+BLOCK_K = 128
+
+
+def supports(q_shape, k_shape, attn_mask, dropout_p, is_causal=False) -> bool:
+    """The reference's shape gate (flash_attention.py `supports`): anything
+    else goes to the XLA-style composition. The kernels take every head_dim
+    it admits (d <= 256) and any sequence lengths."""
+    b, sq, h, d = q_shape
+    sk = k_shape[1]
+    return (attn_mask is None and dropout_p == 0.0
+            and sq % BLOCK_Q == 0 and sk % BLOCK_K == 0
+            and sq >= BLOCK_Q and sk >= BLOCK_K and d <= MAX_HEAD_DIM
+            and not (is_causal and sq != sk))
+
+
+# ------------------------------------------------------------ plain versions
+def _heads_first(x):
+    """[b, s, h, d] -> [b * h, s, d] in fp32."""
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).float()
+
+
+def _heads_last(x, b, h, dtype):
+    """[b * h, s, d] -> [b, s, h, d] in `dtype`."""
+    bh, s, d = x.shape
+    return x.to(dtype).reshape(b, h, s, d).permute(0, 2, 1, 3).contiguous()
+
+
+def _scores(q, k, scale, causal):
+    """fp32 scores [b*h, sq, sk], masked entries NEG_INF (top-left)."""
+    s = torch.bmm(_heads_first(q), _heads_first(k).transpose(1, 2)) * scale
+    if causal:
+        sq, sk = s.shape[1], s.shape[2]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q, k, v, scale, causal):
+    """(o, lse) as `_dense_fwd` computes them."""
+    b, sq, h, d = q.shape
+    s = _scores(q, k, scale, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.bmm(p, _heads_first(v))
+    return _heads_last(o, b, h, q.dtype), lse
+
+
+def _dscores(q, k, v, dout, lse, delta, scale, causal):
+    """(P, dS) recomputed from the residuals, fp32 [b*h, sq, sk]."""
+    p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
+    dp = torch.bmm(_heads_first(dout), _heads_first(v).transpose(1, 2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal):
+    b, sq, h, d = q.shape
+    _, ds = _dscores(q, k, v, dout, lse, delta, scale, causal)
+    dq = torch.bmm(ds, _heads_first(k)) * scale
+    return _heads_last(dq, b, h, q.dtype)
+
+
+def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal):
+    b, sk, h, d = k.shape
+    p, ds = _dscores(q, k, v, dout, lse, delta, scale, causal)
+    dv = torch.bmm(p.transpose(1, 2), _heads_first(dout))
+    dk = torch.bmm(ds.transpose(1, 2), _heads_first(q)) * scale
+    return _heads_last(dk, b, h, k.dtype), _heads_last(dv, b, h, v.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+@functools.cache
+def _entries():
+    lib = _build.load("flash_attention")
+    ints = [ctypes.c_int] * 5
+    tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fwd, dq, dkv = (lib.flash_attention_fwd, lib.flash_attention_dq,
+                    lib.flash_attention_dkv)
+    fwd.argtypes = [ctypes.c_void_p] * 5 + ints + tail
+    dq.argtypes = [ctypes.c_void_p] * 7 + ints + tail
+    dkv.argtypes = [ctypes.c_void_p] * 8 + ints + tail
+    for fn in (fwd, dq, dkv):
+        fn.restype = ctypes.c_int
+    return fwd, dq, dkv
+
+
+def _check(q, k, v, *more):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash attention takes q [b, sq, h, d] and k, v "
+                         f"[b, sk, h, d]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+        raise ValueError("flash attention: q and k/v disagree on b, h or d")
+    if not 1 <= d <= MAX_HEAD_DIM or b * h > 65535:
+        raise ValueError(f"flash attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM} and b*h <= 65535; got d={d}, "
+                         f"b*h={b * h}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one dtype; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    for t in (q, k, v) + more:
+        if t.device != q.device:
+            raise ValueError("flash attention: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError("flash attention kernel takes contiguous "
+                             "tensors")
+
+
+def _check_rows(q, *rows):
+    b, sq, h, _ = q.shape
+    for t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != (b * h, sq):
+            raise ValueError(f"flash attention: lse/delta must be float32 "
+                             f"[{b * h}, {sq}]; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _geometry(q, k, scale, causal):
+    b, sq, h, d = q.shape
+    return (b, h, sq, k.shape[1], d, float(scale), int(bool(causal)),
+            _DTYPES[q.dtype], _build.stream_ptr(q))
+
+
+def _on_cuda(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+
+
+def flash_fwd(q, k, v, scale, causal):
+    """(o, lse). CUDA tensors launch the forward kernel, CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale, causal)
+    _on_cuda("flash_fwd", q)
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
+    status = _entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), lse.data_ptr(),
+                           *_geometry(q, k, scale, causal))
+    _build.check_status(status, "flash_attention_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_dq(q, k, v, dout, lse, delta, scale, causal):
+    """dq. CUDA tensors launch the dQ kernel, CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal)
+    _on_cuda("flash_dq", q)
+    _check(q, k, v, dout, lse, delta)
+    _check_rows(q, lse, delta)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("flash_dq: dout must match q")
+    dq = torch.empty_like(q)
+    status = _entries()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dq.data_ptr(), *_geometry(q, k, scale, causal))
+    _build.check_status(status, "flash_attention_dq")
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, dout, lse, delta, scale, causal):
+    """(dk, dv). CUDA tensors launch the dK/dV kernel, CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal)
+    _on_cuda("flash_dkv", q)
+    _check(q, k, v, dout, lse, delta)
+    _check_rows(q, lse, delta)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("flash_dkv: dout must match q")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = _entries()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(),
+                           *_geometry(q, k, scale, causal))
+    _build.check_status(status, "flash_attention_dkv")
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+def attention_delta(o, dout):
+    """delta = rowsum(dO * O) in fp32, [b * h, sq] (the reference computes
+    it in XLA before its backward kernels)."""
+    b, sq, h, _ = o.shape
+    d = (dout.float() * o.float()).sum(-1)
+    return d.permute(0, 2, 1).reshape(b * h, sq).contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward launches the forward kernel and saves (q, k, v, o, lse);
+    backward launches dQ and dK/dV (the reference's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = attention_delta(o, dout)
+        dq = flash_dq(q, k, v, dout, lse, delta, ctx.scale, ctx.causal)
+        dk, dv = flash_dkv(q, k, v, dout, lse, delta, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, scale=None, causal=False):
+    """Flash attention on [b, s, h, d]; differentiable."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, float(scale), bool(causal))

@@ -1,13 +1,16 @@
-"""Counterparts of the paddle_tpu/ops/kernels/nn_ops.py ops on the serving
-path: RMSNorm, RoPE (contiguous and per-token), the reference attention
-composition, and the cache-carrying decode attentions.
+"""Counterparts of the paddle_tpu/ops/kernels/nn_ops.py ops the port uses:
+linear and matmul, dropout, GELU, LayerNorm, RMSNorm, cross
+entropy, attention (flash or the reference's composition), RoPE (contiguous
+and per-token) and the cache-carrying decode attentions.
 
-Each op launches its Hopper kernel (ops/gpu/) for CUDA tensors and takes the
-kernel's plain version for CPU tensors. Index semantics follow the
-reference's JAX ones where the serving engine relies on them: scatters drop
-out-of-bounds rows, and dynamic slices clamp their start. KV caches and
-pages are updated in place (JAX returns new arrays and donates the old ones)
-and returned for the same call shape.
+The ops with a Hopper kernel (ops/gpu/) launch it for CUDA tensors and take
+the kernel's plain version for CPU tensors; the rest are plain torch, as the
+reference leaves them to XLA. Ops on the reference's amp lists cast their
+inputs through `amp.cast_inputs`, as its dispatcher does. Index semantics
+follow the reference's JAX ones where the serving engine relies on them:
+scatters drop out-of-bounds rows, and dynamic slices clamp their start. KV
+caches and pages are updated in place (JAX returns new arrays and donates
+the old ones) and returned for the same call shape.
 """
 from __future__ import annotations
 
@@ -15,15 +18,89 @@ import math
 
 import torch
 
+from ..amp.state import cast_inputs
+from ..core.flags import get_flag
+from .gpu import flash_attention as _flash
 from .gpu.fused_norm import fused_rms_norm
 from .gpu.paged_attention import paged_attention
 from .gpu.rope import fused_rope, fused_rope_packed
+
+
+# -------------------------------------------------------------------- dense
+def linear(x, weight, bias=None):
+    """nn_ops.linear:155: y = x @ W (+ b), W [in, out]."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
+    y = torch.matmul(x, weight)
+    return y if bias is None else y + bias
+
+
+def matmul(x, y, transpose_y=False):
+    x, y = cast_inputs("matmul", x, y)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """nn_ops.dropout:176 (upscale_in_train) with the keep mask drawn from
+    `generator` (the reference draws from its global key)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def gelu(x, approximate=False):
+    """nn_ops.gelu:42; approximate=True is the tanh form."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def cross_entropy(input, label, ignore_index=-100):
+    """nn_ops.cross_entropy:591 for hard labels over the last axis, reduced
+    by the mean: fp32 log-softmax (a black-list op), entries at
+    ignore_index contribute 0 and the mean is over the valid labels (at
+    least 1)."""
+    (input,) = cast_inputs("cross_entropy", input)
+    logp = torch.log_softmax(input, dim=-1)
+    label = label.long()
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label))
+    picked = logp.gather(-1, safe[..., None])[..., 0]
+    loss = torch.where(valid, -picked, torch.zeros_like(picked))
+    return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """nn_ops.layer_norm:198: fp32 statistics, cast back to x's dtype, then
+    the weight multiply and the bias add (a black-list op: under amp its
+    inputs arrive in fp32). With float32 inputs the cast is a no-op and one
+    ATen layer norm computes the same (it also saves less for backward)."""
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    shape = tuple(normalized_shape)
+    if all(t is None or t.dtype == torch.float32 for t in (x, weight, bias)):
+        return torch.nn.functional.layer_norm(x, shape, weight, bias,
+                                              epsilon)
+    dims = tuple(range(x.dim() - len(shape), x.dim()))
+    xf = x.float()
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        y = y * weight
+    if bias is not None:
+        y = y + bias
+    return y
 
 
 # ---------------------------------------------------------------------- norm
 def rms_norm(x, weight=None, epsilon=1e-6):
     """nn_ops.rms_norm:215. A 1-D weight goes through the kernel (plain
     version on the CPU), as the reference sends it to the Pallas kernel."""
+    x, weight = cast_inputs("rms_norm", x, weight)
     if weight is not None and weight.dim() == 1:
         return fused_rms_norm(x, weight, epsilon)
     xf = x.float()
@@ -36,18 +113,33 @@ def rms_norm(x, weight=None, epsilon=1e-6):
 
 # ----------------------------------------------------------------- attention
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False, scale=None):
-    """nn_ops.scaled_dot_product_attention:727 as the reference computes it
-    off the TPU, i.e. its `_sdpa_xla` composition (:776; the Pallas flash
-    path rejects masks, and the flash kernels are not on the serving path),
-    in plain torch with the [b, s, h, d] layout: logits in the input dtype,
-    then fp32; masked entries take finfo(float32).min; the causal mask is
-    aligned bottom-right; probabilities are cast to the query dtype before
-    P.V. Inference only: no dropout."""
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None, generator=None):
+    """nn_ops.scaled_dot_product_attention:727 with its dispatch: the flash
+    kernels (ops/gpu/flash_attention.py) when FLAGS_use_flash_attention is
+    set and `supports()` admits the shapes (no mask, no dropout, sequences
+    that the reference's 128-row blocks divide, d <= 256, no causal sq !=
+    sk), otherwise the `_sdpa_xla` composition. Layout [b, s, h, d]."""
+    query, key, value = cast_inputs("scaled_dot_product_attention", query,
+                                    key, value)
+    if scale is None:
+        scale = 1.0 / math.sqrt(query.shape[-1])
+    if get_flag("use_flash_attention") and _flash.supports(
+            query.shape, key.shape, attn_mask,
+            dropout_p if training else 0.0, is_causal):
+        return _flash.flash_attention(query, key, value, scale, is_causal)
+    return _sdpa_xla(query, key, value, attn_mask, dropout_p, is_causal,
+                     training, scale, generator)
+
+
+def _sdpa_xla(query, key, value, attn_mask, dropout_p, is_causal, training,
+              scale, generator=None):
+    """nn_ops._sdpa_xla:776 in plain torch: logits in the input dtype, then
+    fp32; masked entries take finfo(float32).min; the causal mask is aligned
+    bottom-right; probabilities are cast to the query dtype before P.V, with
+    dropout on them when training."""
     b, sq, h, d = query.shape
     sk = key.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     q = query.transpose(1, 2)
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)
@@ -63,6 +155,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             logits = logits + attn_mask.float()
     probs = torch.softmax(logits, dim=-1).to(query.dtype)
+    if dropout_p > 0.0 and training:
+        probs = dropout(probs, dropout_p, training=True, generator=generator)
     return torch.matmul(probs, v).transpose(1, 2)
 
 
@@ -150,8 +244,8 @@ def cached_multihead_attention(q, k, v, k_cache, v_cache, pos, scale=None):
         k_all = k_all.repeat_interleave(rep, dim=2)
         v_all = v_all.repeat_interleave(rep, dim=2)
     out = scaled_dot_product_attention(q, k_all.to(q.dtype),
-                                       v_all.to(q.dtype), attn_mask, False,
-                                       scale)
+                                       v_all.to(q.dtype), attn_mask=attn_mask,
+                                       scale=scale)
     return out, k_cache, v_cache
 
 
