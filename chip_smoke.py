@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving and training paths on one H100 and hold
-each of its hand-written kernels against its plain PyTorch version.
+"""Drive paddle_tpu_torch's serving and training paths (GPT, and Llama on
+packed documents) on one H100 and hold each of its hand-written kernels
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -20,8 +21,14 @@ final line):
                runs at the main path's shapes with the split count the
                wrapper chooses there and with one split; flash attention at
                GPT-3 1.3B's (b 4, s 2048, h 16, d 128, causal), at d 64 and
-               non-causal with sq != sk; AdamW over GPT-3 1.3B's flat size
-               and a ragged small one
+               non-causal with sq != sk; segmented flash at the packed
+               slice's (b 2, s 4096, h 32, d 128, causal, its segment
+               layout; bf16) and a small fp32 case (d 64, s 300,
+               non-causal, a -1 padding tail, rows with no live key, whose
+               o must be exactly 0); the RMSNorm backward at [8192, 4096];
+               RoPE with sign -1 (the backward) at [2, 4096, 32, 128],
+               contiguous and at the slice's per-document positions;
+               AdamW over GPT-3 1.3B's flat size and a ragged small one
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy
@@ -40,6 +47,16 @@ final line):
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
+  8. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+               packed row of 256 tokens (four documents and a padding tail):
+               three TrainSteps on the card and on the CPU, as in 6
+  9. train_packed_slice - main path 3: Llama-2-7B at its published widths
+               cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
+               tokens from PackedLMBatches: one warm-up step and three
+               timed steps; loss, step time, tokens/s (all and non-padding),
+               peak memory and launches per step, which must be the
+               expected counts (segmented flash 8 each, RMSNorm and its
+               backward 17, per-token RoPE 32, AdamW 1, dense flash 0)
 
 The last two lines are the kernel summary {"kernels": [...]} and
 {"ok": true, "device": {...}}. Exits non-zero without them when no CUDA
@@ -153,35 +170,63 @@ def rms_case(torch, gen, dtype, n, d=4096):
         nbytes=2 * n * d * es + d * es, nops=4 * n * d)
 
 
-def rope_case(torch, gen, dtype, s, h=32, d=128, start=512):
+def rms_fwd_case(torch, gen, dtype, n, d=4096):
+    """The forward as training runs it: both outputs of rms_norm_fwd, y and
+    the fp32 rstd [n, 1] that the backward reads. fp32 y and rstd: the same
+    fp32 arithmetic in another order, 1e-5 of the value and of the RMS; bf16
+    y: one bf16 rounding (2**-7) of the value, plus the fp32 slack."""
+    from paddle_tpu_torch.ops.gpu import fused_norm
+
+    x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    eps = 1e-5
+    es = x.element_size()
+    return dict(
+        name="rms_norm", shape=[n, d, "y and rstd"],
+        tol={torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)},
+        kernel=lambda: fused_norm.rms_norm_fwd(x, w, eps),
+        plain=lambda: fused_norm.rms_norm_fwd_plain(x, w, eps),
+        library=lambda: torch.nn.functional.rms_norm(x, (d,), w, eps),
+        nbytes=2 * n * d * es + d * es + n * 4, nops=4 * n * d)
+
+
+def _sign_shape(shape, sign):
+    return shape if sign == 1 else shape + ["sign -1 (backward)"]
+
+
+def rope_case(torch, gen, dtype, s, h=32, d=128, start=512, b=1, sign=1):
     from paddle_tpu_torch.ops.gpu import rope
 
-    x = torch.randn(1, s, h, d, device="cuda", generator=gen).to(dtype)
-    cos_t, sin_t = _tables(torch, 4096, d)
+    x = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    cos_t, sin_t = _tables(torch, start + s, d)
     cos, sin = cos_t[start:start + s].contiguous(), \
         sin_t[start:start + s].contiguous()
     return dict(
-        name="rope", shape=[1, s, h, d],
-        kernel=lambda: rope.rope(x, cos, sin),
-        plain=lambda: rope.rope_plain(x, cos, sin), library=None,
+        name="rope", shape=_sign_shape([b, s, h, d], sign),
+        kernel=lambda: rope.rope(x, cos, sin, sign),
+        plain=lambda: rope.rope_plain(x, cos, sin, sign), library=None,
         nbytes=2 * x.numel() * x.element_size() + 2 * s * d * 4,
         nops=3 * x.numel())
 
 
-def rope_packed_case(torch, gen, dtype, b, s, h=32, d=128, P=4096):
+def rope_packed_case(torch, gen, dtype, b, s, h=32, d=128, P=4096,
+                     pos=None, sign=1):
+    """pos=None: ragged serving offsets; else the given positions [b, s]."""
     from paddle_tpu_torch.ops.gpu import rope
 
     x = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
     cos_t, sin_t = _tables(torch, P, d)
-    # ragged offsets, some rows running past the table's last position
-    base = torch.randint(0, P + 64 - s, (b,), device="cuda", generator=gen)
-    pos = (base[:, None] + torch.arange(s, device="cuda")[None]).to(
-        torch.int32).contiguous()
+    if pos is None:
+        # ragged offsets, some rows running past the table's last position
+        base = torch.randint(0, P + 64 - s, (b,), device="cuda",
+                             generator=gen)
+        pos = (base[:, None] + torch.arange(s, device="cuda")[None]).to(
+            torch.int32).contiguous()
     rows = int(torch.unique(pos.clamp(0, P - 1)).numel())
     return dict(
-        name="rope_packed", shape=[b, s, h, d],
-        kernel=lambda: rope.rope_packed(x, cos_t, sin_t, pos),
-        plain=lambda: rope.rope_packed_plain(x, cos_t, sin_t, pos),
+        name="rope_packed", shape=_sign_shape([b, s, h, d], sign),
+        kernel=lambda: rope.rope_packed(x, cos_t, sin_t, pos, sign),
+        plain=lambda: rope.rope_packed_plain(x, cos_t, sin_t, pos, sign),
         library=None,
         nbytes=(2 * x.numel() * x.element_size() + pos.numel() * 4
                 + 2 * rows * d * 4),
@@ -295,6 +340,166 @@ def flash_cases(torch, gen, dtype, b, sq, sk, h, d, causal):
     ]
 
 
+def live_pairs(torch, seg_q, seg_k, causal):
+    """(q, k) pairs of this data that the segmented kernels must compute:
+    equal segment ids (and k <= q when causal), summed over the batch: for
+    packed rows, the sum over documents of L (L + 1) / 2 when causal."""
+    live = seg_q[:, :, None] == seg_k[:, None, :]
+    if causal:
+        live &= torch.ones(live.shape[1:], dtype=torch.bool,
+                           device=live.device).tril()
+    return int(live.sum())
+
+
+def seg_flash_cases(torch, gen, dtype, seg_q, h, d, causal, seg_k=None,
+                    library=True):
+    """Segmented forward, dQ and dK/dV on one set of inputs: q, k, v
+    [b, s, h, d] with segment ids seg_q (and seg_k, default seg_q) [b, s].
+    Yardsticks: SDPA with the boolean block-diagonal mask (causal folded in),
+    forward and backward through autograd; only where every query row has a
+    live key (SDPA gives NaN for a row with none)."""
+    from paddle_tpu_torch.ops.gpu import flash_attention as fa
+
+    seg_k = seg_q if seg_k is None else seg_k
+    b, s = seg_q.shape
+
+    def rnd():
+        return torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    scale = d ** -0.5
+    o, lse = fa.flash_seg_fwd_plain(q, k, v, seg_q, seg_k, scale, causal)
+    delta = fa.attention_delta(o, do)
+    pairs = live_pairs(torch, seg_q, seg_k, causal)
+    lib_fwd = lib_bwd = None
+    if library:
+        mask = (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+        if causal:
+            mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                     device="cuda").tril()
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        for t in (qt, kt, vt):
+            t.requires_grad_(True)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale)
+
+        out_t = sdpa()
+
+        def lib_fwd():
+            return sdpa().detach()
+
+        def lib_bwd():
+            return torch.autograd.grad(out_t, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+    es = q.element_size()
+    tensor = b * s * h * d * es             # one [b, s, h, d] tensor
+    rows = b * h * s * 4                    # one fp32 lse / delta row
+    ids = 2 * b * s * 4                     # seg_q and seg_k
+    ops = h * d * pairs
+    nsegs = int(sum(torch.unique(r).numel() for r in seg_q))
+    shape = [b, s, h, d, "causal" if causal else "full",
+             f"{nsegs} segments, {pairs} live pairs"]
+    # fp32 (the small case, sums over documents of at most 200 keys): 1e-4
+    # of the RMS, not the dense cases' 1e-3, which a product rounded to TF32
+    # or a dropped rescale term would pass; measured at most 4.8e-7
+    tol = {**_flash_tol(torch), torch.float32: (1e-5, 1e-4)}
+    args = (q, k, v, seg_q, seg_k, do, lse, delta, scale, causal)
+    return [
+        dict(name="flash_seg_fwd", shape=shape, tol=tol,
+             kernel=lambda: fa.flash_seg_fwd(q, k, v, seg_q, seg_k, scale,
+                                             causal),
+             plain=lambda: fa.flash_seg_fwd_plain(q, k, v, seg_q, seg_k,
+                                                  scale, causal),
+             library=lib_fwd, nbytes=4 * tensor + rows + ids, nops=4 * ops),
+        dict(name="flash_seg_dq", shape=shape, tol=tol,
+             kernel=lambda: fa.flash_seg_dq(*args),
+             plain=lambda: fa.flash_seg_dq_plain(*args), library=lib_bwd,
+             nbytes=5 * tensor + 2 * rows + ids, nops=6 * ops),
+        dict(name="flash_seg_dkv", shape=shape, tol=tol,
+             kernel=lambda: fa.flash_seg_dkv(*args),
+             plain=lambda: fa.flash_seg_dkv_plain(*args), library=lib_bwd,
+             nbytes=6 * tensor + 2 * rows + ids, nops=8 * ops),
+    ]
+
+
+def no_live_key_check(torch, gen):
+    """A small non-causal fp32 case at d 64 with ragged tiles (s 300), a -1
+    padding tail, and query rows whose segment id no key carries: their o
+    must be exactly 0 from the kernel (and the plain version), and their dq
+    too. Returns the three cases for run_case."""
+    from paddle_tpu_torch.ops.gpu import flash_attention as fa
+
+    b, s = 2, 300
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg[0, 90:200] = 1
+    seg[0, 200:] = 2
+    seg[1, 150:260] = 1
+    seg[1, 260:] = -1                       # padding tail
+    seg_q = seg.clone()
+    seg_q[0, 5] = seg_q[1, 299] = 7         # no key carries id 7
+    cases = seg_flash_cases(torch, gen, torch.float32, seg_q.contiguous(),
+                            4, 64, False, seg_k=seg, library=False)
+    fwd, dq = cases[0], cases[1]
+    dead = seg_q != seg                     # the rows with no live key
+    for name, fn in (("kernel", fwd["kernel"]), ("plain", fwd["plain"])):
+        o, _ = fn()
+        torch.cuda.synchronize()
+        if not bool((o[dead] == 0).all()):
+            raise AssertionError(f"segmented forward ({name}): a query row "
+                                 f"with no live key must give o = 0 "
+                                 f"exactly; max |o| {o[dead].abs().max()}")
+    if not bool((dq["kernel"]()[dead] == 0).all()):
+        raise AssertionError("segmented dQ: a row with no live key must "
+                             "give dq = 0 exactly")
+    rows = dead.repeat_interleave(4, dim=0).reshape(-1, s)   # [b * h, s]
+
+    def check():
+        # the dead rows' lse is the mask value (-1e30 + log 1e-30) on both
+        # sides; it is left out so the RMS term stays on the live rows'
+        (o, lse), (o_p, lse_p) = fwd["kernel"](), fwd["plain"]()
+        return ((o, lse.masked_fill(rows, 0.0)),
+                (o_p, lse_p.masked_fill(rows, 0.0)))
+
+    fwd["check"] = check
+    return cases
+
+
+def rms_bwd_case(torch, gen, dtype, n, d=4096):
+    """RMSNorm backward from the forward's saved fp32 rstd: the kernel side
+    reads the forward kernel's rstd, as the training path does, the plain
+    side the plain forward's. Yardstick: the backward of F.rms_norm through
+    autograd (dx and dw)."""
+    from paddle_tpu_torch.ops.gpu import fused_norm
+
+    x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    g = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    eps = 1e-5
+    _, rstd = fused_norm.rms_norm_fwd_plain(x, w, eps)
+    _, rstd_k = fused_norm.rms_norm_fwd(x, w, eps)
+    xt = x.clone().requires_grad_(True)
+    wt = w.clone().requires_grad_(True)
+    out = torch.nn.functional.rms_norm(xt, (d,), wt, eps)
+    es = x.element_size()
+    # dx: rstd * (g w - x^ mean(g w x^)); dw: column sums of g x^. fp32:
+    # sums of 4096 (dx) and 8192 (dw) products in another order, so 1e-5 of
+    # the value plus 1e-5 of the RMS (|dw| grows as sqrt(n)); bf16: one
+    # rounding of each (2**-7) of the value and of the RMS.
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7,
+                                                         2.0 ** -7)}
+    return dict(
+        name="rms_norm_bwd", shape=[n, d], tol=tol,
+        kernel=lambda: fused_norm.fused_rms_norm_bwd(x, w, rstd_k, g),
+        plain=lambda: fused_norm.rms_norm_bwd_plain(x, w, rstd, g),
+        library=lambda: torch.autograd.grad(out, (xt, wt), g,
+                                            retain_graph=True),
+        nbytes=3 * n * d * es + 2 * d * es + n * 4, nops=9 * n * d)
+
+
 def gpt_numel(cfg):
     """Parameters of a GPTForCausalLM (tied head) from its config."""
     H, inter = cfg.hidden_size, cfg.intermediate_size
@@ -380,8 +585,14 @@ def run_case(torch, case, dtype):
 
 
 def kernels_phase(torch):
+    from paddle_tpu_torch.models.generation import packed_positions
+    from paddle_tpu_torch.tools.profile_training import packed_batch
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
+    # the packed slice's segment layout and per-document positions
+    seg = torch.from_numpy(packed_batch(32000)[1]).cuda().contiguous()
+    pos = packed_positions(seg, seg.shape[1]).contiguous()
     for dtype in (torch.bfloat16, torch.float32):
         cases = [
             ("rms_norm", rms_case(torch, gen, dtype, 8)),          # decode
@@ -402,9 +613,24 @@ def kernels_phase(torch):
                        (8, [33, 1000, 16])):
             cases.append((None, paged_case(torch, gen, dtype, 3, 8 * g, 8,
                                            128, 16, ctx, splits=2)))
+        # training at the packed Llama slice's shapes: RoPE with sign -1
+        # (contiguous and per-token) and per-token RoPE forward at the
+        # slice's positions; RMSNorm forward (y and rstd) and backward, whose
+        # main path runs in fp32 under amp O1
+        cases += [
+            (None, rope_case(torch, gen, dtype, 4096, b=2, start=0,
+                             sign=-1)),
+            (None, rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos)),
+            (None, rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos,
+                                    sign=-1)),
+            (None, rms_fwd_case(torch, gen, dtype, 8192)),
+            ("rms_norm_bwd" if dtype == torch.float32 else None,
+             rms_bwd_case(torch, gen, dtype, 8192)),
+        ]
         for key, case in cases:
             row = run_case(torch, case, dtype)
-            if key is not None and dtype == torch.bfloat16:
+            if key is not None and (dtype == torch.bfloat16
+                                    or key == "rms_norm_bwd"):
                 rows[key] = row
             del case
         cases = None
@@ -420,6 +646,18 @@ def kernels_phase(torch):
                     rows[case["name"]] = row
                 del case
             torch.cuda.empty_cache()
+        # segmented: the packed slice's attention (b 2, s 4096, h 32,
+        # d 128, causal, bf16), and the small fp32 case with dead rows
+        seg_cases = (seg_flash_cases(torch, gen, dtype, seg, 32, 128, True)
+                     if dtype == torch.bfloat16 else no_live_key_check(
+                         torch, gen))
+        for case in seg_cases:
+            row = run_case(torch, case, dtype)
+            if dtype == torch.bfloat16:
+                rows[case["name"]] = row
+            del case
+        seg_cases = None
+        torch.cuda.empty_cache()
     # AdamW runs in fp32 only: GPT-3 1.3B's one flat group, a ragged one
     from paddle_tpu_torch.models import GPTConfig
 
@@ -560,10 +798,57 @@ def _gpt_step(torch, model, opt, device, amp_on):
     return TrainStep(model, loss_fn, opt, device=device)
 
 
+def _parity(torch, phase, models, make_loss, batch, steps, lr):
+    """`steps` fp32 TrainSteps (AdamW, global-norm clip at 1.0) of each of
+    models = {"cuda": ..., "cpu": ...}, holding the same weights, on the
+    same batch; losses and parameters held to the bounds below. Adam divides
+    each first moment by the root of the second, so its first step moves
+    every element by lr in the sign of its gradient, whatever the
+    gradient's size; an element whose gradient sits at fp32 rounding noise
+    can step the other way on the other device, and so can one whose
+    gradients nearly cancel later. Two such runs end at most 2 lr per step
+    apart, hence every element within 2 lr * steps; the mean difference
+    must stay under 1e-2 lr, which rounding alone meets. Losses must agree
+    to 1e-4 relative."""
+    import numpy as np
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["cuda"].state_dict().items()})
+    losses = {}
+    for device, model in models.items():
+        opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, make_loss(model), opt, device=device)
+        losses[device] = [step(*batch) for _ in range(steps)]
+    got = [float(x) for x in losses["cuda"]]
+    want = [float(x) for x in losses["cpu"]]
+    rel = max(abs(g / w - 1) for g, w in zip(got, want))
+    cpu = dict(models["cpu"].named_parameters())
+    worst, total, count = 0.0, 0.0, 0
+    for name, p in models["cuda"].named_parameters():
+        diff = (p.detach().cpu() - cpu[name].detach()).abs()
+        worst = max(worst, float(diff.max()))
+        total += float(diff.sum())
+        count += diff.numel()
+    bounds = {"loss_rel": 1e-4, "param_max": 2 * lr * steps,
+              "param_mean": 1e-2 * lr}
+    row = {"phase": phase, "lr": lr, "loss_card": got, "loss_cpu": want,
+           "max_rel_loss_diff": rel, "max_param_diff": worst,
+           "mean_param_diff": total / count, "bounds": bounds}
+    if not all(np.isfinite(got)) or rel > bounds["loss_rel"] \
+            or worst > bounds["param_max"] \
+            or total / count > bounds["param_mean"]:
+        raise AssertionError(f"card and CPU training differ: {row}")
+    return row
+
+
 def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
     """Three fp32 TrainSteps of a 2-layer full-width GPT on the card
     (kernels) and on the CPU (plain versions) from the same weights and
-    batch. Losses must agree to 1e-4 relative. Parameters: Adam divides
+    batch (`_parity`'s bounds). Parameters: Adam divides
     each first moment by the root of the second, so its first step moves
     every element by lr in the sign of its gradient, whatever the
     gradient's size; an element whose gradient sits at fp32 rounding noise
@@ -577,8 +862,6 @@ def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
     effect shrinks with the steps."""
     import numpy as np
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
-    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW
 
     cfg = GPTConfig.gpt3_1p3b()
     cfg.num_layers = 2
@@ -587,36 +870,42 @@ def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
                                                (batch, seq))
     models = {"cuda": GPTForCausalLM(cfg, device="cuda", seed=SEED),
               "cpu": GPTForCausalLM(cfg, device="cpu", seed=SEED)}
-    models["cpu"].load_state_dict({k: v.cpu() for k, v in
-                                   models["cuda"].state_dict().items()})
-    losses = {}
-    for device, model in models.items():
-        opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
-                    grad_clip=ClipGradByGlobalNorm(1.0))
-        step = _gpt_step(torch, model, opt, device, amp_on=False)
-        losses[device] = [step(ids) for _ in range(steps)]
-    got = [float(x) for x in losses["cuda"]]
-    want = [float(x) for x in losses["cpu"]]
-    rel = max(abs(g / w - 1) for g, w in zip(got, want))
-    cpu = dict(models["cpu"].named_parameters())
-    worst, total, count = 0.0, 0.0, 0
-    for name, p in models["cuda"].named_parameters():
-        diff = (p.detach().cpu() - cpu[name].detach()).abs()
-        worst = max(worst, float(diff.max()))
-        total += float(diff.sum())
-        count += diff.numel()
-    bounds = {"loss_rel": 1e-4, "param_max": 2 * lr * steps,
-              "param_mean": 1e-2 * lr}
-    row = {"phase": "train_parity", "layers": cfg.num_layers,
-           "hidden": cfg.hidden_size, "batch": [batch, seq], "lr": lr,
-           "loss_card": got, "loss_cpu": want, "max_rel_loss_diff": rel,
-           "max_param_diff": worst, "mean_param_diff": total / count,
-           "bounds": bounds}
-    if not all(np.isfinite(got)) or rel > bounds["loss_rel"] \
-            or worst > bounds["param_max"] \
-            or total / count > bounds["param_mean"]:
-        raise AssertionError(f"card and CPU training differ: {row}")
-    return row
+
+    def make_loss(model):
+        return lambda x: model(x, labels=x)
+
+    row = _parity(torch, "train_parity", models, make_loss, (ids,), steps,
+                  lr)
+    return {**row, "model": "GPT", "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "batch": [batch, seq]}
+
+
+def packed_parity_phase(torch, steps=3, lr=1e-5, seq=256):
+    """The packed Llama's `_parity`: Llama-2-7B widths, 2 layers, fp32, one
+    packed row of `seq` tokens holding four documents and a padding tail
+    (segmented flash, per-token RoPE and RMSNorm backward on the card, their
+    plain versions on the CPU), three TrainSteps at lr 1e-5 as the GPT
+    phase runs."""
+    import numpy as np
+    from paddle_tpu_torch.io import pack_examples
+    from paddle_tpu_torch.tools.profile_training import packed_llama_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = packed_llama_config(layers=2)
+    rng = np.random.default_rng(SEED + 3)
+    docs = [rng.integers(0, cfg.vocab_size, n) for n in (70, 50, 90, 30)]
+    ids, seg, labels = pack_examples(docs, seq)
+    models = {"cuda": LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+              "cpu": LlamaForCausalLM(cfg, device="cpu", seed=SEED)}
+
+    def make_loss(model):
+        return lambda x, s, y: model(x, labels=y, segments=s)
+
+    row = _parity(torch, "train_parity", models, make_loss,
+                  (ids, seg, labels), steps, lr)
+    return {**row, "model": "Llama packed", "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "batch": list(ids.shape),
+            "documents": [len(d) for d in docs]}
 
 
 def train_slice_phase(torch, reset, counts, batch=4, seq=2048, steps=3,
@@ -691,9 +980,93 @@ def train_slice_phase(torch, reset, counts, batch=4, seq=2048, steps=3,
     }
 
 
+def train_packed_slice_phase(torch, reset, counts, rows=2, seq=4096,
+                             steps=3, lr=1e-4):
+    """Main path 3: Llama-2-7B at its published widths, depth cut to 8
+    layers, amp O1 (bf16 matmuls and attention, fp32 parameters and
+    RMSNorm), AdamW, through TrainStep on one packed batch of `rows` x
+    `seq` tokens from PackedLMBatches (seeded documents of 64-2048 tokens);
+    one warm-up step, then `steps` timed steps on the same batch."""
+    import math
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools.profile_training import (packed_batch,
+                                                         packed_llama_config)
+
+    cfg = packed_llama_config()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01)
+
+    def loss_fn(ids, seg, labels):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model(ids, labels=labels, segments=seg)
+
+    step = TrainStep(model, loss_fn, opt)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in packed_batch(cfg.vocab_size, rows, seq))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    real = int((batch[1] >= 0).sum())
+    docs = int(sum(torch.unique(r[r >= 0]).numel() for r in batch[1]))
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t1 = time.perf_counter()
+    losses = [step(*batch)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    peak_first = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(*batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    launches = counts()
+    losses = [float(x) for x in losses]
+    per_step = {k: v / (steps + 1) for k, v in launches.items()}
+    L = cfg.num_layers
+    want = {"flash_seg_fwd": L, "flash_seg_dq": L, "flash_seg_dkv": L,
+            "rms_norm": 2 * L + 1, "rms_norm_bwd": 2 * L + 1,
+            "rope_packed": 4 * L, "adamw": len(opt._groups),
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rope": 0}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{want}")
+    # random weights (std 0.02) give logits of std 0.02 * sqrt(4096) = 1.28
+    # after the final RMSNorm: the first loss sits near ln(vocab) + 1.28^2 /
+    # 2 = 11.19, so within 1.0 of ln(vocab); the repeated batch must fall
+    if not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - math.log(cfg.vocab_size)) > 1.0 \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"packed Llama losses {losses}: the first "
+                             f"should be within 1.0 of ln(vocab) = "
+                             f"{math.log(cfg.vocab_size):.3f} and the last "
+                             f"below it")
+    step_s = wall / steps
+    return {
+        "phase": "train_packed_slice",
+        "model": f"Llama-2-7B widths, {L} layers", "params": n_params,
+        "layers": L, "hidden": cfg.hidden_size, "amp": "O1 bfloat16",
+        "batch": [rows, seq], "documents": docs, "real_tokens": real,
+        "init_s": init_s, "warmup_step_s": warm_s, "losses": losses,
+        "step_s": step_s, "tokens_per_s": rows * seq / step_s,
+        "real_tokens_per_s": real / step_s,
+        "peak_mem_bytes_warmup": peak_first,
+        "peak_mem_bytes_timed_steps": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": per_step,
+    }
+
+
 KERNELS = {
     "rms_norm": ("triton", "paddle_tpu_torch/ops/gpu/fused_norm.py",
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
+    "rms_norm_bwd": ("triton", "paddle_tpu_torch/ops/gpu/fused_norm.py",
+                     "paddle_tpu/ops/pallas/fused_norm.py:33"),
     "rope": ("triton", "paddle_tpu_torch/ops/gpu/rope.py",
              "paddle_tpu/ops/pallas/rope.py:22"),
     "rope_packed": ("triton", "paddle_tpu_torch/ops/gpu/rope.py",
@@ -706,11 +1079,21 @@ KERNELS = {
                  "paddle_tpu/ops/pallas/flash_attention.py:137"),
     "flash_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
                   "paddle_tpu/ops/pallas/flash_attention.py:177"),
+    "flash_seg_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:411"),
+    "flash_seg_dq": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "paddle_tpu/ops/pallas/flash_attention.py:455"),
+    "flash_seg_dkv": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:494"),
     "adamw": ("triton", "paddle_tpu_torch/ops/gpu/fused_adamw.py",
               "paddle_tpu/ops/pallas/fused_adamw.py:21"),
 }
 SERVING = ("rms_norm", "rope", "rope_packed", "paged_decode")
 TRAINING = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
+# the packed slice's kernels, and those it must not launch (read as 0)
+PACKED = ("flash_seg_fwd", "flash_seg_dq", "flash_seg_dkv", "rms_norm",
+          "rms_norm_bwd", "rope_packed", "adamw", "flash_fwd", "flash_dq",
+          "flash_dkv", "rope")
 
 
 def main():
@@ -771,7 +1154,19 @@ def main():
     train = train_slice_phase(torch, gpu.reset_launch_counts,
                               lambda: gpu.launch_counts(TRAINING))
     emit(train)
-    launches = {**summary["launches"], **train["launches"]}
+    torch.cuda.empty_cache()
+
+    emit(packed_parity_phase(torch))
+    torch.cuda.empty_cache()
+
+    packed = train_packed_slice_phase(torch, gpu.reset_launch_counts,
+                                      lambda: gpu.launch_counts(PACKED))
+    emit(packed)
+    # each kernel's launches on the path it was ported for: serving for
+    # RMSNorm, RoPE and paged decode, GPT training for dense flash and
+    # AdamW, packed Llama training for segmented flash and RMSNorm backward
+    launches = {**packed["launches"], **train["launches"],
+                **summary["launches"]}
 
     print(card, flush=True)
     kernels = []

@@ -1,11 +1,19 @@
-// Flash attention forward and backward for Hopper (sm_90a).
+// Flash attention forward and backward for Hopper (sm_90a), dense and
+// segmented.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   * `_fwd_kernel` (launched by `_fwd`): o and the fp32 logsumexp of each
 //     query row, by online softmax over K/V tiles;
 //   * `_dq_kernel` (launched by `_bwd`): dQ, recomputing P from q, k and lse;
 //   * `_dkv_kernel` (launched by `_bwd`): dK and dV, walking the q tiles at
-//     or after its k tile when causal.
+//     or after its k tile when causal;
+//   * `_fwd_seg_kernel` (via `_seg_fwd`), `_bwd_seg_kernel` and
+//     `_dkv_seg_kernel` (via `_seg_bwd`): the same three with segment ids
+//     (packed documents): query i sees key j only where seg_q[i] ==
+//     seg_k[j] (and j <= i when causal). Padding carries -1, which matches
+//     only itself. A score that is masked contributes exactly 0 to P, so a
+//     row with no live key gives o = 0 (lse = -1e30 + log(1e-30)) and zero
+//     gradients, as in the TPU kernels.
 // Inputs are [b, s, h, d] (contiguous), the causal mask is top-left aligned
 // (query i sees keys j <= i), masked scores take -1e30 and the softmax
 // denominator is clamped to 1e-30, as in the TPU kernels. delta =
@@ -30,6 +38,17 @@
 // are read without bank conflicts. Tiles are 64 rows for head_dim <= 128 and
 // 32 rows for head_dim <= 256 (shared memory holds four fp32 tiles of
 // [rows, head_dim]); head_dim is padded with zeros to 64, 128 or 256.
+//
+// Segments are the same templates with kSeg set: each thread keeps the
+// segment ids of its own rows and columns in registers (read straight from
+// device memory, [b, s] int32), and ANDs seg_q == seg_k into the live mask.
+// A k tile (a q tile in dK/dV) in which no pair is live is skipped: every
+// thread tests its own pairs and __syncthreads_or decides for the block.
+// Under the online softmax a tile with no live pair leaves m, l and the
+// accumulators exactly as they were (alpha = 1, P = 0), so skipping gives
+// the same bits as computing it. Packed documents are short beside the row,
+// so most tiles off the diagonal blocks are skipped; the TPU kernels skip
+// nothing.
 //
 // C interface (loaded with ctypes): each entry point returns
 // cudaGetLastError() after its launch.
@@ -148,11 +167,47 @@ __device__ __forceinline__ void store_tile(T* __restrict__ g,
   }
 }
 
-// grid (ceil(sq / B), b * h). o [b, sq, h, d]; lse [b * h, sq] fp32.
-template <typename T, int D, int B>
+// Segment ids of the rows (or columns) ty + 16 i (tx + 16 i) of a tile at
+// row0 of one batch row's [s] ids; 0 past s (those rows are never live).
+template <int B>
+__device__ __forceinline__ void load_seg(int (&out)[B / 16],
+                                         const int* __restrict__ seg,
+                                         int row0, int rows, int lane) {
+#pragma unroll
+  for (int i = 0; i < B / 16; ++i) {
+    const int r = row0 + lane + 16 * i;
+    out[i] = r < rows ? seg[r] : 0;
+  }
+}
+
+// True for the block when any (q, k) pair of the tile is live: every thread
+// tests its own pairs. A barrier for the whole block.
+template <int B>
+__device__ __forceinline__ bool tile_live(const int (&sq_r)[B / 16],
+                                          const int (&sk_r)[B / 16], int q0,
+                                          int k0, int sq, int sk, int causal,
+                                          int ty, int tx) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < B / 16; ++i) {
+    const int qi = q0 + ty + 16 * i;
+#pragma unroll
+    for (int jj = 0; jj < B / 16; ++jj) {
+      const int kj = k0 + tx + 16 * jj;
+      any |= qi < sq && kj < sk && !(causal && qi < kj) &&
+             sq_r[i] == sk_r[jj];
+    }
+  }
+  return __syncthreads_or(any) != 0;
+}
+
+// grid (ceil(sq / B), b * h). o [b, sq, h, d]; lse [b * h, sq] fp32;
+// seg_q [b, sq], seg_k [b, sk] int32 when kSeg.
+template <typename T, int D, int B, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+                     const T* __restrict__ v, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k, T* __restrict__ o,
                      float* __restrict__ lse, int h, int sq, int sk, int d,
                      float scale, int causal) {
   constexpr int TM = B / 16, TD = D / 16, LD = D + 1, LB = B + 1;
@@ -169,6 +224,8 @@ __global__ void __launch_bounds__(kThreads)
   const long koff = ((long)bi * sk * h + hi) * d;
 
   load_tile<T, D, B>(Qs, q + qoff, q0, sq, d, stride, scale);
+  int sq_r[TM], sk_r[TM];
+  if constexpr (kSeg) load_seg<B>(sq_r, seg_q + (long)bi * sq, q0, sq, ty);
   float m[TM], l[TM], acc[TM][TD];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -182,11 +239,16 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * B;
+    if constexpr (kSeg) {
+      load_seg<B>(sk_r, seg_k + (long)bi * sk, k0, sk, tx);
+      if (!tile_live<B>(sq_r, sk_r, q0, k0, sq, sk, causal, ty, tx)) continue;
+    }
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D, B>(Ks, k + koff, k0, sk, d, stride, 1.f);
     load_tile<T, D, B>(Vs, v + koff, k0, sk, d, stride, 1.f);
     __syncthreads();
     float s[TM][TM];
+    bool live[TM][TM];
     tile_abt<D, B>(s, Qs, Ks, d, ty, tx);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -195,7 +257,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < TM; ++jj) {
         const int kj = k0 + tx + 16 * jj;
-        if (kj >= sk || (causal && qi < kj)) s[i][jj] = kNegInf;
+        live[i][jj] = kj < sk && !(causal && qi < kj);
+        if constexpr (kSeg) live[i][jj] = live[i][jj] && sq_r[i] == sk_r[jj];
+        if (!live[i][jj]) s[i][jj] = kNegInf;
         mx = fmaxf(mx, s[i][jj]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -203,7 +267,10 @@ __global__ void __launch_bounds__(kThreads)
       float sum = 0.f;
 #pragma unroll
       for (int jj = 0; jj < TM; ++jj) {
-        const float p = expf(s[i][jj] - m_new);
+        // segments: a masked score is exactly 0 even in a row with no live
+        // key so far (where m_new is the mask value itself)
+        const float p =
+            kSeg && !live[i][jj] ? 0.f : expf(s[i][jj] - m_new);
         Ps[(ty + 16 * i) * LB + tx + 16 * jj] = p;
         sum += p;
       }
@@ -228,10 +295,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // grid (ceil(sq / B), b * h). dq [b, sq, h, d]; lse, delta [b * h, sq].
-template <typename T, int D, int B>
+template <typename T, int D, int B, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const T* __restrict__ v, const int* __restrict__ seg_q,
+                    const int* __restrict__ seg_k, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int h, int sq, int sk, int d, float scale, int causal) {
@@ -251,6 +319,8 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, D, B>(Qs, q + qoff, q0, sq, d, stride, scale);
   load_tile<T, D, B>(dOs, dout + qoff, q0, sq, d, stride, 1.f);
+  int sq_r[TM], sk_r[TM];
+  if constexpr (kSeg) load_seg<B>(sq_r, seg_q + (long)bi * sq, q0, sq, ty);
   float lse_r[TM], delta_r[TM], acc[TM][TD];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -265,6 +335,10 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * B;
+    if constexpr (kSeg) {
+      load_seg<B>(sk_r, seg_k + (long)bi * sk, k0, sk, tx);
+      if (!tile_live<B>(sq_r, sk_r, q0, k0, sq, sk, causal, ty, tx)) continue;
+    }
     __syncthreads();
     load_tile<T, D, B>(Ks, k + koff, k0, sk, d, stride, 1.f);
     load_tile<T, D, B>(Vs, v + koff, k0, sk, d, stride, 1.f);
@@ -278,7 +352,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < TM; ++jj) {
         const int kj = k0 + tx + 16 * jj;
-        const bool live = kj < sk && !(causal && qi < kj);
+        bool live = kj < sk && !(causal && qi < kj);
+        if constexpr (kSeg) live = live && sq_r[i] == sk_r[jj];
         const float p = live ? expf(s[i][jj] - lse_r[i]) : 0.f;
         dSs[(ty + 16 * i) * LB + tx + 16 * jj] = p * (dp[i][jj] - delta_r[i]);
       }
@@ -290,10 +365,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // grid (ceil(sk / B), b * h). dk, dv [b, sk, h, d].
-template <typename T, int D, int B>
+template <typename T, int D, int B, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const T* __restrict__ v, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int h, int sq, int sk, int d,
@@ -317,6 +394,8 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, D, B>(Ks, k + koff, k0, sk, d, stride, 1.f);
   load_tile<T, D, B>(Vs, v + koff, k0, sk, d, stride, 1.f);
+  int sq_r[TM], sk_r[TM];
+  if constexpr (kSeg) load_seg<B>(sk_r, seg_k + (long)bi * sk, k0, sk, tx);
   float dk_acc[TM][TD], dv_acc[TM][TD];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -327,6 +406,10 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = j0; j < nq; ++j) {
     const int q0 = j * B;
+    if constexpr (kSeg) {
+      load_seg<B>(sq_r, seg_q + (long)bi * sq, q0, sq, ty);
+      if (!tile_live<B>(sq_r, sk_r, q0, k0, sq, sk, causal, ty, tx)) continue;
+    }
     __syncthreads();
     load_tile<T, D, B>(Qs, q + qoff, q0, sq, d, stride, scale);
     load_tile<T, D, B>(dOs, dout + qoff, q0, sq, d, stride, 1.f);
@@ -345,7 +428,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < TM; ++jj) {
         const int c = tx + 16 * jj, kj = k0 + c;
-        const bool live = qi < sq && kj < sk && !(causal && qi < kj);
+        bool live = qi < sq && kj < sk && !(causal && qi < kj);
+        if constexpr (kSeg) live = live && sq_r[i] == sk_r[jj];
         const float p = live ? expf(s[i][jj] - lses[r]) : 0.f;
         Ps[r * LB + c] = p;
         dSs[r * LB + c] = p * (dp[i][jj] - deltas[r]);
@@ -374,6 +458,7 @@ constexpr size_t dkv_smem() {
 
 struct Args {
   const void *q, *k, *v, *dout;
+  const int *seg_q, *seg_k;  // both null: dense
   const float *lse_in, *delta;
   void *o, *dq, *dk, *dv;
   float* lse_out;
@@ -384,76 +469,92 @@ struct Args {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int D, int B>
+template <typename T, int D, int B, bool kSeg>
 cudaError_t launch(Kind kind, const Args& a) {
   const dim3 qgrid((a.sq + B - 1) / B, a.b * a.h);
   const dim3 kgrid((a.sk + B - 1) / B, a.b * a.h);
   cudaError_t err;
   if (kind == kFwd) {
-    auto fn = flash_fwd_kernel<T, D, B>;
+    auto fn = flash_fwd_kernel<T, D, B, kSeg>;
     constexpr size_t smem = fwd_smem<D, B>();
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     fn<<<qgrid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse_out, a.h,
+        static_cast<const T*>(a.v), a.seg_q, a.seg_k, static_cast<T*>(a.o),
+        a.lse_out, a.h,
         a.sq, a.sk, a.d, a.scale, a.causal);
   } else if (kind == kDq) {
-    auto fn = flash_dq_kernel<T, D, B>;
+    auto fn = flash_dq_kernel<T, D, B, kSeg>;
     constexpr size_t smem = dq_smem<D, B>();
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     fn<<<qgrid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
-        a.delta, static_cast<T*>(a.dq), a.h, a.sq, a.sk, a.d, a.scale,
+        static_cast<const T*>(a.v), a.seg_q, a.seg_k,
+        static_cast<const T*>(a.dout), a.lse_in, a.delta,
+        static_cast<T*>(a.dq), a.h, a.sq, a.sk, a.d, a.scale,
         a.causal);
   } else {
-    auto fn = flash_dkv_kernel<T, D, B>;
+    auto fn = flash_dkv_kernel<T, D, B, kSeg>;
     constexpr size_t smem = dkv_smem<D, B>();
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     fn<<<kgrid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
-        a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq,
+        static_cast<const T*>(a.v), a.seg_q, a.seg_k,
+        static_cast<const T*>(a.dout), a.lse_in, a.delta,
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq,
         a.sk, a.d, a.scale, a.causal);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kSeg>
 cudaError_t dispatch_d(Kind kind, const Args& a) {
-  if (a.d <= 64) return launch<T, 64, 64>(kind, a);
-  if (a.d <= 128) return launch<T, 128, 64>(kind, a);
-  return launch<T, 256, 32>(kind, a);
+  if (a.d <= 64) return launch<T, 64, 64, kSeg>(kind, a);
+  if (a.d <= 128) return launch<T, 128, 64, kSeg>(kind, a);
+  return launch<T, 256, 32, kSeg>(kind, a);
+}
+
+template <bool kSeg>
+cudaError_t dispatch(Kind kind, const Args& a, int dtype) {
+  return dtype == 0 ? dispatch_d<float, kSeg>(kind, a)
+                    : dispatch_d<__nv_bfloat16, kSeg>(kind, a);
 }
 
 int run(Kind kind, const Args& a, int dtype) {
   if (a.b < 1 || a.h < 1 || a.sq < 1 || a.sk < 1 || a.d < 1 || a.d > 256 ||
-      (long)a.b * a.h > 65535 || (dtype != 0 && dtype != 1)) {
+      (long)a.b * a.h > 65535 || (dtype != 0 && dtype != 1) ||
+      (a.seg_q == nullptr) != (a.seg_k == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = dtype == 0 ? dispatch_d<float>(kind, a)
-                                     : dispatch_d<__nv_bfloat16>(kind, a);
+  const cudaError_t err = a.seg_q != nullptr ? dispatch<true>(kind, a, dtype)
+                                             : dispatch<false>(kind, a, dtype);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // q [b, sq, h, d]; k, v [b, sk, h, d]; o [b, sq, h, d]; lse [b * h, sq]
-// fp32. dtype: 0 = float32, 1 = bfloat16. All contiguous, on one device.
+// fp32. seg_q [b, sq], seg_k [b, sk] int32 segment ids (padding -1), or both
+// null for dense attention. dtype: 0 = float32, 1 = bfloat16. All
+// contiguous, on one device.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int b,
-                                   int h, int sq, int sk, int d, float scale,
-                                   int causal, int dtype, void* stream) {
+                                   const void* v, const void* seg_q,
+                                   const void* seg_k, void* o, void* lse,
+                                   int b, int h, int sq, int sk, int d,
+                                   float scale, int causal, int dtype,
+                                   void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
   a.o = o;
   a.lse_out = static_cast<float*>(lse);
   a.b = b;
@@ -469,6 +570,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 
 // dout, dq [b, sq, h, d]; lse, delta [b * h, sq] fp32.
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
+                                  const void* seg_q, const void* seg_k,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int b, int h,
                                   int sq, int sk, int d, float scale,
@@ -477,6 +579,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
   a.q = q;
   a.k = k;
   a.v = v;
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -494,7 +598,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
 
 // dk, dv [b, sk, h, d].
 extern "C" int flash_attention_dkv(const void* q, const void* k,
-                                   const void* v, const void* dout,
+                                   const void* v, const void* seg_q,
+                                   const void* seg_k, const void* dout,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, int b, int h, int sq,
                                    int sk, int d, float scale, int causal,
@@ -503,6 +608,8 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   a.q = q;
   a.k = k;
   a.v = v;
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

@@ -1,5 +1,8 @@
 """Autoregressive generation with static-shape KV caches (counterpart of
-paddle_tpu/models/generation.py:33-194).
+paddle_tpu/models/generation.py:33-194), and what the GPT and Llama
+training forwards share: the per-document positions of packed rows
+(`packed_positions`, generation.py:197) and the shifted loss that masks
+pairs across documents (`causal_lm_loss`).
 
 KV caches are [b, max_len, kv_heads, head_dim] tensors per layer, written in
 place at `pos` by nn_ops.cached_multihead_attention. Prefill runs the whole
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+
+from ..ops.nn_ops import cross_entropy
 
 
 def init_kv_cache(batch: int, max_len: int, num_layers: int,
@@ -47,6 +52,33 @@ def sample_logits(logits, do_sample: bool, temperature: float, top_k: int,
         logits = logits.masked_fill(~keep, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def packed_positions(seg, s: int):
+    """Per-document positions [b, s] int32 of a packed batch whose segment
+    ids are seg [b, s]: positions restart at 0 wherever the id changes
+    (shared by the GPT and Llama packed paths)."""
+    b = seg.shape[0]
+    ar = torch.arange(s, dtype=torch.int32, device=seg.device)[None]
+    new_doc = torch.ones(b, s, dtype=torch.bool, device=seg.device)
+    new_doc[:, 1:] = seg[:, 1:] != seg[:, :-1]
+    starts = torch.cummax(torch.where(new_doc, ar, 0), dim=1).values
+    return ar - starts
+
+
+def causal_lm_loss(logits, labels, segments=None, ignore_index=-100):
+    """The mean next-token cross entropy: logits[:, i] predicts
+    labels[:, i + 1]. With packed `segments` [b, s], a pair that crosses a
+    document boundary, or whose target is padding (-1), is not an example
+    and is ignored (reference llama.py:294-308, gpt.py:368-375)."""
+    labels = labels[:, 1:]
+    if segments is not None:
+        seg = segments.to(labels.device)
+        same_doc = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] >= 0)
+        labels = torch.where(same_doc, labels,
+                             torch.full_like(labels, ignore_index))
+    return cross_entropy(logits[:, :-1, :].reshape(-1, logits.shape[-1]),
+                         labels.reshape(-1), ignore_index=ignore_index)
 
 
 class GenerationMixin:

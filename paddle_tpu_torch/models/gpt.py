@@ -4,10 +4,14 @@ MLP and the head tied to the token embedding, with the shifted next-token
 cross entropy when `labels` are given.
 
 Attention goes through ops.nn_ops.scaled_dot_product_attention, so it takes
-the flash kernels wherever the reference would take its Pallas ones. The
-KV-cache (decode), packed `segments=`, `sequence_parallel`, `recompute` and
-rotary branches of the reference raise NotImplementedError naming the
-ROADMAP item that brings them.
+the flash kernels wherever the reference would take its Pallas ones. Packed
+batches (`segments=` [b, s] document ids, padding -1; bench.py's
+BENCH_PACKED path) restart the learned positions at every document, attend
+within each document through ops.nn_ops.segmented_attention (the segmented
+flash kernels) and mask the loss's pairs across documents. The KV-cache
+(decode), `sequence_parallel`, `recompute` and rotary branches of the
+reference raise NotImplementedError naming the ROADMAP item that brings
+them.
 
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, LayerNorm weights at 1,
@@ -26,6 +30,7 @@ from ..core.place import resolve_device
 from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                   RowParallelLinear, VocabParallelEmbedding)
 from ..ops import nn_ops
+from .generation import causal_lm_loss, packed_positions
 
 
 @dataclass
@@ -85,16 +90,19 @@ class CausalSelfAttention(nn.Module):
                                      generator=generator)
         self._generator = generator
 
-    def forward(self, x):
+    def forward(self, x, segments=None):
         b, s, _ = x.shape
         qkv = self.qkv_proj(x)
         # [b, s, heads, 3 * head_dim], split on the LAST axis (gpt.py:93-94)
         qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
-        out = nn_ops.scaled_dot_product_attention(
-            q, k, v, is_causal=True,
-            dropout_p=self.attn_dropout_p if self.training else 0.0,
-            training=self.training, generator=self._generator)
+        if segments is not None:
+            out = nn_ops.segmented_attention(q, k, v, segments, causal=True)
+        else:
+            out = nn_ops.scaled_dot_product_attention(
+                q, k, v, is_causal=True,
+                dropout_p=self.attn_dropout_p if self.training else 0.0,
+                training=self.training, generator=self._generator)
         out = out.reshape(b, s, self.hidden_size)
         return self.resid_dropout(self.out_proj(out))
 
@@ -122,8 +130,8 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(config.hidden_size, **factory)
         self.mlp = GPTMLP(config, generator, **factory)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
+    def forward(self, x, segments=None):
+        x = x + self.attn(self.ln_1(x), segments=segments)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -131,8 +139,7 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, generator=None, **factory):
         super().__init__()
         if config.use_rotary:
-            raise _not_ported("with rotary positions",
-                              "Llama training (RoPE backward)")
+            raise _not_ported("with rotary positions", "GPT use_rotary")
         if config.sequence_parallel:
             raise _not_ported("sequence_parallel",
                               "distributed and fleet (context parallel)")
@@ -151,15 +158,17 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, caches=None, pos=None, segments=None):
         if caches is not None:
             raise _not_ported("KV-cache decoding", "GPT serving")
-        if segments is not None:
-            raise _not_ported("packed segments=",
-                              "segmented / varlen attention")
         s = input_ids.shape[1]
-        h = self.wte(input_ids) + self.wpe(
-            torch.arange(s, device=input_ids.device))
-        h = self.drop(h)
+        if segments is not None:
+            # positions restart at each packed document (gpt.py:287-300)
+            segments = segments.to(device=input_ids.device,
+                                   dtype=torch.int32)
+            positions = packed_positions(segments, s)
+        else:
+            positions = torch.arange(s, device=input_ids.device)
+        h = self.drop(self.wte(input_ids) + self.wpe(positions))
         for block in self.blocks:
-            h = block(h)
+            h = block(h, segments=segments)
         return self.ln_f(h)
 
 
@@ -207,12 +216,11 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None, caches=None, pos=None,
                 segments=None):
         """Logits [b, s, vocab]; with `labels`, the mean next-token cross
-        entropy (logits[:, i] predicts labels[:, i + 1]; -100 is ignored)."""
+        entropy (logits[:, i] predicts labels[:, i + 1]; -100 is ignored,
+        and with packed `segments` so is every pair that crosses a document
+        boundary or ends in padding)."""
         logits = self._head(self.gpt(input_ids, caches=caches, pos=pos,
                                      segments=segments))
         if labels is None:
             return logits
-        v = self.config.vocab_size
-        shift_logits = logits[:, :-1, :].reshape(-1, v)
-        shift_labels = labels[:, 1:].reshape(-1)
-        return nn_ops.cross_entropy(shift_logits, shift_labels)
+        return causal_lm_loss(logits, labels, segments)

@@ -1,9 +1,14 @@
 """LLaMA family (counterpart of paddle_tpu/models/llama.py).
 
 Pre-norm RMSNorm + SwiGLU + rotary, grouped-query attention, with the
-reference's four forward modes (llama.py:182-256):
+reference's forward modes (llama.py:182-256):
 
-  * no cache: full-sequence causal attention (training-style forward);
+  * no cache: full-sequence causal attention, the training forward (the
+    dense flash kernels), with `labels` the shifted next-token loss;
+  * no cache, packed `segments=` [b, s] (document ids, padding -1):
+    positions restart at every document (per-token RoPE), attention stays
+    inside each document (the segmented flash kernels), and the loss masks
+    pairs that cross a document boundary;
   * contiguous cache, scalar `pos`: chunked prefill and static-cache decode;
   * contiguous cache, per-row `pos` vector [b]: ragged batched prefill;
   * paged caches (serving.paged.PagedLayerCache): the engine's decode step.
@@ -12,7 +17,9 @@ Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, norms at 1), so a 7B model
 is never built on the host. The rope cos/sin tables are plain fp32 tensors
 on the model's device, not buffers: `Module.to(dtype)` must not cast them
-(the reference keeps them fp32 whatever the model dtype).
+(the reference keeps them fp32 whatever the model dtype). Parameters are
+trainable: RMSNorm, RoPE and attention have kernel backwards; generation
+and the serving engine run under torch.no_grad().
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from ..core.place import resolve_device
 from ..nn import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
                   VocabParallelEmbedding)
 from ..ops import nn_ops
-from .generation import GenerationMixin
+from .generation import GenerationMixin, causal_lm_loss, packed_positions
 
 
 @dataclass
@@ -42,6 +49,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    recompute: bool = False
 
     def __post_init__(self):
         if not self.num_key_value_heads:
@@ -88,7 +96,7 @@ class LlamaAttention(nn.Module):
             c.num_heads * self.head_dim, c.hidden_size, has_bias=False,
             **factory)
 
-    def forward(self, x, rope, cache=None, pos=None):
+    def forward(self, x, rope, cache=None, pos=None, segments=None):
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -111,7 +119,11 @@ class LlamaAttention(nn.Module):
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        out = nn_ops.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if segments is not None:
+            out = nn_ops.segmented_attention(q, k, v, segments, causal=True)
+        else:
+            out = nn_ops.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -143,20 +155,25 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **factory)
         self.mlp = LlamaMLP(config, **factory)
 
-    def forward(self, x, rope, cache=None, pos=None):
+    def forward(self, x, rope, cache=None, pos=None, segments=None):
         if cache is not None:
             a, new_cache = self.self_attn(self.input_layernorm(x), rope,
                                           cache=cache, pos=pos)
             x = x + a
             x = x + self.mlp(self.post_attention_layernorm(x))
             return x, new_cache
-        x = x + self.self_attn(self.input_layernorm(x), rope)
+        x = x + self.self_attn(self.input_layernorm(x), rope,
+                               segments=segments)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
+        if config.recompute:
+            raise NotImplementedError(
+                "Llama recompute is not ported yet (ROADMAP queue 1: "
+                "distributed and fleet)")
         self.config = config
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, **factory)
@@ -176,10 +193,14 @@ class LlamaModel(nn.Module):
             new_caches.append(nc)
         return self.norm(h), new_caches
 
-    def forward(self, input_ids, caches=None, pos=None):
+    def forward(self, input_ids, caches=None, pos=None, segments=None):
         b, s = input_ids.shape
         cos_t, sin_t = self._rope
         if caches is not None:
+            if segments is not None:
+                raise NotImplementedError(
+                    "packed (segments=) batches are not supported with "
+                    "KV-cache decoding")
             ar = torch.arange(s, dtype=torch.int32, device=input_ids.device)
             if hasattr(caches[0], "block_table"):
                 # paged decode: per-slot positions via the per-token rope
@@ -198,10 +219,15 @@ class LlamaModel(nn.Module):
             start = min(max(p, 0), cos_t.shape[0] - s)
             rope = (cos_t[start:start + s], sin_t[start:start + s])
             return self._run(input_ids, rope, caches, p)
+        # tables sliced to s: positions are < s in both forms
         rope = (cos_t[:s], sin_t[:s])
+        if segments is not None:
+            segments = segments.to(device=input_ids.device,
+                                   dtype=torch.int32)
+            rope = rope + (packed_positions(segments, s),)
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h, rope)
+            h = layer(h, rope, segments=segments)
         return self.norm(h)
 
 
@@ -222,11 +248,6 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                                              config.vocab_size,
                                              has_bias=False, **factory))
         self._init_weights(seed)
-        # Serving only for now: the RMSNorm and RoPE kernels have no
-        # backward yet (ROADMAP queue 1, "Llama training"), so the model's
-        # parameters stay frozen until that slice lands.
-        self.requires_grad_(False)
-        self.eval()
 
     @torch.no_grad()
     def _init_weights(self, seed):
@@ -254,9 +275,17 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             return torch.matmul(h, self.model.embed_tokens.weight.t())
         return self.lm_head(h)
 
-    def forward(self, input_ids, caches=None, pos=None):
-        """Logits [b, s, vocab]; with `caches`, (logits, new_caches)."""
+    def forward(self, input_ids, labels=None, caches=None, pos=None,
+                segments=None):
+        """Logits [b, s, vocab]; with `caches`, (logits, new_caches); with
+        `labels`, the mean next-token cross entropy (-100 is ignored, and
+        with packed `segments` [b, s] so is every pair that crosses a
+        document boundary or ends in padding)."""
         if caches is not None:
-            h, new_caches = self.model(input_ids, caches=caches, pos=pos)
+            h, new_caches = self.model(input_ids, caches=caches, pos=pos,
+                                       segments=segments)
             return self._head(h), new_caches
-        return self._head(self.model(input_ids))
+        logits = self._head(self.model(input_ids, segments=segments))
+        if labels is None:
+            return logits
+        return causal_lm_loss(logits, labels, segments)

@@ -9,12 +9,16 @@ from . import flash_attention, fused_adamw, fused_norm, paged_attention, rope
 
 KERNEL_WRAPPERS = {
     "rms_norm": fused_norm.fused_rms_norm,
+    "rms_norm_bwd": fused_norm.fused_rms_norm_bwd,
     "rope": rope.rope,
     "rope_packed": rope.rope_packed,
     "paged_decode": paged_attention.paged_attention,
     "flash_fwd": flash_attention.flash_fwd,
     "flash_dq": flash_attention.flash_dq,
     "flash_dkv": flash_attention.flash_dkv,
+    "flash_seg_fwd": flash_attention.flash_seg_fwd,
+    "flash_seg_dq": flash_attention.flash_seg_dq,
+    "flash_seg_dkv": flash_attention.flash_seg_dkv,
     "adamw": fused_adamw.fused_adamw,
 }
 

@@ -1,16 +1,23 @@
-"""Flash attention: the CUDA kernels in csrc/flash_attention.cu, their plain
-PyTorch versions and the autograd Function that joins them.
+"""Flash attention, dense and segmented: the CUDA kernels in
+csrc/flash_attention.cu, their plain PyTorch versions and the autograd
+Functions that join them.
 
 Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (via `_fwd`),
-`_dq_kernel` and `_dkv_kernel` (via `_bwd`). The source's header says what
-bounds the kernels on the H100 and how their design answers it. The plain
-versions are the counterparts of the reference's XLA pair `_dense_fwd` /
-`_dense_bwd`, split the way the kernels are.
+`_dq_kernel` and `_dkv_kernel` (via `_bwd`), and their segmented siblings
+`_fwd_seg_kernel` (via `_seg_fwd`), `_bwd_seg_kernel` and `_dkv_seg_kernel`
+(via `_seg_bwd`). The source's header says what bounds the kernels on the
+H100 and how their design answers it. The dense plain versions are the
+counterparts of the reference's XLA pair `_dense_fwd` / `_dense_bwd`, split
+the way the kernels are; the segmented ones compute what the segmented TPU
+kernels compute (a masked score adds exactly 0 to P, so a query row with no
+live key gives o = 0).
 
     q                 [b, sq, h, d]
     k, v              [b, sk, h, d]
     o, dq             [b, sq, h, d] in q's dtype; dk, dv [b, sk, h, d]
     lse, delta        [b * h, sq] float32
+    seg_q, seg_k      [b, sq], [b, sk] int32 segment ids (padding -1):
+                      query i sees key j only where seg_q[i] == seg_k[j]
 
 The causal mask is top-left aligned (query i sees keys j <= i), as the TPU
 kernel's is; `supports()` keeps causal attention with sq != sk on the
@@ -101,20 +108,78 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal):
     return _heads_last(dk, b, h, k.dtype), _heads_last(dv, b, h, v.dtype)
 
 
+def _bhsd(x):
+    """[b, s, h, d] -> [b, h, s, d] in fp32."""
+    return x.permute(0, 2, 1, 3).float()
+
+
+def _seg_scores(q, k, seg_q, seg_k, scale, causal):
+    """fp32 scores [b, h, sq, sk] with every pair that is not live at
+    NEG_INF, and the live mask [b, 1, sq, sk]."""
+    live = (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+    if causal:
+        sq, sk = seg_q.shape[1], seg_k.shape[1]
+        live = live & torch.ones(sq, sk, dtype=torch.bool,
+                                 device=live.device).tril()
+    s = torch.matmul(_bhsd(q), _bhsd(k).transpose(-1, -2)) * scale
+    return s.masked_fill(~live, NEG_INF), live
+
+
+def flash_seg_fwd_plain(q, k, v, seg_q, seg_k, scale, causal):
+    """(o, lse) as `_fwd_seg_kernel` computes them."""
+    b, sq, h, _ = q.shape
+    s, live = _seg_scores(q, k, seg_q, seg_k, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p, _bhsd(v)) / den
+    return (_heads_last(o.flatten(0, 1), b, h, q.dtype),
+            (m + torch.log(den)).reshape(b * h, sq))
+
+
+def _seg_dscores(q, k, v, seg_q, seg_k, dout, lse, delta, scale, causal):
+    """(P, dS) [b, h, sq, sk] recomputed from the residuals."""
+    b, sq, h, _ = q.shape
+    s, live = _seg_scores(q, k, seg_q, seg_k, scale, causal)
+    p = torch.where(live, torch.exp(s - lse.reshape(b, h, sq, 1)), 0.0)
+    dp = torch.matmul(_bhsd(dout), _bhsd(v).transpose(-1, -2))
+    return p, p * (dp - delta.reshape(b, h, sq, 1))
+
+
+def flash_seg_dq_plain(q, k, v, seg_q, seg_k, dout, lse, delta, scale,
+                       causal):
+    b, _, h, _ = q.shape
+    _, ds = _seg_dscores(q, k, v, seg_q, seg_k, dout, lse, delta, scale,
+                         causal)
+    dq = torch.matmul(ds, _bhsd(k)) * scale
+    return _heads_last(dq.flatten(0, 1), b, h, q.dtype)
+
+
+def flash_seg_dkv_plain(q, k, v, seg_q, seg_k, dout, lse, delta, scale,
+                        causal):
+    b, _, h, _ = k.shape
+    p, ds = _seg_dscores(q, k, v, seg_q, seg_k, dout, lse, delta, scale,
+                         causal)
+    dv = torch.matmul(p.transpose(-1, -2), _bhsd(dout))
+    dk = torch.matmul(ds.transpose(-1, -2), _bhsd(q)) * scale
+    return (_heads_last(dk.flatten(0, 1), b, h, k.dtype),
+            _heads_last(dv.flatten(0, 1), b, h, v.dtype))
+
+
 # ------------------------------------------------------------------ kernels
 @functools.cache
 def _entries():
+    """(fwd, dq, dkv) C entry points; null segment-id pointers select the
+    dense kernels."""
     lib = _build.load("flash_attention")
     ints = [ctypes.c_int] * 5
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fwd, dq, dkv = (lib.flash_attention_fwd, lib.flash_attention_dq,
-                    lib.flash_attention_dkv)
-    fwd.argtypes = [ctypes.c_void_p] * 5 + ints + tail
-    dq.argtypes = [ctypes.c_void_p] * 7 + ints + tail
-    dkv.argtypes = [ctypes.c_void_p] * 8 + ints + tail
-    for fn in (fwd, dq, dkv):
+    fns = (lib.flash_attention_fwd, lib.flash_attention_dq,
+           lib.flash_attention_dkv)
+    for fn, pointers in zip(fns, (7, 9, 10)):
+        fn.argtypes = [ctypes.c_void_p] * pointers + ints + tail
         fn.restype = ctypes.c_int
-    return fwd, dq, dkv
+    return fns
 
 
 def _check(q, k, v, *more):
@@ -161,22 +226,64 @@ def _on_cuda(name, t):
         raise ValueError(f"{name}: no kernel for {t.device}")
 
 
+def _check_seg(q, k, seg_q, seg_k):
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
+    for t, s in ((seg_q, sq), (seg_k, sk)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (b, s):
+            raise ValueError(f"segmented flash attention: segment ids must "
+                             f"be int32 [{b}, {s}]; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("segmented flash attention: segment ids must "
+                             "be contiguous, on q's device")
+
+
+def _check_dout(name, q, dout):
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: dout must match q")
+
+
+def _ptrs(*tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _run_fwd(wrapper, q, k, v, seg_q, seg_k, scale, causal):
+    """Launch the forward kernel (segmented where seg_q is given), counted
+    on `wrapper`."""
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
+    status = _entries()[0](*_ptrs(q, k, v, seg_q, seg_k, o, lse),
+                           *_geometry(q, k, scale, causal))
+    _build.check_status(status, wrapper.__name__)
+    wrapper.launches += 1
+    return o, lse
+
+
+def _run_bwd(wrapper, outs, q, k, v, seg_q, seg_k, dout, lse, delta, scale,
+             causal):
+    """Launch dQ (outs = (dq,)) or dK/dV (outs = (dk, dv)) into `outs`
+    (segmented where seg_q is given), counted on `wrapper`."""
+    _check(q, k, v, dout, lse, delta)
+    _check_rows(q, lse, delta)
+    _check_dout(wrapper.__name__, q, dout)
+    status = _entries()[len(outs)](
+        *_ptrs(q, k, v, seg_q, seg_k, dout, lse, delta, *outs),
+        *_geometry(q, k, scale, causal))
+    _build.check_status(status, wrapper.__name__)
+    wrapper.launches += 1
+    return outs
+
+
 def flash_fwd(q, k, v, scale, causal):
     """(o, lse). CUDA tensors launch the forward kernel, CPU tensors take the
     plain version."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal)
     _on_cuda("flash_fwd", q)
-    _check(q, k, v)
-    b, sq, h, _ = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-    status = _entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(),
-                           *_geometry(q, k, scale, causal))
-    _build.check_status(status, "flash_attention_fwd")
-    flash_fwd.launches += 1
-    return o, lse
+    return _run_fwd(flash_fwd, q, k, v, None, None, scale, causal)
 
 
 def flash_dq(q, k, v, dout, lse, delta, scale, causal):
@@ -185,17 +292,8 @@ def flash_dq(q, k, v, dout, lse, delta, scale, causal):
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal)
     _on_cuda("flash_dq", q)
-    _check(q, k, v, dout, lse, delta)
-    _check_rows(q, lse, delta)
-    if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise ValueError("flash_dq: dout must match q")
-    dq = torch.empty_like(q)
-    status = _entries()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           dq.data_ptr(), *_geometry(q, k, scale, causal))
-    _build.check_status(status, "flash_attention_dq")
-    flash_dq.launches += 1
-    return dq
+    return _run_bwd(flash_dq, (torch.empty_like(q),), q, k, v, None, None,
+                    dout, lse, delta, scale, causal)[0]
 
 
 def flash_dkv(q, k, v, dout, lse, delta, scale, causal):
@@ -204,23 +302,46 @@ def flash_dkv(q, k, v, dout, lse, delta, scale, causal):
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal)
     _on_cuda("flash_dkv", q)
-    _check(q, k, v, dout, lse, delta)
-    _check_rows(q, lse, delta)
-    if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise ValueError("flash_dkv: dout must match q")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = _entries()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           dk.data_ptr(), dv.data_ptr(),
-                           *_geometry(q, k, scale, causal))
-    _build.check_status(status, "flash_attention_dkv")
-    flash_dkv.launches += 1
-    return dk, dv
+    return _run_bwd(flash_dkv, (torch.empty_like(k), torch.empty_like(v)),
+                    q, k, v, None, None, dout, lse, delta, scale, causal)
 
 
-flash_fwd.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+def flash_seg_fwd(q, k, v, seg_q, seg_k, scale, causal):
+    """(o, lse) with segment ids. CUDA tensors launch the segmented forward
+    kernel, CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_seg_fwd_plain(q, k, v, seg_q, seg_k, scale, causal)
+    _on_cuda("flash_seg_fwd", q)
+    _check_seg(q, k, seg_q, seg_k)
+    return _run_fwd(flash_seg_fwd, q, k, v, seg_q, seg_k, scale, causal)
+
+
+def flash_seg_dq(q, k, v, seg_q, seg_k, dout, lse, delta, scale, causal):
+    """dq with segment ids. CUDA tensors launch the segmented dQ kernel, CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_seg_dq_plain(q, k, v, seg_q, seg_k, dout, lse, delta,
+                                  scale, causal)
+    _on_cuda("flash_seg_dq", q)
+    _check_seg(q, k, seg_q, seg_k)
+    return _run_bwd(flash_seg_dq, (torch.empty_like(q),), q, k, v, seg_q,
+                    seg_k, dout, lse, delta, scale, causal)[0]
+
+
+def flash_seg_dkv(q, k, v, seg_q, seg_k, dout, lse, delta, scale, causal):
+    """(dk, dv) with segment ids. CUDA tensors launch the segmented dK/dV
+    kernel, CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_seg_dkv_plain(q, k, v, seg_q, seg_k, dout, lse, delta,
+                                   scale, causal)
+    _on_cuda("flash_seg_dkv", q)
+    _check_seg(q, k, seg_q, seg_k)
+    return _run_bwd(flash_seg_dkv, (torch.empty_like(k), torch.empty_like(v)),
+                    q, k, v, seg_q, seg_k, dout, lse, delta, scale, causal)
+
+
+flash_fwd.launches = flash_dq.launches = flash_dkv.launches = 0
+flash_seg_fwd.launches = flash_seg_dq.launches = flash_seg_dkv.launches = 0
 
 
 def attention_delta(o, dout):
@@ -258,3 +379,38 @@ def flash_attention(q, k, v, scale=None, causal=False):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, float(scale), bool(causal))
+
+
+class FlashSegmentedAttention(torch.autograd.Function):
+    """The segmented kernels joined as FlashAttention joins the dense ones
+    (the reference's `flash_attention_segmented` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, scale, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_seg_fwd(q, k, v, seg_q, seg_k, scale, causal)
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg_q, seg_k, o, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = attention_delta(o, dout)
+        args = (q, k, v, seg_q, seg_k, dout, lse, delta, ctx.scale,
+                ctx.causal)
+        dq = flash_seg_dq(*args)
+        dk, dv = flash_seg_dkv(*args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_segmented(q, k, v, segment_ids, scale=None,
+                              causal=False):
+    """Attention on [b, s, h, d] restricted to equal segment ids [b, s]
+    (padding -1, which matches only itself); differentiable in q, k, v."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    seg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    return FlashSegmentedAttention.apply(q, k, v, seg, seg, float(scale),
+                                         bool(causal))

@@ -1,7 +1,8 @@
 """Counterparts of the paddle_tpu/ops/kernels/nn_ops.py ops the port uses:
 linear and matmul, dropout, GELU, LayerNorm, RMSNorm, cross
-entropy, attention (flash or the reference's composition), RoPE (contiguous
-and per-token) and the cache-carrying decode attentions.
+entropy, attention (flash or the reference's composition; dense, and
+segmented over packed documents), RoPE (contiguous and per-token) and the
+cache-carrying decode attentions.
 
 The ops with a Hopper kernel (ops/gpu/) launch it for CUDA tensors and take
 the kernel's plain version for CPU tensors; the rest are plain torch, as the
@@ -130,6 +131,66 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _flash.flash_attention(query, key, value, scale, is_causal)
     return _sdpa_xla(query, key, value, attn_mask, dropout_p, is_causal,
                      training, scale, generator)
+
+
+def segmented_attention(q, k, v, segment_ids, causal=True, scale=None):
+    """nn_ops.segmented_attention:1210: packed-document attention, q, k, v
+    [b, s, h, d] with segment_ids [b, s] (same id = same document; padding
+    -1 matches only itself). The reference's gate sends it to the
+    segmented flash kernels (FLAGS_use_flash_attention, s % 128 == 0,
+    d <= 256); otherwise the dense block-diagonal mask goes through the
+    `_sdpa_xla` composition, as the reference's fallback does."""
+    q, k, v = cast_inputs("segmented_attention", q, k, v)
+    b, s, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    seg = segment_ids.to(device=q.device, dtype=torch.int32)
+    if get_flag("use_flash_attention") and s % 128 == 0 and d <= 256:
+        return _flash.flash_attention_segmented(q, k, v, seg, scale, causal)
+    mask = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                 device=q.device).tril()[None]
+    return _sdpa_xla(q, k, v, mask[:, None], 0.0, False, False, scale)
+
+
+def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                        max_seqlen_k, scale=None, dropout=0.0, causal=False):
+    """nn_ops.flash_attn_unpadded:1140: varlen attention over sequences
+    packed along the first axis, q [total_q, h, d], k, v [total_k, h, d],
+    offsets cu_seqlens [n + 1]. The segmented flash kernels take it when the
+    reference's gate admits it: the same offsets OBJECT for q and k
+    (self-attention packing; equal values in another object could still
+    mis-segment K), no dropout, total % 128 == 0, d <= 256. Otherwise a
+    dense mask over the packed [total_q, total_k] scores (causal within each
+    sequence by offsets) goes through the `_sdpa_xla` composition."""
+    q, k, v = cast_inputs("flash_attn_unpadded", q, k, v)
+    total, _, d = q.shape
+    dev = q.device
+    cu_q = torch.as_tensor(cu_seqlens_q, device=dev).long()
+    cu_k = torch.as_tensor(cu_seqlens_k, device=dev).long()
+    pos_q = torch.arange(total, device=dev)
+    pos_k = torch.arange(k.shape[0], device=dev)
+    seg_q = torch.searchsorted(cu_q[1:], pos_q, right=True)
+    seg_k = torch.searchsorted(cu_k[1:], pos_k, right=True)
+    same_packing = (q.shape[0] == k.shape[0]
+                    and cu_seqlens_q is cu_seqlens_k)
+    if (get_flag("use_flash_attention") and same_packing and dropout == 0.0
+            and total % 128 == 0 and d <= 256):
+        out = _flash.flash_attention_segmented(
+            q[None], k[None], v[None], seg_q[None].to(torch.int32), scale,
+            causal)
+        return out[0]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        off_q = pos_q - cu_q[seg_q]
+        off_k = pos_k - cu_k[seg_k]
+        mask = mask & (off_q[:, None] >= off_k[None, :])
+    out = _sdpa_xla(q[None], k[None], v[None], mask[None, None], dropout,
+                    False, dropout > 0, scale)
+    return out[0]
 
 
 def _sdpa_xla(query, key, value, attn_mask, dropout_p, is_causal, training,

@@ -383,18 +383,40 @@ def test_import_guard_walks_the_training_modules():
     names = set(out.stdout.split())
     for mod in ("amp", "amp.state", "optimizer.optimizer",
                 "optimizer.optimizers", "jit.trainer", "models.gpt",
-                "nn.clip", "ops.gpu.flash_attention", "ops.gpu.fused_adamw"):
+                "nn.clip", "ops.gpu.flash_attention", "ops.gpu.fused_adamw",
+                "io", "io.packing", "models.llama", "models.generation",
+                "ops.gpu.fused_norm", "ops.gpu.rope",
+                "tools.profile_training"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
+    # the packed slice's kernels are registered wrappers with counters
+    from paddle_tpu_torch.ops.gpu import KERNEL_WRAPPERS
+    for name in ("flash_seg_fwd", "flash_seg_dq", "flash_seg_dkv",
+                 "rms_norm_bwd"):
+        assert isinstance(KERNEL_WRAPPERS[name].launches, int), name
 
 
 def test_training_entry_points_raise_without_a_gpu(monkeypatch):
     tm = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
     opt = AdamW(LR, parameters=tm.parameters())
+    lm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    lopt = AdamW(LR, parameters=lm.parameters())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForCausalLM(GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrainStep(tm, lambda x: tm(x, labels=x), opt)
+    # the packed Llama: model and step
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainStep(lm, lambda x, s, y: lm(x, labels=y, segments=s), lopt)
+    lcfg = LlamaConfig.tiny()
+    lcfg.recompute = True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LlamaForCausalLM(lcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="segments"):
+        lm(torch.zeros(1, 4, dtype=torch.long), caches=[],
+           segments=torch.zeros(1, 4, dtype=torch.int32))
     cfg = GPTConfig.tiny()
     cfg.use_rotary = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -404,12 +426,12 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_serving_builds_no_autograd_graph():
-    """Layers create trainable parameters; the serving engine still runs
-    without building a graph even when the model's are trainable."""
+    """Layers create trainable parameters (the Llama's too, by default); the
+    serving engine still runs without building a graph."""
     tm = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
     assert all(p.requires_grad for p in tm.parameters())
     lm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    lm.requires_grad_(True)
+    assert all(p.requires_grad for p in lm.parameters())
     eng = ServingEngine(lm, device="cpu", max_slots=2, block_size=8,
                         prefill_chunk=16)
     out = eng.generate([[1, 2, 3, 4, 5], list(range(20))], max_new_tokens=3)
