@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving and training paths (GPT, and Llama on
-packed documents) on one H100 and hold each of its hand-written kernels
-against its plain PyTorch version.
+"""Drive paddle_tpu_torch's serving paths (Llama, with and without
+self-speculation, and GPT) and training paths (GPT, and Llama on packed
+documents) on one H100 and hold each of its hand-written kernels against
+its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,12 @@ final line):
                and the bound: the larger of bytes moved / 3.35 TB/s and
                operations / the peak rate of the input type. Paged decode
                runs at the main path's shapes with the split count the
-               wrapper chooses there and with one split; flash attention at
+               wrapper chooses there and with one split; the paged verify
+               window at the spec slice's (8 slots, W = 5, 32 heads, d 128,
+               windows ending at 17-2048) at the chosen count and at one
+               split, a GQA window of 72 rows (hq 32, hkv 4, sq 9), windows
+               that run past a 4-page table into the null page, and sq = 1
+               against the decode kernel at base + 1; flash attention at
                GPT-3 1.3B's (b 4, s 2048, h 16, d 128, causal), at d 64 and
                non-causal with sq != sk; segmented flash at the packed
                slice's (b 2, s 4096, h 32, d 128, causal, its segment
@@ -32,25 +38,50 @@ final line):
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy
-  5. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
+  5. spec_parity - Llama-2-7B's and GPT-3 1.3B's widths, 2 layers each,
+               fp32, prefix cache on: ServingEngine(spec_k=4) must equal
+               ServingEngine(spec_k=0) and model.generate token for token,
+               with the seeded weights and then with the head zeroed (every
+               target 0); over the phase, verify ticks, accepted drafts and
+               rollbacks must all be > 0
+  6. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
                ServingEngine (8 slots, 16-token blocks, 2048 context) over 10
                requests (prompts 16-1024 tokens, two sharing a 256-token
                prefix, one repeated for a copy-on-write hit), 64 new tokens
                each; every serving kernel's launch count over this phase
                must be > 0
-  6. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+  7. spec_slice - main path 4: the same model and engine with spec_k=4
+               (ngram 3, pause 32) over 10 requests (7 repetitive: 16-48
+               token patterns repeated to 128-1024 tokens; 3 random), 64
+               new tokens each, then the same requests with spec_k=0:
+               tokens/s, mean TTFT, the speculation counters, launches a
+               tick and the bf16 agreement of the two runs; first with the
+               seeded weights, then (the main path) with the head zeroed,
+               every target 0; paged verify launches must be 32 x verify
+               ticks and paged decode 32 x plain decode ticks, both > 0 on
+               the main path, with drafts accepted and rolled back
+  8. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
+               slots, 16-token blocks, 2048 context = its positions): a
+               1,990-token repetitive prompt that reaches the end of the
+               context, five shorter ones, then a 1,984-token cached prefix
+               plus 10 tokens batched with a 200-token prompt (bucket
+               padding past the wpe table); with the seeded weights and
+               then with the tied head zeroed (every target 0, so the long
+               request's windows run past the table too); no output logit
+               may be non-finite, and paged decode and verify must launch
+  9. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
                three TrainSteps (AdamW, global-norm clip) on the card and the
                same three on the CPU (plain versions) from the same weights
                and batch; losses and parameters must agree (bounds below)
-  7. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
+ 10. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
                AdamW, batch 4 x 2048 through TrainStep: one warm-up step and
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
-  8. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 11. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
-               three TrainSteps on the card and on the CPU, as in 6
-  9. train_packed_slice - main path 3: Llama-2-7B at its published widths
+               three TrainSteps on the card and on the CPU, as in 9
+ 12. train_packed_slice - main path 3: Llama-2-7B at its published widths
                cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
                tokens from PackedLMBatches: one warm-up step and three
                timed steps; loss, step time, tokens/s (all and non-padding),
@@ -275,6 +306,72 @@ def paged_case(torch, gen, dtype, slots, hq, hkv, d, bs, ctx_lens,
         nbytes=(2 * live * hkv * d * es + 2 * q.numel() * es
                 + sum(-(-c // bs) for c in ctx_lens) * 4 + slots * 4),
         nops=4 * live * hq * d)
+
+
+# base lengths of the spec slice's verify shape: windows of 5 ending at
+# 2048 ... 17, the decode cases' contexts
+VERIFY_BASES = [2043, 1786, 1495, 1198, 895, 606, 295, 12]
+
+
+def verify_case(torch, gen, dtype, slots, sq, hq, hkv, d, bs, bases,
+                max_blocks=None, splits=None, as_decode=False):
+    """The speculative verify window: sq queries a slot over base lengths
+    `bases` (the window's own K/V already in the pages). The table is
+    max_blocks wide (default: room for every window), null past each
+    slot's window; a narrower one makes windows run past it. as_decode
+    holds the kernel at sq = 1 against the decode kernel at bases + 1."""
+    from paddle_tpu_torch.ops.gpu import paged_attention as pa
+
+    maxb = max_blocks or -(-(max(bases) + sq) // bs)
+    span = maxb * bs
+    shown = splits if splits is not None else pa.choose_kv_splits(
+        slots, hkv * pa.row_tiles(sq, hq // hkv), maxb, bs,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    nb = slots * maxb + 1
+    kp = torch.randn(nb, bs, hkv, d, device="cuda", generator=gen).to(dtype)
+    vp = torch.randn(nb, bs, hkv, d, device="cuda", generator=gen).to(dtype)
+    q = torch.randn(slots, sq, hq, d, device="cuda", generator=gen).to(dtype)
+    perm = torch.randperm(nb - 1, device="cuda", generator=gen) + 1
+    bt = perm[:slots * maxb].reshape(slots, maxb).to(torch.int32)
+    cl = torch.tensor(bases, dtype=torch.int32, device="cuda")
+    for r, c in enumerate(bases):         # null pages past each window
+        bt[r, -(-(c + sq) // bs):] = 0
+    bt = bt.contiguous()
+    scale = d ** -0.5
+    # yardstick: one masked SDPA call over K/V already gathered
+    kg = kp[bt.long()].reshape(slots, span, hkv, d)
+    vg = vp[bt.long()].reshape(slots, span, hkv, d)
+    kg = kg.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    vg = vg.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(span, device="cuda")[None, None, :]
+            < (cl[:, None, None] + torch.arange(sq, device="cuda")[None, :,
+                                                                   None]
+               + 1))[:, None]
+    qs = q.transpose(1, 2)
+    es = q.element_size()
+    # bytes: every position some row of a slot sees, read once; operations:
+    # 4 flops per head-dim element for each (query, position) it sees
+    seen = sum(min(c + sq, span) for c in bases)
+    pairs = sum(min(c + i + 1, span) for c in bases for i in range(sq))
+    case = dict(
+        name="paged_verify",
+        shape=[slots, sq, hq, hkv, d, bs, maxb, shown],
+        kernel=lambda: pa.paged_attention_multi(q, kp, vp, bt, cl, scale,
+                                                splits),
+        plain=lambda: pa.paged_attention_multi_plain(q, kp, vp, bt, cl,
+                                                     scale),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=scale),
+        nbytes=(2 * seen * hkv * d * es + 2 * q.numel() * es
+                + sum(-(-min(c + sq, span) // bs) for c in bases) * 4
+                + slots * 4),
+        nops=4 * pairs * hq * d)
+    if as_decode:
+        case["check"] = lambda: (
+            pa.paged_attention_multi(q, kp, vp, bt, cl, scale, splits),
+            pa.paged_attention(q[:, 0].contiguous(), kp, vp, bt, cl + 1,
+                               scale, splits)[:, None])
+    return case
 
 
 # Flash attention: both sides compute in fp32 from the same inputs. fp32
@@ -613,6 +710,22 @@ def kernels_phase(torch):
                        (8, [33, 1000, 16])):
             cases.append((None, paged_case(torch, gen, dtype, 3, 8 * g, 8,
                                            128, 16, ctx, splits=2)))
+        # the verify window at the spec slice's shapes (8 slots, W = 5,
+        # windows ending at 17-2048), at the wrapper's split count and at
+        # one split; a GQA window of 72 rows (9 row tiles); windows that
+        # run past a 4-page table; sq = 1 against the decode kernel
+        cases += [
+            ("paged_verify", verify_case(torch, gen, dtype, 8, 5, 32, 32,
+                                         128, 16, VERIFY_BASES)),
+            (None, verify_case(torch, gen, dtype, 8, 5, 32, 32, 128, 16,
+                               VERIFY_BASES, splits=1)),
+            (None, verify_case(torch, gen, dtype, 3, 9, 32, 4, 128, 16,
+                               [77, 5, 300])),
+            (None, verify_case(torch, gen, dtype, 3, 5, 16, 4, 64, 16,
+                               [62, 64, 10], max_blocks=4)),
+            (None, verify_case(torch, gen, dtype, 8, 1, 32, 32, 128, 16,
+                               VERIFY_BASES, as_decode=True)),
+        ]
         # training at the packed Llama slice's shapes: RoPE with sign -1
         # (contiguous and per-token) and per-token RoPE forward at the
         # slice's positions; RMSNorm forward (y and rstd) and backward, whose
@@ -709,18 +822,18 @@ def parity_phase(torch, cfg, device, new_tokens=16, engine_kw=None,
             "prefill_programs": st["prefill_programs"]}
 
 
-def slice_phase(torch, cfg, device, dtype, engine_kw, new_tokens,
-                wave1_lens, prefix_len, reset, counts):
+def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
+                reset, counts):
     """The main path: waves of requests through ServingEngine. Returns the
     phase summary; launch counts are read just after the drive."""
     import numpy as np
-    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
+    cfg, device = model.config, model.device
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=SEED)
     eng = ServingEngine(model, device=device, **engine_kw)
-    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync = torch.cuda.synchronize if device.type != "cpu" else (
+        lambda: None)
     sync()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 1)
@@ -736,7 +849,7 @@ def slice_phase(torch, cfg, device, dtype, engine_kw, new_tokens,
     # wave 2: a partial prefix hit and a full-prompt (copy-on-write) hit
     repeat = next(p for p in wave1 if len(p) % engine_kw["block_size"] == 0)
     wave2 = [shared + toks(48), list(repeat)]
-    if device != "cpu":
+    if device.type != "cpu":
         torch.cuda.reset_peak_memory_stats()
     reqs = []
     decode_tick = None
@@ -770,7 +883,7 @@ def slice_phase(torch, cfg, device, dtype, engine_kw, new_tokens,
     generated = sum(len(r.output_tokens) for r in reqs)
     return {
         "phase": "slice", "layers": cfg.num_layers,
-        "hidden": cfg.hidden_size, "dtype": str(dtype),
+        "hidden": cfg.hidden_size, "dtype": str(model._cache_dtype()),
         "requests": len(reqs), "prompt_tokens": [len(r.prompt) for r in reqs],
         "new_tokens_each": new_tokens, "init_s": init_s, "wall_s": wall,
         "engine_steps": st["steps"], "generated_tokens": generated,
@@ -780,10 +893,314 @@ def slice_phase(torch, cfg, device, dtype, engine_kw, new_tokens,
         "batched_prefills": st["batched_prefills"],
         "cow_admissions": st["cow_admissions"],
         "peak_mem_bytes": (torch.cuda.max_memory_allocated()
-                           if device != "cpu" else None),
+                           if device.type != "cpu" else None),
         "kv_pool_bytes": eng.pool.nbytes(),
         "launches": launches, "launches_per_decode_tick": decode_tick,
     }
+
+
+def _spec_prompts(rng, vocab):
+    """Greedy parity prompts: a repeated 12-token pattern, a constant run,
+    a random one, and [3, 0, 9, 5, 3], whose history makes a wrong first
+    draft for a model that always answers 0 (rejected, rolled back)."""
+    pat = [int(t) for t in rng.integers(0, vocab, 12)]
+    return [pat * 8, [5] * 24,
+            [int(t) for t in rng.integers(0, vocab, 40)], [3, 0, 9, 5, 3]]
+
+
+def spec_parity_phase(torch, models, new_tokens=24, engine_kw=None):
+    """Greedy speculation parity on the card in fp32 (TF32 off), prefix
+    cache on: for each (name, model), ServingEngine(spec_k=4) must equal
+    ServingEngine(spec_k=0) and model.generate token for token, first with
+    the seeded weights, then with the head zeroed (every target token 0:
+    the reference's deterministic case, where drafts are accepted and a
+    wrong one is rolled back). Over the phase the engines must have run
+    verify ticks, accepted drafts and rolled back rejected ones."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ServingEngine
+
+    kw = dict(max_slots=4, block_size=16, prefill_chunk=256,
+              max_model_len=1024, prefix_cache=True, **(engine_kw or {}))
+    rows, totals = [], {"ticks": 0, "accepted": 0, "rollbacks": 0}
+    for name, model in models:
+        head = (model.lm_head.weight if model.lm_head is not None else
+                (model.model.embed_tokens.weight if hasattr(model, "model")
+                 else model.gpt.wte.weight))
+        prompts = _spec_prompts(np.random.default_rng(SEED + 5),
+                                model.config.vocab_size)
+        for weights in ("seeded", "zero_head"):
+            if weights == "zero_head":
+                with torch.no_grad():
+                    head.zero_()
+            on = ServingEngine(model, spec_k=4, **kw)
+            off = ServingEngine(model, spec_k=0, **kw)
+            got = on.generate(prompts, max_new_tokens=new_tokens)
+            plain = off.generate(prompts, max_new_tokens=new_tokens)
+            for p, g, o in zip(prompts, got, plain):
+                want = model.generate(torch.tensor([p], device=model.device),
+                                      max_new_tokens=new_tokens)[0].tolist()
+                for other, what in ((o, "spec_k=0"), (want, "generate()")):
+                    if g != other:
+                        t = next(i for i, (a, b) in enumerate(zip(g, other))
+                                 if a != b)
+                        raise AssertionError(
+                            f"{name} ({weights}): spec_k=4 and {what} "
+                            f"diverge at token {t} of a {len(p)}-token "
+                            f"prompt ({g[t]} vs {other[t]}); top-2 logit "
+                            f"margin there "
+                            f"{top2_margin(torch, model, other, t):.3g}")
+            spec = on.stats()["speculative"]
+            for k in totals:
+                totals[k] += spec[k]
+            rows.append({"model": name, "weights": weights,
+                         "engine_steps": [on.steps, off.steps], **spec})
+    if min(totals.values()) <= 0:
+        raise AssertionError(f"speculation did not run, accept and roll "
+                             f"back: {totals} ({rows})")
+    return {"phase": "spec_parity", "dtype": "float32",
+            "prompts": [len(p) for p in prompts], "new_tokens": new_tokens,
+            "token_match": True, "totals": totals, "runs": rows}
+
+
+def _drive(torch, eng, prompts, new_tokens, reset, counts, layers):
+    """Submit every prompt, reset the launch counts, run the engine dry.
+    Returns the run's summary with its launch counts, read just after, and
+    the launches of the first pure-decode plain tick and verify tick."""
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    decode_ticks, per_tick = 0, {}
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    while eng.sched.has_work():
+        pure = not eng.sched.waiting and not eng.sched.prefilling
+        before, spec_before = counts(), eng.spec_ticks
+        out = eng.step()
+        decode_ticks += out["decoded_tokens"] > 0
+        kind = "verify" if eng.spec_ticks > spec_before else "plain"
+        if pure and kind not in per_tick:
+            after = counts()
+            per_tick[kind] = {k: after[k] - before[k] for k in after}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    vocab = eng.model.config.vocab_size
+    bad = [r.request_id for r in reqs if r.finish_reason != "length"
+           or not all(0 <= t < vocab for t in r.output_tokens)]
+    if bad:
+        raise AssertionError(f"requests without their valid tokens: {bad}")
+    st = eng.stats()
+    if st["kv"]["used_blocks"] or not st["kv"]["conservation_ok"]:
+        raise AssertionError(f"KV blocks leaked: {st['kv']}")
+    plain = decode_ticks - st["speculative"]["ticks"]
+    expect = {"paged_verify": layers * st["speculative"]["ticks"],
+              "paged_decode": layers * plain}
+    if any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f"paged launches {launches} are not {layers} "
+                             f"a tick ({expect})")
+    generated = sum(len(r.output_tokens) for r in reqs)
+    return reqs, {
+        "wall_s": wall, "engine_steps": st["steps"],
+        "decode_ticks": decode_ticks, "plain_decode_ticks": plain,
+        "generated_tokens": generated, "tokens_per_s": generated / wall,
+        "mean_ttft_s": statistics.mean(r.ttft_seconds() for r in reqs),
+        "speculative": st["speculative"], "launches": launches,
+        "launches_per_tick": per_tick}
+
+
+def _agreement(torch, model, on, off):
+    """How many of two runs' sequences are identical, and where the first
+    pair parts: its token and the top-2 logit margin there."""
+    same = sum(a == b for a, b in zip(on, off))
+    out = {"requests_identical": same, "requests": len(on)}
+    for i, (x, y) in enumerate(zip(on, off)):
+        if x != y:
+            t = next(t for t, (a, b) in enumerate(zip(x, y)) if a != b)
+            out.update(first_mismatch_request=i, first_mismatch_token=t,
+                       top2_margin=top2_margin(torch, model, y, t))
+            break
+    return out
+
+
+def spec_slice_phase(torch, model, engine_kw, new_tokens, reset, counts,
+                     kernels):
+    """Main path 4: self-speculative serving of Llama-2-7B (the serving
+    slice's model) over 10 requests, 7 of them repetitive (seeded 16-48
+    token patterns repeated to 128-1024 tokens: the traffic of code
+    editing, extraction and summaries that quote, where the output copies
+    the input) and 3 random, with spec_k=4 and then spec_k=0 on the same
+    requests, in two arms:
+
+      * seeded: the random weights as they are. A random 7B never repeats
+        its own history, so the n-gram drafter may find nothing to
+        propose and every tick may be plain; reported as measured;
+      * zero_head: the same model with its head zeroed, so every target is
+        token 0 (the reference's deterministic speculation case): drafts
+        of 0s are accepted, and each pattern ends in a 0 with the prompt
+        cut just before it, so the first draft (the pattern's next
+        tokens) is rejected and rolled back. This arm is the main path.
+
+    Gates, in every run: paged verify launches == layers x verify ticks and
+    paged decode launches == layers x plain decode ticks; in the main path
+    both > 0, every kernel of the path launched, drafts accepted and rolled
+    back. In bf16 the two runs of an arm may part at a near-tie (the
+    window's GEMMs round at slots x W rows): reported as agreement and the
+    first mismatch's top-2 logit margin."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(SEED + 4)
+    vocab, layers = model.config.vocab_size, model.config.num_layers
+    prompts = []
+    for _ in range(7):
+        pat = rng.integers(1, vocab, int(rng.integers(16, 49)))
+        pat[-1] = 0
+        n = int(rng.integers(128, 1025))
+        n -= (n + 1) % len(pat)              # ends just before a 0
+        prompts.append([int(t) for t in np.resize(pat, n)])
+    prompts += [[int(t) for t in rng.integers(0, vocab, int(
+        rng.integers(128, 1025)))] for _ in range(3)]
+    spec_k = engine_kw["spec_k"]
+    arms = {}
+    for weights in ("seeded", "zero_head"):
+        if weights == "zero_head":
+            with torch.no_grad():
+                model.lm_head.weight.zero_()
+        runs, outs = {}, {}
+        for k in (spec_k, 0):
+            eng = ServingEngine(model, **{**engine_kw, "spec_k": k})
+            reqs, runs[k] = _drive(torch, eng, prompts, new_tokens, reset,
+                                   counts, layers)
+            outs[k] = [r.prompt + r.output_tokens for r in reqs]
+            del eng
+            torch.cuda.empty_cache()
+        arms[weights] = {"spec": runs[spec_k], "plain": runs[0],
+                         "bf16_agreement": _agreement(torch, model,
+                                                      outs[spec_k], outs[0])}
+    main = arms["zero_head"]["spec"]
+    missing = [k for k in kernels if main["launches"][k] <= 0]
+    spec = main["speculative"]
+    if missing or min(spec["ticks"], spec["accepted"], spec["rollbacks"]) \
+            <= 0:
+        raise AssertionError(f"the spec path did not run every kernel, "
+                             f"accept and roll back: {missing} ({main})")
+    return {"phase": "spec_slice", "layers": layers,
+            "hidden": model.config.hidden_size,
+            "dtype": str(model._cache_dtype()), "engine": dict(engine_kw),
+            "prompt_tokens": [len(p) for p in prompts],
+            "new_tokens_each": new_tokens, "arms": arms,
+            "launches": main["launches"]}
+
+
+def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
+                          new_tokens=64):
+    """GPT-3 1.3B (full depth, bf16, seeded weights) served with spec_k=4:
+    8 slots, 16-token blocks, max_model_len 2048 = its
+    max_position_embeddings. Wave 1: a repetitive 1,990-token prompt,
+    which reaches the end of the context, and five shorter ones; wave 2,
+    after the long prompt's blocks are cached: its first 1,984 tokens plus
+    10 new ones, batched with a 200-token prompt, so the short suffix's row
+    pads past the wpe table. Two arms on one model: the seeded weights,
+    then the tied head (the token embedding) zeroed, so every target is
+    token 0 and the long request drafts to its last token: its verify
+    windows then run past the wpe table. Gates, in each arm: every output
+    logit finite (checked on each model call; a NaN from an embedding
+    would still show through the zero head), the pool finite at the end,
+    the paged decode and verify kernels launched, the batched row asked
+    for positions past the table; in the zero-head arm the windows too."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    if cfg is None:
+        cfg = GPTConfig.gpt3_1p3b()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    ctx = cfg.max_position_embeddings
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=device, dtype="bfloat16", seed=SEED)
+    sync()
+    init_s = time.perf_counter() - t0
+    calls = {"n": 0, "nonfinite": 0}
+
+    def check(_, __, out):
+        calls["n"] += 1
+        calls["nonfinite"] += not bool(torch.isfinite(out[0]).all())
+
+    # the largest position each kind of cached call asks wpe for (the
+    # model clamps it to the table): batched prefill rows and verify windows
+    asked = {"batched_prefill": 0, "verify_window": 0}
+    cached = model.gpt._cached
+
+    def spy(ids, caches, pos):
+        s = ids.shape[1]
+        if hasattr(caches[0], "block_table"):
+            if s > 1:
+                asked["verify_window"] = max(asked["verify_window"], int(
+                    caches[0].seq_lens.max()) + s - 1)
+        elif torch.is_tensor(pos):
+            asked["batched_prefill"] = max(asked["batched_prefill"],
+                                           int(pos.max()) + s - 1)
+        return cached(ids, caches, pos)
+
+    hook = model.register_forward_hook(check)
+    model.gpt._cached = spy
+    rng = np.random.default_rng(SEED + 6)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    long = [int(t) for t in np.resize(toks(40), ctx - 58)]
+    prefix = len(long) // 16 * 16
+    wave1 = [long] + [[int(t) for t in np.resize(toks(24), n)]
+                      for n in (64, 100)] + [toks(n) for n in (96, 150, 33)]
+    wave2 = [long[:prefix] + toks(10), toks(200)]
+    arms = {}
+    for weights in ("seeded", "zero_head"):
+        if weights == "zero_head":
+            with torch.no_grad():
+                model.gpt.wte.weight.zero_()
+        calls.update(n=0, nonfinite=0)
+        asked.update(batched_prefill=0, verify_window=0)
+        eng = ServingEngine(model, device=device, max_slots=8, block_size=16,
+                            prefill_chunk=256, max_model_len=ctx, spec_k=4)
+        reqs = []
+        reset()
+        t1 = time.perf_counter()
+        for wave in (wave1, wave2):
+            reqs += [eng.submit(p, max_new_tokens=new_tokens) for p in wave]
+            eng.run_until_idle()
+        sync()
+        wall = time.perf_counter() - t1
+        launches = counts()
+        st = eng.stats()
+        pool_finite = all(bool(torch.isfinite(k).all()
+                               and torch.isfinite(v).all())
+                          for k, v in eng.pool.layers)
+        arm = arms[weights] = {
+            "wall_s": wall, "output_tokens": [len(r.output_tokens)
+                                              for r in reqs],
+            "engine_steps": st["steps"],
+            "batched_prefills": st["batched_prefills"],
+            "prefix_hit_tokens": reqs[-2].prefix_matched,
+            "speculative": st["speculative"], "model_calls": calls["n"],
+            "nonfinite_logit_calls": calls["nonfinite"],
+            "pool_finite": pool_finite, "max_position_asked": dict(asked),
+            "launches": launches}
+        window_past = asked["verify_window"] >= ctx or weights == "seeded"
+        if calls["nonfinite"] or not pool_finite \
+                or min(launches.values()) <= 0 or st["kv"]["used_blocks"] \
+                or reqs[-2].prefix_matched < prefix \
+                or asked["batched_prefill"] < ctx or not window_past:
+            raise AssertionError(f"GPT serving ({weights}) failed its "
+                                 f"gates: {arm}")
+        del eng
+    hook.remove()
+    del model.gpt._cached
+    return {"phase": "gpt_serve_slice", "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "dtype": "torch.bfloat16",
+            "init_s": init_s, "prompt_tokens": [len(p) for p in
+                                                wave1 + wave2],
+            "wpe_positions": ctx, "arms": arms}
 
 
 # ------------------------------------------------------------ training path
@@ -1073,6 +1490,8 @@ KERNELS = {
                     "paddle_tpu/ops/pallas/rope.py:126"),
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:50"),
+    "paged_verify": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+                     "paddle_tpu/ops/pallas/paged_attention.py:165"),
     "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
                   "paddle_tpu/ops/pallas/flash_attention.py:53"),
     "flash_dq": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1089,6 +1508,8 @@ KERNELS = {
               "paddle_tpu/ops/pallas/fused_adamw.py:21"),
 }
 SERVING = ("rms_norm", "rope", "rope_packed", "paged_decode")
+SPEC = SERVING + ("paged_verify",)
+GPT_SERVING = ("paged_decode", "paged_verify")
 TRAINING = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
 # the packed slice's kernels, and those it must not launch (read as 0)
 PACKED = ("flash_seg_fwd", "flash_seg_dq", "flash_seg_dkv", "rms_norm",
@@ -1104,7 +1525,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from paddle_tpu_torch.models import LlamaConfig
+        from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                             LlamaConfig, LlamaForCausalLM)
         from paddle_tpu_torch.ops import gpu
         from paddle_tpu_torch.ops.gpu import _build
     except ImportError as e:
@@ -1126,8 +1548,9 @@ def main():
     built = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": {k: v["seconds"] for k, v in built.items()},
-          "ptxas": [ln.strip() for v in built.values()
-                    for ln in v["log"].splitlines() if "Used" in ln]})
+          "ptxas": [ln.strip()[14:] for v in built.values()
+                    for ln in v["log"].splitlines()
+                    if "Used" in ln or "entry function" in ln]})
 
     rows = kernels_phase(torch)
     torch.cuda.empty_cache()
@@ -1138,15 +1561,43 @@ def main():
         max_slots=4, block_size=16, prefill_chunk=256, max_model_len=1024)))
     torch.cuda.empty_cache()
 
-    summary = slice_phase(
-        torch, LlamaConfig.llama2_7b(), "cuda", "bfloat16",
-        dict(max_slots=8, block_size=16, prefill_chunk=256,
-             max_model_len=2048),
-        new_tokens=64, wave1_lens=(16, 64, 128, 512, 768, 1024, 288, 356),
-        prefix_len=256, reset=gpu.reset_launch_counts,
-        counts=lambda: gpu.launch_counts(SERVING))
-    emit(summary)
+    gpt2 = GPTConfig.gpt3_1p3b()
+    gpt2.num_layers = 2
+    gpt2.hidden_dropout_prob = gpt2.attention_dropout_prob = 0.0
+    emit(spec_parity_phase(torch, [
+        ("Llama-2-7B widths, 2 layers",
+         LlamaForCausalLM(cfg2, device="cuda", dtype="float32", seed=SEED)),
+        ("GPT-3 1.3B widths, 2 layers",
+         GPTForCausalLM(gpt2, device="cuda", dtype="float32", seed=SEED))]))
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(), device="cuda",
+                             dtype="bfloat16", seed=SEED)
+    torch.cuda.synchronize()
+    model_init_s = time.perf_counter() - t0
+    engine_kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
+                     max_model_len=2048)
+    summary = slice_phase(
+        torch, model, engine_kw, new_tokens=64,
+        wave1_lens=(16, 64, 128, 512, 768, 1024, 288, 356), prefix_len=256,
+        reset=gpu.reset_launch_counts,
+        counts=lambda: gpu.launch_counts(SERVING))
+    emit({**summary, "model_init_s": model_init_s})
+    torch.cuda.empty_cache()
+
+    spec = spec_slice_phase(
+        torch, model, dict(engine_kw, spec_k=4, spec_ngram=3, spec_pause=32),
+        new_tokens=64, reset=gpu.reset_launch_counts,
+        counts=lambda: gpu.launch_counts(SPEC), kernels=SPEC)
+    emit(spec)
+    del model
+    torch.cuda.empty_cache()
+
+    gpt_serve = gpt_serve_slice_phase(
+        torch, gpu.reset_launch_counts,
+        lambda: gpu.launch_counts(GPT_SERVING))
+    emit(gpt_serve)
 
     emit(train_parity_phase(torch))
     torch.cuda.empty_cache()
@@ -1163,10 +1614,12 @@ def main():
                                       lambda: gpu.launch_counts(PACKED))
     emit(packed)
     # each kernel's launches on the path it was ported for: serving for
-    # RMSNorm, RoPE and paged decode, GPT training for dense flash and
-    # AdamW, packed Llama training for segmented flash and RMSNorm backward
+    # RMSNorm, RoPE and paged decode, speculative serving for paged verify,
+    # GPT training for dense flash and AdamW, packed Llama training for
+    # segmented flash and RMSNorm backward
     launches = {**packed["launches"], **train["launches"],
-                **summary["launches"]}
+                **summary["launches"],
+                "paged_verify": spec["launches"]["paged_verify"]}
 
     print(card, flush=True)
     kernels = []

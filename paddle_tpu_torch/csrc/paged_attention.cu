@@ -1,12 +1,16 @@
-// Ragged paged decode attention for Hopper (sm_90a).
+// Ragged paged attention for Hopper (sm_90a): decode and the speculative
+// verify window.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
-// `_decode_kernel` (launched by `_paged_pallas`): one query token per slot
-// against a paged KV pool, addressed through the slot's block table and
-// context length, fp32 online softmax, split-K partials combined by
-// logsumexp weighting.
+// paged_decode_kernel replaces the TPU kernel
+// paddle_tpu/ops/pallas/paged_attention.py `_decode_kernel` (launched by
+// `_paged_pallas`): one query token per slot against a paged KV pool,
+// addressed through the slot's block table and context length, fp32 online
+// softmax, split-K partials combined by logsumexp weighting.
+// paged_verify_kernel replaces `_verify_kernel` (launched by
+// `_paged_pallas_multi`): the same walk for a window of sq query tokens a
+// slot, causal inside the window (its design note is above the kernel).
 //
-// What bounds it on the H100: bytes. A decode step reads every live K and V
+// What bounds both on the H100: bytes. A decode step reads every live K and V
 // row of every slot once (context x kv_heads x head_dim x 2 x itemsize) and
 // does 4 flops per element read, far below the ~295 flops per byte at which
 // the tensor cores would become the limit. The design follows from that:
@@ -27,8 +31,8 @@
 // q.k and p.v products on the CUDA cores in fp32; staging K/V tiles through
 // shared memory with cp.async/TMA and mma is later work.
 //
-// C interface (loaded with ctypes): paged_attention_decode returns
-// cudaGetLastError() after its launches.
+// C interface (loaded with ctypes): paged_attention_decode and
+// paged_attention_verify return cudaGetLastError() after their launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -243,6 +247,225 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
   }
 }
 
+// ---------------------------------------------------------------- verify
+// The speculative verify window (replaces `_verify_kernel`, launched by
+// `_paged_pallas_multi`): sq query tokens a slot, q [slots, sq, hq, d],
+// context_lens the BASE length (tokens cached before the window, whose own
+// K/V are already in the pages). Query i sees pos < base + i + 1: the full
+// context and, causally, the window. As in the reference the sq x g query
+// rows of one kv head are folded into rows r = i * g + head, so one block
+// reads each K/V row once for all the rows it holds. A block holds kRows of
+// them; a window with more (a GQA model with a long draft) takes more row
+// tiles, a grid dimension beside the splits, so any sq * g is served. The
+// block walks the live context only as far as its last row can see, cut
+// into `splits` equal runs of whole kTile tiles; the live mask is per row.
+// Each thread owns head-dim columns for all of the block's rows, so a V
+// element, like a K element, is read once for every row it serves.
+// kRows = 8, as the decode kernel's kMaxG, keeps a thread's registers
+// (part[] and acc[][]) at the decode kernel's 56: 16 rows need up to 119,
+// fewer blocks fit an SM, and a W = 5 window takes twice as long.
+constexpr int kRows = 8;
+constexpr int kCols = kMaxD / kThreads;  // head-dim columns a thread owns
+
+// grid (slots, kv_heads, splits * row_tiles), kThreads threads; z = tile *
+// splits + split. splits == 1: writes the normalised output to `out`
+// [slots, sq, hq, d]. splits > 1: unnormalised partials acc [slots, hkv,
+// splits, rows, d] and (m, l) [slots, hkv, splits, rows, 2].
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_verify_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const int* __restrict__ context_lens, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int sq,
+    int hkv, int g, int d, int block_size, int max_blocks, int splits,
+    float scale) {
+  const int slot = blockIdx.x, h = blockIdx.y;
+  const int split = blockIdx.z % splits, row0 = blockIdx.z / splits * kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hq = hkv * g;
+  const int rows = sq * g;
+  const int nrows = min(kRows, rows - row0);
+
+  __shared__ float q_s[kRows * kMaxD];
+  __shared__ float p_s[kRows][kTile];
+  __shared__ float alpha_s[kRows];
+  __shared__ float m_s[kRows];
+  __shared__ float l_s[kRows];
+  __shared__ int lim_s[kRows];      // row r sees positions < lim_s[r]
+  __shared__ int64_t row_s[kTile];  // element offset of (page, off, h, 0)
+
+  const int base = context_lens[slot];
+  const int ctx = min(base + (row0 + nrows - 1) / g + 1,
+                      max_blocks * block_size);
+  const int tiles_per_split = ((ctx + kTile - 1) / kTile + splits - 1) / splits;
+  const int tok_begin = split * tiles_per_split * kTile;
+  const int tok_end = min(ctx, tok_begin + tiles_per_split * kTile);
+
+  for (int e = tid; e < nrows * d; e += kThreads) {
+    const int r = e / d, c = e - r * d;
+    const int qi = (row0 + r) / g, head = h * g + (row0 + r) % g;
+    q_s[e] = to_float(q[(((int64_t)slot * sq + qi) * hq + head) * d + c]) *
+             scale;
+  }
+  if (tid < kRows) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+    lim_s[tid] = base + (row0 + tid) / g + 1;
+  }
+  float acc[kCols][kRows];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[j][r] = 0.f;
+  __syncthreads();
+
+  const int* table = block_tables + (int64_t)slot * max_blocks;
+  const int64_t tok_stride = (int64_t)hkv * d;
+
+  for (int t0 = tok_begin; t0 < tok_end; t0 += kTile) {
+    const int n = min(kTile, tok_end - t0);
+    if (tid < kTile) {
+      int64_t row = 0;
+      if (tid < n) {
+        const int pos = t0 + tid;
+        const int64_t blk = table[pos / block_size];
+        row = (blk * block_size + pos % block_size) * tok_stride +
+              (int64_t)h * d;
+      }
+      row_s[tid] = row;
+    }
+    __syncthreads();
+
+    // scores q.k: one warp per token, lanes across the head dimension
+    for (int t = warp; t < n; t += kWarps) {
+      const T* krow = k_pages + row_s[t];
+      float part[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) part[r] = 0.f;
+      for (int e = lane; e < d; e += 32) {
+        const float kv = to_float(krow[e]);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (r < nrows) part[r] += q_s[r * d + e] * kv;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < nrows) {
+          const float s = warp_sum(part[r]);
+          if (lane == 0) p_s[r][t] = s;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per row, one lane per token; a position the
+    // row may not see scores NEG_INF and adds exactly 0 to P
+    for (int r = warp; r < nrows; r += kWarps) {
+      const bool live = lane < n && t0 + lane < lim_s[r];
+      const float s = live ? p_s[r][lane] : kNegInf;
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, warp_max(s));
+      const float p = live ? expf(s - m_new) : 0.f;
+      const float l_add = warp_sum(p);
+      p_s[r][lane] = p;
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        alpha_s[r] = alpha;
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + l_add;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p.v: column c = tid + j*kThreads of every row
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = tid + j * kThreads;
+      if (c < d) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (r < nrows) acc[j][r] *= alpha_s[r];
+        for (int t = 0; t < n; ++t) {
+          const float vv = to_float(v_pages[row_s[t] + c]);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (r < nrows) acc[j][r] += p_s[r][t] * vv;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int64_t part = ((int64_t)slot * hkv + h) * splits + split;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int c = tid + j * kThreads;
+    if (c >= d) continue;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= nrows) continue;
+      if (splits == 1) {
+        const int qi = (row0 + r) / g, head = h * g + (row0 + r) % g;
+        store(out + (((int64_t)slot * sq + qi) * hq + head) * d + c,
+              acc[j][r] / fmaxf(l_s[r], 1e-30f));
+      } else {
+        part_acc[(part * rows + row0 + r) * d + c] = acc[j][r];
+      }
+    }
+  }
+  if (splits > 1 && tid < nrows) {
+    part_ml[(part * rows + row0 + tid) * 2] = m_s[tid];
+    part_ml[(part * rows + row0 + tid) * 2 + 1] = l_s[tid];
+  }
+}
+
+// grid (slots, kv_heads): the logsumexp-weighted sum of the verify
+// partials (paged_attention.py:280-285); an empty split (m = NEG_INF) gets
+// weight 0. Row r goes back to query r / g, head h * g + r % g.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_verify_combine_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    T* __restrict__ out, int sq, int hkv, int g, int d, int splits) {
+  const int slot = blockIdx.x, h = blockIdx.y;
+  const int rows = sq * g, hq = hkv * g;
+  const int64_t base = ((int64_t)slot * hkv + h) * splits;
+  for (int e = threadIdx.x; e < rows * d; e += kThreads) {
+    const int r = e / d, c = e - r * d;
+    float m_g = kNegInf;
+    for (int s = 0; s < splits; ++s)
+      m_g = fmaxf(m_g, part_ml[((base + s) * rows + r) * 2]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float w = expf(part_ml[((base + s) * rows + r) * 2] - m_g);
+      num += part_acc[((base + s) * rows + r) * d + c] * w;
+      den += part_ml[((base + s) * rows + r) * 2 + 1] * w;
+    }
+    const int qi = r / g, head = h * g + r % g;
+    store(out + (((int64_t)slot * sq + qi) * hq + head) * d + c,
+          num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename T>
+void launch_verify(const void* q, const void* k_pages, const void* v_pages,
+                   const int* block_tables, const int* context_lens,
+                   void* out, float* part_acc, float* part_ml, int slots,
+                   int sq, int hkv, int g, int d, int block_size,
+                   int max_blocks, int splits, float scale,
+                   cudaStream_t stream) {
+  const int row_tiles = (sq * g + kRows - 1) / kRows;
+  paged_verify_kernel<T>
+      <<<dim3(slots, hkv, splits * row_tiles), kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k_pages),
+          static_cast<const T*>(v_pages), block_tables, context_lens,
+          static_cast<T*>(out), part_acc, part_ml, sq, hkv, g, d, block_size,
+          max_blocks, splits, scale);
+  if (splits > 1) {
+    paged_verify_combine_kernel<T><<<dim3(slots, hkv), kThreads, 0, stream>>>(
+        part_acc, part_ml, static_cast<T*>(out), sq, hkv, g, d, splits);
+  }
+}
+
 }  // namespace
 
 // q [slots, hkv*g, d]; k_pages, v_pages [num_blocks, block_size, hkv, d];
@@ -272,6 +495,40 @@ extern "C" int paged_attention_decode(
   } else {
     launch<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots,
                           hkv, g, d, block_size, max_blocks, splits, scale, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, out [slots, sq, hkv*g, d]; k_pages, v_pages [num_blocks, block_size,
+// hkv, d]; block_tables [slots, max_blocks] int32; context_lens [slots]
+// int32, the tokens cached before the window; part_acc
+// [slots*hkv*splits*sq*g*d] and part_ml [slots*hkv*splits*sq*g*2] fp32
+// scratch (unused when splits == 1). dtype: 0 = float32, 1 = bfloat16.
+extern "C" int paged_attention_verify(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_tables, const void* context_lens, void* out,
+    void* part_acc, void* part_ml, int slots, int sq, int hkv, int g, int d,
+    int block_size, int max_blocks, int splits, float scale, int dtype,
+    void* stream) {
+  const long long row_tiles = ((long long)sq * g + kRows - 1) / kRows;
+  if (slots < 1 || sq < 1 || hkv < 1 || g < 1 || d < 1 || d > kMaxD ||
+      block_size < 1 || max_blocks < 1 || splits < 1 || splits > max_blocks ||
+      splits * row_tiles > 65535 || hkv > 65535 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* cl = static_cast<const int*>(context_lens);
+  float* pa = static_cast<float*>(part_acc);
+  float* pml = static_cast<float*>(part_ml);
+  if (dtype == 0) {
+    launch_verify<float>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, sq,
+                         hkv, g, d, block_size, max_blocks, splits, scale, s);
+  } else {
+    launch_verify<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, out, pa, pml,
+                                 slots, sq, hkv, g, d, block_size, max_blocks,
+                                 splits, scale, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,30 @@
-"""GPT family (counterpart of paddle_tpu/models/gpt.py:33-378), the training
-forward: pre-LN blocks, fused QKV projection, learned positions, GELU (tanh)
-MLP and the head tied to the token embedding, with the shifted next-token
-cross entropy when `labels` are given.
+"""GPT family (counterpart of paddle_tpu/models/gpt.py:33-378): pre-LN
+blocks, fused QKV projection, learned positions, GELU (tanh) MLP and the
+head tied to the token embedding, with the shifted next-token cross entropy
+when `labels` are given, and the reference's cached forwards for generation
+and serving (gpt.py:217-286):
+
+  * contiguous cache, scalar `pos`: prefill and static-cache decode;
+  * contiguous cache, per-row `pos` vector [b]: ragged batched prefill;
+  * paged caches (serving.paged.PagedLayerCache): the engine's decode step
+    and, with s > 1, the speculative verify window at positions
+    seq_lens .. seq_lens + s - 1.
+
+Learned positions past the `wpe` table (bucket padding of a batched
+prefill, the padded tail of a verify window near max_model_len) are clamped
+to its last row, as the port's per-token RoPE clamps: the reference's
+`jnp.take` fills NaN there, and an index past the table would raise here.
+Those positions belong to padding or rejected tokens, never to an answer.
 
 Attention goes through ops.nn_ops.scaled_dot_product_attention, so it takes
-the flash kernels wherever the reference would take its Pallas ones. Packed
-batches (`segments=` [b, s] document ids, padding -1; bench.py's
-BENCH_PACKED path) restart the learned positions at every document, attend
-within each document through ops.nn_ops.segmented_attention (the segmented
-flash kernels) and mask the loss's pairs across documents. The KV-cache
-(decode), `sequence_parallel`, `recompute` and rotary branches of the
-reference raise NotImplementedError naming the ROADMAP item that brings
-them.
+the flash kernels wherever the reference would take its Pallas ones; the
+cached forwards take the cached and paged attentions. Packed batches
+(`segments=` [b, s] document ids, padding -1; bench.py's BENCH_PACKED path)
+restart the learned positions at every document, attend within each
+document through ops.nn_ops.segmented_attention (the segmented flash
+kernels) and mask the loss's pairs across documents. The
+`sequence_parallel`, `recompute` and rotary branches of the reference raise
+NotImplementedError naming the ROADMAP item that brings them.
 
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, LayerNorm weights at 1,
@@ -30,7 +43,7 @@ from ..core.place import resolve_device
 from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                   RowParallelLinear, VocabParallelEmbedding)
 from ..ops import nn_ops
-from .generation import causal_lm_loss, packed_positions
+from .generation import GenerationMixin, causal_lm_loss, packed_positions
 
 
 @dataclass
@@ -90,12 +103,23 @@ class CausalSelfAttention(nn.Module):
                                      generator=generator)
         self._generator = generator
 
-    def forward(self, x, segments=None):
+    def forward(self, x, cache=None, pos=None, segments=None):
         b, s, _ = x.shape
         qkv = self.qkv_proj(x)
         # [b, s, heads, 3 * head_dim], split on the LAST axis (gpt.py:93-94)
         qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
+        if cache is not None:
+            if hasattr(cache, "block_table"):
+                # paged (serving engine): per-slot lengths in the cache view
+                out, new_k, new_v = nn_ops.paged_cached_attention(
+                    q, k, v, cache.k_pages, cache.v_pages,
+                    cache.block_table, cache.seq_lens)
+            else:
+                out, new_k, new_v = nn_ops.cached_multihead_attention(
+                    q, k, v, cache[0], cache[1], pos)
+            out = out.reshape(b, s, self.hidden_size)
+            return self.resid_dropout(self.out_proj(out)), (new_k, new_v)
         if segments is not None:
             out = nn_ops.segmented_attention(q, k, v, segments, causal=True)
         else:
@@ -130,7 +154,11 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(config.hidden_size, **factory)
         self.mlp = GPTMLP(config, generator, **factory)
 
-    def forward(self, x, segments=None):
+    def forward(self, x, cache=None, pos=None, segments=None):
+        if cache is not None:
+            a, new_cache = self.attn(self.ln_1(x), cache=cache, pos=pos)
+            x = x + a
+            return x + self.mlp(self.ln_2(x)), new_cache
         x = x + self.attn(self.ln_1(x), segments=segments)
         return x + self.mlp(self.ln_2(x))
 
@@ -155,9 +183,36 @@ class GPTModel(nn.Module):
                                      for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, **factory)
 
+    def _cached(self, input_ids, caches, pos):
+        b, s = input_ids.shape
+        ar = torch.arange(s, dtype=torch.int64, device=input_ids.device)
+        if hasattr(caches[0], "block_table"):
+            # paged: PER-SLOT positions seq_lens .. seq_lens + s - 1
+            pos2d = caches[0].seq_lens.long()[:, None] + ar[None]
+            layer_pos = None
+        elif torch.is_tensor(pos) and pos.dim() == 1 and pos.shape[0] == b:
+            # ragged batched prefill: each row at its own offset
+            layer_pos = pos.to(device=input_ids.device, dtype=torch.int32)
+            pos2d = layer_pos.long()[:, None] + ar[None]
+        else:
+            layer_pos = int(pos)
+            pos2d = (ar + layer_pos)[None]
+        # learned positions clamped to the table (see the module note)
+        pos2d = pos2d.clamp(0, self.config.max_position_embeddings - 1)
+        h = self.drop(self.wte(input_ids) + self.wpe(pos2d))
+        new_caches = []
+        for block, cache in zip(self.blocks, caches):
+            h, nc = block(h, cache=cache, pos=layer_pos)
+            new_caches.append(nc)
+        return self.ln_f(h), new_caches
+
     def forward(self, input_ids, caches=None, pos=None, segments=None):
         if caches is not None:
-            raise _not_ported("KV-cache decoding", "GPT serving")
+            if segments is not None:
+                raise NotImplementedError(
+                    "packed (segments=) batches are not supported with "
+                    "KV-cache decoding")
+            return self._cached(input_ids, caches, pos)
         s = input_ids.shape[1]
         if segments is not None:
             # positions restart at each packed document (gpt.py:287-300)
@@ -172,7 +227,7 @@ class GPTModel(nn.Module):
         return self.ln_f(h)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(nn.Module, GenerationMixin):
     """`device=None` places the model on the current CUDA device (raising
     when there is none); `device="cpu"` runs the kernels' plain versions.
     `dtype` defaults to float32; `seed` seeds the weight init and, offset
@@ -208,6 +263,11 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
+    def _decode_geometry(self):
+        c = self.config
+        return (c.num_layers, c.num_heads, c.hidden_size // c.num_heads,
+                c.max_position_embeddings)
+
     def _head(self, h):
         if self.lm_head is None:
             return nn_ops.matmul(h, self.gpt.wte.weight, transpose_y=True)
@@ -215,12 +275,15 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
                 segments=None):
-        """Logits [b, s, vocab]; with `labels`, the mean next-token cross
-        entropy (logits[:, i] predicts labels[:, i + 1]; -100 is ignored,
-        and with packed `segments` so is every pair that crosses a document
-        boundary or ends in padding)."""
-        logits = self._head(self.gpt(input_ids, caches=caches, pos=pos,
-                                     segments=segments))
+        """Logits [b, s, vocab]; with `caches`, (logits, new_caches); with
+        `labels`, the mean next-token cross entropy (logits[:, i] predicts
+        labels[:, i + 1]; -100 is ignored, and with packed `segments` so is
+        every pair that crosses a document boundary or ends in padding)."""
+        if caches is not None:
+            h, new_caches = self.gpt(input_ids, caches=caches, pos=pos,
+                                     segments=segments)
+            return self._head(h), new_caches
+        logits = self._head(self.gpt(input_ids, segments=segments))
         if labels is None:
             return logits
         return causal_lm_loss(logits, labels, segments)

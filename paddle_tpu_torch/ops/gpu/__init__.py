@@ -13,6 +13,7 @@ KERNEL_WRAPPERS = {
     "rope": rope.rope,
     "rope_packed": rope.rope_packed,
     "paged_decode": paged_attention.paged_attention,
+    "paged_verify": paged_attention.paged_attention_multi,
     "flash_fwd": flash_attention.flash_fwd,
     "flash_dq": flash_attention.flash_dq,
     "flash_dkv": flash_attention.flash_dkv,

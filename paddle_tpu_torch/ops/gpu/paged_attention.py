@@ -1,16 +1,20 @@
-"""Ragged paged decode attention: the CUDA kernel in csrc/paged_attention.cu
-and its plain PyTorch version.
+"""Ragged paged attention, decode and the speculative verify window: the
+CUDA kernels in csrc/paged_attention.cu and their plain PyTorch versions.
 
-Replaces paddle_tpu/ops/pallas/paged_attention.py `_decode_kernel` (via
-`_paged_pallas`). The source's header says what bounds the kernel on the
-H100 (bytes: every live K/V row read once) and how its design answers that.
-The plain version is the counterpart of `paged_attention_xla`, the
-reference's dense-gather oracle.
+`paged_attention` replaces paddle_tpu/ops/pallas/paged_attention.py
+`_decode_kernel` (via `_paged_pallas`); `paged_attention_multi` replaces
+`_verify_kernel` (via `_paged_pallas_multi`). The source's header says what
+bounds the kernels on the H100 (bytes: every live K/V row read once) and how
+their design answers that. The plain versions are the counterparts of
+`paged_attention_xla` and `paged_attention_xla_multi`, the reference's
+dense-gather oracles.
 
-    q            [slots, q_heads, d]
+    q            [slots, q_heads, d] (decode) or [slots, sq, q_heads, d]
     k/v_pages    [num_blocks, block_size, kv_heads, d]
     block_tables [slots, max_blocks] int32 page ids per slot (0 = null page)
-    context_lens [slots] int32 valid tokens including the current one
+    context_lens [slots] int32: decode, valid tokens including the current
+                 one; verify, the tokens cached BEFORE the window (query i
+                 sees positions < context_lens + i + 1)
 
 GQA: kv head h serves q heads [h*g, (h+1)*g), g = q_heads // kv_heads.
 """
@@ -25,7 +29,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-MAX_G = 8           # query rows per kv head the kernel's block holds
+MAX_G = 8           # query rows per kv head the decode kernel's block holds
+ROW_TILE = 8        # (query, head) rows a verify block holds (kRows)
 MAX_HEAD_DIM = 256  # the reference's supports() gate
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Split-count choice (choose_kv_splits). The kernel's 128-thread block uses
@@ -61,20 +66,54 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens,
     return out.to(q.dtype).reshape(slots, hq, d)
 
 
+def paged_attention_multi_plain(q, k_pages, v_pages, block_tables,
+                                context_lens, scale=None):
+    """The verify window by dense gather: each slot's pages gathered whole,
+    query i of a slot masked past context_lens + i + 1, fp32 softmax; output
+    [slots, sq, q_heads, d] in q's dtype."""
+    slots, sq, hq, d = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    max_ctx = block_tables.shape[1] * bs
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(slots, max_ctx, hkv, d).float()
+    v = v_pages[bt].reshape(slots, max_ctx, hkv, d).float()
+    qg = q.reshape(slots, sq, hkv, g, d).transpose(1, 2).float()
+    sc = torch.einsum("bhsgd,bkhd->bhsgk", qg, k) * scale
+    dev = q.device
+    live = (torch.arange(max_ctx, device=dev)[None, None, :]
+            < (context_lens.to(torch.int64)[:, None, None]
+               + torch.arange(sq, device=dev)[None, :, None] + 1))
+    sc = torch.where(live[:, None, :, None, :], sc, torch.tensor(
+        NEG_INF, dtype=sc.dtype, device=dev))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhsgk,bkhd->bhsgd", p, v)
+    return out.to(q.dtype).transpose(1, 2).reshape(slots, sq, hq, d)
+
+
 def _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits):
-    if q.dim() != 3 or k_pages.dim() != 4:
+    """Shapes, dtypes, devices and layout the kernels take: q [slots, hq, d]
+    for decode (at most MAX_G q heads a kv head) or [slots, sq, hq, d] for
+    the verify window (any sq * g)."""
+    window = q.dim() == 4
+    if q.dim() not in (3, 4) or k_pages.dim() != 4:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} must be "
-                         f"[slots, q_heads, d] and pages "
-                         f"{tuple(k_pages.shape)} [blocks, block_size, "
-                         f"kv_heads, d]")
-    slots, hq, d = q.shape
+                         f"[slots, q_heads, d] or [slots, sq, q_heads, d] "
+                         f"and pages {tuple(k_pages.shape)} [blocks, "
+                         f"block_size, kv_heads, d]")
+    slots, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     nb, bs, hkv, dk = k_pages.shape
     if v_pages.shape != k_pages.shape or dk != d:
         raise ValueError("paged_attention: k/v pages and q disagree on shape")
-    if hq % hkv or not 1 <= hq // hkv <= MAX_G or d > MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention kernel takes q_heads/kv_heads in "
-                         f"[1, {MAX_G}] and d <= {MAX_HEAD_DIM}; got "
+    if hq % hkv or d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention kernels take q_heads divisible by "
+                         f"kv_heads and d <= {MAX_HEAD_DIM}; got "
                          f"q_heads={hq}, kv_heads={hkv}, d={d}")
+    if not window and hq // hkv > MAX_G:
+        raise ValueError(f"paged_attention decode kernel takes q_heads/"
+                         f"kv_heads <= {MAX_G}; got {hq // hkv}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
@@ -113,10 +152,10 @@ def _sm_count(device):
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("paged_attention").paged_attention_decode
+def _entry(name="paged_attention_decode", ints=7):
+    fn = getattr(_build.load("paged_attention"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * ints + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
 
@@ -170,3 +209,64 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 
 
 paged_attention.launches = 0
+
+
+def _verify_kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
+                   kv_splits):
+    _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits)
+    slots, sq, hq, d = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    g = hq // hkv
+    out = torch.empty_like(q)
+    if kv_splits > 1:
+        rows = slots * hkv * kv_splits * sq * g
+        part_acc = torch.empty(rows * d, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+        pa, pml = part_acc.data_ptr(), part_ml.data_ptr()
+    else:
+        pa = pml = None
+    status = _entry("paged_attention_verify", 8)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        pa, pml, slots, sq, hkv, g, d, bs, block_tables.shape[1], kv_splits,
+        float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
+    _build.check_status(status, "paged_attention_verify")
+    paged_attention_multi.launches += 1
+    return out
+
+
+def row_tiles(sq, g):
+    """Row tiles of the verify kernel's grid: ROW_TILE (query, head) rows a
+    block, sq * g rows a (slot, kv head)."""
+    return -(-sq * g // ROW_TILE)
+
+
+def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
+                          scale=None, kv_splits=None):
+    """The speculative verify window: q [slots, sq, q_heads, d] against the
+    paged pool, context_lens the tokens cached BEFORE the window (the
+    window's own K/V are already in the pages), query i of a slot seeing
+    positions < context_lens + i + 1. Returns q's shape and dtype. CUDA
+    tensors launch the verify kernel, split-K over each slot's context into
+    `kv_splits` runs (None: choose_kv_splits over the grid's row tiles);
+    CPU tensors take the plain version. (The reference's TPU path runs one
+    split.)"""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_attention_multi_plain(q, k_pages, v_pages, block_tables,
+                                           context_lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_multi: no kernel for {q.device}")
+    if kv_splits is None:
+        slots, sq, hq, _ = q.shape
+        hkv = k_pages.shape[2]
+        kv_splits = choose_kv_splits(
+            slots, hkv * row_tiles(sq, hq // hkv), block_tables.shape[1],
+            k_pages.shape[1], _sm_count(q.device))
+    return _verify_kernel(q, k_pages, v_pages, block_tables, context_lens,
+                          scale, int(kv_splits))
+
+
+paged_attention_multi.launches = 0

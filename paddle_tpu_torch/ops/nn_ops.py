@@ -2,7 +2,8 @@
 linear and matmul, dropout, GELU, LayerNorm, RMSNorm, cross
 entropy, attention (flash or the reference's composition; dense, and
 segmented over packed documents), RoPE (contiguous and per-token) and the
-cache-carrying decode attentions.
+cache-carrying decode attentions (contiguous, and paged: the decode step
+and the speculative verify window).
 
 The ops with a Hopper kernel (ops/gpu/) launch it for CUDA tensors and take
 the kernel's plain version for CPU tensors; the rest are plain torch, as the
@@ -23,7 +24,7 @@ from ..amp.state import cast_inputs
 from ..core.flags import get_flag
 from .gpu import flash_attention as _flash
 from .gpu.fused_norm import fused_rms_norm
-from .gpu.paged_attention import paged_attention
+from .gpu.paged_attention import paged_attention, paged_attention_multi
 from .gpu.rope import fused_rope, fused_rope_packed
 
 
@@ -312,28 +313,47 @@ def cached_multihead_attention(q, k, v, k_cache, v_cache, pos, scale=None):
 
 def paged_cached_attention(q, k, v, k_pages, v_pages, block_table, seq_lens,
                            scale=None):
-    """nn_ops.paged_cached_attention:901, the single-token decode step:
-    write each slot's new K/V at (block_table[seq // bs], seq % bs) IN
-    PLACE, then attend each slot's query over its seq_lens + 1 tokens with
-    the paged decode kernel. q [slots, 1, hq, d]; k, v [slots, 1, hkv, d];
-    pages [num_blocks, block_size, hkv, d]; block_table [slots, max_blocks]
-    int32; seq_lens [slots] int32. The block-table column is clamped to the
-    table, as the reference's gather clamps. Idle slots (all-null tables,
-    length 0) write and read the null block 0; their outputs are garbage
-    the engine ignores. Returns (out [slots, 1, hq, d], k_pages, v_pages)."""
+    """nn_ops.paged_cached_attention:901: write each slot's new K/V into its
+    pages IN PLACE, then attend with the paged kernels. q [slots, sq, hq,
+    d]; k, v [slots, sq, hkv, d]; pages [num_blocks, block_size, hkv, d];
+    block_table [slots, max_blocks] int32; seq_lens [slots] int32, the
+    tokens already cached. Idle slots (all-null tables, length 0) write and
+    read the null block 0; their outputs are garbage the engine ignores.
+    Returns (out [slots, sq, hq, d], k_pages, v_pages).
+
+    sq == 1, the decode step: the new K/V land at (block_table[seq // bs],
+    seq % bs), the column clamped to the table as the reference's gather
+    clamps, and each query attends over its seq_lens + 1 tokens (the paged
+    decode kernel).
+
+    sq > 1, the speculative verify window: token i lands at position
+    seq_lens + i; a position whose page index falls past the block table
+    goes to the null page 0 (not clamped onto the table's last real block:
+    those are rejected tokens the engine rolls back by length). Query i
+    then sees positions < seq_lens + i + 1 (the verify kernel, given the
+    base lengths)."""
     slots, sq, hq, d = q.shape
-    if sq != 1:
-        raise NotImplementedError(
-            "paged_cached_attention with a multi-token (speculative verify) "
-            "window needs the verify kernel (paddle_tpu/ops/pallas/"
-            "paged_attention.py _verify_kernel), which is not ported yet")
     bs = k_pages.shape[1]
     seq_lens = seq_lens.to(torch.int32)
-    col = torch.clamp(seq_lens // bs, max=block_table.shape[1] - 1).long()
-    page = block_table.gather(1, col[:, None])[:, 0].long()
-    off = (seq_lens % bs).long()
-    k_pages[page, off] = k[:, 0].to(k_pages.dtype)
-    v_pages[page, off] = v[:, 0].to(v_pages.dtype)
-    out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
-                          block_table, seq_lens + 1, scale)
-    return out[:, None], k_pages, v_pages
+    if sq == 1:
+        col = torch.clamp(seq_lens // bs, max=block_table.shape[1] - 1).long()
+        page = block_table.gather(1, col[:, None])[:, 0].long()
+        off = (seq_lens % bs).long()
+        k_pages[page, off] = k[:, 0].to(k_pages.dtype)
+        v_pages[page, off] = v[:, 0].to(v_pages.dtype)
+        out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                              block_table, seq_lens + 1, scale)
+        return out[:, None], k_pages, v_pages
+    pos = (seq_lens.long()[:, None]
+           + torch.arange(sq, device=q.device)[None, :])
+    col = pos // bs
+    in_table = col < block_table.shape[1]
+    gathered = block_table.gather(
+        1, torch.clamp(col, max=block_table.shape[1] - 1)).long()
+    page = torch.where(in_table, gathered, torch.zeros_like(gathered))
+    off = pos % bs
+    k_pages[page, off] = k.to(k_pages.dtype)
+    v_pages[page, off] = v.to(v_pages.dtype)
+    out = paged_attention_multi(q.contiguous(), k_pages, v_pages, block_table,
+                                seq_lens, scale)
+    return out, k_pages, v_pages

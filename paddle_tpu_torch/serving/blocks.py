@@ -28,8 +28,15 @@ Prefix caching (vLLM-style, over FULL blocks only):
     cached (its re-decoded last token would land in the final shared
     block), is handled by copy-on-write: `reserve_prefix` forks that block.
 
-The reference's KV-streaming (export_prefix / import_block), speculative
-rollback and incremental append_token wait for the slices that use them.
+Speculative decoding accounts its verify windows here: `append_token`
+grows the live length one token at a time (copy-on-write forking a shared
+or published destination block, recorded in `last_fork`), and `rollback`
+rewinds a rejected tail exactly, never below the admission reservation
+(`_base`, the table length `allocate`, `reserve` and `reserve_prefix`
+claimed).
+
+The reference's KV-streaming (export_prefix / import_block) waits for the
+slice that uses it.
 """
 from __future__ import annotations
 
@@ -98,6 +105,11 @@ class BlockAllocator:
         self._tokens = 0            # running sum of _lens (O(1) publish)
         # register_prefix dedup swaps: [(table_index, private, canonical)]
         self.last_dedup: List[Tuple[int, int, int]] = []
+        # reservation floor per sequence: the table length claimed at
+        # admission, which rollback never trims below
+        self._base: Dict[object, int] = {}
+        # copy-on-write fork of the last append_token: (src, dst) or None
+        self.last_fork: Optional[Tuple[int, int]] = None
         self._publish()
 
     # -- capacity ---------------------------------------------------------
@@ -212,6 +224,27 @@ class BlockAllocator:
             self._ref[blk] = 1
 
     # -- lifecycle --------------------------------------------------------
+    def allocate(self, seq_id, n_tokens: int) -> List[int]:
+        """Claim blocks for a new sequence of `n_tokens`. Returns the block
+        table. Raises KeyError on a duplicate id, MemoryError when the pool
+        cannot hold it."""
+        return self.reserve(seq_id, n_tokens, n_tokens)
+
+    def reserve(self, seq_id, n_tokens: int, total_tokens: int) -> List[int]:
+        """allocate(), but claim blocks for `total_tokens` (the worst case)
+        up front while the live length starts at `n_tokens`, so the table
+        never grows mid-decode."""
+        if seq_id in self._tables:
+            raise KeyError(f"sequence {seq_id!r} already allocated")
+        need = self.blocks_for(max(int(total_tokens), int(n_tokens), 1))
+        table = self._claim(need)
+        self._tables[seq_id] = table
+        self._lens[seq_id] = int(n_tokens)
+        self._tokens += int(n_tokens)
+        self._base[seq_id] = len(table)
+        self._publish()
+        return table
+
     def reserve_prefix(self, seq_id, tokens,
                        total_tokens: int) -> Tuple[List[int], int,
                                                    Optional[int], int]:
@@ -251,6 +284,7 @@ class BlockAllocator:
         self._tables[seq_id] = table
         self._lens[seq_id] = plen
         self._tokens += plen
+        self._base[seq_id] = len(table)
         matched_tokens = min(m * self.block_size, plen)
         if m:
             _PREFIX_HITS.inc()
@@ -292,12 +326,69 @@ class BlockAllocator:
             self._publish()
         return added
 
+    def rollback(self, seq_id, n_tokens: int) -> List[int]:
+        """Rewind a sequence by `n_tokens` (a rejected speculative tail):
+        the live length shrinks, and blocks appended past the admission
+        reservation that the shorter length no longer needs are released;
+        the reservation itself is never trimmed. Returns the table. The
+        rejected tail's device KV stays in place, masked by the length: it
+        only ever landed in this sequence's private blocks."""
+        n = int(n_tokens)
+        if n < 0:
+            raise ValueError("rollback count must be >= 0")
+        if n == 0:
+            return self._tables[seq_id]
+        if n > self._lens[seq_id]:
+            raise ValueError(
+                f"rollback of {n} exceeds live length {self._lens[seq_id]}")
+        table = self._tables[seq_id]
+        new_len = self._lens[seq_id] - n
+        keep = max(self.blocks_for(max(new_len, 1)),
+                   self._base.get(seq_id, 0))
+        while len(table) > keep:
+            self._decref(table.pop())
+        self._lens[seq_id] = new_len
+        self._tokens -= n
+        self._publish()
+        return table
+
+    def append_token(self, seq_id) -> List[int]:
+        """Account one decoded token: the table grows by a block when the
+        sequence crosses a block boundary, and the destination block is
+        copy-on-write forked when it is shared (refcount > 1) or published
+        in the prefix index, recorded as `last_fork = (src, dst)` for the
+        caller that owns the device copy. Raises MemoryError when a needed
+        block is not there."""
+        table = self._tables[seq_id]
+        n = self._lens[seq_id] + 1
+        self.last_fork = None
+        if self.blocks_for(n) > len(table):
+            if not self.available_blocks:
+                raise MemoryError("KV pool exhausted on append")
+            blk = self._pop_block()
+            self._ref[blk] = 1
+            table.append(blk)
+        else:
+            bi = (n - 1) // self.block_size   # block receiving this token
+            blk = table[bi]
+            if self._ref.get(blk, 0) > 1 or blk in self._digest:
+                dst = self._pop_block()
+                self._ref[dst] = 1
+                table[bi] = dst
+                self._decref(blk)
+                self.last_fork = (blk, dst)
+        self._lens[seq_id] = n
+        self._tokens += 1
+        self._publish()
+        return table
+
     def free(self, seq_id) -> int:
         """Release a sequence's references: unhashed blocks go back to the
         free stack, hashed ones park in the evictable LRU pool. Returns how
         many blocks left the live set."""
         table = self._tables.pop(seq_id)
         self._tokens -= self._lens.pop(seq_id)
+        self._base.pop(seq_id, None)
         released = 0
         for blk in reversed(table):      # LIFO: reuse hottest first
             released += self._decref(blk)
@@ -309,6 +400,12 @@ class BlockAllocator:
     # -- introspection ----------------------------------------------------
     def table(self, seq_id) -> List[int]:
         return list(self._tables[seq_id])
+
+    def seq_len(self, seq_id) -> int:
+        return self._lens[seq_id]
+
+    def refcount(self, blk: int) -> int:
+        return self._ref.get(blk, 0)
 
     def sequences(self):
         return list(self._tables)
@@ -345,6 +442,13 @@ class BlockAllocator:
             raise AssertionError("an evictable block is not hashed")
         if self._tokens != sum(self._lens.values()):
             raise AssertionError("token count drifted")
+        for seq_id, floor in self._base.items():
+            if seq_id not in self._tables:
+                raise AssertionError(f"reservation floor of {seq_id!r} "
+                                     f"outlived its table")
+            if floor > len(self._tables[seq_id]):
+                raise AssertionError(f"{seq_id!r}: table trimmed below its "
+                                     f"reservation of {floor} blocks")
 
     def conservation_ok(self) -> bool:
         """O(1) conservation law: every allocatable block is in exactly one

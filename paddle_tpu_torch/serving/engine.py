@@ -16,15 +16,25 @@ One engine tick (`step()`) = admit -> prefill -> one decode step:
     hit joins decode directly by copy-on-write of its last block; a burst of
     short greedy prompts prefills in one batched call with per-row offsets.
 
+  * self-speculative decoding (`spec_k > 0`, speculative.py): each greedy
+    request drafts up to k tokens by n-gram lookup over its own history;
+    one model call scores a fixed window of W = spec_k + 1 tokens a slot
+    over the paged pool (the verify kernel); the longest draft prefix that
+    matches the greedy targets is kept with the bonus token, and the
+    rejected tail is rolled back exactly (allocator rollback and the
+    device lengths). Sampled requests ride the window with no draft and
+    take one token, drawn from the first column's logits. A tick where
+    nobody drafts runs the plain decode step.
+
 Decode state (tokens, block tables, lengths, temperatures, live-slot mask)
 lives in device tensors updated in place, as do the KV pages; host mirrors
 keep the bookkeeping. Each tick fetches its sampled tokens to the host (the
 reference's jit cache, buffer donation and deferred token fetch have no
 counterpart here).
 
-Waiting for later slices: speculative decoding (needs the verify kernel),
-fused multi-step decode, KV-block export/ingest, prefill-only requests, the
-HTTP server and the fleet.
+Waiting for later slices: fused multi-step decode (`fuse_steps`),
+KV-block export/ingest, prefill-only requests, the HTTP server and the
+fleet.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from .observability import (PREFILL_TOKENS, EngineStats, ServingObservability,
                             new_engine_id)
 from .paged import PagedKVPool, PagedLayerCache, write_prefix
 from .scheduler import Request, Scheduler
+from .speculative import NgramDrafter, SpecState
 
 _flags.define_flag("serving_block_size", 16,
                    "KV-cache block size (tokens per page) for the serving "
@@ -60,6 +71,25 @@ _flags.define_flag("serving_max_model_len", 0,
 _flags.define_flag("serving_prefix_cache", True,
                    "Automatic prefix caching: content-address full KV "
                    "blocks so prompts sharing a prefix skip its prefill.")
+_flags.define_flag("serving_spec_k", 0,
+                   "Self-speculative decoding: max draft tokens verified "
+                   "per tick. Drafts are n-gram / prompt-lookup matches "
+                   "from the request's OWN token history; ONE multi-token "
+                   "call scores draft + bonus positions and the longest "
+                   "matching prefix commits. 0 (default) disables "
+                   "speculation. Greedy requests only (temperature > 0 "
+                   "rows fall back to single-token decode in the same "
+                   "batch).")
+_flags.define_flag("serving_spec_ngram", 3,
+                   "Longest n-gram the self-speculation drafter matches "
+                   "against the request's history (tries n down to 2).")
+_flags.define_flag("serving_spec_pause", 32,
+                   "Adaptive-k throttle: after 4 consecutive fruitless "
+                   "speculation ticks a request pauses drafting for this "
+                   "many engine ticks before probing again, so "
+                   "non-repetitive traffic degrades to plain one-token "
+                   "decode instead of paying verify windows that never "
+                   "accept.")
 _flags.define_flag("serving_max_queue", 0,
                    "Admission control: maximum requests waiting in the "
                    "scheduler queue (0 = unbounded).")
@@ -91,9 +121,10 @@ class EngineDrainingError(RuntimeError):
 
 class ServingEngine:
     """Continuous-batching serving runtime for a GenerationMixin causal LM
-    (LlamaForCausalLM). `device=None` means the current CUDA device (raising
-    when there is none); the model must live on the engine's device.
-    `seed` seeds the sampling generator."""
+    (LlamaForCausalLM, GPTForCausalLM). `device=None` means the current
+    CUDA device (raising when there is none); the model must live on the
+    engine's device. `seed` seeds the sampling generator. `spec_k`,
+    `spec_ngram` and `spec_pause` default to FLAGS_serving_spec_*."""
 
     def __init__(self, model, *, max_slots: Optional[int] = None,
                  block_size: Optional[int] = None,
@@ -102,7 +133,10 @@ class ServingEngine:
                  max_model_len: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  prefill_bucket: Optional[int] = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0,
+                 spec_k: Optional[int] = None,
+                 spec_ngram: Optional[int] = None,
+                 spec_pause: Optional[int] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the engine "
@@ -133,6 +167,13 @@ class ServingEngine:
         self.prefill_bucket = int(
             _flags.get_flag("serving_prefill_bucket")
             if prefill_bucket is None else prefill_bucket)
+        # self-speculative decoding (speculative.py); 0 = off
+        self.spec_k = int(_flags.get_flag("serving_spec_k")
+                          if spec_k is None else spec_k)
+        self.spec_ngram = int(_flags.get_flag("serving_spec_ngram")
+                              if spec_ngram is None else spec_ngram)
+        self.spec_pause = int(_flags.get_flag("serving_spec_pause")
+                              if spec_pause is None else spec_pause)
         self.pool = PagedKVPool(self.num_blocks, self.block_size, n_layers,
                                 n_kv, head_dim, self._dtype, self.device)
         self.allocator = BlockAllocator(self.num_blocks, self.block_size,
@@ -186,6 +227,26 @@ class ServingEngine:
     @property
     def dedup_admissions(self) -> int:
         return self._stats["dedup_admissions"]
+
+    @property
+    def spec_ticks(self) -> int:
+        """Ticks that ran a verify window."""
+        return self._stats["spec_ticks"]
+
+    @property
+    def spec_proposed(self) -> int:
+        """Draft tokens offered."""
+        return self._stats["spec_proposed"]
+
+    @property
+    def spec_accepted(self) -> int:
+        """Draft tokens accepted."""
+        return self._stats["spec_accepted"]
+
+    @property
+    def spec_rollbacks(self) -> int:
+        """Ticks that rolled back >= 1 token."""
+        return self._stats["spec_rollbacks"]
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt: List[int], max_new_tokens: int = 16,
@@ -501,12 +562,19 @@ class ServingEngine:
         self._check_finished(req, slot)
 
     # ------------------------------------------------------------ decode
+    def _paged_caches(self):
+        return [PagedLayerCache(kp, vp, self._d_tables, self._d_lens)
+                for kp, vp in self.pool.layers]
+
     def _decode_step(self) -> int:
+        if self.spec_k > 0:
+            decoded = self._spec_step()
+            if decoded is not None:
+                return decoded
         t0 = self.obs.now()
         running = list(self.sched.running.items())
-        caches = [PagedLayerCache(kp, vp, self._d_tables, self._d_lens)
-                  for kp, vp in self.pool.layers]
-        logits, _ = self.model(self._d_toks[:, None], caches=caches)
+        logits, _ = self.model(self._d_toks[:, None],
+                               caches=self._paged_caches())
         nxt = self._sample(logits[:, -1, :].float(), self._d_temps)
         self._d_toks.copy_(nxt)
         self._d_lens += self._d_live
@@ -518,6 +586,128 @@ class ServingEngine:
             self._lens[slot] += 1
             self._check_finished(req, slot)
         return len(running)
+
+    def _spec_step(self) -> Optional[int]:
+        """One speculative tick (reference engine.py:1163-1297 with the
+        device half of its _spec_jit, :402-441), or None to fall through to
+        the plain decode step when no request may draft right now (all
+        paused by the adaptive throttle, sampled, or out of budget)."""
+        # cheap pre-check: is anyone allowed to draft this tick?
+        active = False
+        for slot, req in self.sched.running.items():
+            if req.temperature > 0.0:
+                continue
+            if req._spec is None:
+                req._drafter = NgramDrafter(max_n=self.spec_ngram)
+                req._spec = SpecState(self.spec_k,
+                                      pause_ticks=self.spec_pause)
+            if req._spec.draft_k(self.steps) > 0:
+                active = True
+        if not active:
+            return None
+        running = list(self.sched.running.items())
+        # draft per slot, capped so a fully-accepted window can never
+        # overrun the token budget, the context cap, or the worst-case
+        # block reservation. The allocator's length advances only on spec
+        # ticks (the plain tick never appends), as in the reference.
+        drafts = {}
+        for slot, req in running:
+            if req.temperature > 0.0 or req._spec is None:
+                continue
+            rid = req.request_id
+            room = (self.block_size * len(self.allocator.table(rid))
+                    - self.allocator.seq_len(rid) - 1)
+            k_r = min(req._spec.draft_k(self.steps),
+                      req.max_new_tokens - len(req.output_tokens) - 1,
+                      self.max_model_len - 1 - int(self._lens[slot]),
+                      room)
+            if k_r <= 0:
+                continue
+            d = req._drafter.propose(req.prompt + req.output_tokens, k_r)
+            drafts[slot] = d
+            if not d:
+                req._spec.record(0, 0, self.steps)
+        if not any(drafts.values()):
+            return None     # nobody produced a draft: plain path
+        # a FIXED window W = spec_k + 1; shorter (or absent) drafts are
+        # masked out of the acceptance by their lengths
+        W = 1 + self.spec_k
+        drafted = np.zeros((self.max_slots, W - 1), np.int64)
+        dls = np.zeros(self.max_slots, np.int64)
+        for slot, d in drafts.items():
+            drafted[slot, :len(d)] = d
+            dls[slot] = len(d)
+        dev = self.device
+        win = torch.cat([self._d_toks[:, None],
+                         torch.from_numpy(drafted).to(dev)], dim=1)
+        dls_d = torch.from_numpy(dls).to(dev)
+        t0 = self.obs.now()
+        logits, _ = self.model(win, caches=self._paged_caches())
+        lg = logits.float()                           # [slots, W, vocab]
+        greedy = torch.argmax(lg, dim=-1)
+        # accepted = longest prefix where draft i + 1 equals the greedy
+        # target after window position i
+        ok = ((win[:, 1:] == greedy[:, :-1])
+              & (torch.arange(W - 1, device=dev)[None, :] < dls_d[:, None]))
+        acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        nxt = greedy.gather(1, acc[:, None])[:, 0]
+        if any(req.temperature > 0.0 for _, req in running):
+            # sampled riders: one token drawn from column 0's logits
+            nxt = torch.where(self._d_temps > 0,
+                              self._sample(lg[:, 0], self._d_temps), nxt)
+        self._d_toks.copy_(nxt)
+        # idle slots stay at length 0 on the null page
+        self._d_lens += ((acc + 1) * self._d_live).to(torch.int32)
+        fetched = torch.cat([greedy, acc[:, None], nxt[:, None]],
+                            dim=1).cpu().numpy()
+        greedy_h, acc_h, nxt_h = fetched[:, :W], fetched[:, W], fetched[:, -1]
+        self._stats.inc("spec_ticks")
+        self.obs.on_decode(t0, running, 1, kind="spec_verify", window=W)
+        decoded = 0
+        for slot, req in running:
+            dl = int(dls[slot])
+            if req.temperature > 0.0:
+                req.output_tokens.append(int(nxt_h[slot]))
+                self._lens[slot] += 1
+                decoded += 1
+                continue
+            a = int(acc_h[slot])
+            emitted = [int(x) for x in greedy_h[slot, :a + 1]]
+            if dl:
+                # allocator commit of the whole window, then EXACT rollback
+                # of the rejected tail (length rewind, table trimmed down to
+                # the reservation)
+                rid = req.request_id
+                for _ in range(dl + 1):
+                    self.allocator.append_token(rid)
+                    if self.allocator.last_fork is not None:
+                        raise RuntimeError(
+                            "speculative append forked a shared block: "
+                            "decode writes must only land in private "
+                            "blocks")
+                if a < dl:
+                    self.allocator.rollback(rid, dl - a)
+                    self._stats.inc("spec_rollbacks")
+                    self.obs.on_rollback(req, dl - a)
+                # record() also advances the global serving_spec_* counters
+                req._spec.record(dl, a, self.steps)
+                self._stats.inc("spec_proposed", dl)
+                self._stats.inc("spec_accepted", a)
+            req.output_tokens.extend(emitted)
+            self._lens[slot] += a + 1
+            decoded += len(emitted)
+        for slot, req in running:
+            if req.eos_token_id is not None and \
+                    req.eos_token_id in req.output_tokens:
+                cut = req.output_tokens.index(req.eos_token_id) + 1
+                del req.output_tokens[cut:]
+                self._finish(req, "stop")
+            elif len(req.output_tokens) >= req.max_new_tokens:
+                del req.output_tokens[req.max_new_tokens:]
+                self._finish(req, "length")
+            elif int(self._lens[slot]) >= self.max_model_len:
+                self._finish(req, "length")
+        return decoded
 
     def _check_finished(self, req: Request, slot: int) -> None:
         if req.eos_token_id is not None and \
@@ -547,5 +737,15 @@ class ServingEngine:
                 "prefill_tokens": self.prefill_tokens,
                 "cow_admissions": self.cow_admissions,
                 "dedup_admissions": self.dedup_admissions,
+                "speculative": {
+                    "enabled": self.spec_k > 0,
+                    "k": self.spec_k,
+                    "ticks": self.spec_ticks,
+                    "proposed": self.spec_proposed,
+                    "accepted": self.spec_accepted,
+                    "rollbacks": self.spec_rollbacks,
+                    "acceptance": (self.spec_accepted / self.spec_proposed
+                                   if self.spec_proposed else 0.0),
+                },
                 **self.sched.counts(),
             }

@@ -3,8 +3,8 @@
 EngineStats is the counterpart of paddle_tpu/serving/observability.py's
 registry-backed per-engine event counters. ServingObservability keeps the
 reference engine's hook call sites (submit, admission, prefill chunks, first
-token, decode, finish, ticks) behind one object whose methods do nothing
-yet: request traces, SLO histograms, anomaly detectors and the flight
+token, decode and speculative verify, rollback, finish, ticks) behind one
+object whose methods do nothing yet: request traces, SLO histograms, anomaly detectors and the flight
 recorder fill them in with the observability slice.
 """
 from __future__ import annotations
@@ -17,7 +17,8 @@ from ..observability.registry import counter as _counter
 _ENGINE_EVENTS = _counter(
     "serving_engine_events_total",
     "Serving engine events (prefill dispatches, batched prefills, prefill "
-    "tokens, copy-on-write admissions, dedups), per engine instance.",
+    "tokens, copy-on-write admissions, dedups, speculation ticks), per "
+    "engine instance.",
     labelnames=("engine", "event"))
 PREFILL_TOKENS = _counter("serving_prefill_tokens_total",
                           "Prompt tokens actually computed by prefill "
@@ -33,7 +34,8 @@ class EngineStats:
     """Dict-shaped view over serving_engine_events_total{engine=...}."""
 
     _KEYS = ("prefill_programs", "batched_prefills", "prefill_tokens",
-             "cow_admissions", "dedup_admissions")
+             "cow_admissions", "dedup_admissions", "spec_ticks",
+             "spec_proposed", "spec_accepted", "spec_rollbacks")
 
     __slots__ = ("_eid",)
 
@@ -80,8 +82,13 @@ class ServingObservability:
     def on_first_token(self, req) -> None:
         pass
 
-    def on_decode(self, t0: float, running, steps: int) -> None:
-        pass
+    def on_decode(self, t0: float, running, steps: int,
+                  kind: str = "decode", **args) -> None:
+        """One decode or speculative-verify call over the batch (kind
+        "spec_verify", with its `window` in args)."""
+
+    def on_rollback(self, req, n: int) -> None:
+        """A verify window rejected the last n drafted tokens of req."""
 
     def on_finish(self, req, reason: str) -> None:
         pass

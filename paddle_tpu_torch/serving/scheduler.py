@@ -59,11 +59,48 @@ class Request:
         self._cow_src = None          # shared block forked at admission
         self._ws_caches = None        # contiguous prefill workspace
         self._reserved_blocks = 0
+        # self-speculation state, attached by the engine when spec is on
+        # (greedy requests only); kept after finish for telemetry
+        self._drafter = None          # speculative.NgramDrafter
+        self._spec = None             # speculative.SpecState
+
+    # -- telemetry --------------------------------------------------------
+    def queue_seconds(self) -> Optional[float]:
+        if self.prefill_start is None:
+            return None
+        return self.prefill_start - self.arrival_time
 
     def ttft_seconds(self) -> Optional[float]:
         if self.first_token_time is None:
             return None
         return self.first_token_time - self.arrival_time
+
+    def decode_tokens_per_s(self) -> Optional[float]:
+        if self.finish_time is None or self.first_token_time is None:
+            return None
+        n = len(self.output_tokens)
+        dt = self.finish_time - self.first_token_time
+        return (n - 1) / dt if n > 1 and dt > 0 else None
+
+    def telemetry(self) -> dict:
+        """The reference's per-request record (scheduler.py:138-153; the
+        port has one admission tier and no "tier" key)."""
+        t = {
+            "request_id": self.request_id,
+            "state": self.state,
+            "finish_reason": self.finish_reason,
+            "prompt_tokens": len(self.prompt),
+            "prefix_matched_tokens": self.prefix_matched,
+            "output_tokens": len(self.output_tokens),
+            "queue_s": self.queue_seconds(),
+            "ttft_s": self.ttft_seconds(),
+            "decode_tok_s": self.decode_tokens_per_s(),
+        }
+        if self._spec is not None:
+            t["spec_proposed"] = self._spec.proposed
+            t["spec_accepted"] = self._spec.accepted
+            t["spec_acceptance"] = self._spec.acceptance
+        return t
 
 
 class Scheduler:

@@ -1,14 +1,27 @@
 """Where a serving tick's time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_serving
+    python3 -m paddle_tpu_torch.tools.profile_serving [--model llama|gpt]
+                                                      [--spec-k K]
 
-Builds Llama-2-7B (bf16, seeded random weights) behind ServingEngine (8 slots,
-16-token blocks, 256-token prefill chunks, 2048 context), fills all 8 slots
-with distinct 512-token prompts, and traces with torch.profiler:
+Builds Llama-2-7B (bf16, seeded random weights; `--model gpt`: GPT-3 1.3B)
+behind ServingEngine (8 slots, 16-token blocks, 256-token prefill chunks,
+2048 context, speculation with `--spec-k` drafts a tick, default 0), fills
+all 8 slots with distinct 512-token prompts (with --spec-k, each a seeded
+16-48-token pattern repeated, the traffic speculation serves), and traces
+with torch.profiler:
 
   * `decode`: 8 engine ticks that only decode (every slot running);
   * `prefill`: one tick that prefills a 256-token chunk beside 7 decoding
-    slots.
+    slots;
+  * with --spec-k: `verify_tick`, the first tick (of up to 64) that runs a
+    verify window, and `plain_tick`, the next tick run with speculation
+    switched off, from the same engine state: one verify tick beside one
+    plain decode tick, with the verify kernel's share of the device time.
+    With --spec-k the model's head is zeroed, so every target is token 0
+    (the reference's deterministic speculation case): random weights need
+    not repeat their own history, and without drafts there is no verify
+    tick to trace. A tick's device work does not depend on the head's
+    values.
 
 For each it prints one JSON line: host wall time per tick (synchronised;
 for decode also without the profiler, which slows the host), device busy
@@ -16,6 +29,7 @@ time per tick (the union of the kernels' intervals), the busy share,
 kernels per tick, and the kernels with the most device time (names cut to
 80 characters). Needs one CUDA device.
 """
+import argparse
 import json
 import time
 
@@ -54,7 +68,10 @@ def _profile(torch, fn, ticks):
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     busy = _busy_us(kernels) / 1e3
+    verify = sum(t for n, t in by_name.items() if "paged_verify" in n) / 1e3
     return {
+        "paged_verify_ms_per_tick": verify / ticks,
+        "paged_verify_share": verify / busy if busy else None,
         "ticks": ticks, "wall_ms_per_tick": wall * 1e3 / ticks,
         "device_busy_ms_per_tick": busy / ticks,
         "device_busy_share": busy / (wall * 1e3) if wall else None,
@@ -63,24 +80,42 @@ def _profile(torch, fn, ticks):
     }
 
 
-def main():
+def main(argv=None):
     import numpy as np
     import torch
 
-    from ..models import LlamaConfig, LlamaForCausalLM
+    from ..models import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                          LlamaForCausalLM)
     from ..serving import ServingEngine
 
-    cfg = LlamaConfig.llama2_7b()
-    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=0)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("llama", "gpt"), default="llama")
+    ap.add_argument("--spec-k", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.model == "gpt":
+        cfg = GPTConfig.gpt3_1p3b()
+        cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+        model = GPTForCausalLM(cfg, dtype="bfloat16", seed=0)
+    else:
+        cfg = LlamaConfig.llama2_7b()
+        model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=0)
+    if args.spec_k:
+        head = (model.lm_head if model.lm_head is not None
+                else model.gpt.wte)
+        with torch.no_grad():
+            head.weight.zero_()
     eng = ServingEngine(model, max_slots=8, block_size=16, prefill_chunk=256,
-                        max_model_len=2048)
+                        max_model_len=2048, spec_k=args.spec_k)
     rng = np.random.default_rng(0)
 
     def prompt(n):
+        if args.spec_k:
+            pat = rng.integers(0, cfg.vocab_size, int(rng.integers(16, 49)))
+            return [int(t) for t in np.resize(pat, n)]
         return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
 
     for _ in range(8):
-        eng.submit(prompt(512), max_new_tokens=200)
+        eng.submit(prompt(512), max_new_tokens=400)
     while eng.sched.waiting or eng.sched.prefilling:
         eng.step()
     for _ in range(3):                      # warm the decode path
@@ -92,8 +127,29 @@ def main():
     torch.cuda.synchronize()
     unprofiled = (time.perf_counter() - t0) * 1e3 / 8
     decode = _profile(torch, eng.step, 8)
-    print(json.dumps({"phase": "decode", "wall_ms_per_tick_unprofiled":
-                      unprofiled, **decode}), flush=True)
+    head = {"model": args.model, "spec_k": args.spec_k}
+    print(json.dumps({"phase": "decode", **head,
+                      "wall_ms_per_tick_unprofiled": unprofiled, **decode}),
+          flush=True)
+
+    if args.spec_k:
+        # one verify tick, then one plain tick from the state it left
+        for _ in range(64):
+            before = eng.spec_ticks
+            tick = _profile(torch, eng.step, 1)
+            if eng.spec_ticks > before:
+                print(json.dumps({"phase": "verify_tick", **head,
+                                  "window": args.spec_k + 1, **tick}),
+                      flush=True)
+                break
+        else:
+            print(json.dumps({"phase": "verify_tick", **head,
+                              "error": "no verify tick in 64 ticks"}),
+                  flush=True)
+        eng.spec_k = 0
+        print(json.dumps({"phase": "plain_tick", **head,
+                          **_profile(torch, eng.step, 1)}), flush=True)
+        eng.spec_k = args.spec_k
 
     # free one slot, then trace the tick that admits a new prompt and
     # prefills its first chunk beside the 7 decoding slots
@@ -101,7 +157,7 @@ def main():
     eng.cancel(victim)
     eng.submit(prompt(600), max_new_tokens=8)
     prefill = _profile(torch, eng.step, 1)
-    print(json.dumps({"phase": "prefill", "chunk": 256, **prefill}),
+    print(json.dumps({"phase": "prefill", **head, "chunk": 256, **prefill}),
           flush=True)
 
 

@@ -231,11 +231,21 @@ def test_paged_cached_attention_appends_and_attends_like_jax():
     _close(to, jo, torch.float32)
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    with pytest.raises(NotImplementedError, match="verify kernel"):
-        tops.paged_cached_attention(
-            torch.zeros(slots, 2, hq, d), torch.zeros(slots, 2, hkv, d),
-            torch.zeros(slots, 2, hkv, d), tk, tv, torch.from_numpy(bt),
-            torch.from_numpy(seq))
+    # a 2-token verify window on top: slot 0's second token runs past its
+    # table into the null page, where the idle slot 3 writes too (which
+    # write lands there is unspecified in both packages: page 0 and the
+    # idle slot's output are garbage the engine ignores)
+    q2, k2, v2 = (rng.standard_normal((slots, 2, h, d)).astype(np.float32)
+                  for h in (hq, hkv, hkv))
+    jo, jk, jv = jops.paged_cached_attention(
+        jnp.asarray(q2), jnp.asarray(k2), jnp.asarray(v2), jk, jv,
+        jnp.asarray(bt), jnp.asarray(seq))
+    to, _, _ = tops.paged_cached_attention(
+        torch.from_numpy(q2), torch.from_numpy(k2), torch.from_numpy(v2),
+        tk, tv, torch.from_numpy(bt), torch.from_numpy(seq))
+    _close(to[:3], np.asarray(jo)[:3], torch.float32)
+    np.testing.assert_array_equal(tk.numpy()[1:], np.asarray(jk)[1:])
+    np.testing.assert_array_equal(tv.numpy()[1:], np.asarray(jv)[1:])
 
 
 def _cma_inputs(rng, b, sq, max_len, hq=4, hkv=2, d=8):

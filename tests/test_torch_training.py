@@ -421,8 +421,9 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
     cfg.use_rotary = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTForCausalLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros(1, 4, dtype=torch.long), caches=[])
+    with pytest.raises(NotImplementedError, match="segments"):
+        tm(torch.zeros(1, 4, dtype=torch.long), caches=[],
+           segments=torch.zeros(1, 4, dtype=torch.int32))
 
 
 def test_serving_builds_no_autograd_graph():
