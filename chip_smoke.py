@@ -26,12 +26,17 @@ final line):
                split, a GQA window of 72 rows (hq 32, hkv 4, sq 9), windows
                that run past a 4-page table into the null page, and sq = 1
                against the decode kernel at base + 1; flash attention at
-               GPT-3 1.3B's (b 4, s 2048, h 16, d 128, causal), at d 64 and
-               non-causal with sq != sk; segmented flash at the packed
-               slice's (b 2, s 4096, h 32, d 128, causal, its segment
-               layout; bf16) and a small fp32 case (d 64, s 300,
-               non-causal, a -1 padding tail, rows with no live key, whose
-               o must be exactly 0); the RMSNorm backward at [8192, 4096];
+               GPT-3 1.3B's (b 4, s 2048, h 16, d 128, causal), at d 64,
+               non-causal with sq != sk, at d 256 and at d 80 (ragged s
+               300); which template each bf16 call takes (tensor cores at
+               d % 8 == 0 with aligned tensors, CUDA cores at d 36 and one
+               element off alignment; kernel names from torch.profiler);
+               segmented flash at the packed slice's (b 2, s 4096, h 32,
+               d 128, causal, its segment layout; bf16) and a small case in
+               bf16 and fp32 (d 64, s 300, non-causal, a -1 padding tail,
+               rows with no live key and keys with no live query, whose o
+               and dq, dk and dv must be exactly 0); the RMSNorm backward
+               at [8192, 4096];
                RoPE with sign -1 (the backward) at [2, 4096, 32, 128],
                contiguous and at the slice's per-document positions;
                AdamW over GPT-3 1.3B's flat size and a ragged small one
@@ -93,6 +98,7 @@ The last two lines are the kernel summary {"kernels": [...]} and
 {"ok": true, "device": {...}}. Exits non-zero without them when no CUDA
 device is present or the package is not beside this script.
 """
+import gc
 import json
 import os
 import statistics
@@ -108,6 +114,14 @@ SEED = 0
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def release(torch):
+    """Free what the last phase left: collect the reference cycles that can
+    keep a finished phase's model and KV pool alive, then return the cached
+    blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi():
@@ -523,35 +537,45 @@ def seg_flash_cases(torch, gen, dtype, seg_q, h, d, causal, seg_k=None,
     ]
 
 
-def no_live_key_check(torch, gen):
-    """A small non-causal fp32 case at d 64 with ragged tiles (s 300), a -1
-    padding tail, and query rows whose segment id no key carries: their o
-    must be exactly 0 from the kernel (and the plain version), and their dq
-    too. Returns the three cases for run_case."""
+def no_live_key_check(torch, gen, dtype):
+    """A small non-causal case at d 64 with ragged tiles (s 300), a -1
+    padding tail, query rows whose segment id no key carries and keys whose
+    id no query carries: o and dq of those rows, and dk and dv of those
+    keys, must be exactly 0 from the kernels (o and dq from the plain
+    versions too). Returns the three cases for run_case."""
     from paddle_tpu_torch.ops.gpu import flash_attention as fa
 
     b, s = 2, 300
     seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
     seg[0, 90:200] = 1
     seg[0, 200:] = 2
+    seg[1, 100:110] = 5                     # keys no query sees
     seg[1, 150:260] = 1
     seg[1, 260:] = -1                       # padding tail
     seg_q = seg.clone()
     seg_q[0, 5] = seg_q[1, 299] = 7         # no key carries id 7
-    cases = seg_flash_cases(torch, gen, torch.float32, seg_q.contiguous(),
-                            4, 64, False, seg_k=seg, library=False)
-    fwd, dq = cases[0], cases[1]
+    seg_q[1, 100:110] = 7
+    cases = seg_flash_cases(torch, gen, dtype, seg_q.contiguous(), 4, 64,
+                            False, seg_k=seg, library=False)
+    fwd, dq, dkv = cases
     dead = seg_q != seg                     # the rows with no live key
+    dead_k = torch.zeros_like(dead)
+    dead_k[1, 100:110] = True               # the keys with no live query
     for name, fn in (("kernel", fwd["kernel"]), ("plain", fwd["plain"])):
         o, _ = fn()
         torch.cuda.synchronize()
         if not bool((o[dead] == 0).all()):
-            raise AssertionError(f"segmented forward ({name}): a query row "
-                                 f"with no live key must give o = 0 "
-                                 f"exactly; max |o| {o[dead].abs().max()}")
+            raise AssertionError(f"segmented forward ({name}, {dtype}): a "
+                                 f"query row with no live key must give "
+                                 f"o = 0 exactly; max |o| "
+                                 f"{o[dead].abs().max()}")
     if not bool((dq["kernel"]()[dead] == 0).all()):
-        raise AssertionError("segmented dQ: a row with no live key must "
-                             "give dq = 0 exactly")
+        raise AssertionError(f"segmented dQ ({dtype}): a row with no live "
+                             f"key must give dq = 0 exactly")
+    for g in dkv["kernel"]():
+        if not bool((g[dead_k] == 0).all()):
+            raise AssertionError(f"segmented dK/dV ({dtype}): a key no "
+                                 f"query sees must get 0 exactly")
     rows = dead.repeat_interleave(4, dim=0).reshape(-1, s)   # [b * h, s]
 
     def check():
@@ -563,6 +587,63 @@ def no_live_key_check(torch, gen):
 
     fwd["check"] = check
     return cases
+
+
+def kernel_names(torch, fn):
+    """Names of the CUDA kernels one call of fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def flash_routes(torch, gen):
+    """Which hand-written template each bf16 call takes: the tensor-core
+    ones at d % 8 == 0 with 16-byte aligned tensors, the CUDA-core ones at
+    d 36 and with q, k, v, dout one element off a 16-byte boundary; the
+    kernel names come from torch.profiler. Each call also holds against its
+    plain version."""
+    from paddle_tpu_torch.ops.gpu import flash_attention as fa
+
+    def rnd(shape, offset=0):
+        n = 1
+        for x in shape:
+            n *= x
+        buf = torch.randn(n + offset, device="cuda", generator=gen)
+        return buf.to(torch.bfloat16)[offset:].view(shape)
+
+    out = []
+    tol = _flash_tol(torch)
+    for d, offset, tensor_core in ((64, 0, True), (36, 0, False),
+                                   (64, 1, False)):
+        shape = (2, 256, 4, d)
+        q, k, v, do = (rnd(shape, offset) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.flash_fwd_plain(q, k, v, scale, True)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, scale, True)
+        for name, kern, plain in (
+                ("forward", lambda: fa.flash_fwd(q, k, v, scale, True),
+                 lambda: fa.flash_fwd_plain(q, k, v, scale, True)),
+                ("dkv", lambda: fa.flash_dkv(*args),
+                 lambda: fa.flash_dkv_plain(*args))):
+            names = kernel_names(torch, kern)
+            ours = [n for n in names if "flash_" in n]
+            mma = any("mma_kernel" in n for n in ours)
+            if len(ours) != 1 or mma != tensor_core:
+                raise AssertionError(f"flash {name}, bf16 d {d}, offset "
+                                     f"{offset}: expected the "
+                                     f"{'tensor' if tensor_core else 'CUDA'}"
+                                     f"-core template, launched {ours}")
+            err = _compare(f"flash_{name}", list(shape), torch.bfloat16,
+                           kern(), plain(), tol)
+            out.append({"d": d, "offset_elements": offset, "call": name,
+                        "kernel": ours[0][:80], "max_abs_err": err})
+    return {"phase": "kernels", "name": "flash_routes", "routes": out}
 
 
 def rms_bwd_case(torch, gen, dtype, n, d=4096):
@@ -750,23 +831,29 @@ def kernels_phase(torch):
         torch.cuda.empty_cache()
         # training: GPT-3 1.3B's attention (main path), bench.py's "large"
         # preset's head size, and non-causal attention with sq != sk
+        # head_dim 256 and 80 (mma depth padded to 96), ragged s 300
         for geo, main in (((4, 2048, 2048, 16, 128, True), True),
                           ((8, 1024, 1024, 16, 64, True), False),
-                          ((2, 1024, 2048, 16, 128, False), False)):
+                          ((2, 1024, 2048, 16, 128, False), False),
+                          ((2, 1024, 1024, 8, 256, True), False),
+                          ((2, 300, 300, 4, 80, False), False)):
             for case in flash_cases(torch, gen, dtype, *geo):
                 row = run_case(torch, case, dtype)
                 if main and dtype == torch.bfloat16:
                     rows[case["name"]] = row
                 del case
             torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            emit(flash_routes(torch, gen))
         # segmented: the packed slice's attention (b 2, s 4096, h 32,
-        # d 128, causal, bf16), and the small fp32 case with dead rows
-        seg_cases = (seg_flash_cases(torch, gen, dtype, seg, 32, 128, True)
-                     if dtype == torch.bfloat16 else no_live_key_check(
-                         torch, gen))
-        for case in seg_cases:
+        # d 128, causal, bf16), and the small case with dead rows and keys
+        seg_cases = no_live_key_check(torch, gen, dtype)
+        if dtype == torch.bfloat16:
+            seg_cases = seg_flash_cases(torch, gen, dtype, seg, 32, 128,
+                                        True) + seg_cases
+        for i, case in enumerate(seg_cases):
             row = run_case(torch, case, dtype)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and i < 3:
                 rows[case["name"]] = row
             del case
         seg_cases = None
@@ -1338,6 +1425,7 @@ def train_slice_phase(torch, reset, counts, batch=4, seq=2048, steps=3,
 
     cfg = GPTConfig.gpt3_1p3b()
     cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    resident = torch.cuda.memory_allocated()   # left by earlier phases
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, seed=SEED)
     opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01)
@@ -1392,6 +1480,7 @@ def train_slice_phase(torch, reset, counts, batch=4, seq=2048, steps=3,
         "tokens_per_s": batch * seq / step_s,
         "peak_mem_bytes": max(peak_first, torch.cuda.max_memory_allocated()),
         "peak_mem_bytes_timed_steps": torch.cuda.max_memory_allocated(),
+        "resident_bytes_before": resident,
         "adamw_groups": groups, "launches": launches,
         "launches_per_step": per_step,
     }
@@ -1414,6 +1503,7 @@ def train_packed_slice_phase(torch, reset, counts, rows=2, seq=4096,
                                                          packed_llama_config)
 
     cfg = packed_llama_config()
+    resident = torch.cuda.memory_allocated()   # left by earlier phases
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=SEED)
     opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01)
@@ -1475,6 +1565,7 @@ def train_packed_slice_phase(torch, reset, counts, rows=2, seq=4096,
         "real_tokens_per_s": real / step_s,
         "peak_mem_bytes_warmup": peak_first,
         "peak_mem_bytes_timed_steps": torch.cuda.max_memory_allocated(),
+        "resident_bytes_before": resident,
         "launches": launches, "launches_per_step": per_step,
     }
 
@@ -1548,18 +1639,20 @@ def main():
     built = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": {k: v["seconds"] for k, v in built.items()},
-          "ptxas": [ln.strip()[14:] for v in built.values()
+          "ptxas": [ln.strip().removeprefix("ptxas info    : ")
+                    for v in built.values()
                     for ln in v["log"].splitlines()
-                    if "Used" in ln or "entry function" in ln]})
+                    if "Used" in ln or "entry function" in ln
+                    or "spill stores" in ln]})
 
     rows = kernels_phase(torch)
-    torch.cuda.empty_cache()
+    release(torch)
 
     cfg2 = LlamaConfig.llama2_7b()
     cfg2.num_layers = 2
     emit(parity_phase(torch, cfg2, "cuda", engine_kw=dict(
         max_slots=4, block_size=16, prefill_chunk=256, max_model_len=1024)))
-    torch.cuda.empty_cache()
+    release(torch)
 
     gpt2 = GPTConfig.gpt3_1p3b()
     gpt2.num_layers = 2
@@ -1569,7 +1662,7 @@ def main():
          LlamaForCausalLM(cfg2, device="cuda", dtype="float32", seed=SEED)),
         ("GPT-3 1.3B widths, 2 layers",
          GPTForCausalLM(gpt2, device="cuda", dtype="float32", seed=SEED))]))
-    torch.cuda.empty_cache()
+    release(torch)
 
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.llama2_7b(), device="cuda",
@@ -1584,7 +1677,7 @@ def main():
         reset=gpu.reset_launch_counts,
         counts=lambda: gpu.launch_counts(SERVING))
     emit({**summary, "model_init_s": model_init_s})
-    torch.cuda.empty_cache()
+    release(torch)
 
     spec = spec_slice_phase(
         torch, model, dict(engine_kw, spec_k=4, spec_ngram=3, spec_pause=32),
@@ -1592,7 +1685,7 @@ def main():
         counts=lambda: gpu.launch_counts(SPEC), kernels=SPEC)
     emit(spec)
     del model
-    torch.cuda.empty_cache()
+    release(torch)
 
     gpt_serve = gpt_serve_slice_phase(
         torch, gpu.reset_launch_counts,
@@ -1600,15 +1693,15 @@ def main():
     emit(gpt_serve)
 
     emit(train_parity_phase(torch))
-    torch.cuda.empty_cache()
+    release(torch)
 
     train = train_slice_phase(torch, gpu.reset_launch_counts,
                               lambda: gpu.launch_counts(TRAINING))
     emit(train)
-    torch.cuda.empty_cache()
+    release(torch)
 
     emit(packed_parity_phase(torch))
-    torch.cuda.empty_cache()
+    release(torch)
 
     packed = train_packed_slice_phase(torch, gpu.reset_launch_counts,
                                       lambda: gpu.launch_counts(PACKED))

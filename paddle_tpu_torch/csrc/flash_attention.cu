@@ -16,39 +16,84 @@
 //     gradients, as in the TPU kernels.
 // Inputs are [b, s, h, d] (contiguous), the causal mask is top-left aligned
 // (query i sees keys j <= i), masked scores take -1e30 and the softmax
-// denominator is clamped to 1e-30, as in the TPU kernels. delta =
-// rowsum(dO * O) is computed outside, as the reference does in XLA.
+// denominator is clamped to 1e-30, as in the TPU kernels. lse is the
+// natural-log one, fp32 [b * h, sq]. delta = rowsum(dO * O) is computed
+// outside, as the reference does in XLA.
 //
 // What bounds them on the H100: operations. Causal attention at b 4, s 2048,
 // h 16, d 128 does 2*b*h*s^2*d flops in the forward over 134 MB of bf16
 // inputs and outputs, about 500 flops a byte, above the ~295 at which the
-// tensor cores, not the memory, become the limit. This first version does
-// the products on the CUDA cores in fp32 (for bf16 inputs as well), so it
-// runs far from that bound; `wgmma` with TMA-fed tiles is later work. What
-// the design does keep from the TPU kernels is that nothing of size s x s
-// reaches device memory: each block keeps its q tile (or its k/v tile) in
-// shared memory, streams the other operand through shared memory one tile
-// at a time, and holds the fp32 accumulators in registers.
+// tensor cores, not the memory, become the limit. Nothing of size s x s
+// reaches device memory: each block keeps its q tile (or its k/v tile) and
+// streams the other operand through shared memory one tile at a time.
 //
-// Blocks are independent (the TPU's sequential grid carried nothing
-// between q blocks either): forward and dQ take one q tile per block, dK/dV
-// one k tile per block, each with a loop over the other axis. 256 threads
-// form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j of every tile product, so shared-memory rows padded by one word
-// are read without bank conflicts. Tiles are 64 rows for head_dim <= 128 and
-// 32 rows for head_dim <= 256 (shared memory holds four fp32 tiles of
-// [rows, head_dim]); head_dim is padded with zeros to 64, 128 or 256.
+// Two families of templates; `use_mma` chooses between them before either
+// launches (no fallback):
 //
-// Segments are the same templates with kSeg set: each thread keeps the
-// segment ids of its own rows and columns in registers (read straight from
-// device memory, [b, s] int32), and ANDs seg_q == seg_k into the live mask.
-// A k tile (a q tile in dK/dV) in which no pair is live is skipped: every
-// thread tests its own pairs and __syncthreads_or decides for the block.
-// Under the online softmax a tile with no live pair leaves m, l and the
-// accumulators exactly as they were (alpha = 1, P = 0), so skipping gives
-// the same bits as computing it. Packed documents are short beside the row,
-// so most tiles off the diagonal blocks are skipped; the TPU kernels skip
-// nothing.
+// * Tensor cores (`flash_fwd_mma_kernel`, `flash_dkv_mma_kernel`): the bf16
+//   forward and dK/dV where head_dim % 8 == 0 and q, k, v, o (dout, dk, dv)
+//   are 16-byte aligned, as their 16-byte copies need. Products are
+//   `mma.sync.m16n8k16` bf16 x bf16 -> fp32; operands come from shared
+//   memory by `ldmatrix` (`.trans` for V, dO and Q where they are the
+//   k-major operand); tiles arrive by 16-byte `cp.async` (zero-filled past
+//   the ragged edge and past d) in two stages, so the next tile loads while
+//   this one computes. Shared rows are padded by 16 bytes (D + 8 elements),
+//   so the eight row addresses of an `ldmatrix` fall in distinct banks.
+//   head_dim is zero-padded to D = 64, 128 or 256 in shared memory only.
+//   - Forward: four warps; a warp owns 16 MT q rows (MT = 2 at D 64, 1
+//     above; two m-tiles share each K/V fragment), K/V tiles of 64 rows (32
+//     at D 256). Q stays in shared memory and is re-read by `ldmatrix`. S
+//     stays in the accumulators; the online softmax runs on them in the
+//     log2 domain (log2 e folded into the scale: one FMA and one
+//     `ex2.approx`), row max and sum over the four lanes of a row by
+//     `__shfl_xor_sync`; P turns into A fragments in registers (the C
+//     layout of two neighbouring m16n8 tiles is the m16k16 A layout) and
+//     never touches shared memory. Causal: tiles past the q tile's end are
+//     not visited, the element mask runs only on tiles that cross the
+//     diagonal or the ragged edge, and the heaviest q tiles launch first.
+//   - dK/dV: four warps; a block owns 64 keys, a warp 16 (at D 256, 32
+//     keys: two warps share key rows and split dK/dV's columns, so the fp32
+//     accumulators stay in registers). K and V stay in shared memory; Q, dO,
+//     lse and delta tiles of 32 rows (64 at D 64) stream in. The warp
+//     computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are already A
+//     fragments of dV += P^T dO and dK += dS^T Q: neither goes through
+//     shared memory. No atomics: each block writes its keys once, and the
+//     result is deterministic.
+//   - Rounding: P and dS enter their products as two bf16 terms each, hi =
+//     bf16(x) and lo = bf16(x - hi), two `mma`s (x to 2^-16). One rounding
+//     of P and dS (2^-9) would put o, dK and dV 1.6-3.5x past the bf16
+//     bound that holds the port to its plain versions (2^-7 of the value
+//     plus 2^-7 of the RMS; tests/test_torch_flash.py
+//     test_p_and_ds_need_two_bf16_terms): rows that see few keys carry large
+//     terms that nearly cancel. m, l, O, dK and dV stay fp32; the scale
+//     multiplies the fp32 scores and dK, never bf16 Q.
+//   - Registers (ptxas -v): the forward 192 at D 128 and 232 at D 64,
+//     dK/dV 247 at D 128 (segmented 254: it walks head_dim four mma steps
+//     at a time, which keeps the segment state from spilling) and 182 at D
+//     64; 0 spill bytes at D <= 128. At D 256 the forward and the segmented
+//     dK/dV spill a few words; no main path runs D 256.
+//
+// * CUDA cores (`flash_fwd_kernel`, `flash_dq_kernel`, `flash_dkv_kernel`):
+//   fp32, whose products stay fp32 (TF32 keeps 10 bits, and the fp32
+//   training parity holds losses to 1e-4), bf16 at other head_dims or
+//   alignments, and dQ in every type. 256 threads form a 16 x 16 grid;
+//   thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of every tile
+//   product, over fp32 tiles in shared memory padded by one word. Tiles are
+//   64 rows for head_dim <= 128 and 32 rows for head_dim <= 256 (four fp32
+//   tiles of [rows, head_dim]); head_dim is padded with zeros to 64, 128 or
+//   256. The products are scalar FMA loops, far from the tensor cores' rate.
+//
+// Segments are the same templates with kSeg set: each thread takes the
+// segment ids of its rows and columns, and ANDs seg_q == seg_k into the
+// live mask. A k tile (a q tile in dK/dV) in which no pair is live is
+// skipped: the threads test the pairs and __syncthreads_or decides for the
+// block (the tensor-core templates first compare each streamed id with the
+// min and max of the block's own ids, so sorted packed ids skip a dead tile
+// in one test). Under the online softmax a tile with no live pair leaves m,
+// l and the accumulators exactly as they were (alpha = 1, P = 0), so
+// skipping gives the same bits as computing it. Packed documents are short
+// beside the row, so most tiles off the diagonal blocks are skipped; the TPU
+// kernels skip nothing.
 //
 // C interface (loaded with ctypes): each entry point returns
 // cudaGetLastError() after its launch.
@@ -56,6 +101,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace {
 
@@ -443,6 +490,637 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<T, D, B>(dv + koff, dv_acc, k0, sk, d, stride, 1.f, ty, tx);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core templates: bf16, head_dim % 8 == 0, 16-byte aligned tensors.
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMmaThreads = 128;  // four warps
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, zeros where !in (nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives, in r[i], its two elements of matrix i (transposed
+// with kTrans).
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (kTrans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+  }
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) as two bf16 pairs hi + lo: hi rounds (x, y), lo rounds what hi
+// missed, so hi + lo is within 2^-16 of (x, y) relative.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A fragments (hi and lo) of the 16x16 block whose columns are the
+// accumulator tiles c0 (columns 0-7) and c1 (8-15): the m16n8 C layout of
+// two neighbouring tiles is the m16k16 A layout.
+__device__ __forceinline__ void c_to_a(const float (&c0)[4],
+                                       const float (&c1)[4],
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Rows [row0, row0 + R) of one head (g at its row 0, rows `stride` apart)
+// into a [R][D + 8] shared tile by 16-byte cp.async; zeros past `rows` and
+// past d.
+template <int R, int D>
+__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g, int row0,
+                                          int rows, int d, long stride) {
+  constexpr int CH = D / 8, LDS = D + 8;
+  for (int e = threadIdx.x; e < R * CH; e += kMmaThreads) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool in = row0 + r < rows && c < d;
+    cp_async16(sm + r * LDS + c, in ? g + (long)(row0 + r) * stride + c : g,
+               in);
+  }
+}
+
+// Rows of one fp32 [b * h, s] vector (lse, delta) into shared memory.
+template <int R>
+__device__ __forceinline__ void load_vec(float* sm, const float* g, int row0,
+                                         int rows) {
+  for (int r = threadIdx.x; r < R; r += kMmaThreads) {
+    const bool in = row0 + r < rows;
+    cp_async4(sm + r, in ? g + row0 + r : g, in);
+  }
+}
+
+// Segments: does any pair of the tile at `other0` (R rows of the streamed
+// side, ids read from `seg` here and kept in `ids`) meet the block's own
+// ROWN rows (own_ids' table: ids, then their min and max; `n_own` of them
+// in range, own row j at `own0 + j`)? A pair is live where the ids are
+// equal, both rows are in range and, when causal, the key is at or before
+// the query (kOwnIsQ: the block's rows are the queries). Every thread takes
+// one streamed row; a barrier for the whole block.
+template <int R, int ROWN, bool kOwnIsQ>
+__device__ __forceinline__ bool seg_tile_live(int* ids,
+                                              const int* __restrict__ seg,
+                                              int other0, int n_other,
+                                              const int* own, int own0,
+                                              int n_own, int causal) {
+  bool any = false;
+  const int r = threadIdx.x;
+  if (r < R) {
+    const int o = other0 + r;
+    const int id = o < n_other ? seg[o] : 0;
+    ids[r] = id;
+    if (o < n_other && id >= own[ROWN] && id <= own[ROWN + 1]) {
+      for (int j = 0; j < n_own && !any; ++j) {
+        const int mine = own0 + j;
+        const bool order = kOwnIsQ ? o <= mine : mine <= o;
+        any = own[j] == id && (!causal || order);
+      }
+    }
+  }
+  return __syncthreads_or(any) != 0;
+}
+
+// Ids of the block's own R rows into ids[0, R), and their min and max over
+// the rows in range into ids[R] and ids[R + 1] (kept in shared memory, not
+// registers, which the accumulators need). A barrier for the whole block.
+template <int R>
+__device__ __forceinline__ void own_ids(int* ids, const int* __restrict__ seg,
+                                        int row0, int rows) {
+  for (int r = threadIdx.x; r < R; r += kMmaThreads)
+    ids[r] = row0 + r < rows ? seg[row0 + r] : 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = 0; r < min(R, rows - row0); ++r) {
+      lo = min(lo, ids[r]);
+      hi = max(hi, ids[r]);
+    }
+    ids[R] = lo;
+    ids[R + 1] = hi;
+  }
+  __syncthreads();
+}
+
+template <int D, int BK, int MT>
+constexpr size_t fwd_mma_smem() {
+  return (size_t)(64 * MT + 4 * BK) * (D + 8) * sizeof(bf16) +
+         (64 * MT + 2 + 2 * BK) * sizeof(int);
+}
+
+// grid (ceil(sq / (64 MT)), b * h), 128 threads. Warp w owns q rows
+// 16 MT w .. 16 MT w + 16 MT - 1 of the block's tile (MT m-tiles of 16, so
+// each K/V fragment read from shared memory feeds MT products); K/V tiles
+// of BK rows stream through two stages. Q stays in shared memory and is
+// re-read by ldmatrix; S, P and the online softmax stay in the
+// accumulators.
+template <int D, int BK, int MT, bool kSeg>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_k, bf16* __restrict__ o,
+                         float* __restrict__ lse, int h, int sq, int sk,
+                         int d, float scale, int causal) {
+  constexpr int WR = 16 * MT, BQ = 4 * WR, LDS = D + 8, NT = BK / 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * LDS;       // [2][BK][LDS]
+  bf16* Vs = Ks + 2 * BK * LDS;   // [2][BK][LDS]
+  int* segq_s = reinterpret_cast<int*>(Vs + 2 * BK * LDS);  // [BQ + 2]
+  int* segk_s = segq_s + BQ + 2;                             // [2][BK]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  // the heaviest causal q tiles first, so the light ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int w0 = q0 + warp * WR;  // the warp's first row
+  const long stride = (long)h * d;
+  const bf16* qg = q + ((long)bi * sq * h + hi) * d;
+  const bf16* kg = k + ((long)bi * sk * h + hi) * d;
+  const bf16* vg = v + ((long)bi * sk * h + hi) * d;
+  const int* sk_g = kSeg ? seg_k + (long)bi * sk : nullptr;
+  const float sl2 = scale * kLog2e;
+
+  if constexpr (kSeg) own_ids<BQ>(segq_s, seg_q + (long)bi * sq, q0, sq);
+  int nk = (sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);  // tiles starting <= q end
+  // the next tile at or after j with a live pair (every tile when dense)
+  auto next = [&](int j, int st) {
+    if constexpr (kSeg) {
+      for (; j < nk; ++j)
+        if (seg_tile_live<BK, BQ, true>(segk_s + st * BK, sk_g, j * BK, sk,
+                                        segq_s, q0, min(BQ, sq - q0),
+                                        causal))
+          break;
+    }
+    return j;
+  };
+  auto load_kv = [&](int j, int st) {
+    load_rows<BK, D>(Ks + st * BK * LDS, kg, j * BK, sk, d, stride);
+    load_rows<BK, D>(Vs + st * BK * LDS, vg, j * BK, sk, d, stride);
+  };
+
+  // per m-tile: running max (log2 domain) and this thread's share of the
+  // row sum, for rows g and g + 8
+  float m[MT][2], l[MT][2], oacc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[mt][n][e] = 0.f;
+  }
+
+  int j = next(0, 0), st = 0;
+  if (j < nk) {
+    load_rows<BQ, D>(Qs, qg, q0, sq, d, stride);
+    load_kv(j, 0);
+    cp_async_commit();
+  }
+  while (j < nk) {
+    const int jn = next(j + 1, st ^ 1);
+    if (jn < nk) {  // the next live tile loads while this one computes
+      load_kv(jn, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + st * BK * LDS;
+    const bf16* Vt = Vs + st * BK * LDS;
+    const int k0 = j * BK;
+
+    // S = Q K^T
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4<false>(a[mt], Qs + (warp * WR + mt * 16 + (lane & 15)) * LDS +
+                                  kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4<false>(b, Kt + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) *
+                                   LDS +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(s[mt][2 * np], a[mt], b[0], b[1]);
+          mma(s[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // online softmax on the accumulators, in the log2 domain; this thread
+    // holds rows w0 + 16 mt + g (+8), columns n * 8 + 2 t (+1)
+    if (kSeg || k0 + BK > sk || (causal && k0 + BK - 1 > w0)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {  // rows g, g + 8
+          const int r = w0 + mt * 16 + g + hf * 8;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = n * 8 + 2 * t + e, kj = k0 + c;
+              bool ok = kj < sk && !(causal && kj > r);
+              if constexpr (kSeg)
+                ok = ok && segk_s[st * BK + c] ==
+                               segq_s[r - q0];
+              if (!ok) s[mt][n][2 * hf + e] = kNegInf;
+            }
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mx = fmaxf(mx, fmaxf(s[mt][n][2 * hf], s[mt][n][2 * hf + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // the scale is folded into the exponent: max(s) sl2 = max(s sl2)
+        const float mn = fmaxf(m[mt][hf], mx == kNegInf ? kNegInf : mx * sl2);
+        const float alpha = ex2(m[mt][hf] - mn);
+        m[mt][hf] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // a masked score adds exactly 0, even where the row has no
+            // live key so far (m is then the mask value itself)
+            const float x = s[mt][n][2 * hf + e];
+            const float p = x == kNegInf ? 0.f : ex2(fmaf(x, sl2, -mn));
+            s[mt][n][2 * hf + e] = p;
+            sum += p;
+          }
+        }
+        l[mt][hf] = l[mt][hf] * alpha + sum;  // summed over the row at the end
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          oacc[mt][n][2 * hf] *= alpha;
+          oacc[mt][n][2 * hf + 1] *= alpha;
+        }
+      }
+    }
+
+    // O += P V, P as two bf16 terms straight from the accumulators
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        c_to_a(s[mt][2 * kk], s[mt][2 * kk + 1], ph[mt], pl[mt]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4<true>(b, Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                  LDS +
+                              dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(oacc[mt][2 * dp], ph[mt], b[0], b[1]);
+          mma(oacc[mt][2 * dp + 1], ph[mt], b[2], b[3]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(oacc[mt][2 * dp], pl[mt], b[0], b[1]);
+          mma(oacc[mt][2 * dp + 1], pl[mt], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+    j = jn;
+    st ^= 1;
+  }
+
+  bf16* og = o + ((long)bi * sq * h + hi) * d;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float lr = l[mt][hf];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      lr = fmaxf(lr, 1e-30f);
+      const int r = w0 + mt * 16 + g + hf * 8;
+      if (r >= sq) continue;
+      // natural-log lse; a row with no live key keeps the mask value
+      const float mr = m[mt][hf];
+      if (t == 0)
+        lse[(long)bh * sq + r] = (mr == kNegInf ? kNegInf : mr * kLn2) +
+                                 logf(lr);
+      const float inv = 1.f / lr;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int c = n * 8 + 2 * t;
+        if (c >= d) break;
+        *reinterpret_cast<__nv_bfloat162*>(og + (long)r * stride + c) =
+            __floats2bfloat162_rn(oacc[mt][n][2 * hf] * inv,
+                                  oacc[mt][n][2 * hf + 1] * inv);
+      }
+    }
+  }
+}
+
+// dK/dV block: BKV = 64 / NH key rows; warp w owns key rows 16 (w % (4 /
+// NH)) .. +15 and dK/dV columns [DW c, DW c + DW), c = w / (4 / NH), DW =
+// D / NH (NH = 2 for D = 256 keeps the fp32 accumulators in registers).
+template <int D, int BQ, int NH>
+constexpr size_t dkv_mma_smem() {
+  return (size_t)(2 * (64 / NH) + 4 * BQ) * (D + 8) * sizeof(bf16) +
+         (size_t)(6 * BQ + 64 / NH + 2) * sizeof(float);
+}
+
+// grid (ceil(sk / BKV), b * h), 128 threads. K and V stay in shared memory;
+// Q, dO, lse and delta tiles of BQ rows stream through two stages. The warp
+// computes S^T = K Q^T and dP^T = V dO^T for its key rows, so P^T and dS^T
+// are A fragments of dV += P^T dO and dK += dS^T Q as they stand.
+template <int D, int BQ, int NH, bool kSeg>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_k,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int h,
+                         int sq, int sk, int d, float scale, int causal) {
+  constexpr int BKV = 64 / NH, LDS = D + 8, NT = BQ / 8, DW = D / NH;
+  constexpr int ND = DW / 8, WR = 4 / NH;  // warps along the key rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BKV * LDS;
+  bf16* Qs = Vs + BKV * LDS;      // [2][BQ][LDS]
+  bf16* dOs = Qs + 2 * BQ * LDS;  // [2][BQ][LDS]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LDS);  // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;                                 // [2][BQ]
+  int* segq_s = reinterpret_cast<int*>(dl_s + 2 * BQ);          // [2][BQ]
+  int* segk_s = segq_s + 2 * BQ;                                // [BKV + 2]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = (warp % WR) * 16, c0 = (warp / WR) * DW;
+  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int k0 = blockIdx.x * BKV;  // the heaviest causal k tiles first
+  const long stride = (long)h * d;
+  const bf16* qg = q + ((long)bi * sq * h + hi) * d;
+  const bf16* dog = dout + ((long)bi * sq * h + hi) * d;
+  const bf16* kg = k + ((long)bi * sk * h + hi) * d;
+  const bf16* vg = v + ((long)bi * sk * h + hi) * d;
+  const float* lse_g = lse + (long)bh * sq;
+  const float* dl_g = delta + (long)bh * sq;
+  const int* sq_g = kSeg ? seg_q + (long)bi * sq : nullptr;
+  const float sl2 = scale * kLog2e;
+  const int kj0 = k0 + kr + g, kj1 = kj0 + 8;  // this thread's key rows
+
+  if constexpr (kSeg) own_ids<BKV>(segk_s, seg_k + (long)bi * sk, k0, sk);
+  const int nq = (sq + BQ - 1) / BQ;
+  auto next = [&](int j, int st) {
+    if constexpr (kSeg) {
+      for (; j < nq; ++j)
+        if (seg_tile_live<BQ, BKV, false>(segq_s + st * BQ, sq_g, j * BQ,
+                                          sq, segk_s, k0, min(BKV, sk - k0),
+                                          causal))
+          break;
+    }
+    return j;
+  };
+  auto load_q = [&](int j, int st) {
+    load_rows<BQ, D>(Qs + st * BQ * LDS, qg, j * BQ, sq, d, stride);
+    load_rows<BQ, D>(dOs + st * BQ * LDS, dog, j * BQ, sq, d, stride);
+    load_vec<BQ>(lse_s + st * BQ, lse_g, j * BQ, sq);
+    load_vec<BQ>(dl_s + st * BQ, dl_g, j * BQ, sq);
+  };
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  // q tiles ending before k0 see none of these keys when causal
+  int j = next(causal ? k0 / BQ : 0, 0), st = 0;
+  if (j < nq) {
+    load_rows<BKV, D>(Ks, kg, k0, sk, d, stride);
+    load_rows<BKV, D>(Vs, vg, k0, sk, d, stride);
+    load_q(j, 0);
+    cp_async_commit();
+  }
+  while (j < nq) {
+    const int jn = next(j + 1, st ^ 1);
+    if (jn < nq) {
+      load_q(jn, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + st * BQ * LDS;
+    const bf16* dOt = dOs + st * BQ * LDS;
+    const int q0 = j * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over the whole head_dim
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    // segments: head_dim in chunks of 4 mma steps, so their ids' registers
+    // fit beside the accumulators without spilling (ptxas)
+    constexpr int KC = kSeg ? (D / 16 < 4 ? D / 16 : 4) : D / 16;
+#pragma unroll 1
+    for (int k4 = 0; k4 < D / 16; k4 += KC) {
+#pragma unroll
+      for (int kq = 0; kq < KC; ++kq) {
+        const int kk = k4 + kq;
+        uint32_t ka[4], va[4];
+        const int a_off = (kr + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4<false>(ka, Ks + a_off);
+        ldsm_x4<false>(va, Vs + a_off);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int b_off = (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDS +
+                            kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldsm_x4<false>(b, Qt + b_off);
+          mma(s[2 * np], ka, b[0], b[1]);
+          mma(s[2 * np + 1], ka, b[2], b[3]);
+          ldsm_x4<false>(b, dOt + b_off);
+          mma(dp[2 * np], va, b[0], b[1]);
+          mma(dp[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+    }
+
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta); this thread holds
+    // key rows kj0, kj1 and query columns q0 + n * 8 + 2 t (+1)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float l2 = lse_s[st * BQ + n * 8 + 2 * t + e] * kLog2e;
+        s[n][e] = ex2(fmaf(s[n][e], sl2, -l2));
+        s[n][2 + e] = ex2(fmaf(s[n][2 + e], sl2, -l2));
+      }
+    if (kSeg || q0 + BQ > sq || k0 + BKV > sk ||
+        (causal && q0 < k0 + kr + 15)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * t + e, qi = q0 + c;
+          bool ok0 = qi < sq && kj0 < sk && !(causal && kj0 > qi);
+          bool ok1 = qi < sq && kj1 < sk && !(causal && kj1 > qi);
+          if constexpr (kSeg) {
+            const int id = segq_s[st * BQ + c];
+            ok0 = ok0 && id == segk_s[kr + g];
+            ok1 = ok1 && id == segk_s[kr + g + 8];
+          }
+          if (!ok0) s[n][e] = 0.f;
+          if (!ok1) s[n][2 + e] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dl = dl_s[st * BQ + n * 8 + 2 * t + e];
+        dp[n][e] = s[n][e] * (dp[n][e] - dl);
+        dp[n][2 + e] = s[n][2 + e] * (dp[n][2 + e] - dl);
+      }
+
+    // dV += P^T dO, dK += dS^T Q; P^T and dS^T as two bf16 terms each
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      c_to_a(s[2 * kk], s[2 * kk + 1], ph, pl);
+      c_to_a(dp[2 * kk], dp[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int np = 0; np < DW / 16; ++np) {
+        const int col = c0 + np * 16;
+        const int b_off = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                              LDS + col + (lane >> 4) * 8;
+        uint32_t b[4];
+        ldsm_x4<true>(b, dOt + b_off);
+        mma(dva[2 * np], ph, b[0], b[1]);
+        mma(dva[2 * np + 1], ph, b[2], b[3]);
+        mma(dva[2 * np], pl, b[0], b[1]);
+        mma(dva[2 * np + 1], pl, b[2], b[3]);
+        ldsm_x4<true>(b, Qt + b_off);
+        mma(dka[2 * np], sh, b[0], b[1]);
+        mma(dka[2 * np + 1], sh, b[2], b[3]);
+        mma(dka[2 * np], sl, b[0], b[1]);
+        mma(dka[2 * np + 1], sl, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+    j = jn;
+    st ^= 1;
+  }
+
+  bf16* dkg = dk + ((long)bi * sk * h + hi) * d;
+  bf16* dvg = dv + ((long)bi * sk * h + hi) * d;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = c0 + n * 8 + 2 * t;
+    if (c >= d) break;
+    if (kj0 < sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkg + (long)kj0 * stride + c) =
+          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvg + (long)kj0 * stride + c) =
+          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    }
+    if (kj1 < sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkg + (long)kj1 * stride + c) =
+          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvg + (long)kj1 * stride + c) =
+          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
 template <int D, int B>
 constexpr size_t fwd_smem() {
   return (3 * B * (D + 1) + B * (B + 1)) * sizeof(float);
@@ -526,14 +1204,80 @@ cudaError_t dispatch(Kind kind, const Args& a, int dtype) {
                     : dispatch_d<__nv_bfloat16, kSeg>(kind, a);
 }
 
+template <int D, int BK, int MT, int BQ, int NH, bool kSeg>
+cudaError_t launch_mma(Kind kind, const Args& a) {
+  cudaError_t err;
+  const int bh = a.b * a.h;
+  if (kind == kFwd) {
+    auto fn = flash_fwd_mma_kernel<D, BK, MT, kSeg>;
+    constexpr size_t smem = fwd_mma_smem<D, BK, MT>();
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    fn<<<dim3((a.sq + 64 * MT - 1) / (64 * MT), bh), kMmaThreads, smem,
+         a.stream>>>(static_cast<const bf16*>(a.q),
+                     static_cast<const bf16*>(a.k),
+                     static_cast<const bf16*>(a.v), a.seg_q, a.seg_k,
+                     static_cast<bf16*>(a.o), a.lse_out, a.h, a.sq, a.sk,
+                     a.d, a.scale, a.causal);
+  } else {
+    constexpr int BKV = 64 / NH;
+    auto fn = flash_dkv_mma_kernel<D, BQ, NH, kSeg>;
+    constexpr size_t smem = dkv_mma_smem<D, BQ, NH>();
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    fn<<<dim3((a.sk + BKV - 1) / BKV, bh), kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), a.seg_q, a.seg_k,
+        static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.sq, a.sk,
+        a.d, a.scale, a.causal);
+  }
+  return cudaGetLastError();
+}
+
+// head_dim -> (D, forward K/V tile, forward m-tiles a warp, dK/dV q tile,
+// dK/dV column halves)
+template <bool kSeg>
+cudaError_t dispatch_mma(Kind kind, const Args& a) {
+  if (a.d <= 64) return launch_mma<64, 64, 2, 64, 1, kSeg>(kind, a);
+  if (a.d <= 128) return launch_mma<128, 64, 1, 32, 1, kSeg>(kind, a);
+  return launch_mma<256, 32, 1, 32, 2, kSeg>(kind, a);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Which of two hand-written kernels runs: the tensor-core templates take
+// the forward and dK/dV in bf16 where head_dim % 8 == 0 and every q, k, v,
+// o (dout, dk, dv) pointer is 16-byte aligned, as their 16-byte cp.async
+// rows need; everything else takes the CUDA-core templates: fp32, whose
+// products stay in fp32 (TF32 keeps 10 bits), bf16 at other head_dims or
+// alignments, and dQ in every type. No fallback: the choice is made here,
+// before either launches.
+bool use_mma(Kind kind, const Args& a, int dtype) {
+  if (dtype != 1 || kind == kDq || a.d % 8 != 0) return false;
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v)) return false;
+  return kind == kFwd ? aligned16(a.o)
+                      : aligned16(a.dout) && aligned16(a.dk) &&
+                            aligned16(a.dv);
+}
+
 int run(Kind kind, const Args& a, int dtype) {
   if (a.b < 1 || a.h < 1 || a.sq < 1 || a.sk < 1 || a.d < 1 || a.d > 256 ||
       (long)a.b * a.h > 65535 || (dtype != 0 && dtype != 1) ||
       (a.seg_q == nullptr) != (a.seg_k == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = a.seg_q != nullptr ? dispatch<true>(kind, a, dtype)
-                                             : dispatch<false>(kind, a, dtype);
+  const bool seg = a.seg_q != nullptr;
+  cudaError_t err;
+  if (use_mma(kind, a, dtype))
+    err = seg ? dispatch_mma<true>(kind, a) : dispatch_mma<false>(kind, a);
+  else
+    err = seg ? dispatch<true>(kind, a, dtype)
+              : dispatch<false>(kind, a, dtype);
   return static_cast<int>(err);
 }
 

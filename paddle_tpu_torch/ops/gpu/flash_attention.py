@@ -6,7 +6,18 @@ Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (via `_fwd`),
 `_dq_kernel` and `_dkv_kernel` (via `_bwd`), and their segmented siblings
 `_fwd_seg_kernel` (via `_seg_fwd`), `_bwd_seg_kernel` and `_dkv_seg_kernel`
 (via `_seg_bwd`). The source's header says what bounds the kernels on the
-H100 and how their design answers it. The dense plain versions are the
+H100 and how their design answers it.
+
+Which kernel runs is chosen in the C dispatch, from the dtype, head_dim and
+the tensors' addresses, before anything launches (no fallback): the bf16
+forward and dK/dV with head_dim % 8 == 0 and 16-byte aligned tensors run
+the tensor-core templates (`mma.sync` fed by `ldmatrix` from tiles that
+`cp.async` double-buffers; P and dS enter their products as two bf16
+terms, hi + lo, which keeps them within the bf16 bound that one rounding
+misses); fp32, bf16 at other head_dims or alignments, and dQ in every dtype
+run the CUDA-core templates, whose products stay in fp32 (the fp32 training
+parity needs more than TF32's 10 bits). The wrappers, their C interface and
+their launch counts are the same for both. The dense plain versions are the
 counterparts of the reference's XLA pair `_dense_fwd` / `_dense_bwd`, split
 the way the kernels are; the segmented ones compute what the segmented TPU
 kernels compute (a masked score adds exactly 0 to P, so a query row with no

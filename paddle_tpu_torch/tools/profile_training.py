@@ -27,9 +27,11 @@ import time
 
 from .profile_serving import _busy_us
 
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
+# bf16 flash runs the tensor-core templates (`*_mma_kernel`), fp32 and dQ
+# the CUDA-core ones; both count under the same kernel
+GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
           ("flash_dq", ("flash_dq_kernel",)),
-          ("flash_dkv", ("flash_dkv_kernel",)),
+          ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_mma_kernel")),
           ("rms_norm", ("_rms_fwd",)),
           ("rms_norm_bwd", ("_rms_bwd", "_rms_dw")),
           ("rope", ("_rope_fwd",)),
@@ -40,7 +42,8 @@ GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
 def _group(name):
     for group, keys in GROUPS:
         if any(k in name for k in keys):
-            # the segmented flash kernels are the dense templates with kSeg
+            # the segmented flash kernels are the dense templates with
+            # kSeg, their last template argument, set
             if group.startswith("flash_") and "true>" in name:
                 return "flash_seg_" + group[len("flash_"):]
             return group

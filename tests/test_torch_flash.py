@@ -7,7 +7,9 @@ versions. These tests hold the forward and the gradients it gives against
 the reference's Pallas kernels in interpret mode (`flash_attention(...,
 interpret=True)` and its `jax.vjp`) and against its XLA pair `_dense_fwd` /
 `_dense_bwd`, on the same numpy inputs. The CUDA kernels are held against
-the same plain versions on the card by chip_smoke.py.
+the same plain versions on the card by chip_smoke.py; the arithmetic of the
+tensor-core kernels (tiles, online softmax, P and dS as two bf16 terms) is
+emulated below and held to the same bounds here.
 
 Tolerances: float32 to 1e-5 of the value plus 1e-5 of the output's RMS
 (both sides do the same fp32 arithmetic in another order); bfloat16 to one
@@ -176,3 +178,218 @@ def test_flash_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="no kernel"):
         tflash.flash_fwd(q.to("meta"), q.to("meta"), q.to("meta"), 1.0,
                          False)
+
+
+# ------------------------------------- the tensor-core kernels' arithmetic
+# csrc/flash_attention.cu runs the bf16 forward and dK/dV on the tensor
+# cores: q tiles of 64 rows, K/V tiles of 64 keys (32 for head_dim > 128) in
+# the forward, q tiles of 32 rows (64 for head_dim <= 64) in dK/dV, an
+# online softmax in fp32 in the log2 domain, fp32 accumulation, and P (dS)
+# carried into its product as two bf16 terms, hi + lo. `_emulate_*` repeats
+# that arithmetic in plain PyTorch, tile by tile, so the design is held to
+# the reference's bound here before it runs on a card.
+LOG2E = 1.4426950408889634
+
+
+def _bf16_terms(x, terms):
+    """x as the sum of `terms` bf16 values, each rounding what the ones
+    before it missed (terms = 2: within 2**-16 of x, relative)."""
+    out = torch.zeros_like(x)
+    for _ in range(terms):
+        out = out + (x - out).to(torch.bfloat16).float()
+    return out
+
+
+def _tiles(d):
+    """(forward K/V tile, dK/dV q tile) of the kernel at this head_dim."""
+    return (64 if d <= 128 else 32), (64 if d <= 64 else 32)
+
+
+def _live(b, h, sq, sk, causal, seg_q=None, seg_k=None):
+    """[b * h, sq, sk] bool: the pairs the kernels compute."""
+    live = torch.ones(b, 1, sq, sk, dtype=torch.bool)
+    if causal:
+        live = live & torch.ones(sq, sk, dtype=torch.bool).tril()
+    if seg_q is not None:
+        live = live & (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+    return live.expand(b, h, sq, sk).reshape(b * h, sq, sk)
+
+
+def _emulate_fwd(q, k, v, scale, causal, seg_q=None, seg_k=None, terms=2):
+    """(o, lse) as the tensor-core forward computes them."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    bk, _ = _tiles(d)
+    qf, kf, vf = (tflash._heads_first(x) for x in (q, k, v))
+    live = _live(b, h, sq, sk, causal, seg_q, seg_k)
+    x = torch.bmm(qf, kf.transpose(1, 2)) * (scale * LOG2E)
+    x = x.masked_fill(~live, tflash.NEG_INF)
+    m = torch.full((b * h, sq), tflash.NEG_INF)
+    l = torch.zeros(b * h, sq)
+    acc = torch.zeros(b * h, sq, d)
+    for k0 in range(0, sk, bk):
+        xt, lt = x[:, :, k0:k0 + bk], live[:, :, k0:k0 + bk]
+        mn = torch.maximum(m, xt.amax(-1))
+        alpha = torch.exp2(m - mn)
+        p = torch.where(lt, torch.exp2(xt - mn[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.bmm(_bf16_terms(p, terms),
+                                                 vf[:, k0:k0 + bk])
+        m = mn
+    l = l.clamp_min(1e-30)
+    lse = torch.where(m == tflash.NEG_INF, m, m / LOG2E) + torch.log(l)
+    return tflash._heads_last(acc / l[..., None], b, h, q.dtype), lse
+
+
+def _emulate_dkv(q, k, v, dout, lse, delta, scale, causal, seg_q=None,
+                 seg_k=None, terms=2):
+    """(dk, dv) as the tensor-core dK/dV computes them."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _, bq = _tiles(d)
+    qf, kf, vf, dof = (tflash._heads_first(x) for x in (q, k, v, dout))
+    live = _live(b, h, sq, sk, causal, seg_q, seg_k)
+    dk = torch.zeros(b * h, sk, d)
+    dv = torch.zeros(b * h, sk, d)
+    for q0 in range(0, sq, bq):
+        sl = slice(q0, q0 + bq)
+        x = torch.bmm(qf[:, sl], kf.transpose(1, 2)) * (scale * LOG2E)
+        p = torch.where(live[:, sl],
+                        torch.exp2(x - (lse[:, sl] * LOG2E)[..., None]), 0.0)
+        dp = torch.bmm(dof[:, sl], vf.transpose(1, 2))
+        ds = p * (dp - delta[:, sl, None])
+        dv += torch.bmm(_bf16_terms(p, terms).transpose(1, 2), dof[:, sl])
+        dk += torch.bmm(_bf16_terms(ds, terms).transpose(1, 2), qf[:, sl])
+    return (tflash._heads_last(dk * scale, b, h, k.dtype),
+            tflash._heads_last(dv, b, h, v.dtype))
+
+
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=lambda s: "b{}-sq{}-sk{}-h{}-d{}-{}".format(
+                             *s[:5], "causal" if s[5] else "full"))
+def test_tensor_core_arithmetic_matches_pallas_and_dense(shape):
+    """bf16: the emulated forward (o, lse) and dK/dV, from the emulated o
+    and lse as the training step feeds them, against the Pallas kernels in
+    interpret mode and the XLA pair, at the bf16 bound."""
+    causal = shape[5]
+    scale = shape[4] ** -0.5
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(shape, jnp.bfloat16,
+                                               torch.bfloat16)
+    o, lse = _emulate_fwd(q, k, v, scale, causal)
+    delta = tflash.attention_delta(o, do)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, causal)
+
+    def pallas(a, b_, c):
+        return jflash.flash_attention(a, b_, c, scale, causal, 128, 128,
+                                      True)
+
+    po, vjp = jax.vjp(pallas, jq, jk, jv)
+    _, pdk, pdv = vjp(jdo)
+    _, (_, _, _, _, plse) = jflash._fwd(jq, jk, jv, scale, causal, 128, 128,
+                                        True)
+    xo, res = jflash._dense_fwd(jq, jk, jv, scale, causal)
+    _, xdk, xdv = jflash._dense_bwd(scale, causal, res, jdo)
+    for want_o, want_lse, want_dk, want_dv in ((po, plse, pdk, pdv),
+                                               (xo, res[4], xdk, xdv)):
+        _close(o, want_o, torch.bfloat16)
+        _close(lse, np.asarray(want_lse)[..., 0], torch.float32)
+        _close(dk, want_dk, torch.bfloat16)
+        _close(dv, want_dv, torch.bfloat16)
+
+
+def _worst(got, want):
+    """max |got - want| / (2**-7 (|want| + RMS(want))): the bf16 bound of
+    _close, as a ratio (<= 1 passes)."""
+    got, want = _np(got), _np(want)
+    rms = float(np.sqrt(np.mean(want.astype(np.float64) ** 2)))
+    return float((np.abs(got - want) / (2.0 ** -7 * (np.abs(want) + rms)))
+                 .max())
+
+
+def test_p_and_ds_need_two_bf16_terms():
+    """Why P and dS enter their products as two bf16 terms: with one (P
+    rounded to bf16 once, as FlashAttention-2 does), o, dK and dV miss
+    the bf16 bound at b 1, s 1024, h 2, d 128, causal, against the fp32 plain
+    versions; with two, all three outputs keep within it. (Rows that see
+    few keys carry large, nearly cancelling terms: one rounding of each is
+    larger than 2**-7 of the tensor's RMS.)"""
+    rng = np.random.default_rng(3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (1, 1024, 2, 128)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    scale = 128 ** -0.5
+    o_ref, lse = tflash.flash_fwd_plain(q, k, v, scale, True)
+    delta = tflash.attention_delta(o_ref, do)
+    dk_ref, dv_ref = tflash.flash_dkv_plain(q, k, v, do, lse, delta, scale,
+                                            True)
+    ratios = {}
+    for terms in (1, 2):
+        o, _ = _emulate_fwd(q, k, v, scale, True, terms=terms)
+        dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, True,
+                              terms=terms)
+        ratios[terms] = [_worst(o, o_ref), _worst(dk, dk_ref),
+                         _worst(dv, dv_ref)]
+    assert min(ratios[1]) > 1.0, ratios
+    assert max(ratios[2]) <= 1.0, ratios
+
+
+def test_tensor_core_arithmetic_segmented_dead_rows():
+    """Segments with a -1 padding tail, ragged tiles (s 100) and query rows
+    whose id no key carries: the emulated forward and dK/dV against the
+    plain versions (which the Pallas kernels match, tests/test_torch_packed
+    .py) at the bf16 bound; o of a dead row and dK/dV of a key no query
+    sees are exactly 0."""
+    rng = np.random.default_rng(11)
+    b, s, h, d = 2, 100, 2, 64
+    seg_k = np.zeros((b, s), np.int32)
+    seg_k[0, 30:70] = 1
+    seg_k[0, 70:] = 2
+    seg_k[1, 50:90] = 1
+    seg_k[1, 90:] = -1
+    seg_q = seg_k.copy()
+    seg_q[0, 5] = seg_q[1, 99] = 7             # no key carries id 7
+    seg_q[0, 72:] = 3                          # no query sees keys 72-99
+    tq, tk = torch.from_numpy(seg_q), torch.from_numpy(seg_k)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    scale = d ** -0.5
+    for causal in (False, True):
+        o_ref, lse_ref = tflash.flash_seg_fwd_plain(q, k, v, tq, tk, scale,
+                                                    causal)
+        o, lse = _emulate_fwd(q, k, v, scale, causal, tq, tk)
+        delta = tflash.attention_delta(o, do)
+        dk_ref, dv_ref = tflash.flash_seg_dkv_plain(
+            q, k, v, tq, tk, do, lse_ref, delta, scale, causal)
+        dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, causal, tq,
+                              tk)
+        dead_q = torch.from_numpy(seg_q[:, :, None] != seg_k[:, None, :])
+        dead_q = dead_q.all(-1)                       # [b, s]
+        assert (o[dead_q] == 0).all()
+        dead_k = torch.from_numpy(seg_q[:, None, :] != seg_k[:, :, None])
+        dead_k = dead_k.all(-1)
+        assert (dk[dead_k] == 0).all() and (dv[dead_k] == 0).all()
+        live_rows = ~dead_q.repeat_interleave(h, 0).reshape(b * h, s)
+        assert (lse[~live_rows] == lse_ref[~live_rows]).all()
+        _close(lse[live_rows], lse_ref[live_rows], torch.float32)
+        for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+            _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,group", [
+    ("flash_fwd_mma_kernel<128, 64, 1, false>", "flash_fwd"),
+    ("flash_fwd_mma_kernel<128, 64, 1, true>", "flash_seg_fwd"),
+    ("flash_fwd_kernel<float, 128, 64, false>", "flash_fwd"),
+    ("flash_dkv_mma_kernel<128, 32, 1, false>", "flash_dkv"),
+    ("flash_dkv_mma_kernel<128, 32, 1, true>", "flash_seg_dkv"),
+    ("flash_dkv_kernel<float, 128, 64, true>", "flash_seg_dkv"),
+    ("flash_dq_kernel<__nv_bfloat16, 128, 64, true>", "flash_seg_dq"),
+])
+def test_profile_attributes_both_template_families(name, group):
+    """tools/profile_training.py puts the tensor-core and the CUDA-core
+    templates, dense and segmented, under the same kernel (names as
+    torch.profiler reports them)."""
+    from paddle_tpu_torch.tools.profile_training import _group
+
+    assert _group(f"void (anonymous namespace)::{name}(__nv_bfloat16 "
+                  f"const*, int)") == group

@@ -232,6 +232,49 @@ def test_segmented_flash_row_with_no_live_key():
         _close(got, ref, torch.float32)
 
 
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["full", "causal"])
+def test_tensor_core_arithmetic_segmented_matches_pallas(causal):
+    """bf16, d 32: the tensor-core kernels' arithmetic (tiles, online
+    softmax, P and dS as two bf16 terms; `_emulate_fwd` / `_emulate_dkv` of
+    tests/test_torch_flash.py) against the three segmented Pallas kernels in
+    interpret mode, with rows whose id no key carries: their o is exactly 0
+    on both sides, and so are dK and dV of keys no query sees."""
+    from test_torch_flash import _emulate_dkv, _emulate_fwd
+
+    rng = np.random.default_rng(7)
+    seg_k = _segments()
+    seg_q = seg_k.copy()
+    seg_q[0, 3] = seg_q[1, 60] = 9          # no key carries id 9
+    seg_q[1, 39:50] = 4                     # rows 39-49 of row 1: neither
+    #                                         side has a live pair
+    b, s, h, d = 2, 64, 2, 32
+    arrs = [rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for _ in range(4)]
+    scale = d ** -0.5
+    jin = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrs]
+    want = _pallas_seg_split(*jin, jnp.asarray(seg_q), jnp.asarray(seg_k),
+                             scale, causal)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    tq, tk = torch.from_numpy(seg_q), torch.from_numpy(seg_k)
+    o, lse = _emulate_fwd(q, k, v, scale, causal, tq, tk)
+    delta = tflash.attention_delta(o, do)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, causal, tq, tk)
+    dead_q = (seg_q[:, :, None] != seg_k[:, None, :]).all(-1)
+    dead_k = (seg_q[:, None, :] != seg_k[:, :, None]).all(-1)
+    assert dead_q.sum() == 13 and dead_k.sum() == 11
+    assert (_np(o)[dead_q] == 0).all()
+    assert (_np(want[0])[dead_q] == 0).all()
+    for got, ref in ((dk, want[3]), (dv, want[4])):
+        assert (_np(got)[dead_k] == 0).all()
+        assert (_np(ref)[dead_k] == 0).all()
+    live_rows = ~np.repeat(dead_q, h, axis=0)
+    _close(_np(lse)[live_rows], np.asarray(want[1])[live_rows],
+           torch.float32)
+    for got, ref in ((o, want[0]), (dk, want[3]), (dv, want[4])):
+        _close(got, ref, torch.bfloat16)
+
+
 def test_segmented_attention_dispatch():
     """nn_ops.segmented_attention and flash_attn_unpadded take the kernel
     path inside the reference's gate and the dense-mask composition outside
