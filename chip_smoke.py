@@ -13,33 +13,38 @@ final line):
   2. build   - nvcc builds every CUDA source under paddle_tpu_torch/csrc/,
                one process per source, all at once
   3. kernels - each kernel against its plain version on the card, in bf16
-               and fp32, at its path's shapes: max |error| within the stated
-               tolerance, and median time (CUDA events) beside the plain
-               version's, one PyTorch library call's where one computes the
-               same function (a yardstick only; the port never calls it),
-               and the bound: the larger of bytes moved / 3.35 TB/s and
-               operations / the peak rate of the input type. Paged decode
-               runs at the main path's shapes with the split count the
-               wrapper chooses there and with one split; the paged verify
+               and fp32 (and fp16 at the main shapes), at its path's
+               shapes: max |error| within the stated tolerance, and median
+               time (CUDA events) beside the plain version's, one PyTorch
+               library call's where one computes the same function (a
+               yardstick only; the port never calls it), and the bound: the
+               larger of bytes moved / 3.35 TB/s and operations / the peak
+               rate of the input type. Paged decode runs at the main path's
+               shapes with the split count the wrapper chooses there and
+               with one split, and at GQA groups 2-32 (16 and 32 run the
+               verify kernel as a window of one token); the paged verify
                window at the spec slice's (8 slots, W = 5, 32 heads, d 128,
                windows ending at 17-2048) at the chosen count and at one
                split, a GQA window of 72 rows (hq 32, hkv 4, sq 9), windows
                that run past a 4-page table into the null page, and sq = 1
-               against the decode kernel at base + 1; flash attention at
-               GPT-3 1.3B's (b 4, s 2048, h 16, d 128, causal), at d 64,
-               non-causal with sq != sk, at d 256 and at d 80 (ragged s
-               300); which template each bf16 call takes (tensor cores at
-               d % 8 == 0 with aligned tensors, CUDA cores at d 36 and one
-               element off alignment; kernel names from torch.profiler);
-               segmented flash at the packed slice's (b 2, s 4096, h 32,
-               d 128, causal, its segment layout; bf16) and a small case in
-               bf16 and fp32 (d 64, s 300, non-causal, a -1 padding tail,
-               rows with no live key and keys with no live query, whose o
-               and dq, dk and dv must be exactly 0); the RMSNorm backward
-               at [8192, 4096];
-               RoPE with sign -1 (the backward) at [2, 4096, 32, 128],
-               contiguous and at the slice's per-document positions;
-               AdamW over GPT-3 1.3B's flat size and a ragged small one
+               against the decode kernel at base + 1, plus a sweep of its
+               split count; flash attention at GPT-3 1.3B's (b 4, s 2048, h
+               16, d 128, causal), at d 64, non-causal with sq != sk, at d
+               256 and at d 80 (ragged s 300); which template each call
+               takes (tensor cores for bf16 at d % 8 == 0 with aligned
+               tensors, CUDA cores at d 36, one element off alignment, fp32
+               and fp16; the same for the verify window and a g 16 decode
+               step; kernel names from torch.profiler); segmented flash at
+               the packed slice's (b 2, s 4096, h 32, d 128, causal, its
+               segment layout; bf16 and fp16) and a small case in every
+               dtype (d 64, s 300, non-causal, a -1 padding tail, rows with
+               no live key and keys with no live query, whose o and dq, dk
+               and dv must be exactly 0); dense and segmented flash at b *
+               h = 65,540 (past grid.y's 65535); the RMSNorm backward at
+               [8192, 4096]; RoPE with sign -1 (the backward) at [2, 4096,
+               32, 128], contiguous and at the slice's per-document
+               positions; AdamW over GPT-3 1.3B's flat size and a ragged
+               small one
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy
@@ -108,7 +113,8 @@ import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
-PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
+                  "torch.float32": 67e12}
 SEED = 0
 
 
@@ -166,10 +172,11 @@ def _tol(dtype):
     import torch
 
     # Both sides do the same fp32 arithmetic in another order (max |error|
-    # measured at most 1.2e-6 in fp32); in bf16 both then round that fp32
-    # value once, so they may differ by one bf16 ulp, at most 2**-7 of the
-    # value. The fp32 slack stays as the absolute term in both dtypes.
-    return (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2.0 ** -7)
+    # measured at most 1.2e-6 in fp32); in bf16 (fp16) both then round that
+    # fp32 value once, so they may differ by one ulp, at most 2**-7 (2**-10)
+    # of the value. The fp32 slack stays as the absolute term in all three.
+    return {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7),
+            torch.float16: (1e-5, 2.0 ** -10)}[dtype]
 
 
 def _compare(name, shape, dtype, got, want, tol=None):
@@ -286,9 +293,6 @@ def paged_case(torch, gen, dtype, slots, hq, hkv, d, bs, ctx_lens,
 
     max_ctx = max(ctx_lens)
     maxb = -(-max_ctx // bs)
-    shown = splits if splits is not None else pa.choose_kv_splits(
-        slots, hkv, maxb, bs,
-        torch.cuda.get_device_properties(0).multi_processor_count)
     nb = slots * maxb + 1
     kp = torch.randn(nb, bs, hkv, d, device="cuda", generator=gen).to(dtype)
     vp = torch.randn(nb, bs, hkv, d, device="cuda", generator=gen).to(dtype)
@@ -300,6 +304,8 @@ def paged_case(torch, gen, dtype, slots, hq, hkv, d, bs, ctx_lens,
         bt[r, -(-c // bs):] = 0
     bt = bt.contiguous()
     scale = d ** -0.5
+    shown = splits if splits is not None else pa.decode_splits(
+        q, kp, vp, bt, torch.cuda.get_device_properties(0).multi_processor_count)
     # yardstick: one SDPA call over K/V already gathered (gather not timed)
     kg = kp[bt.long()].reshape(slots, maxb * bs, hkv, d)
     vg = vp[bt.long()].reshape(slots, maxb * bs, hkv, d)
@@ -338,9 +344,6 @@ def verify_case(torch, gen, dtype, slots, sq, hq, hkv, d, bs, bases,
 
     maxb = max_blocks or -(-(max(bases) + sq) // bs)
     span = maxb * bs
-    shown = splits if splits is not None else pa.choose_kv_splits(
-        slots, hkv * pa.row_tiles(sq, hq // hkv), maxb, bs,
-        torch.cuda.get_device_properties(0).multi_processor_count)
     nb = slots * maxb + 1
     kp = torch.randn(nb, bs, hkv, d, device="cuda", generator=gen).to(dtype)
     vp = torch.randn(nb, bs, hkv, d, device="cuda", generator=gen).to(dtype)
@@ -352,6 +355,8 @@ def verify_case(torch, gen, dtype, slots, sq, hq, hkv, d, bs, bases,
         bt[r, -(-(c + sq) // bs):] = 0
     bt = bt.contiguous()
     scale = d ** -0.5
+    shown = splits if splits is not None else pa.verify_splits(
+        q, kp, vp, bt, torch.cuda.get_device_properties(0).multi_processor_count)
     # yardstick: one masked SDPA call over K/V already gathered
     kg = kp[bt.long()].reshape(slots, span, hkv, d)
     vg = vp[bt.long()].reshape(slots, span, hkv, d)
@@ -393,14 +398,18 @@ def verify_case(torch, gen, dtype, slots, sq, hq, hkv, d, bs, bases,
 # online softmax rescales as it goes), so outputs differ by up to ~1e-4 of
 # their RMS (measured 1.6e-4 for dK at the main shape): fp32 bound 1e-5 of
 # the value + 1e-3 of the RMS. bf16: one bf16 rounding (2**-7) of the value
-# and of the RMS, as in tests/test_torch_flash.py.
+# and of the RMS, as in tests/test_torch_flash.py; fp16 (the CUDA-core
+# templates, fp32 products) one fp16 rounding (2**-10) of each, which also
+# covers the fp32 term.
 def _flash_tol(torch):
-    return {torch.float32: (1e-5, 1e-3), torch.bfloat16: (2.0 ** -7,
-                                                          2.0 ** -7)}
+    return {torch.float32: (1e-5, 1e-3),
+            torch.bfloat16: (2.0 ** -7, 2.0 ** -7),
+            torch.float16: (2.0 ** -10, 2.0 ** -10)}
 
 
-def flash_cases(torch, gen, dtype, b, sq, sk, h, d, causal):
-    """Three cases (forward, dQ, dK/dV) on one set of inputs."""
+def flash_cases(torch, gen, dtype, b, sq, sk, h, d, causal, library=True):
+    """Three cases (forward, dQ, dK/dV) on one set of inputs; with library,
+    SDPA's forward and backward as their yardsticks."""
     from paddle_tpu_torch.ops.gpu import flash_attention as fa
 
     def rnd(s):
@@ -410,21 +419,26 @@ def flash_cases(torch, gen, dtype, b, sq, sk, h, d, causal):
     scale = d ** -0.5
     o, lse = fa.flash_fwd_plain(q, k, v, scale, causal)
     delta = fa.attention_delta(o, do)
-    # yardsticks: SDPA in its [b, h, s, d] layout, forward and backward
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    qt.requires_grad_(True)
-    kt.requires_grad_(True)
-    vt.requires_grad_(True)
+    sdpa_fwd = sdpa_bwd = None
+    if library:
+        # yardsticks: SDPA in its [b, h, s, d] layout, forward and backward
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        for t in (qt, kt, vt):
+            t.requires_grad_(True)
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, scale=scale)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale)
 
-    out_t = sdpa()
+        out_t = sdpa()
 
-    def sdpa_bwd():
-        return torch.autograd.grad(out_t, (qt, kt, vt), dot,
-                                   retain_graph=True)
+        def sdpa_fwd():
+            return sdpa().detach()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out_t, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
     pairs = sq * (sq + 1) // 2 if causal else sq * sk   # unmasked (q, k)
     es = q.element_size()
@@ -438,7 +452,7 @@ def flash_cases(torch, gen, dtype, b, sq, sk, h, d, causal):
         dict(name="flash_fwd", shape=shape, tol=tol,
              kernel=lambda: fa.flash_fwd(q, k, v, scale, causal),
              plain=lambda: fa.flash_fwd_plain(q, k, v, scale, causal),
-             library=lambda: sdpa().detach(),
+             library=sdpa_fwd,
              nbytes=tensor * (2 * sq + 2 * sk) + rows, nops=4 * ops),
         dict(name="flash_dq", shape=shape, tol=tol,
              kernel=lambda: fa.flash_dq(*args),
@@ -601,49 +615,152 @@ def kernel_names(torch, fn):
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def flash_routes(torch, gen):
-    """Which hand-written template each bf16 call takes: the tensor-core
-    ones at d % 8 == 0 with 16-byte aligned tensors, the CUDA-core ones at
-    d 36 and with q, k, v, dout one element off a 16-byte boundary; the
-    kernel names come from torch.profiler. Each call also holds against its
-    plain version."""
-    from paddle_tpu_torch.ops.gpu import flash_attention as fa
+def _offset_randn(torch, gen, shape, dtype, offset=0):
+    """A contiguous tensor `offset` elements past an allocation's start (a
+    16-byte aligned one at offset 0)."""
+    n = 1
+    for x in shape:
+        n *= x
+    buf = torch.randn(n + offset, device="cuda", generator=gen)
+    return buf.to(dtype)[offset:].view(shape)
 
-    def rnd(shape, offset=0):
-        n = 1
-        for x in shape:
-            n *= x
-        buf = torch.randn(n + offset, device="cuda", generator=gen)
-        return buf.to(torch.bfloat16)[offset:].view(shape)
+
+def _route(kind, names, want):
+    """The one kernel of ours among `names` whose name holds `kind`; raises
+    unless it is the template family `want` ("mma_kernel" for the tensor
+    cores, else the CUDA-core templates)."""
+    ours = [n for n in names if kind in n and "combine" not in n]
+    tensor_core = any("mma_kernel" in n for n in ours)
+    if len(ours) != 1 or tensor_core != (want == "tensor"):
+        raise AssertionError(f"expected the {want}-core template of {kind}, "
+                             f"launched {ours}")
+    return ours[0][:80]
+
+
+def flash_routes(torch, gen):
+    """Which hand-written template each call takes: the tensor-core ones for
+    bf16 at d % 8 == 0 with 16-byte aligned tensors, the CUDA-core ones for
+    bf16 at d 36 and with q, k, v, dout one element off a 16-byte boundary,
+    and for fp32 and fp16; forward, dQ and dK/dV. Kernel names come from
+    torch.profiler; each call also holds against its plain version."""
+    from paddle_tpu_torch.ops.gpu import flash_attention as fa
 
     out = []
     tol = _flash_tol(torch)
-    for d, offset, tensor_core in ((64, 0, True), (36, 0, False),
-                                   (64, 1, False)):
+    for dtype, d, offset, want in (
+            (torch.bfloat16, 64, 0, "tensor"), (torch.bfloat16, 36, 0, "CUDA"),
+            (torch.bfloat16, 64, 1, "CUDA"), (torch.float32, 64, 0, "CUDA"),
+            (torch.float16, 64, 0, "CUDA")):
         shape = (2, 256, 4, d)
-        q, k, v, do = (rnd(shape, offset) for _ in range(4))
+        q, k, v, do = (_offset_randn(torch, gen, shape, dtype, offset)
+                       for _ in range(4))
         scale = d ** -0.5
         o, lse = fa.flash_fwd_plain(q, k, v, scale, True)
         delta = fa.attention_delta(o, do)
         args = (q, k, v, do, lse, delta, scale, True)
         for name, kern, plain in (
-                ("forward", lambda: fa.flash_fwd(q, k, v, scale, True),
+                ("fwd", lambda: fa.flash_fwd(q, k, v, scale, True),
                  lambda: fa.flash_fwd_plain(q, k, v, scale, True)),
+                ("dq", lambda: fa.flash_dq(*args),
+                 lambda: fa.flash_dq_plain(*args)),
                 ("dkv", lambda: fa.flash_dkv(*args),
                  lambda: fa.flash_dkv_plain(*args))):
-            names = kernel_names(torch, kern)
-            ours = [n for n in names if "flash_" in n]
-            mma = any("mma_kernel" in n for n in ours)
-            if len(ours) != 1 or mma != tensor_core:
-                raise AssertionError(f"flash {name}, bf16 d {d}, offset "
-                                     f"{offset}: expected the "
-                                     f"{'tensor' if tensor_core else 'CUDA'}"
-                                     f"-core template, launched {ours}")
-            err = _compare(f"flash_{name}", list(shape), torch.bfloat16,
-                           kern(), plain(), tol)
-            out.append({"d": d, "offset_elements": offset, "call": name,
-                        "kernel": ours[0][:80], "max_abs_err": err})
+            got = _route(f"flash_{name}_", kernel_names(torch, kern), want)
+            err = _compare(f"flash_{name}", list(shape), dtype, kern(),
+                           plain(), tol)
+            out.append({"dtype": str(dtype).replace("torch.", ""), "d": d,
+                        "offset_elements": offset, "call": name,
+                        "kernel": got, "max_abs_err": err})
     return {"phase": "kernels", "name": "flash_routes", "routes": out}
+
+
+def paged_routes(torch, gen):
+    """Which paged kernel each call takes (torch.profiler's names): the
+    verify window on the tensor cores for bf16 at d % 8 == 0 with aligned
+    q and pages, on the CUDA cores for bf16 one element off alignment and
+    for fp32 and fp16; a decode step with g <= 8 on the decode kernel, and
+    with g 16 and 32 through the verify kernel (tensor cores for bf16,
+    CUDA cores for fp32 and fp16). Each call also holds against its plain
+    version."""
+    from paddle_tpu_torch.ops.gpu import paged_attention as pa
+
+    out = []
+    for dtype, offset, hq, hkv, sq, want in (
+            (torch.bfloat16, 0, 8, 2, 5, ("paged_verify_", "tensor")),
+            (torch.bfloat16, 1, 8, 2, 5, ("paged_verify_", "CUDA")),
+            (torch.float32, 0, 8, 2, 5, ("paged_verify_", "CUDA")),
+            (torch.float16, 0, 8, 2, 5, ("paged_verify_", "CUDA")),
+            (torch.bfloat16, 0, 8, 2, 0, ("paged_decode_", "CUDA")),
+            (torch.bfloat16, 0, 32, 2, 0, ("paged_verify_", "tensor")),
+            (torch.bfloat16, 0, 32, 1, 0, ("paged_verify_", "tensor")),
+            (torch.float32, 0, 32, 2, 0, ("paged_verify_", "CUDA")),
+            (torch.float16, 0, 32, 1, 0, ("paged_verify_", "CUDA"))):
+        slots, d, bs, maxb = 3, 64, 16, 8
+        nb = slots * maxb + 1
+        shape = (slots, sq, hq, d) if sq else (slots, hq, d)
+        q = _offset_randn(torch, gen, shape, dtype, offset)
+        kp = _offset_randn(torch, gen, (nb, bs, hkv, d), dtype, offset)
+        vp = _offset_randn(torch, gen, (nb, bs, hkv, d), dtype, offset)
+        bt = (torch.randperm(nb - 1, device="cuda", generator=gen)[
+            :slots * maxb] + 1).reshape(slots, maxb).to(torch.int32)
+        cl = torch.tensor([100, 7, 120], dtype=torch.int32, device="cuda")
+        if sq:
+            kern = lambda: pa.paged_attention_multi(q, kp, vp, bt, cl)
+            plain = lambda: pa.paged_attention_multi_plain(q, kp, vp, bt, cl)
+        else:
+            kern = lambda: pa.paged_attention(q, kp, vp, bt, cl)
+            plain = lambda: pa.paged_attention_plain(q, kp, vp, bt, cl)
+        got = _route(want[0], kernel_names(torch, kern), want[1])
+        err = _compare("paged_routes", list(shape), dtype, kern(), plain())
+        out.append({"dtype": str(dtype).replace("torch.", ""),
+                    "offset_elements": offset, "q": list(shape),
+                    "g": hq // hkv, "kernel": got, "max_abs_err": err})
+    return {"phase": "kernels", "name": "paged_routes", "routes": out}
+
+
+def verify_split_sweep(torch, gen, counts=(1, 2, 3, 4, 5, 6, 8, 10, 12, 16)):
+    """The bf16 verify kernel's time for each split count at the spec
+    slice's shape (8 slots, W = 5, 32 heads, d 128, windows ending at
+    17-2048) and with two slots (the two longest windows), and the count
+    the wrapper chooses at each (verify_splits)."""
+    out = {}
+    for slots, bases in ((8, VERIFY_BASES), (2, VERIFY_BASES[:2])):
+        times = {}
+        for n in counts:
+            case = verify_case(torch, gen, torch.bfloat16, slots, 5, 32, 32,
+                               128, 16, bases, splits=n)
+            times[n] = time_ms(case["kernel"])
+        case = verify_case(torch, gen, torch.bfloat16, slots, 5, 32, 32, 128,
+                           16, bases)
+        out[f"slots {slots}"] = {"ms_by_splits": times,
+                                 "chosen": case["shape"][-1]}
+    return {"phase": "kernels", "name": "verify_split_sweep",
+            "shape": ["slots", 5, 32, 32, 128, 16], **out}
+
+
+def wide_bh_cases(torch, gen):
+    """b * h = 65,540 (past grid.y's 65535): dense forward, dQ and dK/dV in
+    bf16 (tensor cores) and fp16 (CUDA cores), and the segmented three in
+    bf16, at b 16385, h 4, s 128, d 64, causal. Checks, timed briefly and
+    without a yardstick. Yields (dtype, case), one input set at a time."""
+    b, s, h, d = 16385, 128, 4, 64
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg[:, 40:] = 1
+    seg[:, 100:] = 2
+    seg[1::2, 120:] = -1                    # padding tails on odd rows
+    for dtype, make in (
+            (torch.bfloat16, lambda: flash_cases(
+                torch, gen, torch.bfloat16, b, s, s, h, d, True,
+                library=False)),
+            (torch.float16, lambda: flash_cases(
+                torch, gen, torch.float16, b, s, s, h, d, True,
+                library=False)),
+            (torch.bfloat16, lambda: seg_flash_cases(
+                torch, gen, torch.bfloat16, seg.contiguous(), h, d, True,
+                library=False))):
+        for case in make():
+            case.update(iters=3, reps=3)
+            yield dtype, case
 
 
 def rms_bwd_case(torch, gen, dtype, n, d=4096):
@@ -771,6 +888,7 @@ def kernels_phase(torch):
     # the packed slice's segment layout and per-document positions
     seg = torch.from_numpy(packed_batch(32000)[1]).cuda().contiguous()
     pos = packed_positions(seg, seg.shape[1]).contiguous()
+    decode_ctx = [2048, 1791, 1500, 1203, 900, 611, 300, 17]
     for dtype in (torch.bfloat16, torch.float32):
         cases = [
             ("rms_norm", rms_case(torch, gen, dtype, 8)),          # decode
@@ -781,20 +899,23 @@ def kernels_phase(torch):
             # decode at the main path's table width (2048 / 16 = 128 pages):
             # the wrapper's own split count, then the single-split side
             ("paged_decode", paged_case(
-                torch, gen, dtype, 8, 32, 32, 128, 16,
-                [2048, 1791, 1500, 1203, 900, 611, 300, 17])),
+                torch, gen, dtype, 8, 32, 32, 128, 16, decode_ctx)),
             (None, paged_case(torch, gen, dtype, 8, 32, 32, 128, 16,
-                              [2048, 1791, 1500, 1203, 900, 611, 300, 17],
-                              splits=1)),
+                              decode_ctx, splits=1)),
         ]
         for g, ctx in ((2, [77, 5, 300]), (4, [1, 129, 640]),
                        (8, [33, 1000, 16])):
             cases.append((None, paged_case(torch, gen, dtype, 3, 8 * g, 8,
                                            128, 16, ctx, splits=2)))
+        # GQA groups past the decode kernel's 8 rows (32 heads over 2 kv
+        # heads, and MQA): the verify kernel as a window of one token
+        for hkv, ctx in ((2, [77, 1000, 300]), (1, [1, 640, 129])):
+            cases.append((None, paged_case(torch, gen, dtype, 3, 32, hkv,
+                                           128, 16, ctx)))
         # the verify window at the spec slice's shapes (8 slots, W = 5,
         # windows ending at 17-2048), at the wrapper's split count and at
-        # one split; a GQA window of 72 rows (9 row tiles); windows that
-        # run past a 4-page table; sq = 1 against the decode kernel
+        # one split; a GQA window of 72 rows; windows that run past a
+        # 4-page table; sq = 1 against the decode kernel
         cases += [
             ("paged_verify", verify_case(torch, gen, dtype, 8, 5, 32, 32,
                                          128, 16, VERIFY_BASES)),
@@ -845,6 +966,8 @@ def kernels_phase(torch):
             torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
             emit(flash_routes(torch, gen))
+            emit(paged_routes(torch, gen))
+            emit(verify_split_sweep(torch, gen))
         # segmented: the packed slice's attention (b 2, s 4096, h 32,
         # d 128, causal, bf16), and the small case with dead rows and keys
         seg_cases = no_live_key_check(torch, gen, dtype)
@@ -858,6 +981,25 @@ def kernels_phase(torch):
             del case
         seg_cases = None
         torch.cuda.empty_cache()
+    # fp16 (the CUDA-core templates) at the main paths' shapes: paged decode
+    # and verify, dense flash at GPT-3 1.3B's, segmented at the packed
+    # slice's, and the small segmented case with dead rows and keys
+    dtype = torch.float16
+    cases = [paged_case(torch, gen, dtype, 8, 32, 32, 128, 16, decode_ctx),
+             paged_case(torch, gen, dtype, 3, 32, 2, 128, 16,
+                        [77, 1000, 300]),
+             verify_case(torch, gen, dtype, 8, 5, 32, 32, 128, 16,
+                         VERIFY_BASES)]
+    cases += flash_cases(torch, gen, dtype, 4, 2048, 2048, 16, 128, True)
+    cases += seg_flash_cases(torch, gen, dtype, seg, 32, 128, True)
+    cases += no_live_key_check(torch, gen, dtype)
+    for case in cases:
+        run_case(torch, case, dtype)
+    cases = None
+    torch.cuda.empty_cache()
+    for dtype, case in wide_bh_cases(torch, gen):
+        run_case(torch, case, dtype)
+    torch.cuda.empty_cache()
     # AdamW runs in fp32 only: GPT-3 1.3B's one flat group, a ragged one
     from paddle_tpu_torch.models import GPTConfig
 

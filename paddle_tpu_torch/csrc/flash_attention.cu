@@ -30,16 +30,17 @@
 // Two families of templates; `use_mma` chooses between them before either
 // launches (no fallback):
 //
-// * Tensor cores (`flash_fwd_mma_kernel`, `flash_dkv_mma_kernel`): the bf16
-//   forward and dK/dV where head_dim % 8 == 0 and q, k, v, o (dout, dk, dv)
-//   are 16-byte aligned, as their 16-byte copies need. Products are
-//   `mma.sync.m16n8k16` bf16 x bf16 -> fp32; operands come from shared
-//   memory by `ldmatrix` (`.trans` for V, dO and Q where they are the
-//   k-major operand); tiles arrive by 16-byte `cp.async` (zero-filled past
-//   the ragged edge and past d) in two stages, so the next tile loads while
-//   this one computes. Shared rows are padded by 16 bytes (D + 8 elements),
-//   so the eight row addresses of an `ldmatrix` fall in distinct banks.
-//   head_dim is zero-padded to D = 64, 128 or 256 in shared memory only.
+// * Tensor cores (`flash_fwd_mma_kernel`, `flash_dq_mma_kernel`,
+//   `flash_dkv_mma_kernel`): bf16 where head_dim % 8 == 0 and every tensor
+//   the kernel reads or writes by 16-byte copies is 16-byte aligned.
+//   Products are `mma.sync.m16n8k16` bf16 x bf16 -> fp32; operands come
+//   from shared memory by `ldmatrix` (`.trans` where a tile is the k-major
+//   operand: V in the forward, K in dQ, dO and Q in dK/dV); tiles arrive by
+//   16-byte `cp.async` (zero-filled past the ragged edge and past d) in two
+//   stages, so the next tile loads while this one computes. Shared rows are
+//   padded by 16 bytes (D + 8 elements), so the eight row addresses of an
+//   `ldmatrix` fall in distinct banks. head_dim is zero-padded to D = 64,
+//   128 or 256 in shared memory only.
 //   - Forward: four warps; a warp owns 16 MT q rows (MT = 2 at D 64, 1
 //     above; two m-tiles share each K/V fragment), K/V tiles of 64 rows (32
 //     at D 256). Q stays in shared memory and is re-read by `ldmatrix`. S
@@ -51,6 +52,15 @@
 //     never touches shared memory. Causal: tiles past the q tile's end are
 //     not visited, the element mask runs only on tiles that cross the
 //     diagonal or the ragged edge, and the heaviest q tiles launch first.
+//   - dQ: four warps; a block owns 64 q rows, a warp 16 (at D 256, 32 rows:
+//     two warps share q rows and split dQ's columns, so its fp32
+//     accumulators stay in registers). Q and dO stay in shared memory; K
+//     and V tiles of 64 keys (32 at D 256) stream in. The warp computes S =
+//     Q K^T and dP = dO V^T, then P = exp2(S scale log2 e - lse log2 e) and
+//     dS = P (dP - delta) in the accumulators; dS is already the A fragment
+//     of dQ += dS K, with K read through `ldmatrix.trans`. Causal tiles
+//     past the q tile are not visited and the heaviest q tiles go first, as
+//     in the forward. No atomics: each block writes its q rows once.
 //   - dK/dV: four warps; a block owns 64 keys, a warp 16 (at D 256, 32
 //     keys: two warps share key rows and split dK/dV's columns, so the fp32
 //     accumulators stay in registers). K and V stay in shared memory; Q, dO,
@@ -61,48 +71,58 @@
 //     result is deterministic.
 //   - Rounding: P and dS enter their products as two bf16 terms each, hi =
 //     bf16(x) and lo = bf16(x - hi), two `mma`s (x to 2^-16). One rounding
-//     of P and dS (2^-9) would put o, dK and dV 1.6-3.5x past the bf16
-//     bound that holds the port to its plain versions (2^-7 of the value
-//     plus 2^-7 of the RMS; tests/test_torch_flash.py
+//     of P and dS (2^-9) would put o, dQ, dK and dV past the bf16 bound
+//     that holds the port to its plain versions (2^-7 of the value plus
+//     2^-7 of the RMS; tests/test_torch_flash.py
 //     test_p_and_ds_need_two_bf16_terms): rows that see few keys carry large
-//     terms that nearly cancel. m, l, O, dK and dV stay fp32; the scale
-//     multiplies the fp32 scores and dK, never bf16 Q.
-//   - Registers (ptxas -v): the forward 192 at D 128 and 232 at D 64,
-//     dK/dV 247 at D 128 (segmented 254: it walks head_dim four mma steps
-//     at a time, which keeps the segment state from spilling) and 182 at D
-//     64; 0 spill bytes at D <= 128. At D 256 the forward and the segmented
-//     dK/dV spill a few words; no main path runs D 256.
+//     terms that nearly cancel. m, l, O, dQ, dK and dV stay fp32; the scale
+//     multiplies the fp32 scores, dQ and dK, never bf16 Q.
+//   - Registers: ptxas -v's counts are in chip_smoke.py's build phase. At D
+//     <= 128 no template spills (the segmented dK/dV walks head_dim four
+//     mma steps at a time, which keeps its segment state from spilling); at
+//     D 256 the forward and the segmented dK/dV spill a few words; no main
+//     path runs D 256.
 //
 // * CUDA cores (`flash_fwd_kernel`, `flash_dq_kernel`, `flash_dkv_kernel`):
 //   fp32, whose products stay fp32 (TF32 keeps 10 bits, and the fp32
-//   training parity holds losses to 1e-4), bf16 at other head_dims or
-//   alignments, and dQ in every type. 256 threads form a 16 x 16 grid;
-//   thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of every tile
-//   product, over fp32 tiles in shared memory padded by one word. Tiles are
-//   64 rows for head_dim <= 128 and 32 rows for head_dim <= 256 (four fp32
-//   tiles of [rows, head_dim]); head_dim is padded with zeros to 64, 128 or
-//   256. The products are scalar FMA loops, far from the tensor cores' rate.
+//   training parity holds losses to 1e-4), fp16, and bf16 at other
+//   head_dims or alignments. 256 threads form a 16 x 16 grid; thread (ty,
+//   tx) owns rows ty + 16 i and columns tx + 16 j of every tile product,
+//   over fp32 tiles in shared memory padded by one word. Tiles are 64 rows
+//   for head_dim <= 128 and 32 rows for head_dim <= 256 (four fp32 tiles of
+//   [rows, head_dim]); head_dim is padded with zeros to 64, 128 or 256. The
+//   products are scalar FMA loops, far from the tensor cores' rate. fp16
+//   loads and stores through the intrinsics; its products are fp32, as
+//   bf16's.
 //
-// Segments are the same templates with kSeg set: each thread takes the
-// segment ids of its rows and columns, and ANDs seg_q == seg_k into the
-// live mask. A k tile (a q tile in dK/dV) in which no pair is live is
-// skipped: the threads test the pairs and __syncthreads_or decides for the
-// block (the tensor-core templates first compare each streamed id with the
-// min and max of the block's own ids, so sorted packed ids skip a dead tile
-// in one test). Under the online softmax a tile with no live pair leaves m,
-// l and the accumulators exactly as they were (alpha = 1, P = 0), so
-// skipping gives the same bits as computing it. Packed documents are short
-// beside the row, so most tiles off the diagonal blocks are skipped; the TPU
-// kernels skip nothing.
+// Segments are the same templates with kSeg set (kSeg is every template's
+// last argument): each thread takes the segment ids of its rows and
+// columns, and ANDs seg_q == seg_k into the live mask. A k tile (a q tile in
+// dK/dV) in which no pair is live is skipped: the threads test the pairs and
+// __syncthreads_or decides for the block (the tensor-core templates first
+// compare each streamed id with the min and max of the block's own ids, so
+// sorted packed ids skip a dead tile in one test). Under the online softmax
+// a tile with no live pair leaves m, l and the accumulators exactly as they
+// were (alpha = 1, P = 0), so skipping gives the same bits as computing it;
+// in dQ and dK/dV a skipped tile would add P = dS = 0. Packed documents are
+// short beside the row, so most tiles off the diagonal blocks are skipped;
+// the TPU kernels skip nothing.
+//
+// Grids: the row (or key) tile on grid.x, b * h on grid.y and, past 65535,
+// on grid.z as well (`bh_grid`, any b * h up to 2^31 - 1). Blocks launch
+// with x fastest, so one head's tiles run together and share its K/V in L2.
 //
 // C interface (loaded with ctypes): each entry point returns
 // cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -116,6 +136,17 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// The block's (batch, head) index: grid.y, continued on grid.z past 65535
+// (see bh_grid); -1 for the spare blocks of the last z slice.
+__device__ __forceinline__ int bh_index(int nbh) {
+  const int bh = blockIdx.y + blockIdx.z * gridDim.y;
+  return bh < nbh ? bh : -1;
 }
 
 // Sums and maxima over the 16 threads (tx = 0..15) that share a tile row.
@@ -255,15 +286,17 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seg_q,
                      const int* __restrict__ seg_k, T* __restrict__ o,
-                     float* __restrict__ lse, int h, int sq, int sk, int d,
-                     float scale, int causal) {
+                     float* __restrict__ lse, int nbh, int h, int sq, int sk,
+                     int d, float scale, int causal) {
   constexpr int TM = B / 16, TD = D / 16, LD = D + 1, LB = B + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + B * LD;
   float* Vs = Ks + B * LD;
   float* Ps = Vs + B * LD;
-  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int bh = bh_index(nbh);
+  if (bh < 0) return;
+  const int bi = bh / h, hi = bh % h;
   const int q0 = blockIdx.x * B;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long stride = (long)h * d;
@@ -349,7 +382,8 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ seg_k, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int h, int sq, int sk, int d, float scale, int causal) {
+                    int nbh, int h, int sq, int sk, int d, float scale,
+                    int causal) {
   constexpr int TM = B / 16, TD = D / 16, LD = D + 1, LB = B + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -357,7 +391,9 @@ __global__ void __launch_bounds__(kThreads)
   float* Ks = dOs + B * LD;
   float* Vs = Ks + B * LD;
   float* dSs = Vs + B * LD;
-  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int bh = bh_index(nbh);
+  if (bh < 0) return;
+  const int bi = bh / h, hi = bh % h;
   const int q0 = blockIdx.x * B;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long stride = (long)h * d;
@@ -420,8 +456,8 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int h, int sq, int sk, int d,
-                     float scale, int causal) {
+                     T* __restrict__ dv, int nbh, int h, int sq, int sk,
+                     int d, float scale, int causal) {
   constexpr int TM = B / 16, TD = D / 16, LD = D + 1, LB = B + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -432,7 +468,9 @@ __global__ void __launch_bounds__(kThreads)
   float* dSs = Ps + B * LB;
   float* lses = dSs + B * LB;
   float* deltas = lses + B;
-  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int bh = bh_index(nbh);
+  if (bh < 0) return;
+  const int bi = bh / h, hi = bh % h;
   const int k0 = blockIdx.x * B;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long stride = (long)h * d;
@@ -494,98 +532,7 @@ __global__ void __launch_bounds__(kThreads)
 // Tensor-core templates: bf16, head_dim % 8 == 0, 16-byte aligned tensors.
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kMmaThreads = 128;  // four warps
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, zeros where !in (nothing is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives, in r[i], its two elements of matrix i (transposed
-// with kTrans).
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  if constexpr (kTrans) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-  }
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) as two bf16 pairs hi + lo: hi rounds (x, y), lo rounds what hi
-// missed, so hi + lo is within 2^-16 of (x, y) relative.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The A fragments (hi and lo) of the 16x16 block whose columns are the
-// accumulator tiles c0 (columns 0-7) and c1 (8-15): the m16n8 C layout of
-// two neighbouring tiles is the m16k16 A layout.
-__device__ __forceinline__ void c_to_a(const float (&c0)[4],
-                                       const float (&c1)[4],
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
 
 // Rows [row0, row0 + R) of one head (g at its row 0, rows `stride` apart)
 // into a [R][D + 8] shared tile by 16-byte cp.async; zeros past `rows` and
@@ -681,8 +628,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                          const bf16* __restrict__ v,
                          const int* __restrict__ seg_q,
                          const int* __restrict__ seg_k, bf16* __restrict__ o,
-                         float* __restrict__ lse, int h, int sq, int sk,
-                         int d, float scale, int causal) {
+                         float* __restrict__ lse, int nbh, int h, int sq,
+                         int sk, int d, float scale, int causal) {
   constexpr int WR = 16 * MT, BQ = 4 * WR, LDS = D + 8, NT = BK / 8;
   constexpr int ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -694,7 +641,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int bh = bh_index(nbh);
+  if (bh < 0) return;
+  const int bi = bh / h, hi = bh % h;
   // the heaviest causal q tiles first, so the light ones fill the tail
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int w0 = q0 + warp * WR;  // the warp's first row
@@ -924,8 +873,9 @@ __global__ void __launch_bounds__(kMmaThreads)
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int h,
-                         int sq, int sk, int d, float scale, int causal) {
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int nbh, int h, int sq, int sk, int d, float scale,
+                         int causal) {
   constexpr int BKV = 64 / NH, LDS = D + 8, NT = BQ / 8, DW = D / NH;
   constexpr int ND = DW / 8, WR = 4 / NH;  // warps along the key rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -941,7 +891,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kr = (warp % WR) * 16, c0 = (warp / WR) * DW;
-  const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int bh = bh_index(nbh);
+  if (bh < 0) return;
+  const int bi = bh / h, hi = bh % h;
   const int k0 = blockIdx.x * BKV;  // the heaviest causal k tiles first
   const long stride = (long)h * d;
   const bf16* qg = q + ((long)bi * sq * h + hi) * d;
@@ -1121,6 +1073,211 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// dQ block: BQ = 64 / NH q rows; warp w owns q rows 16 (w % (4 / NH)) ..
+// +15 and dQ columns [DW c, DW c + DW), c = w / (4 / NH), DW = D / NH
+// (NH = 2 for D = 256 keeps the fp32 accumulators in registers).
+template <int D, int BK, int NH>
+constexpr size_t dq_mma_smem() {
+  return (size_t)(2 * (64 / NH) + 4 * BK) * (D + 8) * sizeof(bf16) +
+         (size_t)(64 / NH + 2 + 2 * BK) * sizeof(int);
+}
+
+// grid (ceil(sq / BQ), b * h), 128 threads. Q and dO stay in shared memory;
+// K and V tiles of BK rows stream through two stages. The warp computes S =
+// Q K^T and dP = dO V^T for its q rows; P and dS stay in the accumulators,
+// and dS, as two bf16 terms, is the A fragment of dQ += dS K.
+template <int D, int BK, int NH, bool kSeg>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_k,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int nbh, int h, int sq, int sk,
+                        int d, float scale, int causal) {
+  constexpr int BQ = 64 / NH, LDS = D + 8, NT = BK / 8, DW = D / NH;
+  constexpr int ND = DW / 8, WR = 4 / NH;  // warps along the q rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BQ * LDS;
+  bf16* Ks = dOs + BQ * LDS;      // [2][BK][LDS]
+  bf16* Vs = Ks + 2 * BK * LDS;   // [2][BK][LDS]
+  int* segq_s = reinterpret_cast<int*>(Vs + 2 * BK * LDS);  // [BQ + 2]
+  int* segk_s = segq_s + BQ + 2;                             // [2][BK]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = (warp % WR) * 16, c0 = (warp / WR) * DW;
+  const int bh = bh_index(nbh);
+  if (bh < 0) return;
+  const int bi = bh / h, hi = bh % h;
+  // the heaviest causal q tiles first, so the light ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int w0 = q0 + qr;                      // the warp's first row
+  const int r0 = w0 + g, r1 = r0 + 8;          // this thread's rows
+  const long stride = (long)h * d;
+  const bf16* qg = q + ((long)bi * sq * h + hi) * d;
+  const bf16* dog = dout + ((long)bi * sq * h + hi) * d;
+  const bf16* kg = k + ((long)bi * sk * h + hi) * d;
+  const bf16* vg = v + ((long)bi * sk * h + hi) * d;
+  const int* sk_g = kSeg ? seg_k + (long)bi * sk : nullptr;
+  const float sl2 = scale * kLog2e;
+  // lse in the log2 domain and delta for rows r0 and r1 (0 past sq, where
+  // Q and dO are 0 and so is dS)
+  const float* lse_g = lse + (long)bh * sq;
+  const float* dl_g = delta + (long)bh * sq;
+  const float l2_0 = r0 < sq ? lse_g[r0] * kLog2e : 0.f;
+  const float l2_1 = r1 < sq ? lse_g[r1] * kLog2e : 0.f;
+  const float dl_0 = r0 < sq ? dl_g[r0] : 0.f;
+  const float dl_1 = r1 < sq ? dl_g[r1] : 0.f;
+
+  if constexpr (kSeg) own_ids<BQ>(segq_s, seg_q + (long)bi * sq, q0, sq);
+  int nk = (sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);  // tiles starting <= q end
+  // the next tile at or after j with a live pair (every tile when dense)
+  auto next = [&](int j, int st) {
+    if constexpr (kSeg) {
+      for (; j < nk; ++j)
+        if (seg_tile_live<BK, BQ, true>(segk_s + st * BK, sk_g, j * BK, sk,
+                                        segq_s, q0, min(BQ, sq - q0),
+                                        causal))
+          break;
+    }
+    return j;
+  };
+  auto load_kv = [&](int j, int st) {
+    load_rows<BK, D>(Ks + st * BK * LDS, kg, j * BK, sk, d, stride);
+    load_rows<BK, D>(Vs + st * BK * LDS, vg, j * BK, sk, d, stride);
+  };
+
+  float dqa[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  int j = next(0, 0), st = 0;
+  if (j < nk) {
+    load_rows<BQ, D>(Qs, qg, q0, sq, d, stride);
+    load_rows<BQ, D>(dOs, dog, q0, sq, d, stride);
+    load_kv(j, 0);
+    cp_async_commit();
+  }
+  while (j < nk) {
+    const int jn = next(j + 1, st ^ 1);
+    if (jn < nk) {  // the next live tile loads while this one computes
+      load_kv(jn, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + st * BK * LDS;
+    const bf16* Vt = Vs + st * BK * LDS;
+    const int k0 = j * BK;
+
+    // S = Q K^T and dP = dO V^T over the whole head_dim
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      const int a_off = (qr + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4<false>(qa, Qs + a_off);
+      ldsm_x4<false>(da, dOs + a_off);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int b_off = (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDS +
+                          kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t b[4];
+        ldsm_x4<false>(b, Kt + b_off);
+        mma(s[2 * np], qa, b[0], b[1]);
+        mma(s[2 * np + 1], qa, b[2], b[3]);
+        ldsm_x4<false>(b, Vt + b_off);
+        mma(dp[2 * np], da, b[0], b[1]);
+        mma(dp[2 * np + 1], da, b[2], b[3]);
+      }
+    }
+
+    // P = exp2(S sl2 - lse log2 e), zero where the pair is not live (set,
+    // not multiplied: a dead row's lse makes the exponent +inf); dS = P (dP
+    // - delta). This thread holds rows r0, r1 and key columns k0 + n * 8 +
+    // 2 t (+1).
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = ex2(fmaf(s[n][e], sl2, -l2_0));
+        s[n][2 + e] = ex2(fmaf(s[n][2 + e], sl2, -l2_1));
+      }
+    if (kSeg || k0 + BK > sk || (causal && k0 + BK - 1 > w0)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * t + e, kj = k0 + c;
+          bool ok0 = kj < sk && !(causal && kj > r0);
+          bool ok1 = kj < sk && !(causal && kj > r1);
+          if constexpr (kSeg) {
+            const int id = segk_s[st * BK + c];
+            ok0 = ok0 && id == segq_s[qr + g];
+            ok1 = ok1 && id == segq_s[qr + g + 8];
+          }
+          if (!ok0) s[n][e] = 0.f;
+          if (!ok1) s[n][2 + e] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[n][e] = s[n][e] * (dp[n][e] - dl_0);
+        dp[n][2 + e] = s[n][2 + e] * (dp[n][2 + e] - dl_1);
+      }
+
+    // dQ += dS K, dS as two bf16 terms; K is the k-major operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      c_to_a(dp[2 * kk], dp[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int np = 0; np < DW / 16; ++np) {
+        const int b_off = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                              LDS + c0 + np * 16 + (lane >> 4) * 8;
+        uint32_t b[4];
+        ldsm_x4<true>(b, Kt + b_off);
+        mma(dqa[2 * np], sh, b[0], b[1]);
+        mma(dqa[2 * np + 1], sh, b[2], b[3]);
+        mma(dqa[2 * np], sl, b[0], b[1]);
+        mma(dqa[2 * np + 1], sl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+    j = jn;
+    st ^= 1;
+  }
+
+  // every row in range is written: a row with no live key gets 0
+  bf16* dqg = dq + ((long)bi * sq * h + hi) * d;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = c0 + n * 8 + 2 * t;
+    if (c >= d) break;
+    if (r0 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqg + (long)r0 * stride + c) =
+          __floats2bfloat162_rn(dqa[n][0] * scale, dqa[n][1] * scale);
+    if (r1 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqg + (long)r1 * stride + c) =
+          __floats2bfloat162_rn(dqa[n][2] * scale, dqa[n][3] * scale);
+  }
+}
+
 template <int D, int B>
 constexpr size_t fwd_smem() {
   return (3 * B * (D + 1) + B * (B + 1)) * sizeof(float);
@@ -1147,45 +1304,52 @@ struct Args {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// (tiles, b * h) blocks: b * h on grid.y, continued on grid.z when it
+// passes grid.y's 65535 (the kernels read it back with bh_index).
+dim3 bh_grid(int tiles, long bh) {
+  const long z = (bh + 65534) / 65535;
+  return dim3(tiles, (unsigned)((bh + z - 1) / z), (unsigned)z);
+}
+
+template <typename F>
+cudaError_t set_smem(F fn, size_t smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 template <typename T, int D, int B, bool kSeg>
 cudaError_t launch(Kind kind, const Args& a) {
-  const dim3 qgrid((a.sq + B - 1) / B, a.b * a.h);
-  const dim3 kgrid((a.sk + B - 1) / B, a.b * a.h);
+  const int nbh = a.b * a.h;
+  const dim3 qgrid = bh_grid((a.sq + B - 1) / B, nbh);
+  const dim3 kgrid = bh_grid((a.sk + B - 1) / B, nbh);
   cudaError_t err;
   if (kind == kFwd) {
     auto fn = flash_fwd_kernel<T, D, B, kSeg>;
     constexpr size_t smem = fwd_smem<D, B>();
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
     fn<<<qgrid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.seg_q, a.seg_k, static_cast<T*>(a.o),
-        a.lse_out, a.h,
-        a.sq, a.sk, a.d, a.scale, a.causal);
+        a.lse_out, nbh, a.h, a.sq, a.sk, a.d, a.scale, a.causal);
   } else if (kind == kDq) {
     auto fn = flash_dq_kernel<T, D, B, kSeg>;
     constexpr size_t smem = dq_smem<D, B>();
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
     fn<<<qgrid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.seg_q, a.seg_k,
         static_cast<const T*>(a.dout), a.lse_in, a.delta,
-        static_cast<T*>(a.dq), a.h, a.sq, a.sk, a.d, a.scale,
+        static_cast<T*>(a.dq), nbh, a.h, a.sq, a.sk, a.d, a.scale,
         a.causal);
   } else {
     auto fn = flash_dkv_kernel<T, D, B, kSeg>;
     constexpr size_t smem = dkv_smem<D, B>();
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
     fn<<<kgrid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.seg_q, a.seg_k,
         static_cast<const T*>(a.dout), a.lse_in, a.delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq,
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), nbh, a.h, a.sq,
         a.sk, a.d, a.scale, a.causal);
   }
   return cudaGetLastError();
@@ -1198,52 +1362,64 @@ cudaError_t dispatch_d(Kind kind, const Args& a) {
   return launch<T, 256, 32, kSeg>(kind, a);
 }
 
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16
 template <bool kSeg>
 cudaError_t dispatch(Kind kind, const Args& a, int dtype) {
-  return dtype == 0 ? dispatch_d<float, kSeg>(kind, a)
-                    : dispatch_d<__nv_bfloat16, kSeg>(kind, a);
+  if (dtype == 0) return dispatch_d<float, kSeg>(kind, a);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, kSeg>(kind, a);
+  return dispatch_d<__half, kSeg>(kind, a);
 }
 
-template <int D, int BK, int MT, int BQ, int NH, bool kSeg>
+// The tensor-core templates at head_dim's D: forward K/V tile BK and
+// m-tiles a warp MT; dQ K/V tile QK and column halves QH; dK/dV q tile BQ
+// and column halves NH.
+template <int D, int BK, int MT, int QK, int QH, int BQ, int NH, bool kSeg>
 cudaError_t launch_mma(Kind kind, const Args& a) {
   cudaError_t err;
-  const int bh = a.b * a.h;
+  const int nbh = a.b * a.h;
   if (kind == kFwd) {
     auto fn = flash_fwd_mma_kernel<D, BK, MT, kSeg>;
     constexpr size_t smem = fwd_mma_smem<D, BK, MT>();
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    fn<<<dim3((a.sq + 64 * MT - 1) / (64 * MT), bh), kMmaThreads, smem,
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
+    fn<<<bh_grid((a.sq + 64 * MT - 1) / (64 * MT), nbh), kMmaThreads, smem,
          a.stream>>>(static_cast<const bf16*>(a.q),
                      static_cast<const bf16*>(a.k),
                      static_cast<const bf16*>(a.v), a.seg_q, a.seg_k,
-                     static_cast<bf16*>(a.o), a.lse_out, a.h, a.sq, a.sk,
-                     a.d, a.scale, a.causal);
+                     static_cast<bf16*>(a.o), a.lse_out, nbh, a.h, a.sq,
+                     a.sk, a.d, a.scale, a.causal);
+  } else if (kind == kDq) {
+    constexpr int BQD = 64 / QH;
+    auto fn = flash_dq_mma_kernel<D, QK, QH, kSeg>;
+    constexpr size_t smem = dq_mma_smem<D, QK, QH>();
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
+    fn<<<bh_grid((a.sq + BQD - 1) / BQD, nbh), kMmaThreads, smem,
+         a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), a.seg_q, a.seg_k,
+        static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
+        static_cast<bf16*>(a.dq), nbh, a.h, a.sq, a.sk, a.d, a.scale,
+        a.causal);
   } else {
     constexpr int BKV = 64 / NH;
     auto fn = flash_dkv_mma_kernel<D, BQ, NH, kSeg>;
     constexpr size_t smem = dkv_mma_smem<D, BQ, NH>();
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    fn<<<dim3((a.sk + BKV - 1) / BKV, bh), kMmaThreads, smem, a.stream>>>(
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
+    fn<<<bh_grid((a.sk + BKV - 1) / BKV, nbh), kMmaThreads, smem,
+         a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), a.seg_q, a.seg_k,
         static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.sq, a.sk,
-        a.d, a.scale, a.causal);
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), nbh, a.h, a.sq,
+        a.sk, a.d, a.scale, a.causal);
   }
   return cudaGetLastError();
 }
 
-// head_dim -> (D, forward K/V tile, forward m-tiles a warp, dK/dV q tile,
-// dK/dV column halves)
 template <bool kSeg>
 cudaError_t dispatch_mma(Kind kind, const Args& a) {
-  if (a.d <= 64) return launch_mma<64, 64, 2, 64, 1, kSeg>(kind, a);
-  if (a.d <= 128) return launch_mma<128, 64, 1, 32, 1, kSeg>(kind, a);
-  return launch_mma<256, 32, 1, 32, 2, kSeg>(kind, a);
+  if (a.d <= 64) return launch_mma<64, 64, 2, 64, 1, 64, 1, kSeg>(kind, a);
+  if (a.d <= 128) return launch_mma<128, 64, 1, 64, 1, 32, 1, kSeg>(kind, a);
+  return launch_mma<256, 32, 1, 32, 2, 32, 2, kSeg>(kind, a);
 }
 
 bool aligned16(const void* p) {
@@ -1251,23 +1427,23 @@ bool aligned16(const void* p) {
 }
 
 // Which of two hand-written kernels runs: the tensor-core templates take
-// the forward and dK/dV in bf16 where head_dim % 8 == 0 and every q, k, v,
-// o (dout, dk, dv) pointer is 16-byte aligned, as their 16-byte cp.async
-// rows need; everything else takes the CUDA-core templates: fp32, whose
-// products stay in fp32 (TF32 keeps 10 bits), bf16 at other head_dims or
-// alignments, and dQ in every type. No fallback: the choice is made here,
-// before either launches.
+// bf16 where head_dim % 8 == 0 and every q, k, v and output pointer (dout
+// too in the backward) is 16-byte aligned, as their 16-byte cp.async rows
+// need; everything else takes the CUDA-core templates: fp32, whose
+// products stay in fp32 (TF32 keeps 10 bits), fp16, and bf16 at other
+// head_dims or alignments. No fallback: the choice is made here, before
+// either launches.
 bool use_mma(Kind kind, const Args& a, int dtype) {
-  if (dtype != 1 || kind == kDq || a.d % 8 != 0) return false;
+  if (dtype != 1 || a.d % 8 != 0) return false;
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v)) return false;
-  return kind == kFwd ? aligned16(a.o)
-                      : aligned16(a.dout) && aligned16(a.dk) &&
-                            aligned16(a.dv);
+  if (kind == kFwd) return aligned16(a.o);
+  if (!aligned16(a.dout)) return false;
+  return kind == kDq ? aligned16(a.dq) : aligned16(a.dk) && aligned16(a.dv);
 }
 
 int run(Kind kind, const Args& a, int dtype) {
   if (a.b < 1 || a.h < 1 || a.sq < 1 || a.sk < 1 || a.d < 1 || a.d > 256 ||
-      (long)a.b * a.h > 65535 || (dtype != 0 && dtype != 1) ||
+      (long)a.b * a.h > INT_MAX || dtype < 0 || dtype > 2 ||
       (a.seg_q == nullptr) != (a.seg_k == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1285,8 +1461,8 @@ int run(Kind kind, const Args& a, int dtype) {
 
 // q [b, sq, h, d]; k, v [b, sk, h, d]; o [b, sq, h, d]; lse [b * h, sq]
 // fp32. seg_q [b, sq], seg_k [b, sk] int32 segment ids (padding -1), or both
-// null for dense attention. dtype: 0 = float32, 1 = bfloat16. All
-// contiguous, on one device.
+// null for dense attention. dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16. All contiguous, on one device.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* seg_q,
                                    const void* seg_k, void* o, void* lse,

@@ -6,9 +6,10 @@
 // `_paged_pallas`): one query token per slot against a paged KV pool,
 // addressed through the slot's block table and context length, fp32 online
 // softmax, split-K partials combined by logsumexp weighting.
-// paged_verify_kernel replaces `_verify_kernel` (launched by
-// `_paged_pallas_multi`): the same walk for a window of sq query tokens a
-// slot, causal inside the window (its design note is above the kernel).
+// paged_verify_kernel and paged_verify_mma_kernel replace `_verify_kernel`
+// (launched by `_paged_pallas_multi`): the same walk for a window of sq
+// query tokens a slot, causal inside the window (their design notes are
+// above them).
 //
 // What bounds both on the H100: bytes. A decode step reads every live K and V
 // row of every slot once (context x kv_heads x head_dim x 2 x itemsize) and
@@ -27,16 +28,24 @@
 //     the longest slot, which otherwise sets the step's time; the Python
 //     wrapper chooses the count. A second small kernel combines the splits
 //     as the TPU's XLA epilogue does.
-// This first version keeps each tile's scores in shared memory and does the
-// q.k and p.v products on the CUDA cores in fp32; staging K/V tiles through
-// shared memory with cp.async/TMA and mma is later work.
+// The decode kernel holds at most kMaxG = 8 query rows a kv head; a larger
+// GQA group (g > 8: 32 heads over 2 kv heads, or MQA) decodes through the
+// verify kernel as a window of one token whose base is the context minus
+// one (the entry point chooses, before anything launches).
+//
+// Types: fp32, bf16 and fp16 on the CUDA-core kernels, which compute in
+// fp32; the bf16 verify window on the tensor cores where head_dim % 8 ==
+// 0 and q, the pages and the output are 16-byte aligned.
 //
 // C interface (loaded with ctypes): paged_attention_decode and
 // paged_attention_verify return cudaGetLastError() after their launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -55,6 +64,10 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -250,8 +263,10 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
 // ---------------------------------------------------------------- verify
 // The speculative verify window (replaces `_verify_kernel`, launched by
 // `_paged_pallas_multi`): sq query tokens a slot, q [slots, sq, hq, d],
-// context_lens the BASE length (tokens cached before the window, whose own
-// K/V are already in the pages). Query i sees pos < base + i + 1: the full
+// context_lens + base_off the BASE length (tokens cached before the window,
+// whose own K/V are already in the pages; base_off is 0 for a window and -1
+// for a decode step run as a window of one). Query i sees pos < base + i +
+// 1: the full
 // context and, causally, the window. As in the reference the sq x g query
 // rows of one kv head are folded into rows r = i * g + head, so one block
 // reads each K/V row once for all the rows it holds. A block holds kRows of
@@ -278,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) paged_verify_kernel(
     const int* __restrict__ context_lens, T* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int sq,
     int hkv, int g, int d, int block_size, int max_blocks, int splits,
-    float scale) {
+    float scale, int base_off) {
   const int slot = blockIdx.x, h = blockIdx.y;
   const int split = blockIdx.z % splits, row0 = blockIdx.z / splits * kRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -294,7 +309,7 @@ __global__ void __launch_bounds__(kThreads) paged_verify_kernel(
   __shared__ int lim_s[kRows];      // row r sees positions < lim_s[r]
   __shared__ int64_t row_s[kTile];  // element offset of (page, off, h, 0)
 
-  const int base = context_lens[slot];
+  const int base = context_lens[slot] + base_off;
   const int ctx = min(base + (row0 + nrows - 1) / g + 1,
                       max_blocks * block_size);
   const int tiles_per_split = ((ctx + kTile - 1) / kTile + splits - 1) / splits;
@@ -446,24 +461,351 @@ __global__ void __launch_bounds__(kThreads) paged_verify_combine_kernel(
   }
 }
 
+// ------------------------------------------------ verify, tensor cores
+// The bf16 window on the tensor cores. The CUDA-core kernel above reads K by
+// one warp per token (four tokens in flight a block), V one column a thread
+// in a serial per-token loop, and does every product on the CUDA cores: it
+// waits on latency, at 12% of its byte bound at the speculative slice's
+// shape. Here each warp keeps its own ring of K/V tiles in flight:
+//   * a block holds one m-tile of 16 (query, head) rows of one kv head, r =
+//     i * g + head as above (sq * g rows take ceil(sq * g / 16) row tiles on
+//     grid.z beside the splits), so each K/V row is read once for all the
+//     rows of its tile: a window of 5 tokens with g = 1, or a decode step
+//     with g = 16, fills one tile;
+//   * its four warps split the block's run of the context: warp w takes the
+//     16-token tiles w, w + 4, ... . A tile is gathered through the block
+//     table by 16-byte cp.async (one token's head row is d x 2 contiguous
+//     bytes), zero-filled past the run, into the warp's own two-stage ring,
+//     so the warp loads its next tile while it computes this one and needs
+//     no block barrier;
+//   * S = Q K^T and O += P V run on mma.sync m16n8k16 bf16 -> fp32 (K as
+//     the B operand by ldmatrix, V by ldmatrix.trans, Q from shared memory),
+//     with the online softmax on the accumulators in the log2 domain and
+//     the per-row mask (row r sees positions < base + r / g + 1) on every
+//     tile. P enters P V as two bf16 terms (hi + lo, x to 2^-16): one
+//     rounding (2^-9) misses the one-ulp bound that holds the kernel to its
+//     plain version (tests/test_torch_speculative.py);
+//   * the four warps' (m, l, O) merge through shared memory, reused from
+//     the ring, into the normalised output (one split) or the split's
+//     partial, which paged_verify_combine_kernel combines as before.
+constexpr int kVTok = 16;   // tokens a warp tile
+constexpr int kVRows = 16;  // (query, head) rows a block
+
+template <int D>
+constexpr size_t verify_mma_smem() {
+  const size_t ring = (size_t)kWarps * 2 * 2 * kVTok * (D + 8) * 2;
+  const size_t merge = (size_t)kWarps * kVRows * (D + 2) * sizeof(float);
+  return (size_t)kVRows * (D + 8) * 2 + (ring > merge ? ring : merge);
+}
+
+// grid (slots, kv_heads, splits * row_tiles), z = tile * splits + split,
+// kThreads threads. Outputs as paged_verify_kernel's.
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_verify_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
+    const bf16* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const int* __restrict__ context_lens, bf16* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int sq,
+    int hkv, int grp, int d, int block_size, int max_blocks, int splits,
+    float scale, int base_off) {
+  constexpr int LDS = D + 8, CH = D / 8, ND = D / 8;
+  constexpr int STAGE = kVTok * LDS;            // one K (or V) tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kVRows][LDS]
+  bf16* ring = Qs + kVRows * LDS;                // [warp][stage][K, V]
+  float* mrg = reinterpret_cast<float*>(ring);   // after the walk
+
+  const int slot = blockIdx.x, h = blockIdx.y;
+  const int split = blockIdx.z % splits, row0 = blockIdx.z / splits * kVRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int hq = hkv * grp, rows = sq * grp;
+  const int nrows = min(kVRows, rows - row0);
+  const int base = context_lens[slot] + base_off;
+  const int ctx = min(base + (row0 + nrows - 1) / grp + 1,
+                      max_blocks * block_size);
+  const int n_all = (max(ctx, 0) + kVTok - 1) / kVTok;
+  const int per_split = (n_all + splits - 1) / splits;
+  const int tok_begin = split * per_split * kVTok;
+  const int tok_end = min(ctx, tok_begin + per_split * kVTok);
+  const int ntiles = tok_end > tok_begin
+                         ? (tok_end - tok_begin + kVTok - 1) / kVTok : 0;
+  // this thread's rows g and g + 8 of the tile see positions < lim
+  const int lim0 = g < nrows ? base + (row0 + g) / grp + 1 : 0;
+  const int lim1 = g + 8 < nrows ? base + (row0 + g + 8) / grp + 1 : 0;
+  const int* table = block_tables + (int64_t)slot * max_blocks;
+  const int64_t tok_stride = (int64_t)hkv * d;
+  bf16* Kw = ring + warp * 4 * STAGE;  // [stage][K, V]
+
+  // Q rows of the tile; zeros past the rows and past d
+  for (int e = threadIdx.x; e < kVRows * CH; e += kThreads) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool in = r < nrows && c < d;
+    const int qi = (row0 + r) / grp, head = h * grp + (row0 + r) % grp;
+    cp_async16(Qs + r * LDS + c,
+               in ? q + (((int64_t)slot * sq + qi) * hq + head) * d + c : q,
+               in);
+  }
+  cp_async_commit();
+  // the warp's tile i of the run into stage st: lanes 0-15 find the row of
+  // one token each through the table, then the warp copies the 16 rows
+  auto load_tile = [&](int i, int st) {
+    const int pos = tok_begin + i * kVTok + (lane & 15);
+    int64_t off = -1;
+    if (pos < tok_end)
+      off = ((int64_t)table[pos / block_size] * block_size +
+             pos % block_size) * tok_stride + (int64_t)h * d;
+    bf16* Kt = Kw + st * 2 * STAGE;
+#pragma unroll
+    for (int e = lane; e < kVTok * CH; e += 32) {
+      const int r = e / CH, c = (e % CH) * 8;
+      const int64_t ro = __shfl_sync(0xffffffffu, off, r);
+      const bool in = ro >= 0 && c < d;
+      cp_async16(Kt + r * LDS + c, in ? k_pages + ro + c : k_pages, in);
+      cp_async16(Kt + STAGE + r * LDS + c, in ? v_pages + ro + c : v_pages,
+                 in);
+    }
+  };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, oacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  int i = warp, st = 0;
+  if (i < ntiles) load_tile(i, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  while (i < ntiles) {
+    const int in = i + kWarps;
+    if (in < ntiles) {  // the warp's next tile loads while this one computes
+      load_tile(in, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const bf16* Kt = Kw + st * 2 * STAGE;
+    const bf16* Vt = Kt + STAGE;
+    const int t0 = tok_begin + i * kVTok;
+
+    // S = Q K^T: 16 rows x 16 tokens
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_x4<false>(a, Qs + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8);
+      ldsm_x4<false>(b, Kt + (((lane >> 4) << 3) + (lane & 7)) * LDS +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+      mma(s[0], a, b[0], b[1]);
+      mma(s[1], a, b[2], b[3]);
+    }
+    // per-row mask, online softmax in the log2 domain; a position the row
+    // may not see adds exactly 0, even before any it may
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int lim = min(hf ? lim1 : lim0, tok_end);
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hf + e];
+          if (t0 + n * 8 + 2 * t + e >= lim) x = kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[hf], mx == kNegInf ? kNegInf : mx * sl2);
+      const float alpha = ex2(m[hf] - mn);
+      m[hf] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hf + e];
+          x = x == kNegInf ? 0.f : ex2(fmaf(x, sl2, -mn));
+          sum += x;
+        }
+      l[hf] = l[hf] * alpha + sum;  // summed over the row's lanes at the end
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        oacc[n][2 * hf] *= alpha;
+        oacc[n][2 * hf + 1] *= alpha;
+      }
+    }
+    // O += P V, P as two bf16 terms; V is the k-major operand
+    uint32_t ph[4], pl[4];
+    c_to_a(s[0], s[1], ph, pl);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4<true>(b, Vt + (((lane >> 3) & 1) * 8 + (lane & 7)) * LDS +
+                           dp * 16 + (lane >> 4) * 8);
+      mma(oacc[2 * dp], ph, b[0], b[1]);
+      mma(oacc[2 * dp + 1], ph, b[2], b[3]);
+      mma(oacc[2 * dp], pl, b[0], b[1]);
+      mma(oacc[2 * dp + 1], pl, b[2], b[3]);
+    }
+    __syncwarp();  // this stage's readers are done before it refills
+    i = in;
+    st ^= 1;
+  }
+
+  // merge the four warps: each writes its rows' (m, l) and O to shared
+  // memory (the ring, now free); then every thread takes whole elements
+  __syncthreads();
+  float* mo = mrg;                                // [warp][row][D]
+  float* mml = mrg + kWarps * kVRows * D;         // [warp][row][2]
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lr = l[hf];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int r = g + hf * 8;
+    if (t == 0) {
+      mml[(warp * kVRows + r) * 2] = m[hf];
+      mml[(warp * kVRows + r) * 2 + 1] = lr;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t;
+      mo[(warp * kVRows + r) * D + c] = oacc[n][2 * hf];
+      mo[(warp * kVRows + r) * D + c + 1] = oacc[n][2 * hf + 1];
+    }
+  }
+  __syncthreads();
+  const int64_t part = ((int64_t)slot * hkv + h) * splits + split;
+  for (int e = threadIdx.x; e < nrows * d; e += kThreads) {
+    const int r = e / d, c = e - r * d;
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mw = fmaxf(mw, mml[(w * kVRows + r) * 2]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = ex2(mml[(w * kVRows + r) * 2] - mw);
+      num += mo[(w * kVRows + r) * D + c] * wt;
+      den += mml[(w * kVRows + r) * 2 + 1] * wt;
+    }
+    if (splits == 1) {
+      const int qi = (row0 + r) / grp, head = h * grp + (row0 + r) % grp;
+      out[(((int64_t)slot * sq + qi) * hq + head) * d + c] =
+          __float2bfloat16(num / fmaxf(den, 1e-30f));
+    } else {
+      part_acc[(part * rows + row0 + r) * d + c] = num;
+      if (c == 0) {  // natural-log m, as the combine kernel reads it
+        part_ml[(part * rows + row0 + r) * 2] =
+            mw == kNegInf ? kNegInf : mw * kLn2;
+        part_ml[(part * rows + row0 + r) * 2 + 1] = den;
+      }
+    }
+  }
+}
+
+// The verify window's split combine (nothing to combine at one split).
 template <typename T>
-void launch_verify(const void* q, const void* k_pages, const void* v_pages,
-                   const int* block_tables, const int* context_lens,
-                   void* out, float* part_acc, float* part_ml, int slots,
-                   int sq, int hkv, int g, int d, int block_size,
-                   int max_blocks, int splits, float scale,
-                   cudaStream_t stream) {
+void launch_combine(float* part_acc, float* part_ml, void* out, int slots,
+                    int sq, int hkv, int g, int d, int splits,
+                    cudaStream_t stream) {
+  if (splits > 1)
+    paged_verify_combine_kernel<T><<<dim3(slots, hkv), kThreads, 0, stream>>>(
+        part_acc, part_ml, static_cast<T*>(out), sq, hkv, g, d, splits);
+}
+
+template <typename T>
+cudaError_t launch_verify(const void* q, const void* k_pages,
+                          const void* v_pages, const int* block_tables,
+                          const int* context_lens, void* out, float* part_acc,
+                          float* part_ml, int slots, int sq, int hkv, int g,
+                          int d, int block_size, int max_blocks, int splits,
+                          float scale, int base_off, cudaStream_t stream) {
   const int row_tiles = (sq * g + kRows - 1) / kRows;
   paged_verify_kernel<T>
       <<<dim3(slots, hkv, splits * row_tiles), kThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k_pages),
           static_cast<const T*>(v_pages), block_tables, context_lens,
           static_cast<T*>(out), part_acc, part_ml, sq, hkv, g, d, block_size,
-          max_blocks, splits, scale);
-  if (splits > 1) {
-    paged_verify_combine_kernel<T><<<dim3(slots, hkv), kThreads, 0, stream>>>(
-        part_acc, part_ml, static_cast<T*>(out), sq, hkv, g, d, splits);
-  }
+          max_blocks, splits, scale, base_off);
+  launch_combine<T>(part_acc, part_ml, out, slots, sq, hkv, g, d, splits,
+                    stream);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_verify_mma(const void* q, const void* k_pages,
+                              const void* v_pages, const int* block_tables,
+                              const int* context_lens, void* out,
+                              float* part_acc, float* part_ml, int slots,
+                              int sq, int hkv, int g, int d, int block_size,
+                              int max_blocks, int splits, float scale,
+                              int base_off, cudaStream_t stream) {
+  auto fn = paged_verify_mma_kernel<D>;
+  constexpr size_t smem = verify_mma_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (sq * g + kVRows - 1) / kVRows;
+  fn<<<dim3(slots, hkv, splits * row_tiles), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+      static_cast<const bf16*>(v_pages), block_tables, context_lens,
+      static_cast<bf16*>(out), part_acc, part_ml, sq, hkv, g, d, block_size,
+      max_blocks, splits, scale, base_off);
+  launch_combine<bf16>(part_acc, part_ml, out, slots, sq, hkv, g, d, splits,
+                       stream);
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Which verify kernel runs: the tensor-core one for bf16 where head_dim %
+// 8 == 0 and q, the pages and the output are 16-byte aligned (its 16-byte
+// cp.async rows need it); the CUDA-core one for fp32 (whose products stay
+// fp32), fp16, and bf16 at other head_dims or alignments. Chosen here,
+// before either launches; no fallback.
+bool verify_uses_mma(const void* q, const void* k_pages, const void* v_pages,
+                     const void* out, int d, int dtype) {
+  return dtype == 1 && d % 8 == 0 && aligned16(q) && aligned16(k_pages) &&
+         aligned16(v_pages) && aligned16(out);
+}
+
+// The verify window (any dtype, either kernel) and its split combine.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+cudaError_t run_verify(const void* q, const void* k_pages,
+                       const void* v_pages, const int* bt, const int* cl,
+                       void* out, float* pa, float* pml, int slots, int sq,
+                       int hkv, int g, int d, int block_size, int max_blocks,
+                       int splits, float scale, int dtype, int base_off,
+                       cudaStream_t s) {
+  auto fn = dtype == 0   ? launch_verify<float>
+            : dtype == 2 ? launch_verify<__half>
+                         : launch_verify<__nv_bfloat16>;
+  if (verify_uses_mma(q, k_pages, v_pages, out, d, dtype))
+    fn = d <= 64    ? launch_verify_mma<64>
+         : d <= 128 ? launch_verify_mma<128>
+                    : launch_verify_mma<256>;
+  const cudaError_t err =
+      fn(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, sq, hkv, g, d,
+         block_size, max_blocks, splits, scale, base_off, s);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+bool verify_args_ok(int slots, int sq, int hkv, int g, int d, int block_size,
+                    int max_blocks, int splits, int dtype, bool tc) {
+  const long long rows = tc ? kVRows : kRows;  // (query, head) rows a block
+  const long long row_tiles = ((long long)sq * g + rows - 1) / rows;
+  return slots >= 1 && sq >= 1 && hkv >= 1 && g >= 1 && d >= 1 &&
+         d <= kMaxD && block_size >= 1 && max_blocks >= 1 && splits >= 1 &&
+         splits <= max_blocks && splits * row_tiles <= 65535 &&
+         hkv <= 65535 && dtype >= 0 && dtype <= 2;
 }
 
 }  // namespace
@@ -472,29 +814,43 @@ void launch_verify(const void* q, const void* k_pages, const void* v_pages,
 // block_tables [slots, max_blocks] int32; context_lens [slots] int32;
 // out [slots, hkv*g, d]; part_acc [slots*hkv*splits*g*d] and
 // part_ml [slots*hkv*splits*g*2] fp32 scratch (unused when splits == 1).
-// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous, on one device.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. All tensors contiguous, on
+// one device. g > kMaxG runs the verify kernel as a window of one token.
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* context_lens, void* out,
     void* part_acc, void* part_ml, int slots, int hkv, int g, int d,
     int block_size, int max_blocks, int splits, float scale, int dtype,
     void* stream) {
-  if (slots < 1 || hkv < 1 || g < 1 || g > kMaxG || d < 1 || d > kMaxD ||
-      block_size < 1 || max_blocks < 1 || splits < 1 || splits > max_blocks ||
-      (dtype != 0 && dtype != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(context_lens);
   float* pa = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
+  if (g > kMaxG) {
+    const bool tc = verify_uses_mma(q, k_pages, v_pages, out, d, dtype);
+    if (!verify_args_ok(slots, 1, hkv, g, d, block_size, max_blocks, splits,
+                        dtype, tc))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(run_verify(q, k_pages, v_pages, bt, cl, out, pa,
+                                       pml, slots, 1, hkv, g, d, block_size,
+                                       max_blocks, splits, scale, dtype, -1,
+                                       s));
+  }
+  if (slots < 1 || hkv < 1 || g < 1 || d < 1 || d > kMaxD ||
+      block_size < 1 || max_blocks < 1 || splits < 1 || splits > max_blocks ||
+      dtype < 0 || dtype > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) {
     launch<float>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, hkv, g, d,
                   block_size, max_blocks, splits, scale, s);
-  } else {
+  } else if (dtype == 1) {
     launch<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots,
                           hkv, g, d, block_size, max_blocks, splits, scale, s);
+  } else {
+    launch<__half>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, hkv, g,
+                   d, block_size, max_blocks, splits, scale, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -503,32 +859,22 @@ extern "C" int paged_attention_decode(
 // hkv, d]; block_tables [slots, max_blocks] int32; context_lens [slots]
 // int32, the tokens cached before the window; part_acc
 // [slots*hkv*splits*sq*g*d] and part_ml [slots*hkv*splits*sq*g*2] fp32
-// scratch (unused when splits == 1). dtype: 0 = float32, 1 = bfloat16.
+// scratch (unused when splits == 1). dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16.
 extern "C" int paged_attention_verify(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* context_lens, void* out,
     void* part_acc, void* part_ml, int slots, int sq, int hkv, int g, int d,
     int block_size, int max_blocks, int splits, float scale, int dtype,
     void* stream) {
-  const long long row_tiles = ((long long)sq * g + kRows - 1) / kRows;
-  if (slots < 1 || sq < 1 || hkv < 1 || g < 1 || d < 1 || d > kMaxD ||
-      block_size < 1 || max_blocks < 1 || splits < 1 || splits > max_blocks ||
-      splits * row_tiles > 65535 || hkv > 65535 ||
-      (dtype != 0 && dtype != 1)) {
+  const bool tc = verify_uses_mma(q, k_pages, v_pages, out, d, dtype);
+  if (!verify_args_ok(slots, sq, hkv, g, d, block_size, max_blocks, splits,
+                      dtype, tc))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* cl = static_cast<const int*>(context_lens);
-  float* pa = static_cast<float*>(part_acc);
-  float* pml = static_cast<float*>(part_ml);
-  if (dtype == 0) {
-    launch_verify<float>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, sq,
-                         hkv, g, d, block_size, max_blocks, splits, scale, s);
-  } else {
-    launch_verify<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, out, pa, pml,
-                                 slots, sq, hkv, g, d, block_size, max_blocks,
-                                 splits, scale, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(run_verify(
+      q, k_pages, v_pages, static_cast<const int*>(block_tables),
+      static_cast<const int*>(context_lens), out,
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), slots, sq,
+      hkv, g, d, block_size, max_blocks, splits, scale, dtype, 0,
+      static_cast<cudaStream_t>(stream)));
 }

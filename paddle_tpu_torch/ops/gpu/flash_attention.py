@@ -9,15 +9,16 @@ Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (via `_fwd`),
 H100 and how their design answers it.
 
 Which kernel runs is chosen in the C dispatch, from the dtype, head_dim and
-the tensors' addresses, before anything launches (no fallback): the bf16
-forward and dK/dV with head_dim % 8 == 0 and 16-byte aligned tensors run
-the tensor-core templates (`mma.sync` fed by `ldmatrix` from tiles that
-`cp.async` double-buffers; P and dS enter their products as two bf16
+the tensors' addresses, before anything launches (no fallback): bf16 with
+head_dim % 8 == 0 and 16-byte aligned tensors runs the tensor-core
+templates, forward, dQ and dK/dV (`mma.sync` fed by `ldmatrix` from tiles
+that `cp.async` double-buffers; P and dS enter their products as two bf16
 terms, hi + lo, which keeps them within the bf16 bound that one rounding
-misses); fp32, bf16 at other head_dims or alignments, and dQ in every dtype
-run the CUDA-core templates, whose products stay in fp32 (the fp32 training
-parity needs more than TF32's 10 bits). The wrappers, their C interface and
-their launch counts are the same for both. The dense plain versions are the
+misses); fp32, fp16 and bf16 at other head_dims or alignments run the
+CUDA-core templates, whose products stay in fp32 (the fp32 training parity
+needs more than TF32's 10 bits). Any b * h runs (grid.y, continued on
+grid.z). The wrappers, their C interface and their launch counts are the
+same for both. The dense plain versions are the
 counterparts of the reference's XLA pair `_dense_fwd` / `_dense_bwd`, split
 the way the kernels are; the segmented ones compute what the segmented TPU
 kernels compute (a masked score adds exactly 0 to P, so a query row with no
@@ -46,7 +47,8 @@ from . import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# every dtype the reference's gate and amp's auto_cast admit
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The reference's block sizes: its gate admits only sequences they divide.
 BLOCK_Q = 128
 BLOCK_K = 128
@@ -201,14 +203,13 @@ def _check(q, k, v, *more):
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError("flash attention: q and k/v disagree on b, h or d")
-    if not 1 <= d <= MAX_HEAD_DIM or b * h > 65535:
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM} and b*h <= 65535; got d={d}, "
-                         f"b*h={b * h}")
+                         f"{MAX_HEAD_DIM}; got d={d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash attention kernel takes float32 or bfloat16 "
-                        f"q, k, v of one dtype; got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+        raise TypeError(f"flash attention kernel takes float32, bfloat16 or "
+                        f"float16 q, k, v of one dtype; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     for t in (q, k, v) + more:
         if t.device != q.device:
             raise ValueError("flash attention: tensors on different devices")

@@ -16,7 +16,17 @@ dense-gather oracles.
                  one; verify, the tokens cached BEFORE the window (query i
                  sees positions < context_lens + i + 1)
 
-GQA: kv head h serves q heads [h*g, (h+1)*g), g = q_heads // kv_heads.
+GQA: kv head h serves q heads [h*g, (h+1)*g), g = q_heads // kv_heads. The
+decode kernel holds up to MAX_G query rows a kv head; a decode step with a
+larger group runs the verify kernel as a window of one token (chosen in the
+C entry point, counted on `paged_attention.launches` all the same).
+
+Which verify kernel runs is chosen in the C entry point from the dtype,
+head_dim and the tensors' addresses, before anything launches (no
+fallback): bf16 with head_dim % 8 == 0 and 16-byte aligned q and pages runs
+the tensor-core kernel (16 rows a block, four warps splitting the context,
+P as two bf16 terms); fp32, fp16 and other bf16 shapes run the CUDA-core
+one (8 rows a block), whose products stay fp32.
 """
 from __future__ import annotations
 
@@ -30,15 +40,24 @@ from . import _build
 
 NEG_INF = -1e30
 MAX_G = 8           # query rows per kv head the decode kernel's block holds
-ROW_TILE = 8        # (query, head) rows a verify block holds (kRows)
+ROW_TILE = 8        # (query, head) rows a CUDA-core verify block holds
+MMA_ROW_TILE = 16   # (query, head) rows a tensor-core verify block holds
 MAX_HEAD_DIM = 256  # the reference's supports() gate
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Split-count choice (choose_kv_splits). The kernel's 128-thread block uses
-# <= 52 registers a thread and ~9.6 KB of shared memory, so about 9 blocks
-# are resident on an SM; aim for 8 per SM. A split walks at least
+# every dtype the reference's gates and amp's auto_cast admit
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Split-count choice (choose_kv_splits). The decode kernel's 128-thread
+# block uses <= 52 registers a thread and ~9.6 KB of shared memory, so about
+# 9 blocks are resident on an SM; aim for 8 per SM. A split walks at least
 # SPLIT_MIN_TOKENS of the table's span, so the combine stays small beside it.
 BLOCKS_PER_SM = 8
 SPLIT_MIN_TOKENS = 256
+# The tensor-core verify kernel's block already splits its run four ways
+# among its warps, so one block an SM keeps enough bytes in flight: at the
+# speculative slice's shape (8 slots x 32 kv heads) one split ran fastest
+# and every added split slower (chip_smoke.py's verify_split_sweep, PERF.md
+# section 7). A split still walks at least 128 tokens, two tiles a warp.
+VERIFY_BLOCKS_PER_SM = 1
+VERIFY_SPLIT_MIN_TOKENS = 128
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens,
@@ -95,9 +114,8 @@ def paged_attention_multi_plain(q, k_pages, v_pages, block_tables,
 
 def _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits):
     """Shapes, dtypes, devices and layout the kernels take: q [slots, hq, d]
-    for decode (at most MAX_G q heads a kv head) or [slots, sq, hq, d] for
-    the verify window (any sq * g)."""
-    window = q.dim() == 4
+    for decode or [slots, sq, hq, d] for the verify window, any group size
+    g = hq / hkv (the reference's supports(): hq % hkv == 0, d <= 256)."""
     if q.dim() not in (3, 4) or k_pages.dim() != 4:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} must be "
                          f"[slots, q_heads, d] or [slots, sq, q_heads, d] "
@@ -111,13 +129,10 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits):
         raise ValueError(f"paged_attention kernels take q_heads divisible by "
                          f"kv_heads and d <= {MAX_HEAD_DIM}; got "
                          f"q_heads={hq}, kv_heads={hkv}, d={d}")
-    if not window and hq // hkv > MAX_G:
-        raise ValueError(f"paged_attention decode kernel takes q_heads/"
-                         f"kv_heads <= {MAX_G}; got {hq // hkv}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
-        raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
-                        f"q and pages of one dtype; got {q.dtype}, "
+        raise TypeError(f"paged_attention kernel takes float32, bfloat16 or "
+                        f"float16 q and pages of one dtype; got {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise TypeError("paged_attention: block_tables and context_lens must "
@@ -134,16 +149,53 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits):
             raise ValueError("paged_attention kernel takes contiguous tensors")
 
 
-def choose_kv_splits(slots, kv_heads, max_blocks, block_size, sm_count):
-    """Split-K count for one decode step, from what the wrapper sees without
+def choose_kv_splits(slots, kv_heads, max_blocks, block_size, sm_count,
+                     blocks_per_sm=BLOCKS_PER_SM,
+                     min_tokens=SPLIT_MIN_TOKENS):
+    """Split-K count for one step, from what the wrapper sees without
     reading the context lengths back to the host: enough (slot, kv_head,
-    split) blocks to fill every SM BLOCKS_PER_SM deep, but no more splits
-    than SPLIT_MIN_TOKENS-long runs fit in the table's span. The kernel cuts
+    split) blocks to fill every SM `blocks_per_sm` deep, but no more splits
+    than `min_tokens`-long runs fit in the table's span. The kernel cuts
     each slot's live context into that many equal runs. (The reference
     leaves the count to its autotuner, paged_attention_tuned.)"""
-    fill = -(-BLOCKS_PER_SM * sm_count // (slots * kv_heads))
-    span = max(1, max_blocks * block_size // SPLIT_MIN_TOKENS)
+    fill = -(-blocks_per_sm * sm_count // (slots * kv_heads))
+    span = max(1, max_blocks * block_size // min_tokens)
     return max(1, min(fill, span, max_blocks))
+
+
+def tensor_core_verify(q, k_pages, v_pages):
+    """Whether the C dispatch runs the verify window (or a decode step with
+    g > MAX_G) on the tensor-core kernel: bf16, head_dim % 8 == 0, q and
+    the pages 16-byte aligned (outputs are fresh allocations, aligned)."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
+
+
+def verify_splits(q, k_pages, v_pages, block_tables, sm_count):
+    """The split count paged_attention_multi chooses for q [slots, sq, hq,
+    d] (and paged_attention for a decode step with g > MAX_G, as sq = 1):
+    choose_kv_splits over the (slot, kv head, row tile) blocks of the
+    kernel the dispatch takes, with that kernel's residency."""
+    slots, sq, hq, _ = q.shape
+    hkv = k_pages.shape[2]
+    if tensor_core_verify(q, k_pages, v_pages):
+        rows, per_sm, tokens = (MMA_ROW_TILE, VERIFY_BLOCKS_PER_SM,
+                                VERIFY_SPLIT_MIN_TOKENS)
+    else:
+        rows, per_sm, tokens = ROW_TILE, BLOCKS_PER_SM, SPLIT_MIN_TOKENS
+    return choose_kv_splits(slots, hkv * row_tiles(sq, hq // hkv, rows),
+                            block_tables.shape[1], k_pages.shape[1],
+                            sm_count, per_sm, tokens)
+
+
+def decode_splits(q, k_pages, v_pages, block_tables, sm_count):
+    """The split count paged_attention chooses for q [slots, hq, d]."""
+    if q.shape[1] // k_pages.shape[2] > MAX_G:
+        return verify_splits(q[:, None], k_pages, v_pages, block_tables,
+                             sm_count)
+    return choose_kv_splits(q.shape[0], k_pages.shape[2],
+                            block_tables.shape[1], k_pages.shape[1],
+                            sm_count)
 
 
 @functools.cache
@@ -188,9 +240,10 @@ def _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None, kv_splits=None):
     """One decode step of ragged paged attention; returns [slots, q_heads,
-    d] in q's dtype. CUDA tensors launch the kernel, split-K over each
-    slot's context into `kv_splits` runs (None: choose_kv_splits); CPU
-    tensors take the plain version. A slot with context 0 gets zeros from
+    d] in q's dtype. CUDA tensors launch the kernel (the verify kernel as a
+    window of one token where q_heads / kv_heads > MAX_G), split-K over each
+    slot's context into `kv_splits` runs (None: decode_splits); CPU tensors
+    take the plain version. A slot with context 0 gets zeros from
     the kernel and the mean of its gathered V from the plain version (as
     from the reference's two paths); the engine never asks for one."""
     if scale is None:
@@ -201,9 +254,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     if kv_splits is None:
-        kv_splits = choose_kv_splits(
-            q.shape[0], k_pages.shape[2], block_tables.shape[1],
-            k_pages.shape[1], _sm_count(q.device))
+        kv_splits = decode_splits(q, k_pages, v_pages, block_tables,
+                                  _sm_count(q.device))
     return _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
                    int(kv_splits))
 
@@ -236,10 +288,11 @@ def _verify_kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
     return out
 
 
-def row_tiles(sq, g):
-    """Row tiles of the verify kernel's grid: ROW_TILE (query, head) rows a
-    block, sq * g rows a (slot, kv head)."""
-    return -(-sq * g // ROW_TILE)
+def row_tiles(sq, g, rows=ROW_TILE):
+    """Row tiles of the verify kernel's grid: `rows` (query, head) rows a
+    block (ROW_TILE on the CUDA cores, MMA_ROW_TILE on the tensor cores),
+    sq * g rows a (slot, kv head)."""
+    return -(-sq * g // rows)
 
 
 def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
@@ -249,9 +302,8 @@ def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
     window's own K/V are already in the pages), query i of a slot seeing
     positions < context_lens + i + 1. Returns q's shape and dtype. CUDA
     tensors launch the verify kernel, split-K over each slot's context into
-    `kv_splits` runs (None: choose_kv_splits over the grid's row tiles);
-    CPU tensors take the plain version. (The reference's TPU path runs one
-    split.)"""
+    `kv_splits` runs (None: verify_splits); CPU tensors take the plain
+    version. (The reference's TPU path runs one split.)"""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -260,11 +312,8 @@ def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_multi: no kernel for {q.device}")
     if kv_splits is None:
-        slots, sq, hq, _ = q.shape
-        hkv = k_pages.shape[2]
-        kv_splits = choose_kv_splits(
-            slots, hkv * row_tiles(sq, hq // hkv), block_tables.shape[1],
-            k_pages.shape[1], _sm_count(q.device))
+        kv_splits = verify_splits(q, k_pages, v_pages, block_tables,
+                                  _sm_count(q.device))
     return _verify_kernel(q, k_pages, v_pages, block_tables, context_lens,
                           scale, int(kv_splits))
 

@@ -27,10 +27,10 @@ import time
 
 from .profile_serving import _busy_us
 
-# bf16 flash runs the tensor-core templates (`*_mma_kernel`), fp32 and dQ
-# the CUDA-core ones; both count under the same kernel
+# bf16 flash runs the tensor-core templates (`*_mma_kernel`), fp32 and
+# fp16 the CUDA-core ones; both count under the same kernel
 GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
-          ("flash_dq", ("flash_dq_kernel",)),
+          ("flash_dq", ("flash_dq_kernel", "flash_dq_mma_kernel")),
           ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_mma_kernel")),
           ("rms_norm", ("_rms_fwd",)),
           ("rms_norm_bwd", ("_rms_bwd", "_rms_dw")),

@@ -52,7 +52,8 @@ def _close(got, want, tdt):
     assert got.shape == want.shape
     assert np.isfinite(got).all()
     rms = float(np.sqrt(np.mean(want.astype(np.float64) ** 2)))
-    tol = 1e-5 if tdt == torch.float32 else 2.0 ** -7
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}[tdt]
     err = np.abs(got - want)
     assert (err <= tol * (np.abs(want) + rms)).all(), \
         (err.max(), rms)
@@ -169,15 +170,92 @@ def test_flash_wrappers_check_their_inputs():
     q = torch.zeros(1, 128, 2, 300)
     with pytest.raises(ValueError, match="head_dim"):
         tflash._check(q, q, q)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tflash._check(q[..., :64].half(), q[..., :64].half(),
-                      q[..., :64].half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tflash._check(q[..., :64].double(), q[..., :64].double(),
+                      q[..., :64].double())
+    tflash._check(*(q[..., :64].half().contiguous() for _ in range(3)))
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros(1, 128, 2, 192)[..., :64]
         tflash._check(x, x, x)
     with pytest.raises(ValueError, match="no kernel"):
         tflash.flash_fwd(q.to("meta"), q.to("meta"), q.to("meta"), 1.0,
                          False)
+
+
+# ------------------------------------------------ dtypes and wide b * h
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "float16"])
+def test_every_admitted_dtype_has_a_kernel(name):
+    """Every dtype amp's auto_cast admits (and the reference's gates, which
+    have no dtype term) has a dtype code in the flash and paged wrappers,
+    whose checks take it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.gpu import paged_attention as tpaged
+
+    with amp.auto_cast(dtype=name):
+        dt = amp.amp_state().dtype
+    assert dt == getattr(torch, name)
+    assert dt in tflash._DTYPES and dt in tpaged._DTYPES
+    q = torch.zeros(1, 128, 2, 64, dtype=dt)
+    tflash._check(q, q, q)
+    pages = torch.zeros(3, 4, 2, 64, dtype=dt)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    cl = torch.ones(1, dtype=torch.int32)
+    tpaged._check(q[:, 0], pages, pages, bt, cl, 1)
+    tpaged._check(q[:, :3], pages, pages, bt, cl, 1)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2],
+                         ids=lambda s: "b{}-sq{}-sk{}-h{}-d{}-{}".format(
+                             *s[:5], "causal" if s[5] else "full"))
+def test_flash_fp16_plain_matches_pallas_and_dense(shape):
+    """fp16 (what auto_cast(dtype="float16") feeds the kernels): the port's
+    forward and gradients (CPU: the plain versions) against the Pallas
+    kernels in interpret mode and the XLA pair in fp16, to one fp16
+    rounding (2**-10) of the value and of the RMS."""
+    causal = shape[5]
+    scale = shape[4] ** -0.5
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(shape, jnp.float16,
+                                               torch.float16)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = tflash.flash_attention(q, k, v, scale, causal)
+    o.backward(do)
+    assert o.dtype == torch.float16 and q.grad.dtype == torch.float16
+
+    def pallas(a, b_, c):
+        return jflash.flash_attention(a, b_, c, scale, causal, 128, 128,
+                                      True)
+
+    po, vjp = jax.vjp(pallas, jq, jk, jv)
+    xo, res = jflash._dense_fwd(jq, jk, jv, scale, causal)
+    for want_o, grads in ((po, vjp(jdo)),
+                          (xo, jflash._dense_bwd(scale, causal, res, jdo))):
+        _close(o, want_o, torch.float16)
+        for got, want in zip((q.grad, k.grad, v.grad), grads):
+            _close(got, want, torch.float16)
+
+
+def test_flash_takes_any_b_times_h():
+    """b * h past 65535 (grid.y's limit, which the kernels now continue on
+    grid.z): the checks take b * h = 65,536, and the plain forward and
+    backward agree with the reference's XLA pair there (fp32, b 16384, h
+    4, s 2, d 8, causal)."""
+    big = torch.zeros(65536, 1, 1, 8)
+    tflash._check(big, big, big)
+    shape = (16384, 2, 2, 4, 8, True)
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(shape, jnp.float32,
+                                               torch.float32)
+    scale = 8 ** -0.5
+    o, lse = tflash.flash_fwd_plain(q, k, v, scale, True)
+    delta = tflash.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, scale, True)
+    dq = tflash.flash_dq_plain(*args)
+    dk, dv = tflash.flash_dkv_plain(*args)
+    xo, res = jflash._dense_fwd(jq, jk, jv, scale, True)
+    xdq, xdk, xdv = jflash._dense_bwd(scale, True, res, jdo)
+    _close(o, xo, torch.float32)
+    _close(lse, np.asarray(res[4])[..., 0], torch.float32)
+    for got, want in ((dq, xdq), (dk, xdk), (dv, xdv)):
+        _close(got, want, torch.float32)
 
 
 # ------------------------------------- the tensor-core kernels' arithmetic
@@ -264,6 +342,35 @@ def _emulate_dkv(q, k, v, dout, lse, delta, scale, causal, seg_q=None,
             tflash._heads_last(dv, b, h, v.dtype))
 
 
+def _dq_tile(d):
+    """K/V tile of the tensor-core dQ at this head_dim."""
+    return 64 if d <= 128 else 32
+
+
+def _emulate_dq(q, k, v, dout, lse, delta, scale, causal, seg_q=None,
+                seg_k=None, terms=2):
+    """dq as the tensor-core dQ computes it: K/V tiles of 64 keys (32 at d
+    256) against the whole q tile; P = exp2(S scale log2 e - lse log2 e) on
+    the live pairs and 0 elsewhere (a dead row's exponent is +inf: P is
+    set, not multiplied), dS = P (dP - delta) in fp32, dQ += dS K with dS as
+    `terms` bf16 terms, times the scale at the end."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    bk = _dq_tile(d)
+    qf, kf, vf, dof = (tflash._heads_first(x) for x in (q, k, v, dout))
+    live = _live(b, h, sq, sk, causal, seg_q, seg_k)
+    l2 = (lse * LOG2E)[..., None]
+    dq = torch.zeros(b * h, sq, d)
+    for k0 in range(0, sk, bk):
+        sl = slice(k0, k0 + bk)
+        x = torch.bmm(qf, kf[:, sl].transpose(1, 2)) * (scale * LOG2E)
+        p = torch.where(live[:, :, sl], torch.exp2(x - l2), 0.0)
+        dp = torch.bmm(dof, vf[:, sl].transpose(1, 2))
+        ds = p * (dp - delta[..., None])
+        dq += torch.bmm(_bf16_terms(ds, terms), kf[:, sl])
+    return tflash._heads_last(dq * scale, b, h, q.dtype)
+
+
 @pytest.mark.parametrize("shape", SHAPES,
                          ids=lambda s: "b{}-sq{}-sk{}-h{}-d{}-{}".format(
                              *s[:5], "causal" if s[5] else "full"))
@@ -308,9 +415,9 @@ def _worst(got, want):
 
 def test_p_and_ds_need_two_bf16_terms():
     """Why P and dS enter their products as two bf16 terms: with one (P
-    rounded to bf16 once, as FlashAttention-2 does), o, dK and dV miss
+    rounded to bf16 once, as FlashAttention-2 does), o, dQ, dK and dV miss
     the bf16 bound at b 1, s 1024, h 2, d 128, causal, against the fp32 plain
-    versions; with two, all three outputs keep within it. (Rows that see
+    versions; with two, all four outputs keep within it. (Rows that see
     few keys carry large, nearly cancelling terms: one rounding of each is
     larger than 2**-7 of the tensor's RMS.)"""
     rng = np.random.default_rng(3)
@@ -322,13 +429,15 @@ def test_p_and_ds_need_two_bf16_terms():
     delta = tflash.attention_delta(o_ref, do)
     dk_ref, dv_ref = tflash.flash_dkv_plain(q, k, v, do, lse, delta, scale,
                                             True)
+    dq_ref = tflash.flash_dq_plain(q, k, v, do, lse, delta, scale, True)
     ratios = {}
     for terms in (1, 2):
         o, _ = _emulate_fwd(q, k, v, scale, True, terms=terms)
         dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, True,
                               terms=terms)
+        dq = _emulate_dq(q, k, v, do, lse, delta, scale, True, terms=terms)
         ratios[terms] = [_worst(o, o_ref), _worst(dk, dk_ref),
-                         _worst(dv, dv_ref)]
+                         _worst(dv, dv_ref), _worst(dq, dq_ref)]
     assert min(ratios[1]) > 1.0, ratios
     assert max(ratios[2]) <= 1.0, ratios
 
@@ -376,6 +485,65 @@ def test_tensor_core_arithmetic_segmented_dead_rows():
             _close(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(1, 128, 128, 2, 256, True)],
+                         ids=lambda s: "b{}-sq{}-sk{}-h{}-d{}-{}".format(
+                             *s[:5], "causal" if s[5] else "full"))
+def test_tensor_core_dq_matches_pallas_and_dense(shape):
+    """bf16: the emulated tensor-core dQ, from the emulated forward's o and
+    lse as the training step feeds it, against the Pallas dQ kernel (the
+    VJP in interpret mode) and the XLA pair, at the bf16 bound; d 256 takes
+    the kernel's 32-key tiles."""
+    causal = shape[5]
+    scale = shape[4] ** -0.5
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(shape, jnp.bfloat16,
+                                               torch.bfloat16)
+    o, lse = _emulate_fwd(q, k, v, scale, causal)
+    delta = tflash.attention_delta(o, do)
+    dq = _emulate_dq(q, k, v, do, lse, delta, scale, causal)
+
+    def pallas(a, b_, c):
+        return jflash.flash_attention(a, b_, c, scale, causal, 128, 128,
+                                      True)
+
+    _, vjp = jax.vjp(pallas, jq, jk, jv)
+    xo, res = jflash._dense_fwd(jq, jk, jv, scale, causal)
+    for want in (vjp(jdo)[0], jflash._dense_bwd(scale, causal, res, jdo)[0]):
+        _close(dq, want, torch.bfloat16)
+
+
+def test_tensor_core_dq_segmented_dead_rows():
+    """The emulated tensor-core dQ with segments (a -1 padding tail, ragged
+    key tiles at s 100, query rows whose id no key carries): within the
+    bf16 bound of the plain version, and exactly 0 on the dead rows, in
+    both causal modes."""
+    rng = np.random.default_rng(12)
+    b, s, h, d = 2, 100, 2, 64
+    seg_k = np.zeros((b, s), np.int32)
+    seg_k[0, 30:70] = 1
+    seg_k[0, 70:] = 2
+    seg_k[1, 50:90] = 1
+    seg_k[1, 90:] = -1
+    seg_q = seg_k.copy()
+    seg_q[0, 5] = seg_q[1, 99] = 7             # no key carries id 7
+    seg_q[1, 60:66] = 8
+    tq, tk = torch.from_numpy(seg_q), torch.from_numpy(seg_k)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    scale = d ** -0.5
+    dead = torch.from_numpy((seg_q[:, :, None] != seg_k[:, None, :])
+                            .all(-1))
+    assert int(dead.sum()) == 8
+    for causal in (False, True):
+        o, lse = tflash.flash_seg_fwd_plain(q, k, v, tq, tk, scale, causal)
+        delta = tflash.attention_delta(o, do)
+        want = tflash.flash_seg_dq_plain(q, k, v, tq, tk, do, lse, delta,
+                                         scale, causal)
+        dq = _emulate_dq(q, k, v, do, lse, delta, scale, causal, tq, tk)
+        assert (dq[dead] == 0).all() and (want[dead] == 0).all()
+        _close(dq, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("name,group", [
     ("flash_fwd_mma_kernel<128, 64, 1, false>", "flash_fwd"),
     ("flash_fwd_mma_kernel<128, 64, 1, true>", "flash_seg_fwd"),
@@ -384,6 +552,9 @@ def test_tensor_core_arithmetic_segmented_dead_rows():
     ("flash_dkv_mma_kernel<128, 32, 1, true>", "flash_seg_dkv"),
     ("flash_dkv_kernel<float, 128, 64, true>", "flash_seg_dkv"),
     ("flash_dq_kernel<__nv_bfloat16, 128, 64, true>", "flash_seg_dq"),
+    ("flash_dq_mma_kernel<128, 64, 1, false>", "flash_dq"),
+    ("flash_dq_mma_kernel<128, 64, 1, true>", "flash_seg_dq"),
+    ("flash_fwd_kernel<__half, 128, 64, false>", "flash_fwd"),
 ])
 def test_profile_attributes_both_template_families(name, group):
     """tools/profile_training.py puts the tensor-core and the CUDA-core

@@ -198,6 +198,82 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take():
         paged_attention.paged_attention(*[a.to("meta") for a in args])
 
 
+# every GQA group the reference's supports() admits, and what it refuses:
+# (q_heads, kv_heads, d), g 16, 32 and MQA among them
+GATE_CASES = [(32, 2, 128), (32, 1, 64), (64, 1, 256), (16, 16, 80),
+              (64, 4, 128), (6, 4, 64), (32, 3, 128), (8, 2, 512),
+              (32, 2, 264)]
+
+
+@pytest.mark.parametrize("hq,hkv,d", GATE_CASES,
+                         ids=lambda c: str(c))
+def test_paged_wrappers_refuse_what_the_reference_refuses(hq, hkv, d):
+    """Decode and the verify window take exactly the shapes the reference's
+    supports() admits: any q_heads % kv_heads == 0 with d <= 256 (a decode
+    step with g > 8 runs the verify kernel as a window of one token)."""
+    pages = torch.zeros(3, 4, hkv, d)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    cl = torch.ones(1, dtype=torch.int32)
+    admitted = jpaged.supports((1, hq, d), (3, 4, hkv, d))
+    for q in (torch.zeros(1, hq, d), torch.zeros(1, 2, hq, d)):
+        try:
+            paged_attention._check(q, pages, pages, bt, cl, 1)
+            took = True
+        except ValueError:
+            took = False
+        assert took == admitted, (q.shape, admitted)
+
+
+@pytest.mark.parametrize("hq,hkv", [(32, 2), (32, 1)], ids=["g16", "g32"])
+def test_paged_decode_plain_matches_pallas_past_eight_rows(hq, hkv):
+    """GQA groups of 16 and 32 (MQA): the plain decode against the Pallas
+    decode kernel in interpret mode (1 and 2 splits) and the XLA fallback,
+    fp32, and the split count the wrapper would choose there."""
+    q, kp, vp, bt, cl = _paged_case(np.random.default_rng(6), hq=hq,
+                                    hkv=hkv, d=16)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, cl)]
+    got = paged_attention.paged_attention(*args)
+    for splits in (1, 2):
+        _close(got, jpaged.paged_attention(q, kp, vp, bt, cl,
+                                           kv_splits=splits,
+                                           interpret=True), torch.float32)
+    _close(got, jpaged.paged_attention_xla(q, kp, vp, bt, cl), torch.float32)
+    # a group past MAX_G takes the verify kernel's split choice (sq = 1)
+    assert paged_attention.decode_splits(*args[:4], 132) == \
+        paged_attention.verify_splits(args[0][:, None], *args[1:4], 132)
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_paged_fp16_plain_matches_the_reference(kind):
+    """fp16 q and pages (the dtype auto_cast(dtype="float16") gives): the
+    plain decode and verify window against the Pallas kernels in interpret
+    mode and the XLA fallbacks: both sides round the same fp32 value once,
+    so to one fp16 ulp (2**-10 of the value) plus the fp32 slack, 1e-5."""
+    rng = np.random.default_rng(9)
+    q, kp, vp, bt, cl = _paged_case(rng, hq=8, hkv=2, d=16)
+    if kind == "verify":
+        q = rng.standard_normal((4, 3, 8, 16)).astype(np.float32)
+        cl = np.maximum(cl - 3, 0).astype(np.int32)
+    jq, jk, jv = (jnp.asarray(a, jnp.float16) for a in (q, kp, vp))
+    tq, tk, tv = (torch.from_numpy(a).half() for a in (q, kp, vp))
+    tb, tc = torch.from_numpy(bt), torch.from_numpy(cl)
+    if kind == "decode":
+        got = paged_attention.paged_attention(tq, tk, tv, tb, tc)
+        wants = [jpaged.paged_attention(jq, jk, jv, bt, cl, interpret=True),
+                 jpaged.paged_attention_xla(jq, jk, jv, bt, cl)]
+    else:
+        got = paged_attention.paged_attention_multi(tq, tk, tv, tb, tc)
+        wants = [jpaged.paged_attention_multi(jq, jk, jv, bt, cl,
+                                              interpret=True),
+                 jpaged.paged_attention_xla_multi(jq, jk, jv, bt, cl)]
+    assert got.dtype == torch.float16
+    for want in wants:
+        want = _np(want)
+        assert (np.abs(_np(got) - want)
+                <= 1e-5 + 2.0 ** -10 * np.abs(want)).all()
+    paged_attention._check(tq, tk, tv, tb, tc, 1)   # a kernel dtype code
+
+
 @pytest.mark.parametrize("slots,kv_heads,max_blocks,block_size,want", [
     (8, 32, 128, 16, 5),      # Llama-2-7B serving: ceil(8 * 132 / 256)
     (1, 32, 128, 16, 8),      # one slot: capped by 2048 / 256-token runs

@@ -275,6 +275,39 @@ def test_tensor_core_arithmetic_segmented_matches_pallas(causal):
         _close(got, ref, torch.bfloat16)
 
 
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["full", "causal"])
+def test_tensor_core_dq_segmented_matches_pallas(causal):
+    """bf16, d 32: the tensor-core dQ's arithmetic (`_emulate_dq` of
+    tests/test_torch_flash.py: 64-key tiles, P set to 0 off the live pairs,
+    dS as two bf16 terms) from the emulated forward's o and lse, against
+    the segmented Pallas dQ kernel in interpret mode; rows whose id no key
+    carries get dq = 0 exactly on both sides."""
+    from test_torch_flash import _emulate_dq, _emulate_fwd
+
+    rng = np.random.default_rng(8)
+    seg_k = _segments()
+    seg_q = seg_k.copy()
+    seg_q[0, 3] = seg_q[1, 60] = 9          # no key carries id 9
+    b, s, h, d = 2, 64, 2, 32
+    arrs = [rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for _ in range(4)]
+    scale = d ** -0.5
+    jin = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrs]
+    want = _pallas_seg_split(*jin, jnp.asarray(seg_q), jnp.asarray(seg_k),
+                             scale, causal)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    tq, tk = torch.from_numpy(seg_q), torch.from_numpy(seg_k)
+    o, lse = _emulate_fwd(q, k, v, scale, causal, tq, tk)
+    delta = tflash.attention_delta(o, do)
+    dq = _emulate_dq(q, k, v, do, lse, delta, scale, causal, tq, tk)
+    dead_q = (seg_q[:, :, None] != seg_k[:, None, :]).all(-1)
+    assert dead_q.sum() == 2
+    assert (_np(dq)[dead_q] == 0).all()
+    assert (_np(want[2])[dead_q] == 0).all()
+    _close(dq, want[2], torch.bfloat16)
+
+
 def test_segmented_attention_dispatch():
     """nn_ops.segmented_attention and flash_attn_unpadded take the kernel
     path inside the reference's gate and the dense-mask composition outside

@@ -103,6 +103,132 @@ def test_sq1_window_equals_decode_at_base_plus_one():
                                rtol=ATOL)
 
 
+# The bf16 verify window on the tensor cores (csrc/paged_attention.cu
+# paged_verify_mma_kernel): blocks of 16 (query, head) rows of one kv head,
+# the run of a split cut into 16-token tiles dealt to four warps in turn,
+# an online softmax per warp in the log2 domain with the per-row limit,
+# P entering P V as `terms` bf16 terms, then the warps and the splits
+# merged by their maxima. `_emulate_verify` repeats that arithmetic.
+LOG2E = 1.4426950408889634
+BF16_ULP = (1e-5, 2.0 ** -7)    # atol, rtol: chip_smoke.py's verify bound
+
+
+def _emulate_verify(q, kp, vp, bt, cl, splits=1, terms=2):
+    """Output [slots, sq, hq, d] in q's dtype as the tensor-core verify
+    kernel computes it from q and the pages (bf16)."""
+    from test_torch_flash import _bf16_terms
+
+    slots, sq, hq, d = q.shape
+    bs, hkv = kp.shape[1], kp.shape[2]
+    g, maxb = hq // hkv, bt.shape[1]
+    rows, sl2 = sq * g, d ** -0.5 * LOG2E
+    out = torch.zeros(slots, sq, hq, d)
+    for s in range(slots):
+        base = int(cl[s])
+        k = kp[bt[s].long()].reshape(maxb * bs, hkv, d).float()
+        v = vp[bt[s].long()].reshape(maxb * bs, hkv, d).float()
+        for h in range(hkv):
+            for row0 in range(0, rows, 16):
+                r = torch.arange(row0, min(row0 + 16, rows))
+                qi, head = r // g, h * g + r % g
+                qf = q[s, qi, head].float()
+                lim = base + qi + 1
+                ctx = min(base + int(qi[-1]) + 1, maxb * bs)
+                per = -(-(-(-ctx // 16)) // splits)
+                parts = []
+                for sp in range(splits):
+                    tb = sp * per * 16
+                    te = min(ctx, tb + per * 16)
+                    nt = -(-(te - tb) // 16) if te > tb else 0
+                    for w in range(4):
+                        m = torch.full((len(r),), pa.NEG_INF)
+                        l = torch.zeros(len(r))
+                        acc = torch.zeros(len(r), d)
+                        for i in range(w, nt, 4):
+                            pos = torch.arange(tb + i * 16, tb + i * 16 + 16)
+                            live = ((pos[None] < lim[:, None])
+                                    & (pos[None] < te))
+                            kt = k[pos.clamp(max=maxb * bs - 1), h]
+                            vt = v[pos.clamp(max=maxb * bs - 1), h]
+                            x = (qf @ kt.T) * sl2
+                            x = torch.where(live, x, pa.NEG_INF)
+                            mn = torch.maximum(m, x.amax(-1))
+                            alpha = torch.exp2(m - mn)
+                            p = torch.where(live, torch.exp2(x - mn[:, None]),
+                                            0.0)
+                            l = l * alpha + p.sum(-1)
+                            acc = (acc * alpha[:, None]
+                                   + _bf16_terms(p, terms) @ vt)
+                            m = mn
+                        parts.append((m, l, acc))
+                mg = torch.stack([pm for pm, _, _ in parts]).amax(0)
+                num = sum(pa * torch.exp2(pm - mg)[:, None]
+                          for pm, _, pa in parts)
+                den = sum(pl_ * torch.exp2(pm - mg) for pm, pl_, _ in parts)
+                out[s, qi, head] = num / den.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def _bf16_window(slots, sq, hq, hkv, d, bs, bases, seed):
+    """_window_case's arrays with q and the pages rounded to bf16 (as
+    float32 for the reference, bf16 for the port)."""
+    q, kp, vp, bt, cl = _window_case(slots, sq, hq, hkv, d, bs, bases, seed)
+    q, kp, vp = (np.asarray(torch.from_numpy(a).to(torch.bfloat16).float())
+                 for a in (q, kp, vp))
+    return q, kp, vp, bt, cl
+
+
+def _within(got, want, bound):
+    atol, rtol = bound
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    return bool((np.abs(got - want) <= atol + rtol * np.abs(want)).all())
+
+
+# (slots, sq, hq, hkv, d, bs, bases): the spec slice's window (W = 5, g =
+# 1) at a small width, and a GQA window of 72 rows (hq 32 over 4 kv heads,
+# sq 9: five row tiles, the last one ragged)
+TC_WINDOWS = [(3, 5, 4, 4, 32, 16, [300, 17, 90]),
+              (2, 9, 32, 4, 16, 16, [77, 5])]
+
+
+@pytest.mark.parametrize("case", TC_WINDOWS, ids=["w5-g1", "sq9-gqa"])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_tensor_core_verify_arithmetic_matches_pallas_and_plain(case,
+                                                                 splits):
+    """bf16: the emulated tensor-core verify window against the Pallas
+    verify kernel in interpret mode (bf16 in, fp32 arithmetic, bf16 out)
+    and the plain version, within one bf16 ulp (chip_smoke.py's bound)."""
+    *geo, bases = case
+    q, kp, vp, bt, cl = _bf16_window(*geo, bases, seed=20 + len(bases))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in (q, kp, vp))
+    tbt, tcl = _t(bt, cl)
+    got = _emulate_verify(tq, tk, tv, tbt, tcl, splits)
+    want = pa.paged_attention_multi_plain(tq, tk, tv, tbt, tcl)
+    assert _within(got, want.float(), BF16_ULP)
+    kern = jax_pa.paged_attention_multi(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, jnp.bfloat16),
+        jnp.asarray(vp, jnp.bfloat16), bt, cl, kv_splits=splits,
+        interpret=True)
+    assert _within(got, np.asarray(kern.astype(jnp.float32)), BF16_ULP)
+
+
+def test_verify_p_needs_two_bf16_terms():
+    """Why P enters P V as two bf16 terms: with one rounding, the emulated
+    window at the spec slice's width (W = 5, d 128, a 2,043-token base
+    among short ones) misses chip_smoke.py's one-ulp bound against the
+    plain version; with two it keeps within it."""
+    q, kp, vp, bt, cl = _bf16_window(3, 5, 2, 2, 128, 16, [2043, 12, 300],
+                                     seed=31)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in (q, kp, vp))
+    tbt, tcl = _t(bt, cl)
+    want = pa.paged_attention_multi_plain(tq, tk, tv, tbt, tcl).float()
+    ok = {t: _within(_emulate_verify(tq, tk, tv, tbt, tcl, terms=t), want,
+                     BF16_ULP) for t in (1, 2)}
+    assert ok == {1: False, 2: True}, ok
+
+
 def test_verify_wrapper_takes_the_plain_version_on_cpu():
     q, kp, vp, bt, cl = _window_case(2, 3, 4, 2, 8, 4, [5, 2], seed=4)
     before = pa.paged_attention_multi.launches
@@ -120,8 +246,9 @@ def test_verify_wrapper_takes_the_plain_version_on_cpu():
 
 
 def test_kernel_shape_gate_is_the_references():
-    """The verify kernel takes any sq * g: the wrapper raises only where
-    the reference's supports() refuses (d > 256, q_heads % kv_heads)."""
+    """The verify and decode kernels take any sq * g: the wrapper raises
+    only where the reference's supports() refuses (d > 256, q_heads %
+    kv_heads)."""
     def check(sq, hq, hkv, d):
         q = torch.zeros(1, sq, hq, d)
         kp = torch.zeros(3, 4, hkv, d)
@@ -137,10 +264,10 @@ def test_kernel_shape_gate_is_the_references():
         with pytest.raises(ValueError):
             check(*bad)
     pages = torch.zeros(3, 4, 1, 8)
-    with pytest.raises(ValueError):              # decode keeps its g <= 8
-        pa._check(torch.zeros(1, 16, 8), pages, pages,
-                  torch.zeros(1, 2, dtype=torch.int32),
-                  torch.zeros(1, dtype=torch.int32), 1)
+    # decode takes any group too (g > 8 runs the verify kernel)
+    pa._check(torch.zeros(1, 16, 8), pages, pages,
+              torch.zeros(1, 2, dtype=torch.int32),
+              torch.zeros(1, dtype=torch.int32), 1)
 
 
 # ------------------------------------------------ the window's cache op
