@@ -1,7 +1,7 @@
 // Ragged paged attention for Hopper (sm_90a): decode and the speculative
 // verify window.
 //
-// paged_decode_kernel replaces the TPU kernel
+// paged_decode_ring_kernel replaces the TPU kernel
 // paddle_tpu/ops/pallas/paged_attention.py `_decode_kernel` (launched by
 // `_paged_pallas`): one query token per slot against a paged KV pool,
 // addressed through the slot's block table and context length, fp32 online
@@ -14,24 +14,37 @@
 // What bounds both on the H100: bytes. A decode step reads every live K and V
 // row of every slot once (context x kv_heads x head_dim x 2 x itemsize) and
 // does 4 flops per element read, far below the ~295 flops per byte at which
-// the tensor cores would become the limit. The design follows from that:
+// the tensor cores would become the limit. So the kernels keep bytes in
+// flight:
 //   * one block per (slot, kv_head, split) reads its own block-table row and
 //     context length (the TPU's scalar prefetch) and walks only the live
 //     context, so pages past a slot's length are never read;
 //   * the g = q_heads / kv_heads query rows of a kv head share one block, so
 //     each K/V row is read from device memory once for all g heads (GQA);
-//   * K rows are read by one warp per token with neighbouring lanes on
-//     neighbouring elements (coalesced), V rows by all threads across the
-//     head dimension (coalesced);
+//   * the block's four warps split its run of the context: each warp finds
+//     its own tiles of tokens through the block table and copies their K and
+//     V rows by 16-byte cp.async into a private two-stage ring of shared
+//     memory, so its next tile is in flight while it computes this one and
+//     the walk needs no block barrier; the warps merge (m, l, O) through
+//     shared memory at the end (the decode kernel below, and the verify
+//     window's tensor-core kernel);
 //   * split-K over each slot's live context (splits > 1) adds blocks when
 //     slots x kv_heads is small against the 132 SMs and shortens the walk of
 //     the longest slot, which otherwise sets the step's time; the Python
 //     wrapper chooses the count. A second small kernel combines the splits
 //     as the TPU's XLA epilogue does.
-// The decode kernel holds at most kMaxG = 8 query rows a kv head; a larger
-// GQA group (g > 8: 32 heads over 2 kv heads, or MQA) decodes through the
-// verify kernel as a window of one token whose base is the context minus
-// one (the entry point chooses, before anything launches).
+// ptxas (sm_90a) for the decode kernel: at d 128 and g 1, 64 registers a
+// thread in bf16 and fp16, 48 in fp32; at g 8, 254-255; no spills but 12
+// bytes at fp32, d 64, g 2. Its 64 KB of dynamic shared memory (four warps'
+// rings) lets 3 blocks share an SM (2 at g 8, by registers).
+// The decode kernel moves rows as 16-byte vectors: it serves g <= kMaxG = 8
+// query rows a kv head where d * itemsize % 16 == 0 and q, the pages and
+// the output are 16-byte aligned. Every other decode step (a larger GQA
+// group: 32 heads over 2 kv heads, or MQA; another head_dim or alignment)
+// runs the verify kernel as a window of one token whose base is the
+// context minus one. The Python wrapper chooses the kernel (`route`) and
+// passes it to the entry points, which launch it or, where the arguments
+// do not meet its needs, refuse before anything launches.
 //
 // Types: fp32, bf16 and fp16 on the CUDA-core kernels, which compute in
 // fp32; the bf16 verify window on the tensor cores where head_dim % 8 ==
@@ -46,34 +59,23 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "vec16.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;  // context tokens per tile (one per lane in softmax)
+constexpr int kTile = 32;  // CUDA-core verify: tokens a tile, one a lane
 constexpr int kMaxG = 8;
 constexpr int kMaxD = 256;
-constexpr int kAccPerThread = kMaxG * kMaxD / kThreads;
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -83,137 +85,281 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// grid (slots, kv_heads, splits), kThreads threads.
-// splits == 1: writes the normalised output to `out` [slots, hq, d].
-// splits > 1: writes unnormalised partials acc [slots, hkv, splits, g, d]
-// and (m, l) [slots, hkv, splits, g, 2] for paged_combine_kernel.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+// ---------------------------------------------------------------- decode
+// The decode step's layout. A warp's tile of K (or V) is kRingTileBytes: 16
+// tokens of a bf16 or fp16 d-128 row, 8 of an fp32 one. A row is CH
+// 16-byte chunks; LPT lanes hold one token's row (JC chunks each), so one
+// pass of the warp covers TPP tokens and NP passes a tile. d 128 bf16: 16
+// lanes a token, 2 tokens a pass, 8 passes; fp32: 32 lanes, 1 token, 8.
+constexpr int kRingTileBytes = 4096;
+constexpr size_t kRingSmem = (size_t)kWarps * 2 * 2 * kRingTileBytes;
+
+template <typename T, int D>
+struct Ring {
+  static constexpr int E = Vec16<T>::E;  // elements a chunk
+  static constexpr int CH = D / E;       // chunks a row
+  static constexpr int TOK = kRingTileBytes / (D * (int)sizeof(T));
+  static constexpr int LPT = CH < 32 ? CH : 32;
+  static constexpr int JC = CH / LPT;
+  static constexpr int TPP = 32 / LPT;
+  static constexpr int NP = TOK / TPP;
+  static constexpr int STAGE = TOK * D;  // elements of one K (or V) tile
+  static_assert(TOK >= 1 && TOK <= 32 && TOK % TPP == 0, "tile shape");
+};
+
+// grid (slots, kv_heads, splits), kThreads threads, kRingSmem bytes of
+// dynamic shared memory. D >= d and G >= g are compile-time bounds (rows
+// past g compute on zeros and are not stored).
+//   * Each warp walks the tiles warp, warp + 4, ... of the split's run.
+//     For a tile, lanes 0..TOK-1 find one token's row each through the
+//     block table, and the warp copies the TOK rows of K and of V into its
+//     ring stage (zeros past the run); it loads the next tile before it
+//     waits on this one.
+//   * Scores: lane l holds chunks l % LPT (+ j LPT) of the token l / LPT of
+//     each pass, and q's same chunks for every row in registers (fp32,
+//     times scale * log2 e); a score is an fp32 dot product reduced over
+//     the token's LPT lanes by shuffles.
+//   * Online softmax in the log2 domain over U passes at a time (a whole
+//     tile for g <= 2, half a tile for more rows, fewer live registers),
+//     positions past the run masked to NEG_INF and exactly 0 in P; then O
+//     += P V, each lane accumulating its chunks over its own tokens.
+//   * At the end the lanes of a pass (different tokens) sum l and O, the
+//     four warps merge (m, l, O) through shared memory (the ring, now
+//     free), and the block writes the normalised output (one split) or the
+//     split's partial for paged_combine_kernel: acc [slots, hkv, splits, g,
+//     d] and (m in natural log, l) [slots, hkv, splits, g, 2].
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kThreads) paged_decode_ring_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ block_tables,
     const int* __restrict__ context_lens, T* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int hkv,
     int g, int d, int block_size, int max_blocks, int splits, float scale) {
+  using R = Ring<T, D>;
+  constexpr int E = R::E, CH = R::CH, TOK = R::TOK, LPT = R::LPT;
+  constexpr int JC = R::JC, TPP = R::TPP, NP = R::NP, STAGE = R::STAGE;
+  constexpr int U = G > 2 && NP % 2 == 0 ? NP / 2 : NP;  // passes an update
+  static_assert((size_t)kWarps * G * (D + 2) * sizeof(float) <= kRingSmem,
+                "the merge fits in the ring");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);         // [warp][stage][K, V]
+  float* mrg = reinterpret_cast<float*>(smem_raw);  // after the walk
+
   const int slot = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hq = hkv * g;
-  const int gd = g * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / LPT, cl = lane % LPT;
+  const int hq = hkv * g, dch = d / E;
 
-  __shared__ float q_s[kMaxG * kMaxD];
-  __shared__ float p_s[kMaxG][kTile];
-  __shared__ float alpha_s[kMaxG];
-  __shared__ float m_s[kMaxG];
-  __shared__ float l_s[kMaxG];
-  __shared__ int64_t row_s[kTile];  // element offset of (page, off, h, 0)
-
-  // The slot's own live context (never past its table) is cut into `splits`
-  // runs of whole tiles, so every split of a long slot walks an equal share
-  // and the splits of a short slot past its context do nothing.
-  const int ctx = min(context_lens[slot], max_blocks * block_size);
-  const int tiles_per_split = ((ctx + kTile - 1) / kTile + splits - 1) / splits;
-  const int tok_begin = split * tiles_per_split * kTile;
-  const int tok_end = min(ctx, tok_begin + tiles_per_split * kTile);
-
-  const T* q_rows = q + ((int64_t)slot * hq + (int64_t)h * g) * d;
-  for (int e = tid; e < gd; e += kThreads) q_s[e] = to_float(q_rows[e]) * scale;
-  if (tid < kMaxG) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kAccPerThread];
-#pragma unroll
-  for (int i = 0; i < kAccPerThread; ++i) acc[i] = 0.f;
-  __syncthreads();
-
+  // The slot's own live context (never past its table) is cut into
+  // `splits` runs of whole tiles, so every split of a long slot walks an
+  // equal share and the splits of a short slot past its context do nothing.
+  const int ctx = max(0, min(context_lens[slot], max_blocks * block_size));
+  const int per_split = ((ctx + TOK - 1) / TOK + splits - 1) / splits;
+  const int tok_begin = split * per_split * TOK;
+  const int tok_end = min(ctx, tok_begin + per_split * TOK);
+  const int ntiles =
+      tok_end > tok_begin ? (tok_end - tok_begin + TOK - 1) / TOK : 0;
   const int* table = block_tables + (int64_t)slot * max_blocks;
   const int64_t tok_stride = (int64_t)hkv * d;
+  T* Kw = ring + warp * 4 * STAGE;  // this warp's [stage][K, V]
 
-  for (int t0 = tok_begin; t0 < tok_end; t0 += kTile) {
-    const int n = min(kTile, tok_end - t0);
-    if (tid < kTile) {
-      int64_t row = 0;
-      if (tid < n) {
-        const int pos = t0 + tid;
-        const int64_t blk = table[pos / block_size];
-        row = (blk * block_size + pos % block_size) * tok_stride +
-              (int64_t)h * d;
-      }
-      row_s[tid] = row;
+  auto load_tile = [&](int i, int st) {
+    const int pos = tok_begin + i * TOK + lane;
+    int64_t off = -1;
+    if (lane < TOK && pos < tok_end)
+      off = ((int64_t)table[pos / block_size] * block_size +
+             pos % block_size) * tok_stride + (int64_t)h * d;
+    T* Kt = Kw + st * 2 * STAGE;
+#pragma unroll
+    for (int k = 0; k < TOK * CH / 32; ++k) {
+      const int e = lane + k * 32, r = e / CH, c = e % CH;
+      const int64_t ro = __shfl_sync(0xffffffffu, off, r);
+      const bool in = ro >= 0 && c < dch;
+      cp_async16(Kt + r * D + c * E, in ? k_pages + ro + c * E : k_pages,
+                 in);
+      cp_async16(Kt + STAGE + r * D + c * E,
+                 in ? v_pages + ro + c * E : v_pages, in);
     }
-    __syncthreads();
+  };
 
-    // scores q.k: one warp per token, lanes across the head dimension
-    for (int t = warp; t < n; t += kWarps) {
-      const T* krow = k_pages + row_s[t];
-      float part[kMaxG];
+  int i = warp, st = 0;
+  if (i < ntiles) load_tile(i, 0);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float qf[G][JC][E], acc[G][JC][E], m[G], l[G];
 #pragma unroll
-      for (int r = 0; r < kMaxG; ++r) part[r] = 0.f;
-      for (int e = lane; e < d; e += 32) {
-        const float kv = to_float(krow[e]);
+  for (int r = 0; r < G; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
 #pragma unroll
-        for (int r = 0; r < kMaxG; ++r)
-          if (r < g) part[r] += q_s[r * d + e] * kv;
+    for (int j = 0; j < JC; ++j) {
+      const int c = cl + j * LPT;
+      if (r < g && c < dch) {
+        Vec16<T>::get(*reinterpret_cast<const uint4*>(
+                          q + ((int64_t)slot * hq + (int64_t)h * g + r) * d +
+                          c * E),
+                      qf[r][j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) qf[r][j][e] = 0.f;
       }
 #pragma unroll
-      for (int r = 0; r < kMaxG; ++r) {
-        if (r < g) {
-          const float s = warp_sum(part[r]);
-          if (lane == 0) p_s[r][t] = s;
+      for (int e = 0; e < E; ++e) {
+        qf[r][j][e] *= sl2;
+        acc[r][j][e] = 0.f;
+      }
+    }
+  }
+
+  while (i < ntiles) {
+    const int nx = i + kWarps;
+    if (nx < ntiles) {  // the warp's next tile loads while this one computes
+      load_tile(nx, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* Kt = Kw + st * 2 * STAGE;
+    const T* Vt = Kt + STAGE;
+    const int t0 = tok_begin + i * TOK;
+#pragma unroll
+    for (int p0 = 0; p0 < NP; p0 += U) {
+      float s[G][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = (p0 + u) * TPP + grp;
+        float part[G];
+#pragma unroll
+        for (int r = 0; r < G; ++r) part[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < JC; ++j) {
+          float kf[E];
+          Vec16<T>::get(*reinterpret_cast<const uint4*>(
+                            Kt + t * D + (cl + j * LPT) * E),
+                        kf);
+#pragma unroll
+          for (int r = 0; r < G; ++r)
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              part[r] = fmaf(qf[r][j][e], kf[e], part[r]);
+        }
+        const bool live = t0 + t < tok_end;
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+#pragma unroll
+          for (int o = LPT / 2; o > 0; o >>= 1)
+            part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
+          s[r][u] = live ? part[r] : kNegInf;
+        }
+      }
+      // online softmax over these U * TPP tokens; a masked position adds
+      // exactly 0
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float mx = s[r][0];
+#pragma unroll
+        for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[r][u]);
+#pragma unroll
+        for (int o = LPT; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float mn = fmaxf(m[r], mx);
+        const float alpha = ex2(m[r] - mn);
+        m[r] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float& x = s[r][u];
+          x = x == kNegInf ? 0.f : ex2(x - mn);
+          sum += x;
+        }
+        l[r] = l[r] * alpha + sum;  // this lane's tokens; summed at the end
+#pragma unroll
+        for (int j = 0; j < JC; ++j)
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[r][j][e] *= alpha;
+      }
+      // O += P V over the same tokens
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = (p0 + u) * TPP + grp;
+#pragma unroll
+        for (int j = 0; j < JC; ++j) {
+          float vf[E];
+          Vec16<T>::get(*reinterpret_cast<const uint4*>(
+                            Vt + t * D + (cl + j * LPT) * E),
+                        vf);
+#pragma unroll
+          for (int r = 0; r < G; ++r)
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[r][j][e] = fmaf(s[r][u], vf[e], acc[r][j][e]);
         }
       }
     }
-    __syncthreads();
-
-    // online softmax: one warp per query row, one lane per token
-    for (int r = warp; r < g; r += kWarps) {
-      const float s = lane < n ? p_s[r][lane] : kNegInf;
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      const float l_add = warp_sum(p);
-      p_s[r][lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + l_add;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p.v: each thread owns elements tid + i*kThreads
-#pragma unroll
-    for (int i = 0; i < kAccPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < gd) {
-        const int r = e / d, c = e - r * d;
-        float a = acc[i] * alpha_s[r];
-        for (int t = 0; t < n; ++t)
-          a += p_s[r][t] * to_float(v_pages[row_s[t] + c]);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
+    __syncwarp();  // this stage's readers are done before it refills
+    i = nx;
+    st ^= 1;
   }
 
-  if (splits == 1) {
-    T* o = out + ((int64_t)slot * hq + (int64_t)h * g) * d;
+  // the lanes of a pass held different tokens: sum their l and O
 #pragma unroll
-    for (int i = 0; i < kAccPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < gd) store(o + e, acc[i] / fmaxf(l_s[e / d], 1e-30f));
-    }
-  } else {
-    const int64_t part = ((int64_t)slot * hkv + h) * splits + split;
-    float* pa = part_acc + part * gd;
+  for (int r = 0; r < G; ++r)
 #pragma unroll
-    for (int i = 0; i < kAccPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < gd) pa[e] = acc[i];
+    for (int o = LPT; o < 32; o <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[r][j][e] += __shfl_xor_sync(0xffffffffu, acc[r][j][e], o);
     }
-    if (tid < g) {
-      part_ml[(part * g + tid) * 2] = m_s[tid];
-      part_ml[(part * g + tid) * 2 + 1] = l_s[tid];
+  // merge the four warps through shared memory (the ring, now free)
+  __syncthreads();
+  float* mo = mrg;                     // [warp][row][D]
+  float* mml = mrg + kWarps * G * D;   // [warp][row][2]
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          mo[(warp * G + r) * D + (cl + j * LPT) * E + e] = acc[r][j][e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      mml[(warp * G + r) * 2] = m[r];
+      mml[(warp * G + r) * 2 + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  const int64_t part = ((int64_t)slot * hkv + h) * splits + split;
+  for (int e = threadIdx.x; e < g * d; e += kThreads) {
+    const int r = e / d, c = e - r * d;
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mw = fmaxf(mw, mml[(w * G + r) * 2]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = ex2(mml[(w * G + r) * 2] - mw);
+      num += mo[(w * G + r) * D + c] * wt;
+      den += mml[(w * G + r) * 2 + 1] * wt;
+    }
+    if (splits == 1) {
+      store(out + ((int64_t)slot * hq + (int64_t)h * g + r) * d + c,
+            num / fmaxf(den, 1e-30f));
+    } else {
+      part_acc[(part * g + r) * d + c] = num;
+      if (c == 0) {  // natural-log m, as the combine kernel reads it
+        part_ml[(part * g + r) * 2] = mw == kNegInf ? kNegInf : mw * kLn2;
+        part_ml[(part * g + r) * 2 + 1] = den;
+      }
     }
   }
 }
@@ -243,13 +389,18 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* k_pages, const void* v_pages,
-            const int* block_tables, const int* context_lens, void* out,
-            float* part_acc, float* part_ml, int slots, int hkv, int g, int d,
-            int block_size, int max_blocks, int splits, float scale,
-            cudaStream_t stream) {
-  paged_decode_kernel<T><<<dim3(slots, hkv, splits), kThreads, 0, stream>>>(
+template <typename T, int D, int G>
+cudaError_t launch_decode(const void* q, const void* k_pages,
+                          const void* v_pages, const int* block_tables,
+                          const int* context_lens, void* out,
+                          float* part_acc, float* part_ml, int slots, int hkv,
+                          int g, int d, int block_size, int max_blocks,
+                          int splits, float scale, cudaStream_t stream) {
+  auto fn = paged_decode_ring_kernel<T, D, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRingSmem);
+  if (err != cudaSuccess) return err;
+  fn<<<dim3(slots, hkv, splits), kThreads, kRingSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), block_tables, context_lens,
       static_cast<T*>(out), part_acc, part_ml, hkv, g, d, block_size,
@@ -258,6 +409,34 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
     paged_combine_kernel<T><<<dim3(slots, hkv), kThreads, 0, stream>>>(
         part_acc, part_ml, static_cast<T*>(out), hkv, g, d, splits);
   }
+  return cudaSuccess;
+}
+
+// The decode kernel's instantiation for d and g: D the smallest of 64,
+// 128, 256 that holds d, G the smallest of 1, 2, 4, 8 that holds g.
+template <typename T, int D>
+cudaError_t decode_for_g(const void* q, const void* k, const void* v,
+                         const int* bt, const int* cl, void* out, float* pa,
+                         float* pml, int slots, int hkv, int g, int d, int bs,
+                         int maxb, int splits, float scale, cudaStream_t s) {
+  auto fn = g <= 1   ? launch_decode<T, D, 1>
+            : g <= 2 ? launch_decode<T, D, 2>
+            : g <= 4 ? launch_decode<T, D, 4>
+                     : launch_decode<T, D, 8>;
+  return fn(q, k, v, bt, cl, out, pa, pml, slots, hkv, g, d, bs, maxb,
+            splits, scale, s);
+}
+
+template <typename T>
+cudaError_t run_decode(const void* q, const void* k, const void* v,
+                       const int* bt, const int* cl, void* out, float* pa,
+                       float* pml, int slots, int hkv, int g, int d, int bs,
+                       int maxb, int splits, float scale, cudaStream_t s) {
+  auto fn = d <= 64    ? decode_for_g<T, 64>
+            : d <= 128 ? decode_for_g<T, 128>
+                       : decode_for_g<T, 256>;
+  return fn(q, k, v, bt, cl, out, pa, pml, slots, hkv, g, d, bs, maxb,
+            splits, scale, s);
 }
 
 // ---------------------------------------------------------------- verify
@@ -276,9 +455,9 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
 // into `splits` equal runs of whole kTile tiles; the live mask is per row.
 // Each thread owns head-dim columns for all of the block's rows, so a V
 // element, like a K element, is read once for every row it serves.
-// kRows = 8, as the decode kernel's kMaxG, keeps a thread's registers
-// (part[] and acc[][]) at the decode kernel's 56: 16 rows need up to 119,
-// fewer blocks fit an SM, and a W = 5 window takes twice as long.
+// kRows = 8 keeps a thread's registers (part[] and acc[][]) at 56: 16 rows
+// need up to 119, fewer blocks fit an SM, and a W = 5 window takes twice
+// as long.
 constexpr int kRows = 8;
 constexpr int kCols = kMaxD / kThreads;  // head-dim columns a thread owns
 
@@ -766,29 +945,30 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Which verify kernel runs: the tensor-core one for bf16 where head_dim %
-// 8 == 0 and q, the pages and the output are 16-byte aligned (its 16-byte
-// cp.async rows need it); the CUDA-core one for fp32 (whose products stay
-// fp32), fp16, and bf16 at other head_dims or alignments. Chosen here,
-// before either launches; no fallback.
-bool verify_uses_mma(const void* q, const void* k_pages, const void* v_pages,
-                     const void* out, int d, int dtype) {
+// The kernels a call names (the wrapper's `route`).
+enum Kernel { kDecode = 0, kVerifyCudaCores = 1, kVerifyTensorCores = 2 };
+
+// What the tensor-core verify kernel needs: bf16, head_dim % 8 == 0, and q,
+// the pages and the output 16-byte aligned (its 16-byte cp.async rows).
+bool mma_fits(const void* q, const void* k_pages, const void* v_pages,
+              const void* out, int d, int dtype) {
   return dtype == 1 && d % 8 == 0 && aligned16(q) && aligned16(k_pages) &&
          aligned16(v_pages) && aligned16(out);
 }
 
-// The verify window (any dtype, either kernel) and its split combine.
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+// The verify window (any dtype on the CUDA cores, bf16 on the tensor
+// cores where tc) and its split combine. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 cudaError_t run_verify(const void* q, const void* k_pages,
                        const void* v_pages, const int* bt, const int* cl,
                        void* out, float* pa, float* pml, int slots, int sq,
                        int hkv, int g, int d, int block_size, int max_blocks,
-                       int splits, float scale, int dtype, int base_off,
-                       cudaStream_t s) {
+                       int splits, float scale, int dtype, bool tc,
+                       int base_off, cudaStream_t s) {
   auto fn = dtype == 0   ? launch_verify<float>
             : dtype == 2 ? launch_verify<__half>
                          : launch_verify<__nv_bfloat16>;
-  if (verify_uses_mma(q, k_pages, v_pages, out, d, dtype))
+  if (tc)
     fn = d <= 64    ? launch_verify_mma<64>
          : d <= 128 ? launch_verify_mma<128>
                     : launch_verify_mma<256>;
@@ -799,13 +979,29 @@ cudaError_t run_verify(const void* q, const void* k_pages,
 }
 
 bool verify_args_ok(int slots, int sq, int hkv, int g, int d, int block_size,
-                    int max_blocks, int splits, int dtype, bool tc) {
+                    int max_blocks, int splits, int dtype, int kernel,
+                    const void* q, const void* k_pages, const void* v_pages,
+                    const void* out) {
+  const bool tc = kernel == kVerifyTensorCores;
+  if (tc && !mma_fits(q, k_pages, v_pages, out, d, dtype)) return false;
   const long long rows = tc ? kVRows : kRows;  // (query, head) rows a block
   const long long row_tiles = ((long long)sq * g + rows - 1) / rows;
   return slots >= 1 && sq >= 1 && hkv >= 1 && g >= 1 && d >= 1 &&
          d <= kMaxD && block_size >= 1 && max_blocks >= 1 && splits >= 1 &&
          splits <= max_blocks && splits * row_tiles <= 65535 &&
-         hkv <= 65535 && dtype >= 0 && dtype <= 2;
+         hkv <= 65535 && dtype >= 0 && dtype <= 2 &&
+         (kernel == kVerifyCudaCores || tc);
+}
+
+
+// What the decode kernel needs: g <= kMaxG query rows a kv head, rows of
+// whole 16-byte chunks (d * itemsize % 16 == 0), and q, the pages and the
+// output 16-byte aligned.
+bool decode_fits(const void* q, const void* k_pages, const void* v_pages,
+                 const void* out, int g, int d, int dtype) {
+  const int itemsize = dtype == 0 ? 4 : 2;
+  return g <= kMaxG && d * itemsize % 16 == 0 && aligned16(q) &&
+         aligned16(k_pages) && aligned16(v_pages) && aligned16(out);
 }
 
 }  // namespace
@@ -815,44 +1011,41 @@ bool verify_args_ok(int slots, int sq, int hkv, int g, int d, int block_size,
 // out [slots, hkv*g, d]; part_acc [slots*hkv*splits*g*d] and
 // part_ml [slots*hkv*splits*g*2] fp32 scratch (unused when splits == 1).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. All tensors contiguous, on
-// one device. g > kMaxG runs the verify kernel as a window of one token.
+// one device. kernel: 0 the decode kernel, 1 or 2 the verify kernel (CUDA
+// cores, tensor cores) as a window of one token; a kernel the arguments do
+// not fit is refused (cudaErrorInvalidValue) before anything launches.
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* context_lens, void* out,
     void* part_acc, void* part_ml, int slots, int hkv, int g, int d,
-    int block_size, int max_blocks, int splits, float scale, int dtype,
-    void* stream) {
+    int block_size, int max_blocks, int splits, int kernel, float scale,
+    int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(context_lens);
   float* pa = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
-  if (g > kMaxG) {
-    const bool tc = verify_uses_mma(q, k_pages, v_pages, out, d, dtype);
+  if (kernel != kDecode) {
     if (!verify_args_ok(slots, 1, hkv, g, d, block_size, max_blocks, splits,
-                        dtype, tc))
+                        dtype, kernel, q, k_pages, v_pages, out))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(run_verify(q, k_pages, v_pages, bt, cl, out, pa,
-                                       pml, slots, 1, hkv, g, d, block_size,
-                                       max_blocks, splits, scale, dtype, -1,
-                                       s));
+    return static_cast<int>(run_verify(
+        q, k_pages, v_pages, bt, cl, out, pa, pml, slots, 1, hkv, g, d,
+        block_size, max_blocks, splits, scale, dtype,
+        kernel == kVerifyTensorCores, -1, s));
   }
-  if (slots < 1 || hkv < 1 || g < 1 || d < 1 || d > kMaxD ||
+  if (!decode_fits(q, k_pages, v_pages, out, g, d, dtype) || slots < 1 || hkv < 1 || hkv > 65535 || g < 1 || d < 1 || d > kMaxD ||
       block_size < 1 || max_blocks < 1 || splits < 1 || splits > max_blocks ||
-      dtype < 0 || dtype > 2) {
+      splits > 65535 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    launch<float>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, hkv, g, d,
-                  block_size, max_blocks, splits, scale, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots,
-                          hkv, g, d, block_size, max_blocks, splits, scale, s);
-  } else {
-    launch<__half>(q, k_pages, v_pages, bt, cl, out, pa, pml, slots, hkv, g,
-                   d, block_size, max_blocks, splits, scale, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto fn = dtype == 0   ? run_decode<float>
+            : dtype == 2 ? run_decode<__half>
+                         : run_decode<__nv_bfloat16>;
+  const cudaError_t err = fn(q, k_pages, v_pages, bt, cl, out, pa, pml,
+                             slots, hkv, g, d, block_size, max_blocks,
+                             splits, scale, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // q, out [slots, sq, hkv*g, d]; k_pages, v_pages [num_blocks, block_size,
@@ -860,21 +1053,21 @@ extern "C" int paged_attention_decode(
 // int32, the tokens cached before the window; part_acc
 // [slots*hkv*splits*sq*g*d] and part_ml [slots*hkv*splits*sq*g*2] fp32
 // scratch (unused when splits == 1). dtype: 0 = float32, 1 = bfloat16, 2 =
-// float16.
+// float16. kernel: 1 the CUDA-core verify kernel, 2 the tensor-core one; a
+// kernel the arguments do not fit is refused (cudaErrorInvalidValue).
 extern "C" int paged_attention_verify(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* context_lens, void* out,
     void* part_acc, void* part_ml, int slots, int sq, int hkv, int g, int d,
-    int block_size, int max_blocks, int splits, float scale, int dtype,
-    void* stream) {
-  const bool tc = verify_uses_mma(q, k_pages, v_pages, out, d, dtype);
+    int block_size, int max_blocks, int splits, int kernel, float scale,
+    int dtype, void* stream) {
   if (!verify_args_ok(slots, sq, hkv, g, d, block_size, max_blocks, splits,
-                      dtype, tc))
+                      dtype, kernel, q, k_pages, v_pages, out))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run_verify(
       q, k_pages, v_pages, static_cast<const int*>(block_tables),
       static_cast<const int*>(context_lens), out,
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), slots, sq,
-      hkv, g, d, block_size, max_blocks, splits, scale, dtype, 0,
-      static_cast<cudaStream_t>(stream)));
+      hkv, g, d, block_size, max_blocks, splits, scale, dtype,
+      kernel == kVerifyTensorCores, 0, static_cast<cudaStream_t>(stream)));
 }

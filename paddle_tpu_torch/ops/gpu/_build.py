@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -122,7 +122,9 @@ def check_status(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
 
 
-def stream_ptr(t) -> Optional[int]:
+def stream_ptr(t) -> int:
+    """The raw handle of PyTorch's current stream on t's device, read
+    without making a Stream object (a launch's host path is short)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

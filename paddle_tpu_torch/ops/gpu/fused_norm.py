@@ -1,5 +1,6 @@
-"""RMSNorm forward and backward: Triton kernels, their plain PyTorch versions
-and the autograd Function that joins them.
+"""RMSNorm forward and backward: the CUDA forward kernel in
+csrc/fused_norm.cu, the Triton backward kernels, their plain PyTorch
+versions and the autograd Function that joins them.
 
 Replaces paddle_tpu/ops/pallas/fused_norm.py `_fwd_kernel` (via `_run_fwd`)
 and `_bwd_kernel` (via `_bwd_rule`). The versions compute what those kernels
@@ -12,13 +13,13 @@ rounding, and the port follows the kernel.) Backward, with x^ = x * rstd:
     dx = rstd * (g*w - x^ * mean(g*w * x^))     in x's dtype
     dw = sum over rows of g * x^                 fp32, cast to w's dtype
 
-What bounds them on the H100: bytes. The forward reads each row once and
-writes it once with ~4 flops per element; the backward reads x and g and
-writes dx, ~10 flops per element. One forward program owns one whole row (d
-= 4096 fits a block of registers), so the row is read from device memory
-once for both passes (sum of squares, then scale), the counterpart of the
-TPU kernel keeping its row block in VMEM. The weight row stays in L2 across
-programs.
+What bounds them on the H100: bytes, and at decode's few rows the host. The
+forward reads each row once and writes it once with ~4 flops per element;
+the backward reads x and g and writes dx, ~10 flops per element. The forward
+kernel's source says how it keeps a row in registers (the counterpart of
+the TPU kernel keeping its row block in VMEM); at 8 rows its device work is
+a few microseconds, so its wrapper does no more on the host than the checks
+and one ctypes call (argument types bound once, the stream's raw handle).
 
 The TPU backward carries dw across its sequential grid in one output block.
 Hopper's blocks run in parallel, so here each backward program owns ROWS
@@ -29,6 +30,7 @@ float atomics). The scratch is 1/ROWS of the row data, a few percent of the
 bytes. The TPU kernels' row padding has no counterpart: rows past n are
 masked.
 """
+import ctypes
 import functools
 
 import torch
@@ -42,6 +44,8 @@ triton = tl = None
 ROWS = 16          # rows per backward program
 DW_COLS = 128      # columns per program of the dw reduction
 DW_ROWS = 64       # partial rows summed per iteration of the reduction
+# dtype codes of the forward's C entry point (x and y share one; w its own)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def rms_norm_fwd_plain(x, weight, eps):
@@ -71,22 +75,6 @@ def rms_norm_bwd_plain(x, weight, rstd, g):
 def _triton_kernels():
     global triton, tl
     triton, tl = _build.import_triton()
-
-    @triton.jit
-    def _rms_fwd(x_ptr, w_ptr, y_ptr, rstd_ptr, d, eps,
-                 STORE_RSTD: tl.constexpr, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        mask = cols < d
-        x = tl.load(x_ptr + row * d + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        rstd = tl.rsqrt(tl.sum(x * x, axis=0) / d + eps)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        y = x * rstd * w
-        tl.store(y_ptr + row * d + cols, y.to(y_ptr.dtype.element_ty),
-                 mask=mask)
-        if STORE_RSTD:
-            tl.store(rstd_ptr + row, rstd)
 
     @triton.jit
     def _rms_bwd(x_ptr, w_ptr, rstd_ptr, g_ptr, dx_ptr, part_ptr, n, d,
@@ -128,20 +116,22 @@ def _triton_kernels():
             acc += tl.sum(blk, axis=0)
         tl.store(dw_ptr + cols, acc.to(dw_ptr.dtype.element_ty), mask=cmask)
 
-    return _rms_fwd, _rms_bwd, _rms_dw
+    return _rms_bwd, _rms_dw
 
 
 def _check(x, weight, *more):
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"rms_norm kernel: unsupported dtype {x.dtype}")
+    if x.dtype not in _DTYPES or weight.dtype not in _DTYPES:
+        raise TypeError(f"rms_norm kernel: unsupported dtype {x.dtype} "
+                        f"(weight {weight.dtype})")
     d = x.shape[-1]
-    if weight.shape != (d,) or weight.device != x.device:
-        raise ValueError(f"rms_norm: weight {tuple(weight.shape)} on "
-                         f"{weight.device} does not match x [..., {d}] on "
-                         f"{x.device}")
+    if weight.shape != (d,):
+        raise ValueError(f"rms_norm: weight {tuple(weight.shape)} does not "
+                         f"match x [..., {d}]")
+    dev = x.device
+    for t in (weight,) + more:
+        if t.device != dev:
+            raise ValueError(f"rms_norm: tensors on {dev} and {t.device}")
     for t in (x, weight) + more:
-        if t.device != x.device:
-            raise ValueError("rms_norm: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError("rms_norm kernel takes contiguous tensors")
 
@@ -150,27 +140,37 @@ def _num_warps(block):
     return min(16, max(1, block // 256))
 
 
+@functools.cache
+def _fwd_entry():
+    fn = _build.load("fused_norm").rms_norm_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
 def rms_norm_fwd(x, weight, eps, with_rstd=True):
     """(y, rstd [n, 1] fp32; None without `with_rstd`, which the kernel
     then does not store). CUDA tensors launch the forward kernel (counted on
     `fused_rms_norm`), CPU tensors take the plain version."""
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"fused_rms_norm: no kernel for {x.device}")
         y, rstd = rms_norm_fwd_plain(x, weight, eps)
         return y, rstd if with_rstd else None
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_rms_norm: no kernel for {x.device}")
     _check(x, weight)
-    fwd, _, _ = _triton_kernels()
     d = x.shape[-1]
     n = x.numel() // d
     y = torch.empty_like(x)
     rstd = (torch.empty(n, 1, dtype=torch.float32, device=x.device)
             if with_rstd else None)
     if n:
-        block = triton.next_power_of_2(d)
-        fwd[(n,)](x, weight, y, y if rstd is None else rstd, d, float(eps),
-                  STORE_RSTD=with_rstd, BLOCK_D=block,
-                  num_warps=_num_warps(block))
+        status = _fwd_entry()(
+            x.data_ptr(), weight.data_ptr(), y.data_ptr(),
+            None if rstd is None else rstd.data_ptr(), n, d, eps,
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], _build.stream_ptr(x))
+        _build.check_status(status, "rms_norm_fwd")
         fused_rms_norm.launches += 1
     return y, rstd
 
@@ -193,7 +193,7 @@ def fused_rms_norm_bwd(x, weight, rstd, g):
     if rstd.dtype != torch.float32 or rstd.numel() != n:
         raise ValueError(f"fused_rms_norm_bwd: rstd must be float32 with "
                          f"{n} rows")
-    _, bwd, reduce = _triton_kernels()
+    bwd, reduce = _triton_kernels()
     dx = torch.empty_like(x)
     dw = torch.empty_like(weight)
     if n:
@@ -233,9 +233,10 @@ class RMSNormFunction(torch.autograd.Function):
 
 def fused_rms_norm(x, weight, eps=1e-6):
     """RMSNorm over the last axis; weight [d]; differentiable in x and
-    weight. CUDA tensors launch the Triton kernels, CPU tensors take the
-    plain versions. Where no gradient is wanted (serving, under no_grad)
-    the forward kernel runs alone: no autograd node, no rstd stored."""
+    weight. CUDA tensors launch the kernels (the CUDA forward, the Triton
+    backward), CPU tensors take the plain versions. Where no gradient is
+    wanted (serving, under no_grad) the forward kernel runs alone: no
+    autograd node, no rstd stored."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return RMSNormFunction.apply(x, weight, float(eps))
     return rms_norm_fwd(x.contiguous(), weight, float(eps),

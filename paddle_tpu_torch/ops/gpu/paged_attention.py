@@ -16,17 +16,19 @@ dense-gather oracles.
                  one; verify, the tokens cached BEFORE the window (query i
                  sees positions < context_lens + i + 1)
 
-GQA: kv head h serves q heads [h*g, (h+1)*g), g = q_heads // kv_heads. The
-decode kernel holds up to MAX_G query rows a kv head; a decode step with a
-larger group runs the verify kernel as a window of one token (chosen in the
-C entry point, counted on `paged_attention.launches` all the same).
+GQA: kv head h serves q heads [h*g, (h+1)*g), g = q_heads // kv_heads.
 
-Which verify kernel runs is chosen in the C entry point from the dtype,
-head_dim and the tensors' addresses, before anything launches (no
-fallback): bf16 with head_dim % 8 == 0 and 16-byte aligned q and pages runs
-the tensor-core kernel (16 rows a block, four warps splitting the context,
-P as two bf16 terms); fp32, fp16 and other bf16 shapes run the CUDA-core
-one (8 rows a block), whose products stay fp32.
+Which kernel runs is chosen here, in `route`, from the shapes, dtype and
+the tensors' addresses, before anything launches (no fallback), and passed
+to the C entry points, which refuse a kernel the arguments do not fit. The
+decode kernel holds up to MAX_G query rows a kv head and moves rows as
+16-byte vectors; a decode step with a larger group, or whose rows or
+tensors are not whole 16-byte vectors, runs the verify kernel as a window
+of one token (counted on `paged_attention.launches` all the same). The
+verify window runs the tensor-core kernel for bf16 with head_dim % 8 == 0
+and 16-byte aligned q and pages (16 rows a block, four warps splitting the
+context, P as two bf16 terms); fp32, fp16 and other bf16 shapes run the
+CUDA-core one (8 rows a block), whose products stay fp32.
 """
 from __future__ import annotations
 
@@ -46,11 +48,22 @@ MAX_HEAD_DIM = 256  # the reference's supports() gate
 # every dtype the reference's gates and amp's auto_cast admit
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # Split-count choice (choose_kv_splits). The decode kernel's 128-thread
-# block uses <= 52 registers a thread and ~9.6 KB of shared memory, so about
-# 9 blocks are resident on an SM; aim for 8 per SM. A split walks at least
-# SPLIT_MIN_TOKENS of the table's span, so the combine stays small beside it.
-BLOCKS_PER_SM = 8
-SPLIT_MIN_TOKENS = 256
+# block holds 64 KB of shared memory (each warp's two-stage ring of K and V
+# tiles) and 48-64 registers a thread at g = 1 (ptxas), so 3 blocks are
+# resident on an SM; its four warps already split the block's run, so one
+# block an SM keeps enough bytes in flight. Device times with the host's
+# launches hidden (chip_smoke.py's decode_split_sweep, PERF.md section 7):
+# at the serving slice's shape (8 slots x 32 kv heads, contexts 17-2048)
+# one split ran fastest and 2-16 within 6%; with 2 slots 2-16 splits ran
+# 0.030-0.033 ms against one split's 0.037. A split walks at least
+# SPLIT_MIN_TOKENS of the table's span, two rounds of the four warps'
+# 16-token tiles, so the combine stays small beside it.
+BLOCKS_PER_SM = 1
+SPLIT_MIN_TOKENS = 128
+# The CUDA-core verify kernel's block (8 rows, <= 56 registers a thread,
+# ~9.6 KB of shared memory) is resident about 9 times an SM: aim for 8.
+CC_VERIFY_BLOCKS_PER_SM = 8
+CC_VERIFY_SPLIT_MIN_TOKENS = 256
 # The tensor-core verify kernel's block already splits its run four ways
 # among its warps, so one block an SM keeps enough bytes in flight: at the
 # speculative slice's shape (8 slots x 32 kv heads) one split ran fastest
@@ -163,39 +176,61 @@ def choose_kv_splits(slots, kv_heads, max_blocks, block_size, sm_count,
     return max(1, min(fill, span, max_blocks))
 
 
-def tensor_core_verify(q, k_pages, v_pages):
-    """Whether the C dispatch runs the verify window (or a decode step with
-    g > MAX_G) on the tensor-core kernel: bf16, head_dim % 8 == 0, q and
-    the pages 16-byte aligned (outputs are fresh allocations, aligned)."""
-    return (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
+# The kernels `route` chooses (the C entry points' `kernel` argument)
+DECODE, VERIFY_CUDA_CORES, VERIFY_TENSOR_CORES = 0, 1, 2
 
 
-def verify_splits(q, k_pages, v_pages, block_tables, sm_count):
-    """The split count paged_attention_multi chooses for q [slots, sq, hq,
-    d] (and paged_attention for a decode step with g > MAX_G, as sq = 1):
-    choose_kv_splits over the (slot, kv head, row tile) blocks of the
-    kernel the dispatch takes, with that kernel's residency."""
-    slots, sq, hq, _ = q.shape
-    hkv = k_pages.shape[2]
-    if tensor_core_verify(q, k_pages, v_pages):
+def route(q, k_pages, v_pages):
+    """The kernel that runs q: a decode step [slots, hq, d] takes the
+    decode kernel where g <= MAX_G, its rows are whole 16-byte vectors (d *
+    itemsize % 16 == 0) and q and the pages are 16-byte aligned; every other
+    decode step, and the verify window [slots, sq, hq, d], takes the verify
+    kernel, on the tensor cores for bf16 with head_dim % 8 == 0 and aligned
+    q and pages, else on the CUDA cores. Outputs are fresh allocations,
+    aligned; the C entry points refuse a kernel whose needs the arguments
+    do not meet."""
+    d = q.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages))
+    if (q.dim() == 3 and q.shape[1] // k_pages.shape[2] <= MAX_G
+            and d * q.element_size() % 16 == 0 and aligned):
+        return DECODE
+    if q.dtype == torch.bfloat16 and d % 8 == 0 and aligned:
+        return VERIFY_TENSOR_CORES
+    return VERIFY_CUDA_CORES
+
+
+def _splits(kernel, q, k_pages, block_tables, sm_count):
+    """choose_kv_splits over the blocks of `kernel` with its residency:
+    (slot, kv head) for the decode kernel, (slot, kv head, row tile) for
+    the verify kernel, a decode step counting as a window of one."""
+    slots, hq, hkv = q.shape[0], q.shape[-2], k_pages.shape[2]
+    if kernel == DECODE:
+        return choose_kv_splits(slots, hkv, block_tables.shape[1],
+                                k_pages.shape[1], sm_count)
+    if kernel == VERIFY_TENSOR_CORES:
         rows, per_sm, tokens = (MMA_ROW_TILE, VERIFY_BLOCKS_PER_SM,
                                 VERIFY_SPLIT_MIN_TOKENS)
     else:
-        rows, per_sm, tokens = ROW_TILE, BLOCKS_PER_SM, SPLIT_MIN_TOKENS
+        rows, per_sm, tokens = (ROW_TILE, CC_VERIFY_BLOCKS_PER_SM,
+                                CC_VERIFY_SPLIT_MIN_TOKENS)
+    sq = q.shape[1] if q.dim() == 4 else 1
     return choose_kv_splits(slots, hkv * row_tiles(sq, hq // hkv, rows),
                             block_tables.shape[1], k_pages.shape[1],
                             sm_count, per_sm, tokens)
 
 
+def verify_splits(q, k_pages, v_pages, block_tables, sm_count):
+    """The split count paged_attention_multi chooses for q [slots, sq, hq,
+    d] (and paged_attention for a decode step the decode kernel does not
+    take, as sq = 1)."""
+    return _splits(route(q, k_pages, v_pages), q, k_pages, block_tables,
+                   sm_count)
+
+
 def decode_splits(q, k_pages, v_pages, block_tables, sm_count):
     """The split count paged_attention chooses for q [slots, hq, d]."""
-    if q.shape[1] // k_pages.shape[2] > MAX_G:
-        return verify_splits(q[:, None], k_pages, v_pages, block_tables,
-                             sm_count)
-    return choose_kv_splits(q.shape[0], k_pages.shape[2],
-                            block_tables.shape[1], k_pages.shape[1],
-                            sm_count)
+    return _splits(route(q, k_pages, v_pages), q, k_pages, block_tables,
+                   sm_count)
 
 
 @functools.cache
@@ -204,7 +239,7 @@ def _sm_count(device):
 
 
 @functools.cache
-def _entry(name="paged_attention_decode", ints=7):
+def _entry(name="paged_attention_decode", ints=8):
     fn = getattr(_build.load("paged_attention"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * ints + [
@@ -213,7 +248,7 @@ def _entry(name="paged_attention_decode", ints=7):
 
 
 def _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
-            kv_splits):
+            kv_splits, kernel):
     _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits)
     slots, hq, d = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
@@ -231,7 +266,7 @@ def _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         pa, pml, slots, hkv, g, d, bs, block_tables.shape[1], kv_splits,
-        float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
+        kernel, float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_status(status, "paged_attention_decode")
     paged_attention.launches += 1
     return out
@@ -240,12 +275,12 @@ def _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None, kv_splits=None):
     """One decode step of ragged paged attention; returns [slots, q_heads,
-    d] in q's dtype. CUDA tensors launch the kernel (the verify kernel as a
-    window of one token where q_heads / kv_heads > MAX_G), split-K over each
-    slot's context into `kv_splits` runs (None: decode_splits); CPU tensors
-    take the plain version. A slot with context 0 gets zeros from
-    the kernel and the mean of its gathered V from the plain version (as
-    from the reference's two paths); the engine never asks for one."""
+    d] in q's dtype. CUDA tensors launch the kernel `route` chooses (the
+    decode kernel, or the verify kernel as a window of one token), split-K
+    over each slot's context into `kv_splits` runs (None: decode_splits);
+    CPU tensors take the plain version. A slot with context 0 gets zeros
+    from the kernel and the mean of its gathered V from the plain version
+    (as from the reference's two paths); the engine never asks for one."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -253,18 +288,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                                      context_lens, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
+    kernel = route(q, k_pages, v_pages)
     if kv_splits is None:
-        kv_splits = decode_splits(q, k_pages, v_pages, block_tables,
-                                  _sm_count(q.device))
+        kv_splits = _splits(kernel, q, k_pages, block_tables,
+                            _sm_count(q.device))
     return _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
-                   int(kv_splits))
+                   int(kv_splits), kernel)
 
 
 paged_attention.launches = 0
 
 
 def _verify_kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
-                   kv_splits):
+                   kv_splits, kernel):
     _check(q, k_pages, v_pages, block_tables, context_lens, kv_splits)
     slots, sq, hq, d = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
@@ -278,11 +314,11 @@ def _verify_kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
         pa, pml = part_acc.data_ptr(), part_ml.data_ptr()
     else:
         pa = pml = None
-    status = _entry("paged_attention_verify", 8)(
+    status = _entry("paged_attention_verify", 9)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         pa, pml, slots, sq, hkv, g, d, bs, block_tables.shape[1], kv_splits,
-        float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
+        kernel, float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_status(status, "paged_attention_verify")
     paged_attention_multi.launches += 1
     return out
@@ -311,11 +347,12 @@ def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
                                            context_lens, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_multi: no kernel for {q.device}")
+    kernel = route(q, k_pages, v_pages)
     if kv_splits is None:
-        kv_splits = verify_splits(q, k_pages, v_pages, block_tables,
-                                  _sm_count(q.device))
+        kv_splits = _splits(kernel, q, k_pages, block_tables,
+                            _sm_count(q.device))
     return _verify_kernel(q, k_pages, v_pages, block_tables, context_lens,
-                          scale, int(kv_splits))
+                          scale, int(kv_splits), kernel)
 
 
 paged_attention_multi.launches = 0

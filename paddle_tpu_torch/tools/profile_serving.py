@@ -26,8 +26,10 @@ with torch.profiler:
 For each it prints one JSON line: host wall time per tick (synchronised;
 for decode also without the profiler, which slows the host), device busy
 time per tick (the union of the kernels' intervals), the busy share,
-kernels per tick, and the kernels with the most device time (names cut to
-80 characters). Needs one CUDA device.
+kernels per tick, the paged decode kernels' (with their split combine)
+and the verify kernels' device time per tick and share of the busy time,
+and the kernels with the most device time (names cut to 80 characters).
+Needs one CUDA device.
 """
 import argparse
 import json
@@ -69,9 +71,13 @@ def _profile(torch, fn, ticks):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     busy = _busy_us(kernels) / 1e3
     verify = sum(t for n, t in by_name.items() if "paged_verify" in n) / 1e3
+    decode = sum(t for n, t in by_name.items()
+                 if "paged_decode" in n or "paged_combine" in n) / 1e3
     return {
         "paged_verify_ms_per_tick": verify / ticks,
         "paged_verify_share": verify / busy if busy else None,
+        "paged_decode_ms_per_tick": decode / ticks,
+        "paged_decode_share": decode / busy if busy else None,
         "ticks": ticks, "wall_ms_per_tick": wall * 1e3 / ticks,
         "device_busy_ms_per_tick": busy / ticks,
         "device_busy_share": busy / (wall * 1e3) if wall else None,

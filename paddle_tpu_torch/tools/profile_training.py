@@ -32,7 +32,7 @@ from .profile_serving import _busy_us
 GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
           ("flash_dq", ("flash_dq_kernel", "flash_dq_mma_kernel")),
           ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_mma_kernel")),
-          ("rms_norm", ("_rms_fwd",)),
+          ("rms_norm", ("rms_fwd_kernel",)),
           ("rms_norm_bwd", ("_rms_bwd", "_rms_dw")),
           ("rope", ("_rope_fwd",)),
           ("adamw", ("_adamw",)),

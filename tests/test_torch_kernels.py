@@ -89,6 +89,99 @@ def test_rms_norm_plain_matches_pallas_and_xla(shape, dt):
     _close(tops.rms_norm(tx, tw, 1e-5), got, tdt)
 
 
+def _threads_per_row(vectors, per_thread=4):
+    """csrc/fused_norm.cu threads_per_row: the fewest whole warps whose
+    threads' 4 vectors each hold the row, at most 1024 threads."""
+    warps = -(-(-(-vectors // per_thread)) // 32)
+    return min(max(warps, 1) * 32, 1024)
+
+
+def _emulate_rms_fwd(x, w, eps):
+    """(y, rstd [n, 1]) as the CUDA forward kernel computes them: 16-byte
+    vectors (one element on the scalar path) dealt to the row's threads,
+    thread t taking vectors t, t + threads, ...; each thread's squares
+    summed by FMA in vector then element order, then a warp's butterfly
+    (xor 16, 8, 4, 2, 1), then the warps in order; y = (x * rstd) * w in
+    fp32, cast once."""
+    n, d = x.shape
+    es = x.element_size()
+    e = 16 // es if d * es % 16 == 0 and w.dtype == x.dtype else 1
+    nv = d // e
+    tpr = _threads_per_row(nv)
+    xv = x.float().reshape(n, nv, e)
+    ss = torch.zeros(n, tpr)
+    for i in range(-(-nv // tpr)):
+        idx = torch.arange(i * tpr, min((i + 1) * tpr, nv))
+        for k in range(e):
+            f = xv[:, idx, k].double()
+            # an FMA rounds once: the product is exact in float64
+            ss[:, :len(idx)] = (ss[:, :len(idx)].double() + f * f).float()
+    lanes = ss.reshape(n, tpr // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., torch.arange(32) ^ o]
+    tot = torch.zeros(n)
+    for k in range(tpr // 32):
+        tot = tot + lanes[:, k, 0]
+    rstd = torch.rsqrt(tot / d + eps)[:, None]
+    y = (x.float() * rstd * w.float()).to(x.dtype)
+    return y, rstd
+
+
+# [8, 4096]: decode's rows (vector path, 128 threads bf16, 256 fp32);
+# [8192, 64]: many short rows; d 90: the scalar path in every dtype
+# (180 and 360 bytes are not whole 16-byte vectors)
+@pytest.mark.parametrize("shape", [(8, 4096), (8192, 64), (300, 90)],
+                         ids=["8x4096", "8192x64", "300x90-scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+def test_rms_forward_kernel_arithmetic_matches_pallas(shape, dtype):
+    """The CUDA forward kernel's reduction order, emulated, against the
+    Pallas forward kernel in interpret mode: y to one rounding of the
+    output dtype (fp32: 1e-5), and the fp32 rstd the backward reads to
+    1e-5 of its value."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    tx = torch.from_numpy(x).to(dtype)
+    tw = torch.from_numpy(w).to(dtype)
+    y, rstd = _emulate_rms_fwd(tx, tw, 1e-5)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+           torch.float16: jnp.float16}[dtype]
+    jy, (_, _, jrstd, _) = jnorm._run_fwd(
+        jnp.asarray(tx.float().numpy(), jdt),
+        jnp.asarray(tw.float().numpy(), jdt), 1e-5, 256, True)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd), rtol=1e-5)
+    want = _np(jy)
+    rel = {torch.float32: F32_TOL, torch.bfloat16: BF16_REL,
+           torch.float16: 2.0 ** -10}[dtype]
+    assert (np.abs(_np(y) - want) <= 1e-5 + rel * np.abs(want)).all()
+    # the plain version the CPU wrapper takes agrees the same way
+    py, prstd = fused_norm.rms_norm_fwd_plain(tx, tw, 1e-5)
+    np.testing.assert_allclose(rstd.numpy(), prstd.numpy(), rtol=1e-5)
+    assert (np.abs(_np(y) - _np(py)) <= 1e-5 + rel * np.abs(_np(py))).all()
+
+
+def test_rms_norm_wrappers_take_the_plain_version_on_cpu():
+    """On CPU tensors the forward, the backward and the autograd path take
+    the plain versions and launch nothing; a weight dtype the kernel has no
+    code for is refused before any launch."""
+    x = torch.randn(6, 40, dtype=torch.bfloat16)
+    w = torch.ones(40, dtype=torch.bfloat16)
+    before = (fused_norm.fused_rms_norm.launches,
+              fused_norm.fused_rms_norm_bwd.launches)
+    y, rstd = fused_norm.rms_norm_fwd(x, w, 1e-6)
+    want_y, want_rstd = fused_norm.rms_norm_fwd_plain(x, w, 1e-6)
+    assert torch.equal(y, want_y) and torch.equal(rstd, want_rstd)
+    assert fused_norm.rms_norm_fwd(x, w, 1e-6, with_rstd=False)[1] is None
+    xg = x.float().requires_grad_(True)
+    fused_norm.fused_rms_norm(xg, w.float(), 1e-6).sum().backward()
+    assert xg.grad is not None
+    assert (fused_norm.fused_rms_norm.launches,
+            fused_norm.fused_rms_norm_bwd.launches) == before
+    with pytest.raises(TypeError):
+        fused_norm._check(x, w.double())
+
+
 # -------------------------------------------------------------------- RoPE
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
 def test_rope_plain_matches_pallas_and_xla(dt):
@@ -275,11 +368,11 @@ def test_paged_fp16_plain_matches_the_reference(kind):
 
 
 @pytest.mark.parametrize("slots,kv_heads,max_blocks,block_size,want", [
-    (8, 32, 128, 16, 5),      # Llama-2-7B serving: ceil(8 * 132 / 256)
-    (1, 32, 128, 16, 8),      # one slot: capped by 2048 / 256-token runs
+    (8, 32, 128, 16, 1),      # Llama-2-7B serving: 256 blocks fill 132 SMs
+    (1, 32, 128, 16, 5),      # one slot: ceil(132 / 32)
     (64, 32, 128, 16, 1),     # enough (slot, head) blocks without splits
     (3, 8, 3, 16, 1),         # a table shorter than one run
-    (2, 1, 4, 128, 2),        # four 128-token pages hold two runs
+    (2, 1, 4, 128, 4),        # four 128-token pages hold four runs
 ])
 def test_kv_split_choice(slots, kv_heads, max_blocks, block_size, want):
     assert paged_attention.choose_kv_splits(
