@@ -53,10 +53,17 @@ final line):
                no live key and keys with no live query, whose o and dq, dk
                and dv must be exactly 0); dense and segmented flash at b *
                h = 65,540 (past grid.y's 65535); the RMSNorm backward at
-               [8192, 4096]; RoPE with sign -1 (the backward) at [2, 4096,
-               32, 128], contiguous and at the slice's per-document
-               positions; AdamW over GPT-3 1.3B's flat size and a ragged
-               small one
+               [8192, 4096]; RoPE of q and k in one launch (32 + 32
+               heads, d 128) at a prefill chunk, a decode tick, a batched
+               prefill and a verify window, each beside the one-tensor
+               call, and with sign -1 (the backward) at [2, 4096, 32 + 32,
+               128], contiguous and at the slice's per-document positions,
+               in fp32, bf16 and fp16, plus GQA (32 over 8 heads) and the
+               scalar path (d 90, positions past the table); RoPE's route
+               (one CUDA kernel a fused call, vector or scalar path, and
+               one each for an autograd forward and backward: kernel names
+               from torch.profiler); AdamW over GPT-3 1.3B's flat size and
+               a ragged small one
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy
@@ -71,7 +78,8 @@ final line):
                requests (prompts 16-1024 tokens, two sharing a 256-token
                prefix, one repeated for a copy-on-write hit), 64 new tokens
                each; every serving kernel's launch count over this phase
-               must be > 0
+               must be > 0, and per-token RoPE must launch once a layer in
+               a pure decode tick (q and k in one launch)
   7. spec_slice - main path 4: the same model and engine with spec_k=4
                (ngram 3, pause 32) over 10 requests (7 repetitive: 16-48
                token patterns repeated to 128-1024 tokens; 3 random), 64
@@ -109,7 +117,8 @@ final line):
                timed steps; loss, step time, tokens/s (all and non-padding),
                peak memory and launches per step, which must be the
                expected counts (segmented flash 8 each, RMSNorm and its
-               backward 17, per-token RoPE 32, AdamW 1, dense flash 0)
+               backward 17, per-token RoPE 16 (q and k in one launch,
+               forward and backward), AdamW 1, dense flash 0)
 
 The last two lines are the kernel summary {"kernels": [...]} and
 {"ok": true, "device": {...}}. Exits non-zero without them when no CUDA
@@ -171,25 +180,43 @@ def time_ms(fn, iters=20, reps=5):
     return statistics.median(samples)
 
 
+def cuda_events(torch, fn, sessions=3):
+    """The CUDA kernel events of one run of fn, by torch.profiler. Every fn
+    profiled here launches at least one kernel, but on the H100 (torch
+    2.11) a session deep into a full run of this script now and then
+    records none at all: a session that records no kernel is run again,
+    up to `sessions` in all, and the last empty one raises. fn must bear
+    running more than once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == cuda]
+        if events:
+            return events
+    raise AssertionError(f"torch.profiler recorded no kernel of the call "
+                         f"in {sessions} sessions")
+
+
 def device_ms(fn, calls=20):
     """Device time per call (ms): the sum of the durations of the CUDA
     kernels that `calls` calls launch, by torch.profiler, over the calls,
     after a warm-up."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == cuda]
-    if not spans:
-        raise AssertionError("torch.profiler saw no kernel of the call")
+
+    spans = [e.time_range.end - e.time_range.start
+             for e in cuda_events(torch, run)]
     return sum(spans) / 1e3 / calls
 
 
@@ -320,27 +347,52 @@ def _sign_shape(shape, sign):
     return shape if sign == 1 else shape + ["sign -1 (backward)"]
 
 
-def rope_case(torch, gen, dtype, s, h=32, d=128, start=512, b=1, sign=1):
+def _qk(torch, gen, dtype, b, s, h, hkv, d):
+    """x [b, s, h, d], or (q, k) with k [b, s, hkv, d] where hkv is set."""
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    if hkv is None:
+        return q, None
+    return q, torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(
+        dtype)
+
+
+def _rope_shape(b, s, h, hkv, d, sign):
+    heads = h if hkv is None else f"{h}+{hkv}"
+    return _sign_shape([b, s, heads, d], sign)
+
+
+def rope_case(torch, gen, dtype, s, h=32, d=128, start=512, b=1, sign=1,
+              hkv=None):
+    """RoPE at contiguous positions [start, start + s): of x [b, s, h, d]
+    alone, or, with hkv, of q and k [b, s, hkv, d] in one fused call (the
+    model's call)."""
     from paddle_tpu_torch.ops.gpu import rope
 
-    x = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    q, k = _qk(torch, gen, dtype, b, s, h, hkv, d)
     cos_t, sin_t = _tables(torch, start + s, d)
     cos, sin = cos_t[start:start + s].contiguous(), \
         sin_t[start:start + s].contiguous()
+    n = q.numel() + (0 if k is None else k.numel())
+    if k is None:
+        kernel = lambda: rope.rope(q, cos, sin, sign)
+        plain = lambda: rope.rope_plain(q, cos, sin, sign)
+    else:
+        kernel = lambda: rope.rope_qk(q, k, cos, sin, None, sign)
+        plain = lambda: rope.rope_qk_plain(q, k, cos, sin, None, sign)
     return dict(
-        name="rope", shape=_sign_shape([b, s, h, d], sign),
-        kernel=lambda: rope.rope(x, cos, sin, sign),
-        plain=lambda: rope.rope_plain(x, cos, sin, sign), library=None,
-        nbytes=2 * x.numel() * x.element_size() + 2 * s * d * 4,
-        nops=3 * x.numel())
+        name="rope", shape=_rope_shape(b, s, h, hkv, d, sign),
+        kernel=kernel, plain=plain, library=None,
+        nbytes=2 * n * q.element_size() + 2 * s * d * 4, nops=3 * n)
 
 
 def rope_packed_case(torch, gen, dtype, b, s, h=32, d=128, P=4096,
-                     pos=None, sign=1):
-    """pos=None: ragged serving offsets; else the given positions [b, s]."""
+                     pos=None, sign=1, hkv=None):
+    """Per-token RoPE of x [b, s, h, d] alone, or, with hkv, of q and k
+    [b, s, hkv, d] in one fused call. pos=None: ragged serving offsets;
+    else the given positions [b, s]."""
     from paddle_tpu_torch.ops.gpu import rope
 
-    x = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    q, k = _qk(torch, gen, dtype, b, s, h, hkv, d)
     cos_t, sin_t = _tables(torch, P, d)
     if pos is None:
         # ragged offsets, some rows running past the table's last position
@@ -349,14 +401,33 @@ def rope_packed_case(torch, gen, dtype, b, s, h=32, d=128, P=4096,
         pos = (base[:, None] + torch.arange(s, device="cuda")[None]).to(
             torch.int32).contiguous()
     rows = int(torch.unique(pos.clamp(0, P - 1)).numel())
+    n = q.numel() + (0 if k is None else k.numel())
+    if k is None:
+        kernel = lambda: rope.rope_packed(q, cos_t, sin_t, pos, sign)
+        plain = lambda: rope.rope_packed_plain(q, cos_t, sin_t, pos, sign)
+    else:
+        kernel = lambda: rope.rope_qk(q, k, cos_t, sin_t, pos, sign)
+        plain = lambda: rope.rope_qk_plain(q, k, cos_t, sin_t, pos, sign)
     return dict(
-        name="rope_packed", shape=_sign_shape([b, s, h, d], sign),
-        kernel=lambda: rope.rope_packed(x, cos_t, sin_t, pos, sign),
-        plain=lambda: rope.rope_packed_plain(x, cos_t, sin_t, pos, sign),
-        library=None,
-        nbytes=(2 * x.numel() * x.element_size() + pos.numel() * 4
+        name="rope_packed", shape=_rope_shape(b, s, h, hkv, d, sign),
+        kernel=kernel, plain=plain, library=None,
+        nbytes=(2 * n * q.element_size() + pos.numel() * 4
                 + 2 * rows * d * 4),
-        nops=3 * x.numel())
+        nops=3 * n)
+
+
+def rope_other_cases(torch, gen, dtype):
+    """(None, case) pairs of the fused q+k call off the main shapes: GQA
+    (32 over 8 heads) at decode and in a prefill chunk, and the scalar
+    path (d 90: 45 elements a half-row are not whole 16-byte vectors) at
+    per-token positions past a 64-row table, with sign 1 and -1."""
+    return [(None, rope_packed_case(torch, gen, dtype, 8, 1, hkv=8)),
+            (None, rope_case(torch, gen, dtype, 256, hkv=8)),
+            (None, rope_packed_case(torch, gen, dtype, 2, 64, h=8, d=90,
+                                    P=64, hkv=2)),
+            (None, rope_packed_case(torch, gen, dtype, 2, 64, h=8, d=90,
+                                    P=64, hkv=2, sign=-1)),
+            (None, rope_case(torch, gen, dtype, 64, h=8, d=90, hkv=2))]
 
 
 def paged_case(torch, gen, dtype, slots, hq, hkv, d, bs, ctx_lens,
@@ -681,14 +752,7 @@ def no_live_key_check(torch, gen, dtype):
 
 def kernel_names(torch, fn):
     """Names of the CUDA kernels one call of fn launches (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {e.name for e in cuda_events(torch, fn)}
 
 
 def _offset_randn(torch, gen, shape, dtype, offset=0):
@@ -877,8 +941,9 @@ def short_rows_device(torch, gen, rows):
     library calls, on fresh inputs of the same shapes as their rows in
     the kernels phase (bf16); added to those rows for the summary."""
     cases = {"rms_norm": rms_case(torch, gen, torch.bfloat16, 8),
-             "rope": rope_case(torch, gen, torch.bfloat16, 256),
-             "rope_packed": rope_packed_case(torch, gen, torch.bfloat16, 8, 1),
+             "rope": rope_case(torch, gen, torch.bfloat16, 256, hkv=32),
+             "rope_packed": rope_packed_case(torch, gen, torch.bfloat16, 8, 1,
+                                             hkv=32),
              "paged_decode": paged_case(torch, gen, torch.bfloat16, 8, 32, 32,
                                         128, 16, DECODE_CTX)}
     out = {}
@@ -954,6 +1019,90 @@ def rms_norm_route(torch, gen):
                         "shape": [n, d], "call": call,
                         "kernel": names[0][:80], "max_abs_err": err})
     return {"phase": "kernels", "name": "rms_norm_route", "routes": out}
+
+
+def rope_route(torch, gen):
+    """Each fused q+k RoPE call launches one CUDA kernel and no Triton one:
+    torch.profiler's names for contiguous and per-token calls, sign 1 and
+    -1, the vector path (4-element slices: bf16, fp32, fp16 at d 128, GQA)
+    and the scalar path (d 90, and q and k one element off their slice's
+    alignment); and an autograd forward and backward of fused_rope_packed,
+    one launch each. Each call also holds against its plain version."""
+    from paddle_tpu_torch.ops.gpu import rope
+
+    def launched(fn):
+        return [e.name for e in cuda_events(torch, fn)]
+
+    out = []
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    for dtype, hq, hkv, d, packed, sign, offset, vec in (
+            (bf16, 32, 32, 128, True, 1, 0, True),
+            (bf16, 32, 32, 128, True, -1, 0, True),
+            (bf16, 32, 32, 128, False, 1, 0, True),
+            (bf16, 32, 32, 128, False, -1, 0, True),
+            (bf16, 32, 8, 128, True, 1, 0, True),
+            (f32, 32, 32, 128, True, 1, 0, True),
+            (f16, 32, 32, 128, False, -1, 0, True),
+            (bf16, 8, 2, 90, True, 1, 0, False),
+            (f32, 8, 2, 90, False, -1, 0, False),
+            (bf16, 32, 32, 128, True, 1, 1, False)):
+        b, s = 2, 16
+        q = _offset_randn(torch, gen, (b, s, hq, d), dtype, offset)
+        k = _offset_randn(torch, gen, (b, s, hkv, d), dtype, offset)
+        cos, sin = _tables(torch, 64, d)
+        pos = torch.randint(0, 80, (b, s), device="cuda", generator=gen,
+                            dtype=torch.int32) if packed else None
+        if not packed:
+            cos, sin = cos[:s].contiguous(), sin[:s].contiguous()
+        kern = lambda: rope.rope_qk(q, k, cos, sin, pos, sign)
+        names = launched(kern)
+        path = "vector" if vec else "scalar"
+        if len(names) != 1 or "rope_qk_kernel" not in names[0] \
+                or ("true>" in names[0]) != vec:
+            raise AssertionError(f"rope ({dtype}, d {d}, packed {packed}, "
+                                 f"sign {sign}, offset {offset}) launched "
+                                 f"{names}, not the {path} CUDA kernel "
+                                 f"alone")
+        err = _compare("rope route", [b, s, f"{hq}+{hkv}", d], dtype, kern(),
+                       rope.rope_qk_plain(q, k, cos, sin, pos, sign))
+        out.append({"dtype": str(dtype).replace("torch.", ""),
+                    "q": [b, s, hq, d], "kv_heads": hkv, "per_token": packed,
+                    "sign": sign, "offset_elements": offset,
+                    "kernel": names[0][:80], "max_abs_err": err})
+    # autograd: one launch forward (q and k), one backward (sign -1)
+    q = torch.randn(2, 16, 32, 128, device="cuda", generator=gen,
+                    dtype=bf16).requires_grad_(True)
+    k = torch.randn(2, 16, 8, 128, device="cuda", generator=gen,
+                    dtype=bf16).requires_grad_(True)
+    cos, sin = _tables(torch, 64, 128)
+    pos = torch.randint(0, 64, (2, 16), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    outs = []
+
+    def forward():
+        outs[:] = rope.fused_rope_packed(q, k, cos, sin, pos)
+
+    def backward():
+        q.grad = k.grad = None
+        torch.autograd.backward(outs, (gq, gk), retain_graph=True)
+
+    fwd = launched(forward)
+    gq, gk = torch.randn_like(outs[0]), torch.randn_like(outs[1])
+    bwd = launched(backward)
+    counts = [sum("rope_qk_kernel" in n for n in names)
+              for names in (fwd, bwd)]
+    if counts != [1, 1] or any("triton" in n.lower() or "_rope_fwd" in n
+                               for n in fwd + bwd):
+        raise AssertionError(f"fused_rope_packed launched {fwd} forward "
+                             f"and {bwd} backward, not one CUDA RoPE "
+                             f"kernel each")
+    want = rope.rope_qk_plain(gq, gk, cos, sin, pos, -1)
+    err = _compare("rope autograd", [2, 16, "32+8", 128], bf16,
+                   (q.grad, k.grad), want)
+    out.append({"dtype": "bfloat16", "call": "fused_rope_packed autograd",
+                "forward": [n[:80] for n in fwd],
+                "backward": [n[:80] for n in bwd], "max_abs_err": err})
+    return {"phase": "kernels", "name": "rope_route", "routes": out}
 
 
 def wide_bh_cases(torch, gen):
@@ -1114,9 +1263,19 @@ def kernels_phase(torch):
         cases = [
             ("rms_norm", rms_case(torch, gen, dtype, 8)),          # decode
             (None, rms_case(torch, gen, dtype, 256)),              # chunk
-            ("rope", rope_case(torch, gen, dtype, 256)),           # chunk
-            ("rope_packed", rope_packed_case(torch, gen, dtype, 8, 1)),
-            (None, rope_packed_case(torch, gen, dtype, 8, 128)),   # batched
+            # RoPE as Llama-2-7B calls it, q and k (32 + 32 heads) in one
+            # launch: a prefill chunk, a decode tick, a batched prefill, a
+            # verify window; each beside the single-tensor call
+            ("rope", rope_case(torch, gen, dtype, 256, hkv=32)),
+            (None, rope_case(torch, gen, dtype, 256)),
+            ("rope_packed", rope_packed_case(torch, gen, dtype, 8, 1,
+                                             hkv=32)),
+            (None, dict(rope_packed_case(torch, gen, dtype, 8, 1),
+                        costs=True)),
+            (None, rope_packed_case(torch, gen, dtype, 8, 128, hkv=32)),
+            (None, rope_packed_case(torch, gen, dtype, 8, 128)),
+            (None, rope_packed_case(torch, gen, dtype, 8, 5, hkv=32)),
+            *rope_other_cases(torch, gen, dtype),
             # decode at the main path's table width (2048 / 16 = 128 pages):
             # the wrapper's own split count (one here), then five splits
             # (partials and the combine)
@@ -1156,8 +1315,14 @@ def kernels_phase(torch):
         # main path runs in fp32 under amp O1
         cases += [
             (None, rope_case(torch, gen, dtype, 4096, b=2, start=0,
+                             sign=-1, hkv=32)),
+            (None, rope_case(torch, gen, dtype, 4096, b=2, start=0,
                              sign=-1)),
+            (None, rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos,
+                                    hkv=32)),
             (None, rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos)),
+            (None, rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos,
+                                    sign=-1, hkv=32)),
             (None, rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos,
                                     sign=-1)),
             (None, rms_fwd_case(torch, gen, dtype, 8192)),
@@ -1166,7 +1331,8 @@ def kernels_phase(torch):
         ]
         for key, case in cases:
             # the short rows' two costs, device and host, in bf16
-            case["costs"] = key in SHORT and dtype == torch.bfloat16
+            case["costs"] = (key in SHORT or case.get("costs", False)) \
+                and dtype == torch.bfloat16
             row = run_case(torch, case, dtype)
             if key is not None and (dtype == torch.bfloat16
                                     or key == "rms_norm_bwd"):
@@ -1198,6 +1364,7 @@ def kernels_phase(torch):
             emit(flash_routes(torch, gen))
             emit(paged_routes(torch, gen))
             emit(rms_norm_route(torch, gen))
+            emit(rope_route(torch, gen))
             emit(short_rows_device(torch, gen, rows))
             emit(verify_split_sweep(torch, gen))
             emit(decode_split_sweep(torch, gen))
@@ -1218,7 +1385,12 @@ def kernels_phase(torch):
     # and verify, dense flash at GPT-3 1.3B's, segmented at the packed
     # slice's, and the small segmented case with dead rows and keys
     dtype = torch.float16
-    cases = [paged_case(torch, gen, dtype, 8, 32, 32, 128, 16, DECODE_CTX),
+    cases = [rope_case(torch, gen, dtype, 256, hkv=32),
+             rope_packed_case(torch, gen, dtype, 8, 1, hkv=32),
+             rope_packed_case(torch, gen, dtype, 2, 4096, pos=pos, sign=-1,
+                              hkv=32),
+             *(case for _, case in rope_other_cases(torch, gen, dtype)),
+             paged_case(torch, gen, dtype, 8, 32, 32, 128, 16, DECODE_CTX),
              paged_case(torch, gen, dtype, 3, 32, 2, 128, 16,
                         [77, 1000, 300]),
              verify_case(torch, gen, dtype, 8, 5, 32, 32, 128, 16,
@@ -1339,6 +1511,11 @@ def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} ({launches})")
+    # one fused q+k RoPE launch a layer in a pure decode tick
+    if decode_tick is None or decode_tick["rope_packed"] != cfg.num_layers:
+        raise AssertionError(f"per-token RoPE launches in a pure decode "
+                             f"tick {decode_tick}, expected "
+                             f"{cfg.num_layers} (one a layer)")
     st = eng.stats()
     if st["kv"]["used_blocks"] or not st["kv"]["conservation_ok"]:
         raise AssertionError(f"KV blocks leaked: {st['kv']}")
@@ -1914,7 +2091,7 @@ def train_packed_slice_phase(torch, reset, counts, rows=2, seq=4096,
     L = cfg.num_layers
     want = {"flash_seg_fwd": L, "flash_seg_dq": L, "flash_seg_dkv": L,
             "rms_norm": 2 * L + 1, "rms_norm_bwd": 2 * L + 1,
-            "rope_packed": 4 * L, "adamw": len(opt._groups),
+            "rope_packed": 2 * L, "adamw": len(opt._groups),
             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rope": 0}
     if per_step != want:
         raise AssertionError(f"launches per step {per_step}, expected "
@@ -1950,9 +2127,9 @@ KERNELS = {
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
     "rms_norm_bwd": ("triton", "paddle_tpu_torch/ops/gpu/fused_norm.py",
                      "paddle_tpu/ops/pallas/fused_norm.py:33"),
-    "rope": ("triton", "paddle_tpu_torch/ops/gpu/rope.py",
+    "rope": ("cuda", "paddle_tpu_torch/csrc/rope.cu",
              "paddle_tpu/ops/pallas/rope.py:22"),
-    "rope_packed": ("triton", "paddle_tpu_torch/ops/gpu/rope.py",
+    "rope_packed": ("cuda", "paddle_tpu_torch/csrc/rope.cu",
                     "paddle_tpu/ops/pallas/rope.py:126"),
     "paged_decode": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:50"),

@@ -1,9 +1,10 @@
 // 16 bytes of fp32, bf16 or fp16 elements as floats and back, shared by the
 // kernels of this directory that move rows as 16-byte vectors
-// (fused_norm.cu, paged_attention.cu). A vector is a uint4 in registers;
-// Vec16<T>::get widens its E elements to fp32, Vec16<T>::put rounds E
-// floats to T (round to nearest even) and packs them. Each source includes
-// it once and compiles it into its own library.
+// (fused_norm.cu, paged_attention.cu; rope.cu packs its 8-byte vectors of
+// bf16 and fp16 with Vec16Half's word helpers). A vector is a uint4 in
+// registers; Vec16<T>::get widens its E elements to fp32, Vec16<T>::put
+// rounds E floats to T (round to nearest even) and packs them. Each source
+// includes it once and compiles it into its own library.
 #pragma once
 
 #include <cuda_bf16.h>

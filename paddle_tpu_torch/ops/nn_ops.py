@@ -239,9 +239,18 @@ def rotary_position_embedding(q, k, cos, sin, rotate_half=True):
         if cos.dim() == 4:
             cos = cos.reshape(cos.shape[1], cos.shape[3])
             sin = sin.reshape(sin.shape[1], sin.shape[3])
-        return fused_rope(q, k, cos.float().contiguous(),
-                          sin.float().contiguous())
+        return fused_rope(q, k, _kernel_form(cos, torch.float32),
+                          _kernel_form(sin, torch.float32))
     return _rope_xla(q, k, cos, sin, rotate_half)
+
+
+def _kernel_form(t, dtype):
+    """t as a contiguous `dtype` tensor, the form the RoPE kernel takes;
+    converted only where it differs (Llama's fp32 tables and int32
+    positions pass as they are)."""
+    if t.dtype != dtype or not t.is_contiguous():
+        t = t.to(dtype).contiguous()
+    return t
 
 
 def _rope_xla(q, k, cos, sin, rotate_half):
@@ -264,9 +273,9 @@ def rotary_position_embedding_packed(q, k, cos, sin, pos):
     """nn_ops.rotary_position_embedding_packed:1191: q, k [b, s, h, d],
     cos/sin TABLES [P, d], per-token positions pos [b, s] (clamped to
     [0, P-1] as the TPU kernel clamps)."""
-    return fused_rope_packed(q, k, cos.float().contiguous(),
-                             sin.float().contiguous(),
-                             pos.to(torch.int32).contiguous())
+    return fused_rope_packed(q, k, _kernel_form(cos, torch.float32),
+                             _kernel_form(sin, torch.float32),
+                             _kernel_form(pos, torch.int32))
 
 
 # ------------------------------------------------- cached decode attention

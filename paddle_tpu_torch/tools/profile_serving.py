@@ -28,7 +28,9 @@ for decode also without the profiler, which slows the host), device busy
 time per tick (the union of the kernels' intervals), the busy share,
 kernels per tick, the paged decode kernels' (with their split combine)
 and the verify kernels' device time per tick and share of the busy time,
-and the kernels with the most device time (names cut to 80 characters).
+the RoPE kernel's device time and launches per tick (one launch a layer
+rotates q and k), and the kernels with the most device time (names cut to
+80 characters).
 Needs one CUDA device.
 """
 import argparse
@@ -73,11 +75,15 @@ def _profile(torch, fn, ticks):
     verify = sum(t for n, t in by_name.items() if "paged_verify" in n) / 1e3
     decode = sum(t for n, t in by_name.items()
                  if "paged_decode" in n or "paged_combine" in n) / 1e3
+    rope = [e.time_range.end - e.time_range.start for e in kernels
+            if "rope_qk_kernel" in e.name]
     return {
         "paged_verify_ms_per_tick": verify / ticks,
         "paged_verify_share": verify / busy if busy else None,
         "paged_decode_ms_per_tick": decode / ticks,
         "paged_decode_share": decode / busy if busy else None,
+        "rope_ms_per_tick": sum(rope) / 1e3 / ticks,
+        "rope_launches_per_tick": len(rope) / ticks,
         "ticks": ticks, "wall_ms_per_tick": wall * 1e3 / ticks,
         "device_busy_ms_per_tick": busy / ticks,
         "device_busy_share": busy / (wall * 1e3) if wall else None,

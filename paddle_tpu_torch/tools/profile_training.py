@@ -34,7 +34,7 @@ GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
           ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_mma_kernel")),
           ("rms_norm", ("rms_fwd_kernel",)),
           ("rms_norm_bwd", ("_rms_bwd", "_rms_dw")),
-          ("rope", ("_rope_fwd",)),
+          ("rope", ("rope_qk_kernel",)),
           ("adamw", ("_adamw",)),
           ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
 
