@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving paths (Llama, with and without
-self-speculation, and GPT) and training paths (GPT, and Llama on packed
+self-speculation, fused greedy decode as CUDA graphs, behind the HTTP
+server, and GPT) and training paths (GPT, and Llama on packed
 documents) on one H100 and hold each of its hand-written kernels against
 its plain PyTorch version.
 
@@ -73,14 +74,42 @@ final line):
                with the seeded weights and then with the head zeroed (every
                target 0); over the phase, verify ticks, accepted drafts and
                rollbacks must all be > 0
-  6. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
+  6. fuse_parity - the same widths and 2 layers, fp32 (TF32 off):
+               ServingEngine(fuse_steps=4), whose greedy ticks replay a
+               captured 4-step CUDA graph, must equal fuse_steps=1 and
+               model.generate token for token (budgets not multiples of 4,
+               an eos inside a fused chunk, a request reaching
+               max_model_len while another decodes on its cached prefix);
+               then a prefill_only prompt's KV blocks over /kv/export and
+               /kv/ingest between two ServingServers: pages bitwise equal,
+               the receiver's decode (a full prefix hit) equal to the
+               sender's
+  7. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
                ServingEngine (8 slots, 16-token blocks, 2048 context) over 10
                requests (prompts 16-1024 tokens, two sharing a 256-token
                prefix, one repeated for a copy-on-write hit), 64 new tokens
-               each; every serving kernel's launch count over this phase
-               must be > 0, and per-token RoPE must launch once a layer in
-               a pure decode tick (q and k in one launch)
-  7. spec_slice - main path 4: the same model and engine with spec_k=4
+               each, at fuse_steps 1 and then 4 (tokens/s, TTFT, the two
+               runs' bf16 agreement); every serving kernel's launch count
+               over each run must be > 0, and per-token RoPE must launch
+               once a layer a step in a pure decode tick (a graph replay's
+               launches added to the counts)
+  8. graph_tick - the same model, 8 slots decoding: one replayed greedy
+               tick against the same body run eagerly from the same saved
+               state (equal tokens, bitwise equal new K/V rows), k = 1 and
+               4; a replay's launches RMSNorm 65, per-token RoPE 32 and
+               paged decode 32 times k; the kernel names torch.profiler
+               records for one replay; wall and device-busy ms and the
+               busy share, eager body against graph, and whole engine ticks
+               at fuse_steps 1 and 4; each graph's pool bytes
+  9. server_slice - main path 5: a ServingServer(port=0) over the 7B
+               engine with fuse_steps=4: 8 concurrent HTTP clients (4
+               streaming), 64 new tokens each, every stream's lines adding
+               up to its count; /metrics parsed back (TTFT count = the
+               requests), /healthz 200, /stats consistent; a prefill_only
+               1,024-token prompt exported over /kv/export and ingested by
+               a second server (64 blocks, their bytes, pages bitwise
+               equal, a full prefix hit on the receiver)
+ 10. spec_slice - main path 4: the same model and engine with spec_k=4
                (ngram 3, pause 32) over 10 requests (7 repetitive: 16-48
                token patterns repeated to 128-1024 tokens; 3 random), 64
                new tokens each, then the same requests with spec_k=0:
@@ -90,7 +119,7 @@ final line):
                every target 0; paged verify launches must be 32 x verify
                ticks and paged decode 32 x plain decode ticks, both > 0 on
                the main path, with drafts accepted and rolled back
-  8. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
+ 11. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
                slots, 16-token blocks, 2048 context = its positions): a
                1,990-token repetitive prompt that reaches the end of the
                context, five shorter ones, then a 1,984-token cached prefix
@@ -99,19 +128,19 @@ final line):
                then with the tied head zeroed (every target 0, so the long
                request's windows run past the table too); no output logit
                may be non-finite, and paged decode and verify must launch
-  9. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+ 12. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
                three TrainSteps (AdamW, global-norm clip) on the card and the
                same three on the CPU (plain versions) from the same weights
                and batch; losses and parameters must agree (bounds below)
- 10. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
+ 13. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
                AdamW, batch 4 x 2048 through TrainStep: one warm-up step and
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
- 11. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 14. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
-               three TrainSteps on the card and on the CPU, as in 9
- 12. train_packed_slice - main path 3: Llama-2-7B at its published widths
+               three TrainSteps on the card and on the CPU, as in 12
+ 15. train_packed_slice - main path 3: Llama-2-7B at its published widths
                cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
                tokens from PackedLMBatches: one warm-up step and three
                timed steps; loss, step time, tokens/s (all and non-padding),
@@ -1458,8 +1487,9 @@ def parity_phase(torch, cfg, device, new_tokens=16, engine_kw=None,
 
 def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
                 reset, counts):
-    """The main path: waves of requests through ServingEngine. Returns the
-    phase summary; launch counts are read just after the drive."""
+    """Main path 1: waves of requests through ServingEngine. Returns the
+    sequences and the phase summary; launch counts are read just after the
+    drive."""
     import numpy as np
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -1511,17 +1541,20 @@ def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} ({launches})")
-    # one fused q+k RoPE launch a layer in a pure decode tick
-    if decode_tick is None or decode_tick["rope_packed"] != cfg.num_layers:
+    # one fused q+k RoPE launch a layer a step in a pure decode tick (a
+    # graph replay's launches are added to the counts)
+    want = cfg.num_layers * eng.fuse_steps
+    if decode_tick is None or decode_tick["rope_packed"] != want:
         raise AssertionError(f"per-token RoPE launches in a pure decode "
-                             f"tick {decode_tick}, expected "
-                             f"{cfg.num_layers} (one a layer)")
+                             f"tick {decode_tick}, expected {want} (one a "
+                             f"layer a step)")
     st = eng.stats()
     if st["kv"]["used_blocks"] or not st["kv"]["conservation_ok"]:
         raise AssertionError(f"KV blocks leaked: {st['kv']}")
     generated = sum(len(r.output_tokens) for r in reqs)
-    return {
-        "phase": "slice", "layers": cfg.num_layers,
+    return [r.prompt + r.output_tokens for r in reqs], {
+        "phase": "slice", "fuse_steps": eng.fuse_steps,
+        "graph_replays": eng.graph_replays, "layers": cfg.num_layers,
         "hidden": cfg.hidden_size, "dtype": str(model._cache_dtype()),
         "requests": len(reqs), "prompt_tokens": [len(r.prompt) for r in reqs],
         "new_tokens_each": new_tokens, "init_s": init_s, "wall_s": wall,
@@ -1730,6 +1763,460 @@ def spec_slice_phase(torch, model, engine_kw, new_tokens, reset, counts,
             "launches": main["launches"]}
 
 
+def _greedy(torch, model, prompt, n, eos=None):
+    """model.generate's greedy continuation of prompt, cut after eos."""
+    out = model.generate(torch.tensor([prompt], device=model.device),
+                         max_new_tokens=n,
+                         eos_token_id=eos)[0].tolist()[len(prompt):]
+    return out[:out.index(eos) + 1] if eos in out else out
+
+
+def _http(url, obj=None, data=None, timeout=600):
+    """POST obj as JSON (or raw bytes), or GET when both are None. Returns
+    (status, body bytes)."""
+    import urllib.request
+
+    if obj is not None:
+        data = json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def fuse_parity_phase(torch, cfg, device="cuda"):
+    """Fused greedy decode in fp32 (TF32 off) at Llama-2-7B's widths, 2
+    layers: ServingEngine(fuse_steps=4), whose greedy ticks replay a
+    captured 4-step CUDA graph, must equal fuse_steps=1 (a 1-step graph)
+    and model.generate token for token over budgets that are not multiples
+    of 4, a request whose eos is its third token (inside a fused chunk),
+    and a request that reaches max_model_len mid-chunk while another
+    decodes on the same cached 512-token prefix. Then the KV wire between
+    two ServingServers: a prefill_only request's 768-token prompt exported
+    from A over /kv/export and ingested by B over /kv/ingest; B's pages
+    must equal A's bit for bit, and B's decode of the prompt (a full
+    prefix hit) must equal A's own."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import (ServingEngine, ServingServer,
+                                          kv_wire_decode)
+
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=SEED)
+    kw = dict(max_slots=4, block_size=16, prefill_chunk=256,
+              max_model_len=1024)
+    rng = np.random.default_rng(SEED + 6)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    shared = toks(512)
+    while True:
+        eos_prompt = toks(40)
+        g = _greedy(torch, model, eos_prompt, 3)
+        if g[2] not in g[:2]:
+            break
+    waves = [[(toks(30), 6, None), (toks(300), 7, None),
+              (eos_prompt, 12, g[2]), (shared + toks(20), 9, None)],
+             [(shared + toks(490), 60, None), (shared + toks(100), 9, None)]]
+    outs, finish = {}, {}
+    for fuse in (4, 1):
+        eng = ServingEngine(model, fuse_steps=fuse, **kw)
+        reqs = []
+        for wave in waves:
+            reqs += [eng.submit(p, max_new_tokens=n, eos_token_id=e)
+                     for p, n, e in wave]
+            eng.run_until_idle()
+        outs[fuse] = [r.output_tokens for r in reqs]
+        finish[fuse] = [r.finish_reason for r in reqs]
+        if fuse == 4:
+            replays, matched = eng.graph_replays, reqs[-1].prefix_matched
+        del eng
+    items = [x for w in waves for x in w]
+    for i, (p, n, eos) in enumerate(items):
+        want = _greedy(torch, model, p, min(n, kw["max_model_len"] - len(p)
+                                            + 1), eos)
+        for fuse in (4, 1):
+            if outs[fuse][i] != want:
+                t = next((j for j, (a, b) in enumerate(zip(outs[fuse][i],
+                                                           want))
+                          if a != b), min(len(want), len(outs[fuse][i])))
+                raise AssertionError(
+                    f"fuse_steps={fuse} and generate() diverge at token {t} "
+                    f"of request {i} ({len(p)}-token prompt): "
+                    f"{outs[fuse][i][t:t + 3]} vs {want[t:t + 3]}")
+    if finish[4] != finish[1] or finish[4].count("stop") != 1 \
+            or matched != 512 or replays <= 0:
+        raise AssertionError(f"fuse parity did not reach its cases: "
+                             f"{finish}, prefix hit {matched}, graph "
+                             f"replays {replays}")
+    # the KV wire between two servers, fp32
+    prompt = toks(768)
+    sa = ServingServer(ServingEngine(model, **kw), port=0)
+    sb = ServingServer(ServingEngine(model, **kw), port=0)
+    try:
+        _http(sa.url() + "/generate", {"prompt": prompt,
+                                       "prefill_only": True})
+        _, wire = _http(sa.url() + "/kv/export", {"tokens": prompt})
+        _, st = _http(sb.url() + "/kv/ingest", data=wire)
+        st = json.loads(st)
+        blocks = [r["block"] for r in
+                  sb.engine.allocator.export_prefix(prompt)]
+        blocks_a = [r["block"] for r in
+                    sa.engine.allocator.export_prefix(prompt)]
+        same = all(torch.equal(pa[blocks_a], pb[blocks])
+                   for (ka, va), (kb, vb) in zip(sa.engine.pool.layers,
+                                                 sb.engine.pool.layers)
+                   for pa, pb in ((ka, kb), (va, vb)))
+        got = {}
+        for name, s in (("a", sa), ("b", sb)):
+            _, body = _http(s.url() + "/generate", {"prompt": prompt,
+                                                    "max_new_tokens": 12})
+            got[name] = json.loads(body)["output_tokens"]
+        b_prefill = sb.engine.prefill_tokens
+    finally:
+        sa.stop()
+        sb.stop()
+    if st["imported"] != 48 or not same or got["a"] != got["b"] \
+            or b_prefill != 0 or len(kv_wire_decode(wire)) != 48:
+        raise AssertionError(f"fp32 KV wire: ingest {st}, pages equal "
+                             f"{same}, A {got['a']} vs B {got['b']}, B "
+                             f"prefill tokens {b_prefill}")
+    return {"phase": "fuse_parity", "dtype": "float32",
+            "layers": cfg.num_layers, "engine": kw,
+            "prompts": [len(p) for p, _, _ in items],
+            "budgets": [n for _, n, _ in items],
+            "output_tokens": [len(o) for o in outs[4]],
+            "finish_reasons": finish[4], "graph_replays": replays,
+            "token_match": True,
+            "kv_wire_fp32": {"prompt_tokens": len(prompt), **st,
+                             "pages_bitwise_equal": same,
+                             "b_decode_equals_a": True}}
+
+
+def _tick_rows(torch, eng, k):
+    """(page, offset) of every K/V row the next k greedy steps write for
+    the live slots (the column clamped to the table, as the op clamps)."""
+    bs = eng.block_size
+    slots = eng._d_live.nonzero()[:, 0]
+    pos = (eng._d_lens.long()[slots][:, None]
+           + torch.arange(k, device=eng.device)[None])
+    col = (pos // bs).clamp(max=eng.max_blocks_per_seq - 1)
+    page = eng._d_tables[slots[:, None], col].long()
+    return page.reshape(-1), (pos % bs).reshape(-1)
+
+
+def _save_state(eng, page, off):
+    return (eng._d_toks.clone(), eng._d_lens.clone(),
+            [(kp[page, off].clone(), vp[page, off].clone())
+             for kp, vp in eng.pool.layers])
+
+
+def _restore_state(eng, page, off, saved):
+    toks, lens, rows = saved
+    for (kp, vp), (k, v) in zip(eng.pool.layers, rows):
+        kp[page, off] = k
+        vp[page, off] = v
+    eng._d_toks.copy_(toks)
+    eng._d_lens.copy_(lens)
+
+
+def _busy_ms(events):
+    """Union of the kernels' device intervals, ms."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return busy / 1e3
+
+
+def _tick_times(torch, fn, calls=8):
+    """Wall ms per call (one synchronise after `calls` calls) and the
+    device's busy ms per call (the union of the kernels' intervals in a
+    torch.profiler session over `calls` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    busy = _busy_ms(kernels) / calls if kernels else None
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall if busy is not None else None,
+            "kernels_per_call": len(kernels) / calls}
+
+
+def graph_tick_phase(torch, model, engine_kw, new_tokens=512,
+                     prompt_len=512):
+    """The decode tick as a CUDA graph, on the 7B bf16 slice model with 8
+    slots decoding 512-token prompts:
+
+      * replay against eager: from one saved state (tokens, lengths and
+        the K/V rows the tick writes), the k-step body run eagerly and the
+        captured graph replayed must give equal tokens and bitwise equal
+        new K/V rows, k = 1 and 4 (the same kernels on the same shapes);
+      * launches: the counts' deltas a replay adds must be RMSNorm 65,
+        per-token RoPE 32 and paged decode 32, times k, and nothing else;
+      * profiler: the kernel names torch.profiler records for one replay
+        (or that it records none inside a graph);
+      * timing: wall and device-busy ms per call and the busy share, the
+        eager body against the graph at k = 1 and 4, and whole engine
+        ticks (graph, deferred fetch, bookkeeping) at fuse_steps 1 and 4;
+      * memory: each graph's private pool, in bytes.
+
+    Every measurement starts from the saved state and puts it back."""
+    import collections
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import gpu
+    from paddle_tpu_torch.serving import ServingEngine
+
+    layers = model.config.num_layers
+    eng = ServingEngine(model, **dict(engine_kw, fuse_steps=4))
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [eng.submit([int(t) for t in rng.integers(
+        0, model.config.vocab_size, prompt_len)], max_new_tokens=new_tokens)
+        for _ in range(eng.max_slots)]
+    while eng.sched.waiting or eng.sched.prefilling:
+        eng.step()
+    eng._flush_pending()
+    torch.cuda.synchronize()
+    out = {"phase": "graph_tick", "layers": layers, "slots": eng.max_slots,
+           "prompt_tokens": prompt_len,
+           "graph_pool_bytes": {str(k): v for k, v in
+                                eng.graph_pool_bytes.items()}}
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.no_grad():
+        for k in (1, 4):
+            want = {"rms_norm": (2 * layers + 1) * k,
+                    "rope_packed": layers * k, "paged_decode": layers * k}
+            captured = eng.graph_launches(k)
+            page, off = _tick_rows(torch, eng, k)
+            saved = _save_state(eng, page, off)
+            body = eng._out_buffer(k)
+            eng._decode_body(k, body)
+            eager = (body.clone(), [(kp[page, off].clone(),
+                                     vp[page, off].clone())
+                                    for kp, vp in eng.pool.layers])
+            _restore_state(eng, page, off, saved)
+            before = gpu.launch_counts()
+            toks = eng._greedy_steps(k)
+            after = gpu.launch_counts()
+            replayed = {n: after[n] - before[n] for n in after
+                        if after[n] != before[n]}
+            rows_equal = all(
+                torch.equal(ek, kp[page, off]) and torch.equal(ev,
+                                                               vp[page, off])
+                for (ek, ev), (kp, vp) in zip(eager[1], eng.pool.layers))
+            toks_equal = torch.equal(eager[0], toks)
+            _restore_state(eng, page, off, saved)
+            if captured != want or replayed != want or not toks_equal \
+                    or not rows_equal:
+                raise AssertionError(
+                    f"graph k={k}: launches captured {captured}, a replay "
+                    f"{replayed}, expected {want}; tokens equal "
+                    f"{toks_equal}, K/V rows bitwise equal {rows_equal}")
+            # what the profiler sees of one replay
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng._greedy_steps(k)
+                torch.cuda.synchronize()
+            _restore_state(eng, page, off, saved)
+            names = collections.Counter(
+                e.name[:60] for e in prof.events() if e.device_type == cuda)
+
+            def eager_fn():
+                b = eng._out_buffer(k)
+                eng._decode_body(k, b)
+                return b.clone()
+
+            timing = {}
+            for name, fn in (("eager", eager_fn),
+                             ("graph", lambda: eng._greedy_steps(k))):
+                timing[name] = _tick_times(torch, fn)
+                _restore_state(eng, page, off, saved)
+            out[f"k{k}"] = {
+                "launches_per_replay": replayed, "tokens_equal": True,
+                "kv_rows_bitwise_equal": True, "kv_rows": int(page.numel()),
+                "profiler_kernels_one_replay": sum(names.values()),
+                "profiler_sees_graph_kernels": bool(names),
+                "profiler_top_kernels": dict(names.most_common(8)),
+                "eager_body": timing["eager"], "graph_replay": timing["graph"],
+            }
+    # whole engine ticks: replay, deferred fetch and bookkeeping
+    ticks = {}
+    for k in (1, 4):
+        eng.fuse_steps = k
+        ticks[f"fuse_steps_{k}"] = _tick_times(torch, eng.step, calls=8)
+    out["engine_tick"] = ticks
+    for r in reqs:
+        eng.cancel(r)
+    return out
+
+
+def server_slice_phase(torch, model, engine_kw, reset, counts, kernels,
+                       new_tokens=64, kv_prompt=1024):
+    """Main path 5: a ServingServer(port=0) over the 7B bf16 engine with
+    fuse_steps=4. Eight concurrent HTTP clients (four streaming) ask for
+    64 new tokens each on prompts of 64-1024 tokens: every request must
+    finish with its 64 valid tokens, and each stream's lines must add up
+    to the count its last line reports. /metrics must parse back with a
+    TTFT count equal to the requests, /healthz answer 200 and /stats be
+    one consistent snapshot. Then the KV wire: a prefill_only request with
+    a 1,024-token prompt on server A, /kv/export, /kv/ingest into server B
+    over a second engine: 64 blocks imported, bytes 64 x 2 x layers x the
+    block's bytes, B's pages bitwise equal to A's, and B serving the
+    prompt as a full prefix hit. Launch counts are read just after the
+    clients' run, from 0 just before."""
+    import threading
+
+    import numpy as np
+    from paddle_tpu_torch.observability import sinks
+    from paddle_tpu_torch.serving import ServingEngine, ServingServer
+
+    vocab, layers = model.config.vocab_size, model.config.num_layers
+    kw = dict(engine_kw, fuse_steps=4)
+    t0 = time.perf_counter()
+    sa = ServingServer(ServingEngine(model, **kw), port=0)
+    sb = ServingServer(ServingEngine(model, **kw), port=0)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [[int(t) for t in rng.integers(0, vocab, n)]
+               for n in (64, 1024, 300, 512, 128, 777, 200, 1000)]
+    results = [None] * len(prompts)
+
+    def client(i):
+        stream = i % 2 == 1
+        _, body = _http(sa.url() + "/generate", {
+            "prompt": prompts[i], "max_new_tokens": new_tokens,
+            "tier": "smoke", "stream": stream})
+        if stream:
+            lines = [json.loads(x) for x in body.decode().splitlines() if x]
+            results[i] = {"stream": True, "lines": len(lines),
+                          "tokens": [t for x in lines[:-1]
+                                     for t in x["tokens"]],
+                          "last": lines[-1]}
+        else:
+            results[i] = {"stream": False, **json.loads(body)}
+
+    try:
+        torch.cuda.synchronize()
+        reset()
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t1
+        launches = counts()
+        bad = []
+        for i, r in enumerate(results):
+            if r is None:
+                bad.append((i, "no answer"))
+                continue
+            toks = r["tokens"] if r["stream"] else r["output_tokens"]
+            fin = r["last"] if r["stream"] else r
+            n = fin["telemetry"]["output_tokens"]
+            if fin["finish_reason"] != "length" or len(toks) != new_tokens \
+                    or n != new_tokens \
+                    or not all(0 <= t < vocab for t in toks):
+                bad.append((i, fin["finish_reason"], len(toks), n))
+        missing = [k for k in kernels if launches[k] <= 0]
+        if bad or missing:
+            raise AssertionError(f"server clients: {bad}; kernels not "
+                                 f"launched: {missing} ({launches})")
+        _, text = _http(sa.url() + "/metrics")
+        parsed = sinks.parse_prometheus_text(text.decode())
+        ttft_n = parsed[("serving_ttft_seconds_count", (("tier", "smoke"),))]
+        code, health = _http(sa.url() + "/healthz")
+        health = json.loads(health)
+        _, stats = _http(sa.url() + "/stats")
+        stats = json.loads(stats)
+        if ttft_n != len(prompts) or code != 200 or not health["ok"] \
+                or not stats["kv"]["conservation_ok"] \
+                or stats["running"] + stats["prefilling"] \
+                + stats["free_slots"] != kw["max_slots"]:
+            raise AssertionError(f"scrape: ttft count {ttft_n}, healthz "
+                                 f"{code} {health}, stats {stats}")
+        # the KV wire, bf16 at full depth
+        kvp = [int(t) for t in rng.integers(0, vocab, kv_prompt)]
+        _, body = _http(sa.url() + "/generate", {"prompt": kvp,
+                                                 "prefill_only": True})
+        if json.loads(body)["finish_reason"] != "prefill_complete":
+            raise AssertionError(f"prefill_only answered {body[:200]}")
+        t2 = time.perf_counter()
+        _, wire = _http(sa.url() + "/kv/export", {"tokens": kvp})
+        t3 = time.perf_counter()
+        _, st = _http(sb.url() + "/kv/ingest", data=wire)
+        t4 = time.perf_counter()
+        st = json.loads(st)
+        ea, eb = sa.engine, sb.engine
+        ba = [r["block"] for r in ea.allocator.export_prefix(kvp)]
+        bb = [r["block"] for r in eb.allocator.export_prefix(kvp)]
+        same = len(ba) == len(bb) and all(
+            torch.equal(pa[ba], pb[bb])
+            for (ka, va), (kb, vb) in zip(ea.pool.layers, eb.pool.layers)
+            for pa, pb in ((ka, kb), (va, vb)))
+        page = ea.pool.layers[0][0][0]
+        blk_bytes = page.numel() * page.element_size()
+        n_blocks = kv_prompt // ea.block_size
+        prefill_before = eb.prefill_tokens
+        _, body = _http(sb.url() + "/generate", {"prompt": kvp,
+                                                 "max_new_tokens": 8})
+        b_out = json.loads(body)
+        hit = (eb.prefill_tokens == prefill_before
+               and eb.cow_admissions == 1)
+        if st["imported"] != n_blocks or st["rejected"] \
+                or st["bytes"] != n_blocks * 2 * layers * blk_bytes \
+                or not same or not hit \
+                or b_out["finish_reason"] != "length":
+            want_bytes = n_blocks * 2 * layers * blk_bytes
+            raise AssertionError(f"KV wire: ingest {st} (want {n_blocks} "
+                                 f"blocks, {want_bytes} bytes), pages "
+                                 f"equal {same}, full prefix hit {hit}, "
+                                 f"B {b_out}")
+    finally:
+        sa.stop()
+        sb.stop()
+    generated = sum(len(r["tokens"] if r["stream"] else r["output_tokens"])
+                    for r in results)
+    ttfts = [(r["last"] if r["stream"] else r)["telemetry"]["ttft_s"]
+             for r in results]
+    return {
+        "phase": "server_slice", "layers": layers,
+        "dtype": str(model._cache_dtype()), "engine": kw,
+        "init_s": init_s, "clients": len(prompts), "streaming": 4,
+        "prompt_tokens": [len(p) for p in prompts],
+        "new_tokens_each": new_tokens, "wall_s": wall,
+        "generated_tokens": generated, "tokens_per_s": generated / wall,
+        "mean_ttft_s": statistics.mean(ttfts),
+        "graph_replays": ea.graph_replays,
+        "graph_pool_bytes": {str(k): v for k, v in
+                             ea.graph_pool_bytes.items()},
+        "stream_lines": [r["lines"] for r in results if r["stream"]],
+        "metrics_ttft_count": ttft_n, "healthz": health["status"],
+        "kv_wire": {"prompt_tokens": kv_prompt, **st,
+                    "wire_bytes": len(wire), "export_s": t3 - t2,
+                    "ingest_s": t4 - t3, "pages_bitwise_equal": same,
+                    "full_prefix_hit": hit},
+        "launches": launches,
+    }
+
+
 def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
                           new_tokens=64):
     """GPT-3 1.3B (full depth, bf16, seeded weights) served with spec_k=4:
@@ -1742,8 +2229,10 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
     then the tied head (the token embedding) zeroed, so every target is
     token 0 and the long request drafts to its last token: its verify
     windows then run past the wpe table. Gates, in each arm: every output
-    logit finite (checked on each model call; a NaN from an embedding
-    would still show through the zero head), the pool finite at the end,
+    logit finite (checked on each model call, counted on the device, so
+    the check also runs inside every decode graph replay; a NaN from an
+    embedding would still show through the zero head), the pool finite at
+    the end,
     the paged decode and verify kernels launched, the batched row asked
     for positions past the table; in the zero-head arm the windows too."""
     import numpy as np
@@ -1759,11 +2248,15 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
     model = GPTForCausalLM(cfg, device=device, dtype="bfloat16", seed=SEED)
     sync()
     init_s = time.perf_counter() - t0
-    calls = {"n": 0, "nonfinite": 0}
+    calls = {"n": 0}
+    # calls with a non-finite logit, counted on the device: no host sync,
+    # so the check is captured into the decode graphs and runs at every
+    # replay
+    nonfinite = torch.zeros((), dtype=torch.int64, device=device)
 
     def check(_, __, out):
         calls["n"] += 1
-        calls["nonfinite"] += not bool(torch.isfinite(out[0]).all())
+        nonfinite.add_((~torch.isfinite(out[0])).any().long())
 
     # the largest position each kind of cached call asks wpe for (the
     # model clamps it to the table): batched prefill rows and verify windows
@@ -1798,7 +2291,8 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
         if weights == "zero_head":
             with torch.no_grad():
                 model.gpt.wte.weight.zero_()
-        calls.update(n=0, nonfinite=0)
+        calls.update(n=0)
+        nonfinite.zero_()
         asked.update(batched_prefill=0, verify_window=0)
         eng = ServingEngine(model, device=device, max_slots=8, block_size=16,
                             prefill_chunk=256, max_model_len=ctx, spec_k=4)
@@ -1811,6 +2305,7 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
         sync()
         wall = time.perf_counter() - t1
         launches = counts()
+        calls["nonfinite"] = int(nonfinite)
         st = eng.stats()
         pool_finite = all(bool(torch.isfinite(k).all()
                                and torch.isfinite(v).all())
@@ -1821,7 +2316,9 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
             "engine_steps": st["steps"],
             "batched_prefills": st["batched_prefills"],
             "prefix_hit_tokens": reqs[-2].prefix_matched,
-            "speculative": st["speculative"], "model_calls": calls["n"],
+            "speculative": st["speculative"],
+            "eager_model_calls": calls["n"],
+            "graph_replays": eng.graph_replays,
             "nonfinite_logit_calls": calls["nonfinite"],
             "pool_finite": pool_finite, "max_position_asked": dict(asked),
             "launches": launches}
@@ -2218,6 +2715,9 @@ def main():
          GPTForCausalLM(gpt2, device="cuda", dtype="float32", seed=SEED))]))
     release(torch)
 
+    emit(fuse_parity_phase(torch, cfg2))
+    release(torch)
+
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.llama2_7b(), device="cuda",
                              dtype="bfloat16", seed=SEED)
@@ -2225,12 +2725,26 @@ def main():
     model_init_s = time.perf_counter() - t0
     engine_kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
                      max_model_len=2048)
-    summary = slice_phase(
-        torch, model, engine_kw, new_tokens=64,
-        wave1_lens=(16, 64, 128, 512, 768, 1024, 288, 356), prefix_len=256,
-        reset=gpu.reset_launch_counts,
-        counts=lambda: gpu.launch_counts(SERVING))
-    emit({**summary, "model_init_s": model_init_s})
+    seqs = {}
+    for fuse in (1, 4):
+        seqs[fuse], summary = slice_phase(
+            torch, model, dict(engine_kw, fuse_steps=fuse), new_tokens=64,
+            wave1_lens=(16, 64, 128, 512, 768, 1024, 288, 356),
+            prefix_len=256, reset=gpu.reset_launch_counts,
+            counts=lambda: gpu.launch_counts(SERVING))
+        if fuse == 4:
+            summary["bf16_agreement_with_fuse_steps_1"] = _agreement(
+                torch, model, seqs[4], seqs[1])
+        emit({**summary, "model_init_s": model_init_s})
+        release(torch)
+
+    emit(graph_tick_phase(torch, model, engine_kw))
+    release(torch)
+
+    server = server_slice_phase(
+        torch, model, engine_kw, reset=gpu.reset_launch_counts,
+        counts=lambda: gpu.launch_counts(SERVING), kernels=SERVING)
+    emit(server)
     release(torch)
 
     spec = spec_slice_phase(
@@ -2260,12 +2774,13 @@ def main():
     packed = train_packed_slice_phase(torch, gpu.reset_launch_counts,
                                       lambda: gpu.launch_counts(PACKED))
     emit(packed)
-    # each kernel's launches on the path it was ported for: serving for
-    # RMSNorm, RoPE and paged decode, speculative serving for paged verify,
-    # GPT training for dense flash and AdamW, packed Llama training for
+    # each kernel's launches on the path it was ported for: the HTTP
+    # server over fused decode graphs for RMSNorm, RoPE and paged decode
+    # (replays included), speculative serving for paged verify, GPT
+    # training for dense flash and AdamW, packed Llama training for
     # segmented flash and RMSNorm backward
     launches = {**packed["launches"], **train["launches"],
-                **summary["launches"],
+                **server["launches"],
                 "paged_verify": spec["launches"]["paged_verify"]}
 
     print(card, flush=True)

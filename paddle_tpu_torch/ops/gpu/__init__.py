@@ -4,6 +4,8 @@ Each module holds a kernel, its plain PyTorch version and a wrapper. The
 wrapper launches the kernel for CUDA tensors (or raises) and takes the plain
 version for CPU tensors; it counts its launches in a plain int attribute,
 `<wrapper>.launches`, so a run can show which kernels its path went through.
+A CUDA graph's replay runs no wrapper: its owner records the counts' deltas
+over the capture and adds them at each replay (`add_launch_counts`).
 """
 from . import flash_attention, fused_adamw, fused_norm, paged_attention, rope
 
@@ -33,3 +35,9 @@ def launch_counts(names=None) -> dict:
     """{name: launches} for every kernel, or for those named."""
     names = KERNEL_WRAPPERS if names is None else names
     return {name: KERNEL_WRAPPERS[name].launches for name in names}
+
+
+def add_launch_counts(deltas: dict) -> None:
+    """Add {name: launches} to the counts (a graph replay's launches)."""
+    for name, n in deltas.items():
+        KERNEL_WRAPPERS[name].launches += n

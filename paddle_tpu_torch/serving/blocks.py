@@ -35,8 +35,10 @@ rewinds a rejected tail exactly, never below the admission reservation
 (`_base`, the table length `allocate`, `reserve` and `reserve_prefix`
 claimed).
 
-The reference's KV-streaming (export_prefix / import_block) waits for the
-slice that uses it.
+KV-block streaming (disaggregated prefill, live migration): `export_prefix`
+lists the resident full-block prefix of a token sequence with its chain
+digests, and `import_block` admits one streamed block after recomputing
+its digest from the previous link and the claimed tokens.
 """
 from __future__ import annotations
 
@@ -47,30 +49,47 @@ from typing import Dict, List, Optional, Tuple
 from ..observability.registry import counter as _counter, gauge as _gauge
 
 _BLOCKS_TOTAL = _gauge("serving_kv_blocks_total",
-                       "KV pool size in blocks (excl. the null block).")
+                       "KV pool size in blocks (excl. the null block).",
+                       always=True)
 _BLOCKS_USED = _gauge("serving_kv_blocks_used",
-                      "KV blocks currently assigned to sequences.")
-_BLOCKS_FREE = _gauge("serving_kv_blocks_free", "KV blocks on the free list.")
+                      "KV blocks currently assigned to sequences.",
+                      always=True)
+_BLOCKS_FREE = _gauge("serving_kv_blocks_free", "KV blocks on the free list.",
+                      always=True)
 _BLOCKS_CACHED = _gauge("serving_kv_cached_blocks",
-                        "Evictable prefix-cache blocks (hashed, refcount 0).")
-_TOKENS = _gauge("serving_kv_tokens", "Live KV tokens across all sequences.")
-_OCCUPANCY = _gauge("serving_kv_occupancy", "used / allocatable KV blocks.")
+                        "Evictable prefix-cache blocks (hashed, refcount 0).",
+                        always=True)
+_TOKENS = _gauge("serving_kv_tokens", "Live KV tokens across all sequences.",
+                 always=True)
+_OCCUPANCY = _gauge("serving_kv_occupancy", "used / allocatable KV blocks.",
+                    always=True)
 _FRAG = _gauge("serving_kv_fragmentation",
                "1 - tokens/(used*block_size): tail waste of partially "
-               "filled last blocks.")
+               "filled last blocks.", always=True)
 _PREFIX_HITS = _counter("serving_prefix_cache_hits_total",
-                        "Admissions that matched >=1 cached prefix block.")
+                        "Admissions that matched >=1 cached prefix block.",
+                        always=True)
 _PREFIX_MISSES = _counter("serving_prefix_cache_misses_total",
-                          "Admissions that matched no cached block.")
+                          "Admissions that matched no cached block.",
+                          always=True)
 _PREFIX_HIT_TOKENS = _counter("serving_prefix_hit_tokens_total",
                               "Prompt tokens served from the prefix cache "
-                              "(prefill skipped).")
+                              "(prefill skipped).", always=True)
 _PREFIX_EVICTIONS = _counter("serving_prefix_evictions_total",
                              "Cached blocks reclaimed under capacity "
-                             "pressure.")
+                             "pressure.", always=True)
 _PREFIX_DEDUPS = _counter("serving_prefix_dedup_blocks_total",
                           "Private prefilled blocks swapped for an "
-                          "already-indexed twin at register time.")
+                          "already-indexed twin at register time.",
+                          always=True)
+
+
+_PREFIX_IMPORTS = _counter("serving_prefix_imported_blocks_total",
+                           "Streamed KV blocks admitted into the cache "
+                           "after chain-hash verification.", always=True)
+_PREFIX_IMPORT_DEDUPS = _counter("serving_prefix_import_dedup_total",
+                                 "Streamed blocks whose digest was already "
+                                 "resident (idempotent no-op).", always=True)
 
 
 class BlockAllocator:
@@ -133,6 +152,9 @@ class BlockAllocator:
     def blocks_for(self, n_tokens: int) -> int:
         return -(-int(n_tokens) // self.block_size)  # ceil div
 
+    def can_allocate(self, n_tokens: int) -> bool:
+        return self.blocks_for(n_tokens) <= self.available_blocks
+
     # -- content addressing -----------------------------------------------
     def chain_digest(self, prev: bytes, tokens) -> bytes:
         """One link of the chain hash: commits to `prev` (the previous full
@@ -152,6 +174,79 @@ class BlockAllocator:
             out.append(prev)
         return out
 
+    # -- KV-block streaming ------------------------------------------------
+    def export_prefix(self, tokens) -> List[dict]:
+        """Wire metadata for the resident full-block prefix of `tokens`: one
+        record per indexed full block, chain order, stopping at the first
+        full block not in the index; each carries the chain digest, the
+        previous link's digest, the block's token ids and the local block
+        id (where the caller reads the block's KV). Read-only."""
+        out: List[dict] = []
+        prev = b""
+        bs = self.block_size
+        for i in range(len(tokens) // bs):
+            blk_tokens = [int(t) for t in tokens[i * bs:(i + 1) * bs]]
+            key = self.chain_digest(prev, blk_tokens)
+            blk = self._index.get(key)
+            if blk is None:
+                break
+            out.append({"digest": key, "prev": prev, "block": blk,
+                        "tokens": blk_tokens})
+            prev = key
+        return out
+
+    def import_block(self, prev_digest: bytes, tokens,
+                     digest: bytes) -> Tuple[int, bool]:
+        """Admit one streamed full block into the cache. The digest is
+        recomputed from `prev_digest` + `tokens` and must equal `digest`
+        (ValueError otherwise, before anything moves). Returns
+        `(block_id, imported)`: an already-resident digest gives
+        `(existing, False)` and refreshes its LRU place; otherwise a blank
+        block (free stack, then LRU eviction) is published straight into
+        the evictable cached pool (refcount 0, matchable), and the caller
+        writes the block's KV into the pool at `block_id` before any
+        reservation can match it. Raises MemoryError when no blank block
+        exists."""
+        if not self.prefix_cache:
+            raise ValueError("prefix cache disabled: an imported block "
+                             "could never be matched")
+        if len(tokens) != self.block_size:
+            raise ValueError(f"imported block carries {len(tokens)} tokens, "
+                             f"expected a full block of {self.block_size}")
+        want = self.chain_digest(prev_digest, tokens)
+        if want != bytes(digest):
+            raise ValueError("chain-hash mismatch: streamed block rejected "
+                             "(corrupt payload or broken chain)")
+        blk = self._index.get(want)
+        if blk is not None:
+            if blk in self._evictable:
+                self._evictable.move_to_end(blk)
+            _PREFIX_IMPORT_DEDUPS.inc()
+            return blk, False
+        blk = self._pop_block()
+        self._digest[blk] = want
+        self._index[want] = blk
+        self._evictable[blk] = None      # newest at the LRU tail
+        _PREFIX_IMPORTS.inc()
+        self._publish()
+        return blk, True
+
+    def peek_match(self, tokens) -> int:
+        """Prompt tokens a reservation would serve from the cache (no side
+        effects)."""
+        return min(len(self._match(tokens)) * self.block_size, len(tokens))
+
+    def blocks_needed(self, tokens, total_tokens: int) -> int:
+        """New blocks a reserve_prefix() would claim (the suffix's worst
+        case, +1 when a full-prompt match forks its last block); revived
+        cached blocks are not counted."""
+        plen = len(tokens)
+        m = len(self._match(tokens))
+        need = self.blocks_for(max(int(total_tokens), plen, 1)) - m
+        if m and m * self.block_size >= plen:
+            need += 1
+        return need
+
     def _match(self, tokens) -> List[int]:
         """Longest run of cached blocks covering a prefix of `tokens`."""
         if not self.prefix_cache:
@@ -167,14 +262,9 @@ class BlockAllocator:
     def can_reserve_prefix(self, tokens, total_tokens: int) -> bool:
         """Admission gate: do the suffix's new blocks fit beside the matched
         blocks that must be revived out of the evictable pool?"""
-        matched = self._match(tokens)
-        revive = sum(1 for b in matched if b in self._evictable)
-        plen = len(tokens)
-        m = len(matched)
-        need = self.blocks_for(max(int(total_tokens), plen, 1)) - m
-        if m and m * self.block_size >= plen:
-            need += 1
-        return need + revive <= self.available_blocks
+        revive = sum(1 for b in self._match(tokens) if b in self._evictable)
+        return (self.blocks_needed(tokens, total_tokens) + revive
+                <= self.available_blocks)
 
     # -- block pool internals ---------------------------------------------
     def _pop_block(self) -> int:

@@ -14,6 +14,7 @@ nothing), so decode never runs out of blocks mid-flight.
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -21,12 +22,14 @@ from typing import Deque, Dict, List, Optional
 from ..observability.registry import counter as _counter, gauge as _gauge
 
 _ADMITTED = _counter("serving_requests_admitted_total",
-                     "Requests admitted into the running batch.")
+                     "Requests admitted into the running batch.", always=True)
 _FINISHED = _counter("serving_requests_finished_total",
-                     "Requests finished (by reason).", labelnames=("reason",))
-_QUEUED = _gauge("serving_queue_depth", "Requests waiting for admission.")
+                     "Requests finished (by reason).", labelnames=("reason",),
+                     always=True)
+_QUEUED = _gauge("serving_queue_depth", "Requests waiting for admission.",
+                 always=True)
 _RUNNING = _gauge("serving_running_sequences",
-                  "Sequences in prefill or decode.")
+                  "Sequences in prefill or decode.", always=True)
 
 _req_counter = itertools.count()
 
@@ -34,17 +37,28 @@ _req_counter = itertools.count()
 class Request:
     """One generation request and its lifecycle timestamps
     (time.monotonic(); queue time = prefill_start - arrival, TTFT =
-    first_token - arrival)."""
+    first_token - arrival; reference scheduler.py:56-120).
+
+    `tier` labels the SLO metrics; `trace_ctx` is a distributed trace
+    context copied into every span of the request's trace; a
+    `prefill_only` request computes, registers and keeps its prompt's KV
+    blocks, then finishes with reason "prefill_complete" and no token."""
 
     def __init__(self, prompt: List[int], max_new_tokens: int = 16,
                  temperature: float = 0.0, eos_token_id: Optional[int] = None,
-                 request_id: Optional[str] = None):
+                 request_id: Optional[str] = None, tier: str = "default",
+                 trace_ctx: Optional[dict] = None,
+                 prefill_only: bool = False):
         self.request_id = (request_id if request_id is not None
                            else f"req-{next(_req_counter)}")
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.eos_token_id = eos_token_id
+        self.tier = str(tier) if tier else "default"
+        self.trace = None             # observability.RequestTrace
+        self.trace_ctx = dict(trace_ctx) if trace_ctx else None
+        self.prefill_only = bool(prefill_only)
         self.output_tokens: List[int] = []
         self.state = "queued"
         self.finish_reason: Optional[str] = None
@@ -58,11 +72,22 @@ class Request:
         self.prefix_matched = 0       # prompt tokens served from the cache
         self._cow_src = None          # shared block forked at admission
         self._ws_caches = None        # contiguous prefill workspace
+        self._pending_n = 0           # sampled tokens not yet fetched
         self._reserved_blocks = 0
         # self-speculation state, attached by the engine when spec is on
         # (greedy requests only); kept after finish for telemetry
         self._drafter = None          # speculative.NgramDrafter
         self._spec = None             # speculative.SpecState
+        self._done = threading.Event()       # set at finish (HTTP waiters)
+        self._progress = threading.Event()   # pulsed per output flush
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._done.wait(timeout)
+
+    def wait_progress(self, timeout: Optional[float] = None) -> bool:
+        """Block until more output tokens were flushed (or the request
+        finished). Streaming handlers clear and re-wait in a loop."""
+        return self._progress.wait(timeout)
 
     # -- telemetry --------------------------------------------------------
     def queue_seconds(self) -> Optional[float]:
@@ -83,10 +108,10 @@ class Request:
         return (n - 1) / dt if n > 1 and dt > 0 else None
 
     def telemetry(self) -> dict:
-        """The reference's per-request record (scheduler.py:138-153; the
-        port has one admission tier and no "tier" key)."""
+        """The reference's per-request record (scheduler.py:138-153)."""
         t = {
             "request_id": self.request_id,
+            "tier": self.tier,
             "state": self.state,
             "finish_reason": self.finish_reason,
             "prompt_tokens": len(self.prompt),
@@ -193,6 +218,8 @@ class Scheduler:
         req.state = "finished"
         req.finish_reason = reason
         req.finish_time = time.monotonic()
+        req._done.set()
+        req._progress.set()   # wake streaming readers for the final drain
         _FINISHED.inc(reason=reason)
         self._publish()
 

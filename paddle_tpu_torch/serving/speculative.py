@@ -36,13 +36,13 @@ from ..observability.registry import counter as _counter
 # here rather than being re-derived in the engine
 _SPEC_PROPOSED = _counter("serving_spec_proposed_total",
                           "Draft tokens offered to speculative "
-                          "verification.")
+                          "verification.", always=True)
 _SPEC_ACCEPTED = _counter("serving_spec_accepted_total",
                           "Draft tokens accepted by speculative "
-                          "verification.")
+                          "verification.", always=True)
 _SPEC_ROLLBACKS = _counter("serving_spec_rollbacks_total",
                            "Speculative ticks that rejected >= 1 draft "
-                           "token (exact KV rollback).")
+                           "token (exact KV rollback).", always=True)
 
 
 class NgramDrafter:

@@ -2,10 +2,13 @@
 
     python3 -m paddle_tpu_torch.tools.profile_serving [--model llama|gpt]
                                                       [--spec-k K]
+                                                      [--fuse-steps K]
 
 Builds Llama-2-7B (bf16, seeded random weights; `--model gpt`: GPT-3 1.3B)
 behind ServingEngine (8 slots, 16-token blocks, 256-token prefill chunks,
-2048 context, speculation with `--spec-k` drafts a tick, default 0), fills
+2048 context, speculation with `--spec-k` drafts a tick, default 0, and
+`--fuse-steps` greedy steps a tick, default 1: every greedy tick replays
+the engine's captured CUDA graph of that many steps), fills
 all 8 slots with distinct 512-token prompts (with --spec-k, each a seeded
 16-48-token pattern repeated, the traffic speculation serves), and traces
 with torch.profiler:
@@ -24,7 +27,8 @@ with torch.profiler:
     values.
 
 For each it prints one JSON line: host wall time per tick (synchronised;
-for decode also without the profiler, which slows the host), device busy
+for decode also without the profiler, which slows the host, and per
+decode step), device busy
 time per tick (the union of the kernels' intervals), the busy share,
 kernels per tick, the paged decode kernels' (with their split combine)
 and the verify kernels' device time per tick and share of the busy time,
@@ -103,7 +107,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("llama", "gpt"), default="llama")
     ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--fuse-steps", type=int, default=1)
     args = ap.parse_args(argv)
+    if args.spec_k and args.fuse_steps > 1:
+        ap.error("--spec-k and --fuse-steps > 1 exclude each other")
     if args.model == "gpt":
         cfg = GPTConfig.gpt3_1p3b()
         cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
@@ -117,7 +124,8 @@ def main(argv=None):
         with torch.no_grad():
             head.weight.zero_()
     eng = ServingEngine(model, max_slots=8, block_size=16, prefill_chunk=256,
-                        max_model_len=2048, spec_k=args.spec_k)
+                        max_model_len=2048, spec_k=args.spec_k,
+                        fuse_steps=args.fuse_steps)
     rng = np.random.default_rng(0)
 
     def prompt(n):
@@ -139,9 +147,14 @@ def main(argv=None):
     torch.cuda.synchronize()
     unprofiled = (time.perf_counter() - t0) * 1e3 / 8
     decode = _profile(torch, eng.step, 8)
-    head = {"model": args.model, "spec_k": args.spec_k}
+    head = {"model": args.model, "spec_k": args.spec_k,
+            "fuse_steps": args.fuse_steps,
+            "card": torch.cuda.get_device_name(0)}
     print(json.dumps({"phase": "decode", **head,
-                      "wall_ms_per_tick_unprofiled": unprofiled, **decode}),
+                      "wall_ms_per_tick_unprofiled": unprofiled,
+                      "wall_ms_per_step_unprofiled":
+                          unprofiled / args.fuse_steps,
+                      "graph_replays": eng.graph_replays, **decode}),
           flush=True)
 
     if args.spec_k:

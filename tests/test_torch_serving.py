@@ -229,11 +229,20 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(n for n in new if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in new if n.startswith('paddle_tpu_torch')]))\n")
+        "print(' '.join(sorted(n for n in new\n"
+        "                      if n.startswith('paddle_tpu_torch'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    seen = set(out.stdout.split())
+    assert len(seen) >= 20
+    # the serving front end's modules are among those walked
+    for mod in ("observability.registry", "observability.spans",
+                "observability.sinks", "observability.flight_recorder",
+                "observability.telemetry", "observability.anomaly",
+                "observability.memory", "observability.serve",
+                "serving.observability", "serving.server"):
+        assert "paddle_tpu_torch." + mod in seen, mod
 
 
 def test_entry_points_raise_without_a_gpu(models, monkeypatch):

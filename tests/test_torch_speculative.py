@@ -844,12 +844,17 @@ def test_sampled_rider_takes_one_token_a_tick(zero_gpt):
     greedy = eng.submit([5, 0, 0, 0, 0], max_new_tokens=16)
     rider = eng.submit([3, 1, 4, 1, 5], max_new_tokens=6, temperature=0.8)
     spec_ticks_with_rider = 0
+
+    def taken():
+        # tokens emitted, fetched or still deferred on the device
+        return len(rider.output_tokens) + rider._pending_n
+
     while eng.sched.has_work():
-        n_rider, ticks = len(rider.output_tokens), eng.spec_ticks
+        n_rider, ticks = taken(), eng.spec_ticks
         running = rider.state == "running"
         eng.step()
         if running:
-            assert len(rider.output_tokens) == n_rider + 1
+            assert taken() == n_rider + 1
             spec_ticks_with_rider += eng.spec_ticks > ticks
     assert spec_ticks_with_rider > 0 and len(rider.output_tokens) == 6
     assert all(0 <= t < 1024 for t in rider.output_tokens)
