@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving paths (Llama, with and without
-self-speculation, fused greedy decode as CUDA graphs, behind the HTTP
-server, and GPT) and training paths (GPT, and Llama on packed
-documents) on one H100 and hold each of its hand-written kernels against
-its plain PyTorch version.
+"""Drive paddle_tpu_torch's serving paths (Llama, greedy and sampled,
+with and without self-speculation, every decode tick, verify window and
+prefill chunk a CUDA graph replay, behind the HTTP server, and GPT) and
+training paths (GPT, and Llama on packed documents) on one H100 and hold
+each of its hand-written kernels against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -67,13 +67,15 @@ final line):
                a ragged small one
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
-               for token, greedy
+               for token, greedy; every tick of a kind replayed its graph;
+               generate()'s calls (a host-int pos) launch contiguous RoPE
+               once a layer a call (the kernel summary's count for it)
   5. spec_parity - Llama-2-7B's and GPT-3 1.3B's widths, 2 layers each,
                fp32, prefix cache on: ServingEngine(spec_k=4) must equal
                ServingEngine(spec_k=0) and model.generate token for token,
                with the seeded weights and then with the head zeroed (every
                target 0); over the phase, verify ticks, accepted drafts and
-               rollbacks must all be > 0
+               rollbacks must all be > 0, and every tick replayed its graph
   6. fuse_parity - the same widths and 2 layers, fp32 (TF32 off):
                ServingEngine(fuse_steps=4), whose greedy ticks replay a
                captured 4-step CUDA graph, must equal fuse_steps=1 and
@@ -84,32 +86,50 @@ final line):
                /kv/ingest between two ServingServers: pages bitwise equal,
                the receiver's decode (a full prefix hit) equal to the
                sender's
-  7. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
+  7. sampler - the same widths and 2 layers, fp32: the engine's sampler
+               captured as a CUDA graph with its generator registered,
+               replayed between eager draws: each of 6 x 20,000 draws of a
+               64-way row within total variation 0.02 of softmax(logits /
+               0.8), no two alike; two engines seeded alike give the same
+               tokens on a mixed batch (greedy, 0.8, greedy, 1e-6), another
+               seed other sampled tokens; greedy and 1e-6 rows equal
+               generate(); every sampled tick replayed the sampled graph
+  8. slice   - main path 1: Llama-2-7B at full depth in bf16 served by
                ServingEngine (8 slots, 16-token blocks, 2048 context) over 10
                requests (prompts 16-1024 tokens, two sharing a 256-token
                prefix, one repeated for a copy-on-write hit), 64 new tokens
                each, at fuse_steps 1 and then 4 (tokens/s, TTFT, the two
                runs' bf16 agreement); every serving kernel's launch count
-               over each run must be > 0, and per-token RoPE must launch
-               once a layer a step in a pure decode tick (a graph replay's
-               launches added to the counts)
-  8. graph_tick - the same model, 8 slots decoding: one replayed greedy
-               tick against the same body run eagerly from the same saved
-               state (equal tokens, bitwise equal new K/V rows), k = 1 and
-               4; a replay's launches RMSNorm 65, per-token RoPE 32 and
-               paged decode 32 times k; the kernel names torch.profiler
-               records for one replay; wall and device-busy ms and the
-               busy share, eager body against graph, and whole engine ticks
-               at fuse_steps 1 and 4; each graph's pool bytes
-  9. server_slice - main path 5: a ServingServer(port=0) over the 7B
+               over each run must be > 0, per-token RoPE must launch once a
+               layer a step in a pure decode tick (a graph replay's
+               launches added to the counts), paged decode once a layer a
+               decode step, and every decode tick and single-prompt
+               prefill chunk must have replayed its graph
+  9. sampled_slice - the same requests with every other one at
+               temperature 0.8, fuse_steps 4: tokens/s, TTFT, replays and
+               ticks by kind, launches a replay; every sampled tick must
+               have replayed the sampled graph, with paged decode 32 a step
+ 10. graph_tick - the same model, 8 slots decoding at 512 context: each
+               graph body run eagerly against its replay from one saved
+               state: greedy k = 1 and 4 (tokens, bitwise K/V rows), the
+               sampled step (the greedy slots' tokens, K/V rows), a 256-token
+               prefill chunk in the lane (logits, lane rows) and, on a spec_k
+               = 4 engine, the verify window (greedy, acc, nxt, K/V rows);
+               a replay's launches RMSNorm 65, RoPE 32, and paged decode 32
+               a step or paged verify 32; the kernel names torch.profiler
+               records for one decode replay; wall and device-busy ms and
+               the busy share, eager body against graph, for each, and
+               whole engine ticks at fuse_steps 1 and 4; pool bytes by kind
+ 11. server_slice - main path 5: a ServingServer(port=0) over the 7B
                engine with fuse_steps=4: 8 concurrent HTTP clients (4
                streaming), 64 new tokens each, every stream's lines adding
                up to its count; /metrics parsed back (TTFT count = the
-               requests), /healthz 200, /stats consistent; a prefill_only
-               1,024-token prompt exported over /kv/export and ingested by
-               a second server (64 blocks, their bytes, pages bitwise
-               equal, a full prefix hit on the receiver)
- 10. spec_slice - main path 4: the same model and engine with spec_k=4
+               requests), /healthz 200, /stats consistent; every tick
+               replayed its graph; a prefill_only 1,024-token prompt
+               exported over /kv/export and ingested by a second server (64
+               blocks, their bytes, pages bitwise equal, a full prefix hit
+               on the receiver)
+ 12. spec_slice - main path 4: the same model and engine with spec_k=4
                (ngram 3, pause 32) over 10 requests (7 repetitive: 16-48
                token patterns repeated to 128-1024 tokens; 3 random), 64
                new tokens each, then the same requests with spec_k=0:
@@ -117,9 +137,10 @@ final line):
                tick and the bf16 agreement of the two runs; first with the
                seeded weights, then (the main path) with the head zeroed,
                every target 0; paged verify launches must be 32 x verify
-               ticks and paged decode 32 x plain decode ticks, both > 0 on
-               the main path, with drafts accepted and rolled back
- 11. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
+               ticks and paged decode 32 x plain decode ticks, every tick
+               must have replayed its graph, verify replays > 0 on the main
+               path, with drafts accepted and rolled back
+ 13. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
                slots, 16-token blocks, 2048 context = its positions): a
                1,990-token repetitive prompt that reaches the end of the
                context, five shorter ones, then a 1,984-token cached prefix
@@ -127,20 +148,21 @@ final line):
                padding past the wpe table); with the seeded weights and
                then with the tied head zeroed (every target 0, so the long
                request's windows run past the table too); no output logit
-               may be non-finite, and paged decode and verify must launch
- 12. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+               may be non-finite, paged decode and verify must launch, and
+               every tick must have replayed its graph
+ 14. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
                three TrainSteps (AdamW, global-norm clip) on the card and the
                same three on the CPU (plain versions) from the same weights
                and batch; losses and parameters must agree (bounds below)
- 13. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
+ 15. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
                AdamW, batch 4 x 2048 through TrainStep: one warm-up step and
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
- 14. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 16. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
-               three TrainSteps on the card and on the CPU, as in 12
- 15. train_packed_slice - main path 3: Llama-2-7B at its published widths
+               three TrainSteps on the card and on the CPU, as in 14
+ 17. train_packed_slice - main path 3: Llama-2-7B at its published widths
                cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
                tokens from PackedLMBatches: one warm-up step and three
                timed steps; loss, step time, tokens/s (all and non-padding),
@@ -1447,6 +1469,16 @@ def kernels_phase(torch):
 
 
 # --------------------------------------------------------- served path
+def graph_gate(eng, must=()):
+    """The engine's graph stats by kind; raises unless every tick of each
+    kind replayed its CUDA graph, and each kind in `must` replayed."""
+    g = eng.graph_stats()
+    if g["replays"] != g["ticks"] or any(g["replays"][k] <= 0 for k in must):
+        raise AssertionError(f"graph replays {g['replays']} against ticks "
+                             f"{g['ticks']}; must replay {must}")
+    return g
+
+
 def top2_margin(torch, model, seq, t):
     """Gap between the two largest logits predicting token t of seq."""
     with torch.no_grad():
@@ -1458,9 +1490,13 @@ def top2_margin(torch, model, seq, t):
 
 def parity_phase(torch, cfg, device, new_tokens=16, engine_kw=None,
                  prompt_lens=(700, 40, 23, 300)):
-    """ServingEngine.generate vs model.generate, greedy, token for token."""
+    """ServingEngine.generate vs model.generate, greedy, token for token;
+    every engine tick of a kind replayed its graph. generate()'s calls
+    (a host-int pos) must launch the contiguous RoPE kernel once a layer a
+    call: its launches here are the kernel's count in the summary."""
     import numpy as np
     from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import gpu
     from paddle_tpu_torch.serving import ServingEngine
 
     model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=SEED)
@@ -1469,9 +1505,17 @@ def parity_phase(torch, cfg, device, new_tokens=16, engine_kw=None,
                for n in prompt_lens]
     eng = ServingEngine(model, device=device, **(engine_kw or {}))
     got = eng.generate(prompts, max_new_tokens=new_tokens)
-    for p, g in zip(prompts, got):
-        want = model.generate(torch.tensor([p], device=model.device),
-                              max_new_tokens=new_tokens)[0].tolist()
+    graphs = graph_gate(eng, ("decode", "prefill"))
+    # generate() passes a host-int pos: the contiguous RoPE kernel
+    gpu.reset_launch_counts()
+    wants = [model.generate(torch.tensor([p], device=model.device),
+                            max_new_tokens=new_tokens)[0].tolist()
+             for p in prompts]
+    rope = gpu.launch_counts(("rope",))["rope"]
+    if rope != cfg.num_layers * new_tokens * len(prompts):
+        raise AssertionError(f"generate() launched contiguous RoPE {rope} "
+                             f"times, expected one a layer a call")
+    for p, g, want in zip(prompts, got, wants):
         if g != want:
             t = next(i for i, (a, b) in enumerate(zip(g, want)) if a != b)
             raise AssertionError(
@@ -1482,14 +1526,19 @@ def parity_phase(torch, cfg, device, new_tokens=16, engine_kw=None,
     return {"phase": "parity", "prompts": [len(p) for p in prompts],
             "new_tokens": new_tokens, "token_match": True,
             "batched_prefills": st["batched_prefills"],
-            "prefill_programs": st["prefill_programs"]}
+            "prefill_programs": st["prefill_programs"], "graphs": graphs,
+            "generate_rope_launches": rope}
 
 
 def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
-                reset, counts):
-    """Main path 1: waves of requests through ServingEngine. Returns the
-    sequences and the phase summary; launch counts are read just after the
-    drive."""
+                reset, counts, temperature=0.0):
+    """Main path 1: waves of requests through ServingEngine, every other
+    one sampled at `temperature` when it is > 0. Returns the sequences and
+    the phase summary; launch counts are read just after the drive. Every
+    tick of a kind must have replayed its graph (decode or sampled, and
+    prefill, at least once), paged decode must have launched once a layer
+    a decode step, and per-token RoPE once a layer a step in the first
+    pure decode tick."""
     import numpy as np
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -1516,18 +1565,26 @@ def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
     if device.type != "cpu":
         torch.cuda.reset_peak_memory_stats()
     reqs = []
-    decode_tick = None
+    decode_tick = tick_steps = None
+
+    def steps():
+        t = eng.graph_stats()["ticks"]
+        return t["decode"] * eng.fuse_steps + t["sampled"]
+
     reset()
     t1 = time.perf_counter()
     for wave in (wave1, wave2):
-        reqs += [eng.submit(p, max_new_tokens=new_tokens) for p in wave]
+        reqs += [eng.submit(p, max_new_tokens=new_tokens,
+                            temperature=temperature if i % 2 else 0.0)
+                 for i, p in enumerate(wave, start=len(reqs))]
         while eng.sched.has_work():
             pure = not eng.sched.waiting and not eng.sched.prefilling
-            before = counts()
+            before, steps_before = counts(), steps()
             eng.step()
             if pure and decode_tick is None:
                 after = counts()
                 decode_tick = {k: after[k] - before[k] for k in after}
+                tick_steps = steps() - steps_before
     sync()
     wall = time.perf_counter() - t1
     launches = counts()
@@ -1543,18 +1600,31 @@ def slice_phase(torch, model, engine_kw, new_tokens, wave1_lens, prefix_len,
                              f"{missing} ({launches})")
     # one fused q+k RoPE launch a layer a step in a pure decode tick (a
     # graph replay's launches are added to the counts)
-    want = cfg.num_layers * eng.fuse_steps
-    if decode_tick is None or decode_tick["rope_packed"] != want:
+    want = cfg.num_layers * (tick_steps or 0)
+    if decode_tick is None or not want or decode_tick["rope_packed"] != want:
         raise AssertionError(f"per-token RoPE launches in a pure decode "
                              f"tick {decode_tick}, expected {want} (one a "
                              f"layer a step)")
+    graphs = graph_gate(eng, ("sampled" if temperature > 0 else "decode",
+                              "prefill"))
+    if launches["paged_decode"] != cfg.num_layers * steps():
+        raise AssertionError(f"paged decode launched "
+                             f"{launches['paged_decode']} times over "
+                             f"{steps()} decode steps ({graphs})")
     st = eng.stats()
     if st["kv"]["used_blocks"] or not st["kv"]["conservation_ok"]:
         raise AssertionError(f"KV blocks leaked: {st['kv']}")
     generated = sum(len(r.output_tokens) for r in reqs)
     return [r.prompt + r.output_tokens for r in reqs], {
-        "phase": "slice", "fuse_steps": eng.fuse_steps,
-        "graph_replays": eng.graph_replays, "layers": cfg.num_layers,
+        "phase": "sampled_slice" if temperature > 0 else "slice",
+        "fuse_steps": eng.fuse_steps, "temperature": temperature,
+        "sampled_requests": sum(r.temperature > 0 for r in reqs),
+        "graphs": graphs,
+        "launches_per_replay": {
+            kind: eng.graph_launches(kind, size) for kind, size in (
+                ("decode", eng.fuse_steps), ("sampled", 1),
+                ("prefill", eng.prefill_chunk))},
+        "layers": cfg.num_layers,
         "hidden": cfg.hidden_size, "dtype": str(model._cache_dtype()),
         "requests": len(reqs), "prompt_tokens": [len(r.prompt) for r in reqs],
         "new_tokens_each": new_tokens, "init_s": init_s, "wall_s": wall,
@@ -1622,6 +1692,8 @@ def spec_parity_phase(torch, models, new_tokens=24, engine_kw=None):
                             f"margin there "
                             f"{top2_margin(torch, model, other, t):.3g}")
             spec = on.stats()["speculative"]
+            for e in (on, off):
+                graph_gate(e)
             for k in totals:
                 totals[k] += spec[k]
             rows.append({"model": name, "weights": weights,
@@ -1669,14 +1741,15 @@ def _drive(torch, eng, prompts, new_tokens, reset, counts, layers):
     if any(launches[k] != v for k, v in expect.items()):
         raise AssertionError(f"paged launches {launches} are not {layers} "
                              f"a tick ({expect})")
+    graphs = graph_gate(eng, ("prefill",))
     generated = sum(len(r.output_tokens) for r in reqs)
     return reqs, {
         "wall_s": wall, "engine_steps": st["steps"],
         "decode_ticks": decode_ticks, "plain_decode_ticks": plain,
         "generated_tokens": generated, "tokens_per_s": generated / wall,
         "mean_ttft_s": statistics.mean(r.ttft_seconds() for r in reqs),
-        "speculative": st["speculative"], "launches": launches,
-        "launches_per_tick": per_tick}
+        "speculative": st["speculative"], "graphs": graphs,
+        "launches": launches, "launches_per_tick": per_tick}
 
 
 def _agreement(torch, model, on, off):
@@ -1712,9 +1785,10 @@ def spec_slice_phase(torch, model, engine_kw, new_tokens, reset, counts,
         tokens) is rejected and rolled back. This arm is the main path.
 
     Gates, in every run: paged verify launches == layers x verify ticks and
-    paged decode launches == layers x plain decode ticks; in the main path
-    both > 0, every kernel of the path launched, drafts accepted and rolled
-    back. In bf16 the two runs of an arm may part at a near-tie (the
+    paged decode launches == layers x plain decode ticks, and every tick of
+    a kind (verify ones included) replayed its CUDA graph; in the main path
+    verify replays > 0, every kernel of the path launched, drafts accepted
+    and rolled back. In bf16 the two runs of an arm may part at a near-tie (the
     window's GEMMs round at slots x W rows): reported as agreement and the
     first mismatch's top-2 logit margin."""
     import numpy as np
@@ -1744,15 +1818,15 @@ def spec_slice_phase(torch, model, engine_kw, new_tokens, reset, counts,
                                    counts, layers)
             outs[k] = [r.prompt + r.output_tokens for r in reqs]
             del eng
-            torch.cuda.empty_cache()
+            release(torch)
         arms[weights] = {"spec": runs[spec_k], "plain": runs[0],
                          "bf16_agreement": _agreement(torch, model,
                                                       outs[spec_k], outs[0])}
     main = arms["zero_head"]["spec"]
     missing = [k for k in kernels if main["launches"][k] <= 0]
     spec = main["speculative"]
-    if missing or min(spec["ticks"], spec["accepted"], spec["rollbacks"]) \
-            <= 0:
+    if missing or min(spec["ticks"], spec["accepted"], spec["rollbacks"],
+                      main["graphs"]["replays"]["verify"]) <= 0:
         raise AssertionError(f"the spec path did not run every kernel, "
                              f"accept and roll back: {missing} ({main})")
     return {"phase": "spec_slice", "layers": layers,
@@ -1827,6 +1901,7 @@ def fuse_parity_phase(torch, cfg, device="cuda"):
             eng.run_until_idle()
         outs[fuse] = [r.output_tokens for r in reqs]
         finish[fuse] = [r.finish_reason for r in reqs]
+        graph_gate(eng, ("decode", "prefill"))
         if fuse == 4:
             replays, matched = eng.graph_replays, reqs[-1].prefix_matched
         del eng
@@ -1892,9 +1967,86 @@ def fuse_parity_phase(torch, cfg, device="cuda"):
                              "b_decode_equals_a": True}}
 
 
+def sampler_phase(torch, cfg, n=20_000, temp=0.8):
+    """Sampling on the card, at Llama-2-7B's widths, 2 layers, fp32 (TF32
+    off):
+
+      * the captured sampler: the engine's `_sample` over n copies of one
+        64-entry logits row, captured as a CUDA graph with the engine's
+        generator registered, replayed three times between eager draws on
+        the same generator: each draw's total variation from
+        softmax(logits / T) <= 0.02 (about 0.008 expected of exact draws),
+        and no two of the six alike (a generator whose offset did not
+        advance would repeat a replay's numbers);
+      * engines: two seeded alike give the same tokens on a mixed batch
+        (greedy, 0.8, greedy, 1e-6), a third seed other sampled tokens and
+        the same greedy ones; the greedy and 1e-6 rows equal generate();
+        every sampled tick replayed the sampled graph."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    model = LlamaForCausalLM(cfg, device="cuda", dtype="float32", seed=SEED)
+    kw = dict(max_slots=4, block_size=16, prefill_chunk=256,
+              max_model_len=1024)
+    eng = ServingEngine(model, seed=11, **kw)
+    logits = (torch.from_numpy(np.random.default_rng(SEED + 11)
+                               .standard_normal(64).astype(np.float32)) * 2)
+    logits = logits.cuda().expand(n, 64).contiguous()
+    temps = torch.full((n,), temp, device="cuda")
+    draw = torch.zeros(n, dtype=torch.int64, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(eng._gen)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        draw.copy_(eng._sample(logits, temps))
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        draw.copy_(eng._sample(logits, temps))
+    draws = []
+    for _ in range(3):
+        graph.replay()
+        draws += [draw.clone(), eng._sample(logits, temps)]
+    p = torch.softmax(logits[0].double() / temp, dim=-1)
+    tv = [0.5 * float((torch.bincount(d, minlength=64).double() / n
+                       - p).abs().sum()) for d in draws]
+    distinct = len({tuple(d.tolist()) for d in draws})
+    if max(tv) > 0.02 or distinct != len(draws):
+        raise AssertionError(f"captured sampler: total variation {tv}, "
+                             f"{distinct} distinct of {len(draws)} draws")
+    del graph, eng
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, m)]
+               for m in (40, 300, 23, 260)]
+    temps = (0.0, 0.8, 0.0, 1e-6)
+    runs = []
+    for seed in (11, 11, 12):
+        e = ServingEngine(model, seed=seed, **kw)
+        reqs = [e.submit(pr, max_new_tokens=16, temperature=t)
+                for pr, t in zip(prompts, temps)]
+        e.run_until_idle()
+        graphs = graph_gate(e, ("sampled", "prefill"))
+        runs.append([r.output_tokens for r in reqs])
+        del e
+    greedy = [_greedy(torch, model, pr, 16) for pr in prompts]
+    if runs[0] != runs[1] or runs[2][1] == runs[0][1] \
+            or any(runs[j][i] != greedy[i] for j in range(3)
+                   for i in (0, 2, 3)):
+        raise AssertionError(f"seeded engines: {runs}; generate() "
+                             f"{greedy}")
+    return {"phase": "sampler", "dtype": "float32", "draws": n,
+            "temperature": temp, "total_variation": tv,
+            "distinct_draws": distinct, "engine_temps": list(temps),
+            "same_seed_equal": True, "other_seed_differs": True,
+            "greedy_rows_equal_generate": True, "graphs": graphs}
+
+
 def _tick_rows(torch, eng, k):
-    """(page, offset) of every K/V row the next k greedy steps write for
-    the live slots (the column clamped to the table, as the op clamps)."""
+    """(page, offset) of every K/V row the next k steps (or a window of k
+    tokens) write for the live slots (the column clamped to the table, as
+    the decode op clamps; the windows here stay inside their tables)."""
     bs = eng.block_size
     slots = eng._d_live.nonzero()[:, 0]
     pos = (eng._d_lens.long()[slots][:, None]
@@ -1904,19 +2056,49 @@ def _tick_rows(torch, eng, k):
     return page.reshape(-1), (pos % bs).reshape(-1)
 
 
-def _save_state(eng, page, off):
-    return (eng._d_toks.clone(), eng._d_lens.clone(),
-            [(kp[page, off].clone(), vp[page, off].clone())
-             for kp, vp in eng.pool.layers])
+def _page_rows(torch, eng, k):
+    """(snapshot, restore) of the decode state and the K/V rows the next k
+    steps write: snapshot() reads the rows, restore() puts back the state
+    (tokens, lengths, rows) saved now."""
+    page, off = _tick_rows(torch, eng, k)
+    saved = (eng._d_toks.clone(), eng._d_lens.clone(),
+             [(kp[page, off].clone(), vp[page, off].clone())
+              for kp, vp in eng.pool.layers])
+
+    def snapshot():
+        return [t[page, off] for kv in eng.pool.layers for t in kv]
+
+    def restore():
+        toks, lens, rows = saved
+        for (kp, vp), (k_, v_) in zip(eng.pool.layers, rows):
+            kp[page, off] = k_
+            vp[page, off] = v_
+        eng._d_toks.copy_(toks)
+        eng._d_lens.copy_(lens)
+
+    return snapshot, restore
 
 
-def _restore_state(eng, page, off, saved):
-    toks, lens, rows = saved
-    for (kp, vp), (k, v) in zip(eng.pool.layers, rows):
-        kp[page, off] = k
-        vp[page, off] = v
-    eng._d_toks.copy_(toks)
-    eng._d_lens.copy_(lens)
+def _body_vs_replay(torch, eng, key, snapshot, restore, pick):
+    """From one state, run the graph body of `key` eagerly, restore, replay
+    its captured graph. Returns the launch counts' deltas of the replay,
+    whether pick(output) is equal and whether the rows snapshot() reads
+    are bitwise equal; the state is restored after."""
+    from paddle_tpu_torch.ops import gpu
+
+    body, out = eng._bodies[key]
+    with torch.no_grad():
+        body(out)
+    eager = (pick(out).clone(), [r.clone() for r in snapshot()])
+    restore()
+    before = gpu.launch_counts()
+    got = pick(eng._run(key)).clone()
+    after = gpu.launch_counts()
+    rows_equal = all(torch.equal(a, b) for a, b in zip(eager[1],
+                                                       snapshot()))
+    restore()
+    return ({n: after[n] - before[n] for n in after if after[n] != before[n]},
+            torch.equal(eager[0], got), rows_equal)
 
 
 def _busy_ms(events):
@@ -1957,110 +2139,155 @@ def _tick_times(torch, fn, calls=8):
             "kernels_per_call": len(kernels) / calls}
 
 
+def _decoding(torch, eng, vocab, prompt_len, new_tokens, seed):
+    """Fill every slot with a decoding request; fetch what is pending."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reqs = [eng.submit([int(t) for t in rng.integers(0, vocab, prompt_len)],
+                       max_new_tokens=new_tokens)
+            for _ in range(eng.max_slots)]
+    while eng.sched.waiting or eng.sched.prefilling:
+        eng.step()
+    eng._flush_pending()
+    torch.cuda.synchronize()
+    return reqs
+
+
 def graph_tick_phase(torch, model, engine_kw, new_tokens=512,
                      prompt_len=512):
-    """The decode tick as a CUDA graph, on the 7B bf16 slice model with 8
-    slots decoding 512-token prompts:
+    """Each kind of graph body on the 7B bf16 slice model, 8 slots decoding
+    512-token prompts:
 
-      * replay against eager: from one saved state (tokens, lengths and
-        the K/V rows the tick writes), the k-step body run eagerly and the
-        captured graph replayed must give equal tokens and bitwise equal
-        new K/V rows, k = 1 and 4 (the same kernels on the same shapes);
-      * launches: the counts' deltas a replay adds must be RMSNorm 65,
-        per-token RoPE 32 and paged decode 32, times k, and nothing else;
+      * replay against eager: from one saved state, the body run eagerly
+        and its captured graph replayed must give equal outputs and bitwise
+        equal new K/V rows: greedy decode at k = 1 and 4 (tokens), the
+        sampled step with half the slots at temperature 0.8 (the greedy
+        slots' tokens; every slot's K/V rows), the verify window (spec_k
+        4, drafts of 0-4 tokens: greedy, acc and nxt) and a 256-token
+        prefill chunk at position 512 in the lane (the kept row's logits,
+        the lane's new rows);
+      * launches: the counts' deltas a replay adds must be RMSNorm 65 and
+        per-token RoPE 32, and paged decode 32 a step (decode, sampled),
+        paged verify 32 (verify) or no paged kernel (prefill);
       * profiler: the kernel names torch.profiler records for one replay
-        (or that it records none inside a graph);
+        of the k = 1 and 4 decode graphs (or that it records none inside
+        a graph);
       * timing: wall and device-busy ms per call and the busy share, the
-        eager body against the graph at k = 1 and 4, and whole engine
+        eager body against the graph, for every body, and whole engine
         ticks (graph, deferred fetch, bookkeeping) at fuse_steps 1 and 4;
-      * memory: each graph's private pool, in bytes.
+      * memory: the bytes each kind's captures added to the engine's
+        shared graph pool.
 
     Every measurement starts from the saved state and puts it back."""
     import collections
 
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.ops import gpu
     from paddle_tpu_torch.serving import ServingEngine
 
     layers = model.config.num_layers
+    vocab = model.config.vocab_size
     eng = ServingEngine(model, **dict(engine_kw, fuse_steps=4))
-    rng = np.random.default_rng(SEED + 7)
-    reqs = [eng.submit([int(t) for t in rng.integers(
-        0, model.config.vocab_size, prompt_len)], max_new_tokens=new_tokens)
-        for _ in range(eng.max_slots)]
-    while eng.sched.waiting or eng.sched.prefilling:
-        eng.step()
-    eng._flush_pending()
-    torch.cuda.synchronize()
+    reqs = _decoding(torch, eng, vocab, prompt_len, new_tokens, SEED + 7)
     out = {"phase": "graph_tick", "layers": layers, "slots": eng.max_slots,
            "prompt_tokens": prompt_len,
-           "graph_pool_bytes": {str(k): v for k, v in
-                                eng.graph_pool_bytes.items()}}
+           "graph_pool_bytes": dict(eng.graph_pool_bytes)}
     cuda = torch.autograd.DeviceType.CUDA
-    with torch.no_grad():
-        for k in (1, 4):
-            want = {"rms_norm": (2 * layers + 1) * k,
-                    "rope_packed": layers * k, "paged_decode": layers * k}
-            captured = eng.graph_launches(k)
-            page, off = _tick_rows(torch, eng, k)
-            saved = _save_state(eng, page, off)
-            body = eng._out_buffer(k)
-            eng._decode_body(k, body)
-            eager = (body.clone(), [(kp[page, off].clone(),
-                                     vp[page, off].clone())
-                                    for kp, vp in eng.pool.layers])
-            _restore_state(eng, page, off, saved)
-            before = gpu.launch_counts()
-            toks = eng._greedy_steps(k)
-            after = gpu.launch_counts()
-            replayed = {n: after[n] - before[n] for n in after
-                        if after[n] != before[n]}
-            rows_equal = all(
-                torch.equal(ek, kp[page, off]) and torch.equal(ev,
-                                                               vp[page, off])
-                for (ek, ev), (kp, vp) in zip(eager[1], eng.pool.layers))
-            toks_equal = torch.equal(eager[0], toks)
-            _restore_state(eng, page, off, saved)
-            if captured != want or replayed != want or not toks_equal \
-                    or not rows_equal:
-                raise AssertionError(
-                    f"graph k={k}: launches captured {captured}, a replay "
-                    f"{replayed}, expected {want}; tokens equal "
-                    f"{toks_equal}, K/V rows bitwise equal {rows_equal}")
-            # what the profiler sees of one replay
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                eng._greedy_steps(k)
-                torch.cuda.synchronize()
-            _restore_state(eng, page, off, saved)
-            names = collections.Counter(
-                e.name[:60] for e in prof.events() if e.device_type == cuda)
+    norm_rope = {"rms_norm": 2 * layers + 1, "rope_packed": layers}
 
-            def eager_fn():
-                b = eng._out_buffer(k)
-                eng._decode_body(k, b)
-                return b.clone()
+    def check(name, key, snapshot, restore, pick, want):
+        captured = eng.graph_launches(*key)
+        replayed, equal, rows_equal = _body_vs_replay(
+            torch, eng, key, snapshot, restore, pick)
+        if captured != want or replayed != want or not equal \
+                or not rows_equal:
+            raise AssertionError(
+                f"graph {name}: launches captured {captured}, a replay "
+                f"{replayed}, expected {want}; outputs equal {equal}, K/V "
+                f"rows bitwise equal {rows_equal}")
+        body, buf = eng._bodies[key]
+        timing = {}
+        for what, fn in (("eager", lambda: body(buf)),
+                         ("graph", lambda: eng._run(key))):
+            with torch.no_grad():
+                timing[what] = _tick_times(torch, fn)
+            restore()
+        return {"launches_per_replay": replayed, "outputs_equal": True,
+                "kv_rows_bitwise_equal": True, "eager_body": timing["eager"],
+                "graph_replay": timing["graph"]}
 
-            timing = {}
-            for name, fn in (("eager", eager_fn),
-                             ("graph", lambda: eng._greedy_steps(k))):
-                timing[name] = _tick_times(torch, fn)
-                _restore_state(eng, page, off, saved)
-            out[f"k{k}"] = {
-                "launches_per_replay": replayed, "tokens_equal": True,
-                "kv_rows_bitwise_equal": True, "kv_rows": int(page.numel()),
-                "profiler_kernels_one_replay": sum(names.values()),
-                "profiler_sees_graph_kernels": bool(names),
-                "profiler_top_kernels": dict(names.most_common(8)),
-                "eager_body": timing["eager"], "graph_replay": timing["graph"],
-            }
+    for k in (1, 4):
+        want = {n: v * k for n, v in norm_rope.items()}
+        want["paged_decode"] = layers * k
+        snapshot, restore = _page_rows(torch, eng, k)
+        out[f"k{k}"] = check(f"decode k={k}", ("decode", k), snapshot,
+                             restore, lambda o: o, want)
+        # what the profiler sees of one replay
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._run(("decode", k))
+            torch.cuda.synchronize()
+        restore()
+        names = collections.Counter(
+            e.name[:60] for e in prof.events() if e.device_type == cuda)
+        out[f"k{k}"].update(
+            profiler_kernels_one_replay=sum(names.values()),
+            profiler_sees_graph_kernels=bool(names),
+            profiler_top_kernels=dict(names.most_common(8)))
+    # the sampled step: odd slots at temperature 0.8
+    sampled = torch.arange(eng.max_slots, device=eng.device) % 2 == 1
+    eng._d_temps.copy_(sampled.float() * 0.8)
+    snapshot, restore = _page_rows(torch, eng, 1)
+    out["sampled"] = check("sampled", ("sampled", 1), snapshot, restore,
+                           lambda o: o[:, ~sampled],
+                           {**norm_rope, "paged_decode": layers})
+    eng._d_temps.zero_()
+    # a 256-token chunk at position 512 of the lane (its rows below 512
+    # are the last prompt's), over its first 768 rows
+    chunk, at = eng.prefill_chunk, prompt_len
+    ws = eng._lane
+    x = eng._lane_in.host()
+    x[:chunk] = np.random.default_rng(SEED + 9).integers(0, vocab, chunk)
+    x[chunk], x[chunk + 1] = at, chunk - 1
+    eng._lane_in.push()
+    key = ("prefill", at + chunk)
+    pf_out = eng._bodies[key][1]
+
+    def lane_rows():
+        return [t[0, at:at + chunk] for kv in ws for t in kv]
+
+    def scribble():
+        for t in lane_rows():
+            t.zero_()
+        pf_out.zero_()
+
+    out["prefill"] = check("prefill", key, lane_rows, scribble,
+                           lambda o: o, norm_rope)
     # whole engine ticks: replay, deferred fetch and bookkeeping
     ticks = {}
     for k in (1, 4):
         eng.fuse_steps = k
         ticks[f"fuse_steps_{k}"] = _tick_times(torch, eng.step, calls=8)
     out["engine_tick"] = ticks
+    for r in reqs:
+        eng.cancel(r)
+    del eng
+    release(torch)
+    # the verify window, spec_k 4
+    eng = ServingEngine(model, **dict(engine_kw, spec_k=4))
+    reqs = _decoding(torch, eng, vocab, prompt_len, new_tokens, SEED + 7)
+    W = eng.spec_k + 1
+    x = eng._spec_in.host()
+    x[:, :W - 1] = np.random.default_rng(SEED + 10).integers(
+        0, vocab, (eng.max_slots, W - 1))
+    x[:, W - 1] = np.arange(eng.max_slots) % W
+    eng._spec_in.push()
+    snapshot, restore = _page_rows(torch, eng, W)
+    out["verify"] = check("verify", ("verify", W), snapshot, restore,
+                          lambda o: o,
+                          {**norm_rope, "paged_verify": layers})
+    out["graph_pool_bytes_spec"] = dict(eng.graph_pool_bytes)
     for r in reqs:
         eng.cancel(r)
     return out
@@ -2123,6 +2350,7 @@ def server_slice_phase(torch, model, engine_kw, reset, counts, kernels,
             t.join(600)
         wall = time.perf_counter() - t1
         launches = counts()
+        graphs = graph_gate(sa.engine, ("decode", "prefill"))
         bad = []
         for i, r in enumerate(results):
             if r is None:
@@ -2204,9 +2432,7 @@ def server_slice_phase(torch, model, engine_kw, reset, counts, kernels,
         "new_tokens_each": new_tokens, "wall_s": wall,
         "generated_tokens": generated, "tokens_per_s": generated / wall,
         "mean_ttft_s": statistics.mean(ttfts),
-        "graph_replays": ea.graph_replays,
-        "graph_pool_bytes": {str(k): v for k, v in
-                             ea.graph_pool_bytes.items()},
+        "graphs": graphs,
         "stream_lines": [r["lines"] for r in results if r["stream"]],
         "metrics_ttft_count": ttft_n, "healthz": health["status"],
         "kv_wire": {"prompt_tokens": kv_prompt, **st,
@@ -2259,19 +2485,20 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
         nonfinite.add_((~torch.isfinite(out[0])).any().long())
 
     # the largest position each kind of cached call asks wpe for (the
-    # model clamps it to the table): batched prefill rows and verify windows
-    asked = {"batched_prefill": 0, "verify_window": 0}
+    # model clamps it to the table), kept on the device so the verify
+    # graphs record it too: [batched prefill rows, verify windows]
+    asked_dev = torch.zeros(2, dtype=torch.int64, device=device)
     cached = model.gpt._cached
 
     def spy(ids, caches, pos):
         s = ids.shape[1]
         if hasattr(caches[0], "block_table"):
             if s > 1:
-                asked["verify_window"] = max(asked["verify_window"], int(
-                    caches[0].seq_lens.max()) + s - 1)
-        elif torch.is_tensor(pos):
-            asked["batched_prefill"] = max(asked["batched_prefill"],
-                                           int(pos.max()) + s - 1)
+                asked_dev[1] = torch.maximum(
+                    asked_dev[1], caches[0].seq_lens.max().long() + s - 1)
+        elif torch.is_tensor(pos) and pos.dim() == 1:
+            asked_dev[0] = torch.maximum(asked_dev[0],
+                                         pos.max().long() + s - 1)
         return cached(ids, caches, pos)
 
     hook = model.register_forward_hook(check)
@@ -2293,7 +2520,7 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
                 model.gpt.wte.weight.zero_()
         calls.update(n=0)
         nonfinite.zero_()
-        asked.update(batched_prefill=0, verify_window=0)
+        asked_dev.zero_()
         eng = ServingEngine(model, device=device, max_slots=8, block_size=16,
                             prefill_chunk=256, max_model_len=ctx, spec_k=4)
         reqs = []
@@ -2306,6 +2533,9 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
         wall = time.perf_counter() - t1
         launches = counts()
         calls["nonfinite"] = int(nonfinite)
+        asked = dict(zip(("batched_prefill", "verify_window"),
+                         asked_dev.tolist()))
+        graphs = graph_gate(eng, ("prefill",))
         st = eng.stats()
         pool_finite = all(bool(torch.isfinite(k).all()
                                and torch.isfinite(v).all())
@@ -2317,8 +2547,7 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
             "batched_prefills": st["batched_prefills"],
             "prefix_hit_tokens": reqs[-2].prefix_matched,
             "speculative": st["speculative"],
-            "eager_model_calls": calls["n"],
-            "graph_replays": eng.graph_replays,
+            "eager_model_calls": calls["n"], "graphs": graphs,
             "nonfinite_logit_calls": calls["nonfinite"],
             "pool_finite": pool_finite, "max_position_asked": dict(asked),
             "launches": launches}
@@ -2647,9 +2876,11 @@ KERNELS = {
     "adamw": ("triton", "paddle_tpu_torch/ops/gpu/fused_adamw.py",
               "paddle_tpu/ops/pallas/fused_adamw.py:21"),
 }
-SERVING = ("rms_norm", "rope", "rope_packed", "paged_decode")
+# the serving graphs' kernels (contiguous RoPE runs in generate(), whose
+# host-int pos the parity phase drives)
+SERVING = ("rms_norm", "rope_packed", "paged_decode")
 # the rows whose call is short enough that the host's cost shows
-SHORT = SERVING
+SHORT = ("rms_norm", "rope", "rope_packed", "paged_decode")
 SPEC = SERVING + ("paged_verify",)
 GPT_SERVING = ("paged_decode", "paged_verify")
 TRAINING = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
@@ -2701,8 +2932,9 @@ def main():
 
     cfg2 = LlamaConfig.llama2_7b()
     cfg2.num_layers = 2
-    emit(parity_phase(torch, cfg2, "cuda", engine_kw=dict(
-        max_slots=4, block_size=16, prefill_chunk=256, max_model_len=1024)))
+    parity = parity_phase(torch, cfg2, "cuda", engine_kw=dict(
+        max_slots=4, block_size=16, prefill_chunk=256, max_model_len=1024))
+    emit(parity)
     release(torch)
 
     gpt2 = GPTConfig.gpt3_1p3b()
@@ -2716,6 +2948,9 @@ def main():
     release(torch)
 
     emit(fuse_parity_phase(torch, cfg2))
+    release(torch)
+
+    emit(sampler_phase(torch, cfg2))
     release(torch)
 
     t0 = time.perf_counter()
@@ -2737,6 +2972,13 @@ def main():
                 torch, model, seqs[4], seqs[1])
         emit({**summary, "model_init_s": model_init_s})
         release(torch)
+    _, summary = slice_phase(
+        torch, model, dict(engine_kw, fuse_steps=4), new_tokens=64,
+        wave1_lens=(16, 64, 128, 512, 768, 1024, 288, 356), prefix_len=256,
+        reset=gpu.reset_launch_counts,
+        counts=lambda: gpu.launch_counts(SERVING), temperature=0.8)
+    emit(summary)
+    release(torch)
 
     emit(graph_tick_phase(torch, model, engine_kw))
     release(torch)
@@ -2775,12 +3017,13 @@ def main():
                                       lambda: gpu.launch_counts(PACKED))
     emit(packed)
     # each kernel's launches on the path it was ported for: the HTTP
-    # server over fused decode graphs for RMSNorm, RoPE and paged decode
-    # (replays included), speculative serving for paged verify, GPT
-    # training for dense flash and AdamW, packed Llama training for
-    # segmented flash and RMSNorm backward
+    # server over the engine's graphs for RMSNorm, per-token RoPE and paged
+    # decode (replays included), generate() for contiguous RoPE,
+    # speculative serving for paged verify, GPT training for dense flash
+    # and AdamW, packed Llama training for segmented flash and RMSNorm
+    # backward
     launches = {**packed["launches"], **train["launches"],
-                **server["launches"],
+                **server["launches"], "rope": parity["generate_rope_launches"],
                 "paged_verify": spec["launches"]["paged_verify"]}
 
     print(card, flush=True)

@@ -4,7 +4,9 @@ head tied to the token embedding, with the shifted next-token cross entropy
 when `labels` are given, and the reference's cached forwards for generation
 and serving (gpt.py:217-286):
 
-  * contiguous cache, scalar `pos`: prefill and static-cache decode;
+  * contiguous cache, scalar `pos`: prefill and static-cache decode (a 0-d
+    device `pos` is never read on the host, so a prefill chunk can be
+    captured into a CUDA graph);
   * contiguous cache, per-row `pos` vector [b]: ragged batched prefill;
   * paged caches (serving.paged.PagedLayerCache): the engine's decode step
     and, with s > 1, the speculative verify window at positions
@@ -194,6 +196,12 @@ class GPTModel(nn.Module):
             # ragged batched prefill: each row at its own offset
             layer_pos = pos.to(device=input_ids.device, dtype=torch.int32)
             pos2d = layer_pos.long()[:, None] + ar[None]
+        elif torch.is_tensor(pos):
+            # 0-d device pos (a captured prefill chunk): never read on the
+            # host
+            layer_pos = pos
+            pos2d = (ar + pos.to(device=input_ids.device,
+                                 dtype=torch.int64))[None]
         else:
             layer_pos = int(pos)
             pos2d = (ar + layer_pos)[None]

@@ -9,7 +9,9 @@ reference's forward modes (llama.py:182-256):
     positions restart at every document (per-token RoPE), attention stays
     inside each document (the segmented flash kernels), and the loss masks
     pairs that cross a document boundary;
-  * contiguous cache, scalar `pos`: chunked prefill and static-cache decode;
+  * contiguous cache, scalar `pos`: chunked prefill and static-cache decode
+    (a 0-d device `pos` rotates by per-token positions, the same values, so
+    a prefill chunk can be captured into a CUDA graph);
   * contiguous cache, per-row `pos` vector [b]: ragged batched prefill;
   * paged caches (serving.paged.PagedLayerCache): the engine's decode step.
 
@@ -213,8 +215,18 @@ class LlamaModel(nn.Module):
                 pos2d = pos_v[:, None] + ar[None]
                 return self._run(input_ids, (cos_t, sin_t, pos2d), caches,
                                  pos_v)
-            # scalar pos: the table slice starts at pos clamped to [0, P-s],
-            # as lax.dynamic_slice clamps (llama.py:221-225)
+            if torch.is_tensor(pos):
+                # 0-d device pos (a captured prefill chunk): the contiguous
+                # slice's positions, clamp(pos, 0, P - s) + i, through the
+                # per-token form, with no host read
+                start = torch.clamp(pos.to(device=input_ids.device,
+                                           dtype=torch.int32),
+                                    0, cos_t.shape[0] - s)
+                pos2d = (start + ar)[None].expand(b, s)
+                return self._run(input_ids, (cos_t, sin_t, pos2d), caches,
+                                 pos)
+            # host-int pos: the table slice starts at pos clamped to
+            # [0, P-s], as lax.dynamic_slice clamps (llama.py:221-225)
             p = int(pos)
             start = min(max(p, 0), cos_t.shape[0] - s)
             rope = (cos_t[start:start + s], sin_t[start:start + s])

@@ -283,13 +283,15 @@ def cached_multihead_attention(q, k, v, k_cache, v_cache, pos, scale=None):
     """nn_ops.cached_multihead_attention:845. q [b, sq, hq, d]; k, v
     [b, sq, hkv, d]; caches [b, max_len, hkv, d], written IN PLACE.
 
-    `pos` is a scalar (int or 0-d tensor: tokens already cached) or a
-    per-row int vector [b] for ragged batched prefill. Scalar form: the new
-    K/V land at [pos, pos+sq) with the start clamped to [0, max_len - sq]
-    (lax.dynamic_update_slice), and query i sees keys <= pos + i (with the
-    unclamped pos, as the reference masks). Vector form: row r's tokens land
-    at pos[r] + i; writes past max_len are dropped (JAX scatter semantics)
-    and row r's query i sees keys <= pos[r] + i.
+    `pos` is a scalar (tokens already cached: a host int, or a 0-d device
+    tensor, which is never read on the host, so the call can be captured
+    into a CUDA graph) or a per-row int vector [b] for ragged batched
+    prefill. Scalar form: the new K/V land at [pos, pos+sq) with the start
+    clamped to [0, max_len - sq] (lax.dynamic_update_slice), and query i
+    sees keys <= pos + i (with the unclamped pos, as the reference masks).
+    Vector form: row r's tokens land at pos[r] + i; writes past max_len are
+    dropped (JAX scatter semantics) and row r's query i sees keys <=
+    pos[r] + i.
     Returns (out [b, sq, hq, d], k_cache, v_cache)."""
     b, sq, hq, d = q.shape
     max_len, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -303,6 +305,12 @@ def cached_multihead_attention(q, k, v, k_cache, v_cache, pos, scale=None):
         k_cache[rows[keep], idx[keep]] = k[keep].to(k_cache.dtype)
         v_cache[rows[keep], idx[keep]] = v[keep].to(v_cache.dtype)
         attn_mask = (ar_len[None, None, :] <= idx[:, :, None])[:, None]
+    elif torch.is_tensor(pos):
+        p = pos.to(device=dev, dtype=torch.int64)
+        idx = torch.clamp(p, 0, max_len - sq) + ar_sq
+        k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+        attn_mask = (ar_len[None, :] <= p + ar_sq[:, None])[None, None]
     else:
         p = int(pos)
         start = min(max(p, 0), max_len - sq)

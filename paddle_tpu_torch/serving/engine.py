@@ -11,22 +11,27 @@ One engine tick (`step()`) = admit -> prefill -> one decode step:
   * an all-greedy tick runs `fuse_steps` decode steps at once (the
     reference's `_decode_multi_jit`): model, argmax, the token fed back in
     place, lengths advanced, each step's tokens into a static [k, slots]
-    output. On a card that body is a CUDA graph, captured at construction
-    while every slot is idle and replayed every greedy tick (the
-    counterpart of the reference's one compiled dispatch); on the CPU it
-    runs eagerly. A tick with a sampled row runs eagerly at k = 1.
+    output. A tick with a sampled row runs one step (the reference's
+    `_decode_jit(sampled=True)`): the same body with a categorical draw at
+    each slot's temperature where it is > 0.
   * token fetches are deferred (the reference's `_pending` and
     `_flush_pending`): each tick's tokens stay on the device until a
     value can matter (a request with an eos id, one at its budget or
     context cap, or a speculative tick that drafts), then every pending
     tick comes to the host in one transfer.
-  * prefill runs the model's contiguous cached path in a private workspace,
-    one bounded chunk per tick per prompt (a burst may prefill up to one
-    chunk per idle slot in a tick), then scatters the finished prefix into
-    the sequence's pages and joins the decode batch. A partial prefix-cache
-    hit gathers the cached blocks into the workspace first; a full-prompt
-    hit joins decode directly by copy-on-write of its last block; a burst of
-    short greedy prompts prefills in one batched call with per-row offsets.
+  * prefill runs the model's contiguous cached path in a workspace, one
+    bounded chunk per tick per prompt (a burst may prefill up to one chunk
+    per idle slot in a tick), then scatters the finished prefix into the
+    sequence's pages and joins the decode batch. Prompts prefill in FCFS
+    order and a tick moves on past a prompt only once it is done, so one
+    prompt at most is mid-prefill: the workspace is the engine's one
+    prefill lane, allocated once, long enough for any prompt's last chunk
+    window. A chunk attends over the lane's first rows up to the chunk
+    multiple that covers it; stale rows of earlier prompts there are
+    masked. A partial prefix-cache hit gathers the cached blocks into the
+    lane's head first; a full-prompt hit joins decode directly by
+    copy-on-write of its last block; a burst of short greedy prompts
+    prefills in one batched call with per-row offsets (eagerly).
     A `prefill_only` request keeps its indexed blocks and finishes with
     reason "prefill_complete" (disaggregated prefill); export_kv_blocks and
     ingest_kv_blocks move such blocks between engines.
@@ -41,16 +46,30 @@ One engine tick (`step()`) = admit -> prefill -> one decode step:
     nobody drafts runs the plain decode step. Excludes fuse_steps > 1.
 
 Decode state (tokens, block tables, lengths, temperatures, live-slot mask)
-lives in device tensors written only in place, as are the KV pages, so a
-captured graph reads them at every replay; host mirrors keep the
-bookkeeping.
+lives in device tensors written only in place, as are the KV pages and the
+prefill lane, so a captured graph reads them at every replay; host mirrors
+keep the bookkeeping.
 
-The graph's rules: capture while every slot is idle (the warm-up run
-executes the body, which then writes only the null page); never rebind a
-static tensor (`_d_*`, the pool's pages, the model's weights); a replay
-runs no kernel wrapper, so the launch counts' deltas over the capture are
-added at every replay (ops/gpu `add_launch_counts`). A capture or replay
-that fails raises.
+The engine's compiled programs, the counterparts of the reference's jitted
+ones, are graph bodies of four kinds: `decode` (k greedy steps, k = 1 and
+fuse_steps), `sampled` (one step with the draw), `verify` (the window of
+W = spec_k + 1) and `prefill` (one chunk, one body for each key length,
+a multiple of the chunk up to the lane's). On a card each
+body is captured as a CUDA graph at construction and every tick of its kind
+replays it; on the CPU the same body runs eagerly. A body reads its
+per-call inputs (drafts and their lengths; a chunk's ids, position and the
+row its logits are kept for) from a static device tensor that the host
+fills with one non-blocking copy from a pinned buffer before the replay.
+
+The graphs' rules: capture while every slot is idle (the warm-up run
+executes the body, which then writes only the null page and the lane);
+never rebind a static tensor (`_d_*`, the lane, the pool's pages, the
+model's weights); a replay runs no kernel wrapper, so the launch counts'
+deltas over the capture are added at every replay (ops/gpu
+`add_launch_counts`); the sampling generator is registered with every graph
+that draws, so each replay draws fresh numbers and eager draws interleave
+with replays; every graph shares one memory pool (no two run at once). A
+capture or replay that fails raises: there is no eager path on a card.
 """
 from __future__ import annotations
 
@@ -66,8 +85,8 @@ from ..core.place import resolve_device
 from ..models.generation import init_kv_cache
 from ..ops import gpu as _gpu
 from .blocks import BlockAllocator
-from .observability import (PREFILL_TOKENS, EngineStats, ServingObservability,
-                            new_engine_id)
+from .observability import (GRAPH_KINDS, GRAPH_POOL_BYTES, PREFILL_TOKENS,
+                            EngineStats, ServingObservability, new_engine_id)
 from .paged import PagedKVPool, PagedLayerCache, write_prefix
 from .scheduler import Request, Scheduler
 from .speculative import NgramDrafter, SpecState
@@ -161,12 +180,35 @@ class EngineDrainingError(RuntimeError):
                          "requests (in-flight work will complete)")
 
 
+class _Staging:
+    """Per-call int64 inputs of a graph body: the host fills `host()` (a
+    numpy view), then `push()` copies it into `dev`, the static tensor the
+    body reads, with one non-blocking copy. On a card the host buffer is
+    pinned, and `host()` first waits for the last copy out of it."""
+
+    def __init__(self, shape, device):
+        cuda = device.type == "cuda"
+        self.dev = torch.zeros(shape, dtype=torch.int64, device=device)
+        self._host = torch.zeros(shape, dtype=torch.int64, pin_memory=cuda)
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def host(self) -> np.ndarray:
+        if self._copied is not None:
+            self._copied.synchronize()
+        return self._host.numpy()
+
+    def push(self) -> None:
+        self.dev.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+
 class ServingEngine:
     """Continuous-batching serving runtime for a GenerationMixin causal LM
     (LlamaForCausalLM, GPTForCausalLM). `device=None` means the current
     CUDA device (raising when there is none); the model must live on the
     engine's device, and its weights are read in place by the captured
-    decode graphs (update them in place, never rebind them). `seed` seeds
+    graphs (update them in place, never rebind them). `seed` seeds
     the sampling generator. `fuse_steps`, `spec_k`, `spec_ngram` and
     `spec_pause` default to FLAGS_serving_*."""
 
@@ -259,18 +301,62 @@ class ServingEngine:
         # deferred token fetches: [(tokens on the device, [(flat index,
         # slot, request), ...])], materialized by _flush_pending
         self._pending = []
-        # k -> (CUDAGraph, its static [k, slots] output, launch deltas)
-        self._graphs = {}
-        self.graph_pool_bytes = {}
         self._gen = torch.Generator(device=dev).manual_seed(int(seed))
+        # the graph bodies: (kind, size) -> (body, its static output)
+        slots = self.max_slots
+        self._bodies = {}
+        # decode and sampled bodies write [k, slots] tokens
+        for k in sorted({1, self.fuse_steps}):
+            self._bodies[("decode", k)] = (
+                lambda out, k=k: self._decode_body(k, out, sampled=False),
+                torch.zeros(k, slots, dtype=torch.int64, device=dev))
+        self._bodies[("sampled", 1)] = (
+            lambda out: self._decode_body(1, out, sampled=True),
+            torch.zeros(1, slots, dtype=torch.int64, device=dev))
+        if self.spec_k > 0:
+            W = self.spec_k + 1
+            # columns: the W - 1 drafts, then the draft length
+            self._spec_in = _Staging((slots, W), dev)
+            self._bodies[("verify", W)] = (
+                self._verify_body,
+                torch.zeros(slots, W + 2, dtype=torch.int64, device=dev))
+        # the prefill lane: a workspace long enough for any chunk window
+        # (padded <= plen + chunk - 1, a block multiple), rounded up to the
+        # chunk, and its inputs (the chunk's ids, its position, the row
+        # kept for the first token); one body a key length, sharing the
+        # output (the kept row's fp32 logits, sized by the first run, which
+        # is eager)
+        chunk = self.prefill_chunk
+        worst = ((self.max_model_len + chunk - 2)
+                 // self.block_size * self.block_size)
+        self.lane_len = -(-worst // chunk) * chunk
+        self._lane = init_kv_cache(1, self.lane_len, n_layers, n_kv,
+                                   head_dim, self._dtype, dev)
+        self._lane_in = _Staging(chunk + 2, dev)
+        self._lane_owner = None
+        pf_out = torch.zeros(0, dtype=torch.float32, device=dev)
+        # longest first: a shorter body's capture then reuses the blocks the
+        # longer one freed in the shared pool
+        for keys in range(self.lane_len, 0, -chunk):
+            self._bodies[("prefill", keys)] = (
+                lambda out, keys=keys: self._prefill_body(keys, out), pf_out)
+        # (kind, size) -> (CUDAGraph, launch deltas a replay adds)
+        self._graphs = {}
+        # bytes each kind's captures added to the shared graph pool
+        self.graph_pool_bytes = {kind: 0 for kind in GRAPH_KINDS}
         self._lock = threading.RLock()
         self._draining = False
         self.steps = 0
         self._stats = EngineStats(new_engine_id())
         self.obs = ServingObservability(self)
         if dev.type == "cuda":
-            for k in sorted({1, self.fuse_steps}):
-                self._capture(k)
+            # one pool and one capture stream: the caching allocator reuses
+            # a block only on the stream that freed it, so captures on one
+            # stream share their scratch memory
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(dev)
+            for key in self._bodies:
+                self._capture(key)
 
     # -- registry-backed counter views --------------------------------------
     @property
@@ -318,8 +404,20 @@ class ServingEngine:
 
     @property
     def graph_replays(self) -> int:
-        """Greedy ticks that replayed a captured decode graph."""
-        return self._stats["graph_replays"]
+        """Graph replays of every kind."""
+        return sum(self._stats[f"replays_{kind}"] for kind in GRAPH_KINDS)
+
+    def graph_stats(self) -> dict:
+        """Replays, ticks (prefill: single-prompt chunks) and graph pool
+        bytes by kind: on a card replays equal ticks, on the CPU replays
+        are 0."""
+        ticks = {"decode": self._stats["decode_ticks"],
+                 "sampled": self._stats["sampled_ticks"],
+                 "verify": self.spec_ticks,
+                 "prefill": self._stats["prefill_chunks"]}
+        return {"replays": {kind: self._stats[f"replays_{kind}"]
+                            for kind in GRAPH_KINDS},
+                "ticks": ticks, "pool_bytes": dict(self.graph_pool_bytes)}
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt: List[int], max_new_tokens: int = 16,
@@ -552,14 +650,15 @@ class ServingEngine:
 
     def _sample(self, logits, temps):
         """logits [n, vocab] fp32; temps [n] fp32 on device. Greedy where
-        temp <= 0, else a categorical draw at that temperature."""
-        nxt = torch.argmax(logits, dim=-1)
-        if bool((temps > 0).any()):
-            t = torch.clamp(temps, min=1e-6)[:, None]
-            probs = torch.softmax(logits / t, dim=-1)
-            draw = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-            nxt = torch.where(temps > 0, draw, nxt)
-        return nxt
+        temp <= 0, else a categorical draw at that temperature from the
+        engine's generator. Always draws, so it reads nothing on the host
+        (torch.multinomial's checks of a one-sample draw run on the
+        device, so a CUDA graph captures it)."""
+        greedy = torch.argmax(logits, dim=-1)
+        t = torch.clamp(temps, min=1e-6)[:, None]
+        probs = torch.softmax(logits / t, dim=-1)
+        draw = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return torch.where(temps > 0, draw, greedy)
 
     # ----------------------------------------------------------- prefill
     def _admit_cached(self, req: Request) -> None:
@@ -677,47 +776,61 @@ class ServingEngine:
         if flush:
             self._flush_pending()
 
-    def _gather_workspace(self, padded: int, head: List[int]):
-        """A prefill workspace whose first len(head) blocks are copied from
-        the pool (prefix-cache partial hit)."""
-        n_layers, n_kv, head_dim = self._geometry
-        ws = init_kv_cache(1, padded, n_layers, n_kv, head_dim, self._dtype,
-                           self.device)
+    def _gather_workspace(self, ws, head: List[int]) -> None:
+        """Copy the pool blocks `head` into the head of the prefill lane
+        (prefix-cache partial hit)."""
+        _, n_kv, head_dim = self._geometry
         idx = torch.tensor(head, dtype=torch.int64, device=self.device)
         n = len(head) * self.block_size
         for (k, v), (kp, vp) in zip(ws, self.pool.layers):
             k[0, :n] = kp[idx].reshape(n, n_kv, head_dim)
             v[0, :n] = vp[idx].reshape(n, n_kv, head_dim)
-        return ws
+
+    def _prefill_body(self, keys: int, out) -> None:
+        """One chunk of one prompt in the prefill lane's first `keys` rows
+        (pos + chunk <= keys): the model's contiguous cached path over the
+        chunk's ids at its position (a 0-d device tensor), the kept row's
+        fp32 logits into out [1, vocab]. What a CUDA graph captures; the
+        CPU runs it eagerly."""
+        ws = [(k[:, :keys], v[:, :keys]) for k, v in self._lane]
+        c = self.prefill_chunk
+        x = self._lane_in.dev
+        logits, _ = self.model(x[None, :c], caches=ws, pos=x[c])
+        row = logits[0].index_select(0, x[c + 1:]).float()
+        # allocates on the first run, which is eager; a no-op after
+        out.resize_(row.shape).copy_(row)
 
     def _prefill_one_chunk(self, req: Request) -> None:
         t0 = self.obs.now()
-        n_layers, n_kv, head_dim = self._geometry
         plen = len(req.prompt)
         chunk = self.prefill_chunk
         # chunk writes start at prefix_matched (a block multiple, not
-        # necessarily a chunk multiple): the workspace covers the LAST
-        # chunk window, so its writes never clamp
-        padded = (req.prefix_matched
-                  + -(-(plen - req.prefix_matched) // chunk) * chunk)
+        # necessarily a chunk multiple); the lane covers the last window
+        ws = self._lane
         if req._ws_caches is None:
+            owner = self._lane_owner
+            if owner is not None and owner is not req \
+                    and owner._ws_caches is not None:
+                raise RuntimeError("a prompt started prefilling while "
+                                   "another one is mid-prefill")
+            self._lane_owner = req
+            req._ws_caches = ws
             if req.prefix_matched:
                 mb = req.prefix_matched // self.block_size
-                req._ws_caches = self._gather_workspace(
-                    padded, self.allocator.table(req.request_id)[:mb])
-            else:
-                req._ws_caches = init_kv_cache(1, padded, n_layers, n_kv,
-                                               head_dim, self._dtype,
-                                               self.device)
+                self._gather_workspace(
+                    ws, self.allocator.table(req.request_id)[:mb])
         start = req.prefill_pos
-        ids = np.zeros((1, chunk), np.int64)
         take = min(chunk, plen - start)
-        ids[0, :take] = req.prompt[start:start + take]
-        logits, req._ws_caches = self.model(
-            torch.from_numpy(ids).to(self.device), caches=req._ws_caches,
-            pos=start)
+        x = self._lane_in.host()
+        x[:] = 0
+        x[:take] = req.prompt[start:start + take]
+        x[chunk] = start
+        x[chunk + 1] = plen - 1 - start if start + take == plen else 0
+        self._lane_in.push()
+        lg = self._run(("prefill", -(-(start + chunk) // chunk) * chunk))
         req.prefill_pos = start + take
         self._stats.inc("prefill_programs")
+        self._stats.inc("prefill_chunks")
         self._stats.inc("prefill_tokens", take)
         PREFILL_TOKENS.inc(take)
         self.obs.on_prefill_chunk(req, t0, take)
@@ -729,11 +842,12 @@ class ServingEngine:
         table = self.allocator.table(req.request_id)
         nb = -(-plen // self.block_size)
         idx = torch.tensor(table[:nb], dtype=torch.int64, device=self.device)
-        for (kp, vp), (k, v) in zip(self.pool.layers, req._ws_caches):
+        for (kp, vp), (k, v) in zip(self.pool.layers, ws):
             write_prefix(kp, vp, k[0, :nb * self.block_size],
                          v[0, :nb * self.block_size], idx,
                          block_size=self.block_size)
         req._ws_caches = None
+        self._lane_owner = None
         table = self._register(req, table)
         if req.prefill_only:
             # disaggregated prefill: the prompt's full blocks stay resident
@@ -741,7 +855,6 @@ class ServingEngine:
             self._finish(req, "prefill_complete")
             return
         slot = req.slot
-        lg = logits[0:1, plen - 1 - start].float()
         # a greedy request with no eos and more than one token to go never
         # needs its first token's value now: keep it on the device
         defer = (req.temperature <= 0.0 and req.eos_token_id is None
@@ -763,78 +876,117 @@ class ServingEngine:
             self._check_finished(req, slot)
 
     # ------------------------------------------------------------ decode
-    def _out_buffer(self, k: int):
-        """The static [k, slots] tokens output of a k-step greedy body."""
-        return torch.zeros(k, self.max_slots, dtype=torch.int64,
-                           device=self.device)
-
-    def _decode_body(self, k: int, out) -> None:
-        """k greedy decode steps over every slot, in place: model, argmax,
-        the token fed back into _d_toks, lengths advanced for live slots,
-        step i's tokens into out[i]. What a CUDA graph captures; the CPU
-        runs it eagerly. No host sync, no tensor rebound."""
+    def _decode_body(self, k: int, out, sampled: bool) -> None:
+        """k decode steps over every slot, in place: model, argmax (with
+        `sampled`, the draw where a slot's temperature is > 0), the token
+        fed back into _d_toks, lengths advanced for live slots, step i's
+        tokens into out[i]. What a CUDA graph captures; the CPU runs it
+        eagerly. No host read, no tensor rebound."""
         for i in range(k):
             logits, _ = self.model(self._d_toks[:, None],
                                    caches=self._caches)
-            nxt = torch.argmax(logits[:, -1, :].float(), dim=-1)
+            lg = logits[:, -1, :].float()
+            nxt = (self._sample(lg, self._d_temps) if sampled
+                   else torch.argmax(lg, dim=-1))
             self._d_toks.copy_(nxt)
             self._d_lens += self._d_live
             out[i].copy_(nxt)
 
+    def _verify_body(self, out) -> None:
+        """The speculative verify window (the reference's _spec_jit), in
+        place: window = [_d_toks | the staged drafts], the model over it,
+        the greedy targets, the accepted prefix `acc` (draft i + 1 matches
+        the target after position i, within the slot's draft length), the
+        next token (target acc; for a sampled rider, a draw from column 0's
+        logits), _d_toks fed back and lengths advanced by acc + 1 for live
+        slots; out [slots, W + 2] = [greedy | acc | nxt]. What a CUDA graph
+        captures; the CPU runs it eagerly."""
+        W = self.spec_k + 1
+        x = self._spec_in.dev
+        win = torch.cat([self._d_toks[:, None], x[:, :W - 1]], dim=1)
+        logits, _ = self.model(win, caches=self._caches)
+        lg = logits.float()                           # [slots, W, vocab]
+        greedy = torch.argmax(lg, dim=-1)
+        ok = ((win[:, 1:] == greedy[:, :-1])
+              & (torch.arange(W - 1, device=win.device)[None, :]
+                 < x[:, W - 1:]))
+        acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        nxt = greedy.gather(1, acc[:, None])[:, 0]
+        nxt = torch.where(self._d_temps > 0,
+                          self._sample(lg[:, 0], self._d_temps), nxt)
+        self._d_toks.copy_(nxt)
+        # idle slots stay at length 0 on the null page
+        self._d_lens += ((acc + 1) * self._d_live).to(torch.int32)
+        out[:, :W].copy_(greedy)
+        out[:, W].copy_(acc)
+        out[:, W + 1].copy_(nxt)
+
+    def _pool_bytes(self) -> int:
+        """Bytes of the segments the caching allocator holds in the graphs'
+        shared pool."""
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"]
+                   for seg in torch.cuda.memory._snapshot()["segments"]
+                   if tuple(seg["segment_pool_id"]) == pool)
+
     @torch.no_grad()
-    def _capture(self, k: int) -> None:
-        """Capture the k-step greedy body as a CUDA graph. Runs while every
-        slot is idle (null tables, length 0, not live): the warm-up run,
-        which fills the kernels' lazy state (loaded libraries, SM counts,
-        cuBLAS workspaces) on the capture stream, writes only the null
-        page and leaves the lengths at 0; the tokens it feeds back are
-        zeroed after. Records the launch counts' deltas over the capture
-        (added at every replay) and the graph pool's bytes."""
+    def _capture(self, key) -> None:
+        """Capture one graph body as a CUDA graph in the shared pool. Runs
+        while every slot is idle (null tables, length 0, not live): the
+        warm-up run, which fills the kernels' lazy state (loaded
+        libraries, SM counts, cuBLAS workspaces) on the capture stream,
+        writes only the null page and the lane and leaves the lengths at 0;
+        the tokens it feeds back are zeroed after. A body that draws has
+        the engine's generator registered. Records the launch counts'
+        deltas over the capture (added at every replay) and the bytes the
+        capture added to the pool."""
         if self.sched.running or bool(self._d_live.any()):
-            raise RuntimeError("decode graphs are captured while every "
-                               "slot is idle")
-        out = self._out_buffer(k)
-        stream = torch.cuda.Stream(self.device)
+            raise RuntimeError("graphs are captured while every slot is "
+                               "idle")
+        body, out = self._bodies[key]
+        stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self._decode_body(k, out)
+            body(out)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
+        if key[0] in ("sampled", "verify"):
+            graph.register_generator_state(self._gen)
+        pool_before = self._pool_bytes()
         before = _gpu.launch_counts()
-        with torch.cuda.graph(graph, stream=stream,
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
                               capture_error_mode="thread_local"):
-            self._decode_body(k, out)
+            body(out)
         after = _gpu.launch_counts()
-        # the segments the caching allocator holds in the graph's pool
-        pool = tuple(graph.pool())
-        self.graph_pool_bytes[k] = sum(
-            seg["total_size"]
-            for seg in torch.cuda.memory._snapshot()["segments"]
-            if tuple(seg["segment_pool_id"]) == pool)
+        self.graph_pool_bytes[key[0]] += self._pool_bytes() - pool_before
+        GRAPH_POOL_BYTES.set(self.graph_pool_bytes[key[0]],
+                             engine=self._stats.eid, kind=key[0])
         self._d_toks.zero_()
         deltas = {n: after[n] - before[n] for n in after
                   if after[n] != before[n]}
-        self._graphs[k] = (graph, out, deltas)
+        self._graphs[key] = (graph, deltas)
 
-    def graph_launches(self, k: int) -> dict:
-        """{kernel: launches} one replay of the k-step graph makes."""
-        return dict(self._graphs[k][2])
+    def graph_launches(self, kind: str, size: int) -> dict:
+        """{kernel: launches} one replay of a graph makes (size: k for
+        decode and sampled, W for verify, the key length for prefill)."""
+        return dict(self._graphs[(kind, size)][1])
 
-    def _greedy_steps(self, k: int):
-        """Run k greedy steps: replay the captured graph on a card (its
-        launches added to the counts), the eager body on the CPU. Returns
-        this tick's [k, slots] tokens in a buffer of its own."""
+    @torch.no_grad()
+    def _run(self, key):
+        """Run one graph body: on a card replay its captured graph (the
+        launch counts' deltas added, the replay counted by kind), on the
+        CPU the eager body. Returns the body's static output, which the
+        next run of the body overwrites."""
+        body, out = self._bodies[key]
         if self.device.type == "cuda":
-            graph, out, deltas = self._graphs[k]
+            graph, deltas = self._graphs[key]
             graph.replay()
             _gpu.add_launch_counts(deltas)
-            self._stats.inc("graph_replays")
+            self._stats.inc(f"replays_{key[0]}")
         else:
-            out = self._out_buffer(k)
-            self._decode_body(k, out)
-        # the next replay overwrites the static output
-        return out.clone()
+            body(out)
+        return out
 
     def _decode_step(self) -> int:
         if self.spec_k > 0:
@@ -846,20 +998,16 @@ class ServingEngine:
         if not running:
             return 0
         needs_sampling = any(req.temperature > 0.0 for _, req in running)
-        # all-greedy ticks run fuse_steps steps. A slot whose budget ends
-        # mid-chunk overshoots: its extra tokens are dropped at flush, and
-        # its extra KV writes land in the null page or the last block of
-        # its own table (the column clamps), never in a shared block
+        # all-greedy ticks run fuse_steps steps, a tick with a sampled row
+        # one. A slot whose budget ends mid-chunk overshoots: its extra
+        # tokens are dropped at flush, and its extra KV writes land in the
+        # null page or the last block of its own table (the column clamps),
+        # never in a shared block
+        kind = "sampled" if needs_sampling else "decode"
         k = 1 if needs_sampling else self.fuse_steps
-        if needs_sampling:
-            logits, _ = self.model(self._d_toks[:, None],
-                                   caches=self._caches)
-            nxt = self._sample(logits[:, -1, :].float(), self._d_temps)
-            self._d_toks.copy_(nxt)
-            self._d_lens += self._d_live
-            toks = nxt[None]
-        else:
-            toks = self._greedy_steps(k)
+        # the next run overwrites the static output
+        toks = self._run((kind, k)).clone()
+        self._stats.inc(f"{kind}_ticks")
         slots = self.max_slots
         self._pending.append((toks, [(i * slots + slot, slot, req)
                                      for i in range(k)
@@ -969,34 +1117,16 @@ class ServingEngine:
         # a FIXED window W = spec_k + 1; shorter (or absent) drafts are
         # masked out of the acceptance by their lengths
         W = 1 + self.spec_k
-        drafted = np.zeros((self.max_slots, W - 1), np.int64)
-        dls = np.zeros(self.max_slots, np.int64)
+        x = self._spec_in.host()
+        x[:] = 0
         for slot, d in drafts.items():
-            drafted[slot, :len(d)] = d
-            dls[slot] = len(d)
-        dev = self.device
-        win = torch.cat([self._d_toks[:, None],
-                         torch.from_numpy(drafted).to(dev)], dim=1)
-        dls_d = torch.from_numpy(dls).to(dev)
+            x[slot, :len(d)] = d
+            x[slot, W - 1] = len(d)
+        dls = x[:, W - 1].copy()
+        self._spec_in.push()
         t0 = self.obs.now()
-        logits, _ = self.model(win, caches=self._caches)
-        lg = logits.float()                           # [slots, W, vocab]
-        greedy = torch.argmax(lg, dim=-1)
-        # accepted = longest prefix where draft i + 1 equals the greedy
-        # target after window position i
-        ok = ((win[:, 1:] == greedy[:, :-1])
-              & (torch.arange(W - 1, device=dev)[None, :] < dls_d[:, None]))
-        acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
-        nxt = greedy.gather(1, acc[:, None])[:, 0]
-        if any(req.temperature > 0.0 for _, req in running):
-            # sampled riders: one token drawn from column 0's logits
-            nxt = torch.where(self._d_temps > 0,
-                              self._sample(lg[:, 0], self._d_temps), nxt)
-        self._d_toks.copy_(nxt)
-        # idle slots stay at length 0 on the null page
-        self._d_lens += ((acc + 1) * self._d_live).to(torch.int32)
-        fetched = torch.cat([greedy, acc[:, None], nxt[:, None]],
-                            dim=1).cpu().numpy()
+        # one transfer brings [greedy | acc | nxt] to the host
+        fetched = self._run(("verify", W)).cpu().numpy()
         greedy_h, acc_h, nxt_h = fetched[:, :W], fetched[:, W], fetched[:, -1]
         self._stats.inc("spec_ticks")
         self.obs.on_decode(t0, running, 1, kind="spec_verify", window=W)
@@ -1073,10 +1203,13 @@ class ServingEngine:
         with self._lock:
             return list(req.output_tokens), req.state, req.finish_reason
 
-    def stats(self) -> dict:
+    def stats(self, graphs: bool = False) -> dict:
         """The reference's JSON snapshot, taken under the engine lock so a
-        /stats scrape during streaming sees one tick, not a torn read."""
+        /stats scrape during streaming sees one tick, not a torn read. With
+        `graphs`, also "graphs": graph_stats() (the reference has no such
+        key)."""
         with self._lock:
+            extra = {"graphs": self.graph_stats()} if graphs else {}
             return {
                 "steps": self.steps,
                 "kv": self.allocator.occupancy_report(),
@@ -1097,4 +1230,5 @@ class ServingEngine:
                                    if self.spec_proposed else 0.0),
                 },
                 **self.sched.counts(),
+                **extra,
             }

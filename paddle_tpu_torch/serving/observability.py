@@ -131,29 +131,44 @@ def new_engine_id() -> str:
 _ENGINE_EVENTS = _counter(
     "serving_engine_events_total",
     "Per-engine serving counters (prefill calls and tokens, cache "
-    "admissions, speculation ticks, decode graph replays), labelled by "
-    "engine instance: the registry backing of ServingEngine's counter "
-    "attributes.",
+    "admissions, speculation ticks, ticks and CUDA graph replays by kind), "
+    "labelled by engine instance: the registry backing of ServingEngine's "
+    "counter attributes.",
     labelnames=("engine", "event"), always=True)
+
+#: the engine's graph bodies (engine.py): greedy decode steps, a sampled
+#: step, the speculative verify window, a prefill chunk
+GRAPH_KINDS = ("decode", "sampled", "verify", "prefill")
+
+GRAPH_POOL_BYTES = _gauge(
+    "serving_graph_pool_bytes",
+    "Bytes each kind of an engine's CUDA graph captures added to the "
+    "engine's shared graph memory pool.",
+    labelnames=("engine", "kind"), always=True)
 
 
 class EngineStats:
     """Dict-shaped view over serving_engine_events_total{engine=...}.
 
     ServingEngine's counter attributes (prefill_programs, cow_admissions,
-    graph_replays, ...) read through this, so one scrape carries every
+    replays_decode, ...) read through this, so one scrape carries every
     engine's counters while stats() keeps its int values; the engine label
     keeps engines apart."""
 
     _KEYS = ("prefill_programs", "batched_prefills", "prefill_tokens",
              "cow_admissions", "dedup_admissions", "spec_ticks",
              "spec_proposed", "spec_accepted", "spec_rollbacks",
-             "graph_replays")
+             "prefill_chunks", "decode_ticks", "sampled_ticks",
+             *(f"replays_{kind}" for kind in GRAPH_KINDS))
 
     __slots__ = ("_eid",)
 
     def __init__(self, engine_id: str):
         self._eid = str(engine_id)
+
+    @property
+    def eid(self) -> str:
+        return self._eid
 
     def inc(self, key: str, amount: int = 1) -> None:
         if key not in self._KEYS:

@@ -21,7 +21,8 @@ the one engine loop (the only thread that touches the device).
                    block of the prefix (chain digest + base64 page bytes)
   POST /kv/ingest  that NDJSON -> {"imported", "dedup", "rejected",
                    "skipped", "bytes"}; chain-hash verified, idempotent
-  GET  /stats      the engine's stats(), one engine-lock snapshot
+  GET  /stats      the engine's stats(graphs=True), one engine-lock
+                   snapshot
   GET  /metrics    the metrics registry as Prometheus text
   GET  /healthz    200 {"ok": true, status, steps, last_tick_age_s, ...},
                    503 when the engine loop is dead, a serving anomaly fired
@@ -219,7 +220,7 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802
         path = self.path.split("?", 1)[0]
         if path == "/stats":
-            self._reply(200, self._srv.engine.stats())
+            self._reply(200, self._srv.engine.stats(graphs=True))
         elif path == "/metrics":
             self._reply_raw(200, _obs_serve.metrics_body(),
                             "text/plain; version=0.0.4; charset=utf-8")

@@ -3,19 +3,25 @@
     python3 -m paddle_tpu_torch.tools.profile_serving [--model llama|gpt]
                                                       [--spec-k K]
                                                       [--fuse-steps K]
+                                                      [--temperature T]
 
 Builds Llama-2-7B (bf16, seeded random weights; `--model gpt`: GPT-3 1.3B)
 behind ServingEngine (8 slots, 16-token blocks, 256-token prefill chunks,
 2048 context, speculation with `--spec-k` drafts a tick, default 0, and
-`--fuse-steps` greedy steps a tick, default 1: every greedy tick replays
-the engine's captured CUDA graph of that many steps), fills
-all 8 slots with distinct 512-token prompts (with --spec-k, each a seeded
-16-48-token pattern repeated, the traffic speculation serves), and traces
-with torch.profiler:
+`--fuse-steps` greedy steps a tick, default 1), fills all 8 slots with
+distinct 512-token prompts (with --spec-k, each a seeded 16-48-token
+pattern repeated, the traffic speculation serves; with --temperature > 0,
+every request samples at it, so every decode tick is a sampled one), and
+traces with torch.profiler:
 
-  * `decode`: 8 engine ticks that only decode (every slot running);
+  * `decode`: 8 engine ticks that only decode (every slot running): greedy
+    ticks replay the fuse_steps-step graph, sampled ticks the one-step
+    sampled graph;
   * `prefill`: one tick that prefills a 256-token chunk beside 7 decoding
     slots;
+  * `prefill_chunk`: ticks that prefill one 256-token chunk of a long
+    prompt and nothing else (an idle engine; each replays a prefill
+    graph), 6 unprofiled and 6 profiled;
   * with --spec-k: `verify_tick`, the first tick (of up to 64) that runs a
     verify window, and `plain_tick`, the next tick run with speculation
     switched off, from the same engine state: one verify tick beside one
@@ -27,15 +33,16 @@ with torch.profiler:
     values.
 
 For each it prints one JSON line: host wall time per tick (synchronised;
-for decode also without the profiler, which slows the host, and per
-decode step), device busy
+for decode and prefill_chunk also without the profiler, which slows the
+host, and per decode step), device busy
 time per tick (the union of the kernels' intervals), the busy share,
 kernels per tick, the paged decode kernels' (with their split combine)
 and the verify kernels' device time per tick and share of the busy time,
 the RoPE kernel's device time and launches per tick (one launch a layer
-rotates q and k), and the kernels with the most device time (names cut to
-80 characters).
-Needs one CUDA device.
+rotates q and k), the engine's graph replays and ticks by kind, and the
+kernels with the most device time (names cut to 80 characters).
+`steady_ticks` and `prefill_ticks` measure the same ticks for
+tools/ab_serving.py. Needs one CUDA device.
 """
 import argparse
 import json
@@ -96,6 +103,60 @@ def _profile(torch, fn, ticks):
     }
 
 
+def steady_ticks(torch, eng, prompts, ticks=8, temperature=0.0):
+    """Fill every slot with `prompts` (400 new tokens each, at
+    `temperature`), run 3 ticks, then time `ticks` ticks unprofiled (one
+    synchronise after them) and `ticks` profiled. Returns the profile with
+    `wall_ms_per_tick_unprofiled` and how many of the 2 x `ticks` measured
+    ticks ran a verify window."""
+    for p in prompts:
+        eng.submit(p, max_new_tokens=400, temperature=temperature)
+    while eng.sched.waiting or eng.sched.prefilling:
+        eng.step()
+    for _ in range(3):                      # warm the decode path
+        eng.step()
+    verify = getattr(eng, "spec_ticks", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    unprofiled = (time.perf_counter() - t0) * 1e3 / ticks
+    prof = _profile(torch, eng.step, ticks)
+    return {"wall_ms_per_tick_unprofiled": unprofiled,
+            "verify_ticks_measured": getattr(eng, "spec_ticks", 0) - verify,
+            **prof}
+
+
+def prefill_ticks(torch, eng, prompts, ticks=6):
+    """Pure prefill ticks on an idle engine: each of two long prompts
+    (> ticks + 1 chunks, run one after the other) prefills one chunk a
+    tick; the first prompt's first `ticks` chunk ticks are timed
+    unprofiled, the second's profiled. Returns the profile with
+    `wall_ms_per_tick_unprofiled`."""
+    out = {}
+    for i, p in enumerate(prompts[:2]):
+        req = eng.submit(p, max_new_tokens=1)
+        eng.step()                          # admission and chunk 1
+        torch.cuda.synchronize()
+        if req.state != "prefill":
+            raise RuntimeError("prefill_ticks needs prompts longer than "
+                               f"{ticks + 1} chunks on an idle engine")
+        if i == 0:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                eng.step()
+            torch.cuda.synchronize()
+            out["wall_ms_per_tick_unprofiled"] = (
+                (time.perf_counter() - t0) * 1e3 / ticks)
+        else:
+            out.update(_profile(torch, eng.step, ticks))
+        if req.state != "prefill":
+            raise RuntimeError("a measured tick left prefill")
+        eng.run_until_idle()
+    return out
+
+
 def main(argv=None):
     import numpy as np
     import torch
@@ -108,6 +169,7 @@ def main(argv=None):
     ap.add_argument("--model", choices=("llama", "gpt"), default="llama")
     ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--fuse-steps", type=int, default=1)
+    ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
     if args.spec_k and args.fuse_steps > 1:
         ap.error("--spec-k and --fuse-steps > 1 exclude each other")
@@ -123,9 +185,10 @@ def main(argv=None):
                 else model.gpt.wte)
         with torch.no_grad():
             head.weight.zero_()
-    eng = ServingEngine(model, max_slots=8, block_size=16, prefill_chunk=256,
-                        max_model_len=2048, spec_k=args.spec_k,
-                        fuse_steps=args.fuse_steps)
+    kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
+              max_model_len=2048, spec_k=args.spec_k,
+              fuse_steps=args.fuse_steps)
+    eng = ServingEngine(model, **kw)
     rng = np.random.default_rng(0)
 
     def prompt(n):
@@ -134,28 +197,16 @@ def main(argv=None):
             return [int(t) for t in np.resize(pat, n)]
         return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
 
-    for _ in range(8):
-        eng.submit(prompt(512), max_new_tokens=400)
-    while eng.sched.waiting or eng.sched.prefilling:
-        eng.step()
-    for _ in range(3):                      # warm the decode path
-        eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        eng.step()
-    torch.cuda.synchronize()
-    unprofiled = (time.perf_counter() - t0) * 1e3 / 8
-    decode = _profile(torch, eng.step, 8)
+    decode = steady_ticks(torch, eng, [prompt(512) for _ in range(8)],
+                          temperature=args.temperature)
     head = {"model": args.model, "spec_k": args.spec_k,
-            "fuse_steps": args.fuse_steps,
+            "fuse_steps": args.fuse_steps, "temperature": args.temperature,
             "card": torch.cuda.get_device_name(0)}
     print(json.dumps({"phase": "decode", **head,
-                      "wall_ms_per_tick_unprofiled": unprofiled,
                       "wall_ms_per_step_unprofiled":
-                          unprofiled / args.fuse_steps,
-                      "graph_replays": eng.graph_replays, **decode}),
-          flush=True)
+                          decode["wall_ms_per_tick_unprofiled"]
+                          / (1 if args.temperature > 0 else args.fuse_steps),
+                      "graphs": eng.graph_stats(), **decode}), flush=True)
 
     if args.spec_k:
         # one verify tick, then one plain tick from the state it left
@@ -184,6 +235,11 @@ def main(argv=None):
     prefill = _profile(torch, eng.step, 1)
     print(json.dumps({"phase": "prefill", **head, "chunk": 256, **prefill}),
           flush=True)
+    for r in list(eng.sched.running.values()) + list(eng.sched.prefilling):
+        eng.cancel(r)
+    chunks = prefill_ticks(torch, eng, [prompt(2000), prompt(2000)])
+    print(json.dumps({"phase": "prefill_chunk", **head, "chunk": 256,
+                      "graphs": eng.graph_stats(), **chunks}), flush=True)
 
 
 if __name__ == "__main__":
