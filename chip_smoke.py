@@ -2,7 +2,8 @@
 """Drive paddle_tpu_torch's serving paths (Llama, greedy and sampled,
 with and without self-speculation, every decode tick, verify window and
 prefill chunk a CUDA graph replay, behind the HTTP server, and GPT) and
-training paths (GPT, and Llama on packed documents) on one H100 and hold
+training paths (GPT under amp O1 and O2, and Llama on packed documents) on
+one H100 and hold
 each of its hand-written kernels against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -64,7 +65,11 @@ final line):
                (one CUDA kernel a fused call, vector or scalar path, and
                one each for an autograd forward and backward: kernel names
                from torch.profiler); AdamW over GPT-3 1.3B's flat size and
-               a ragged small one
+               a ragged small one, in its fp32 form and in its master form
+               (amp O2: fp32 master, m and v, a bf16 gradient and a device
+               clip factor; the bf16 copy must equal the kernel's master
+               cast to bf16 and a launch with the skip flag set must change
+               no byte)
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy; every tick of a kind replayed its graph;
@@ -159,10 +164,27 @@ final line):
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
- 16. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 16. train_o2_parity - GPT at GPT-3 1.3B's width, 2 layers, amp O2
+               (decorate: bf16 parameters, fp32 masters): three TrainSteps
+               on the card and on the CPU from the same weights and batch;
+               losses and masters must agree (bounds below)
+ 17. train_o2_slice - main path 2 under amp O2: GPT-3 1.3B decorated,
+               auto_cast O2, global-norm clip, AdamW over LinearWarmup(
+               CosineAnnealingDecay), TrainStep(nan_guard=True,
+               telemetry=True) with FLAGS_metrics on: a warm-up and three
+               timed steps on the O1 slice's batch (step time beside O1's,
+               tokens/s, peak memory), a step with a NaN loss that must be
+               skipped with every flat buffer's bits and the beta powers
+               unchanged, a clean step; launches per step (flash 24 each,
+               the AdamW master form once per run, the fp32 form 0), one
+               step record a step, a nan_guard flight dump, MFU from the
+               H100 peak; then GradScaler over two eager steps (an
+               overflowing one skipped with the scale halved, a clean one
+               that updates)
+ 18. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
                three TrainSteps on the card and on the CPU, as in 14
- 17. train_packed_slice - main path 3: Llama-2-7B at its published widths
+ 19. train_packed_slice - main path 3: Llama-2-7B at its published widths
                cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
                tokens from PackedLMBatches: one warm-up step and three
                timed steps; loss, step time, tokens/s (all and non-padding),
@@ -1262,6 +1284,82 @@ def adamw_case(torch, gen, n):
 
 
 
+def bit_sums(torch, tensors, chunk=1 << 27):
+    """A bit-level checksum of each tensor: its bits viewed as int16 (2-byte
+    types) or int32 (4-byte) and summed in int64, a chunk at a time. A
+    store of any changed value changes the sum (but for cancellations),
+    so "no byte changed" needs no clone of a 21 GB state."""
+    out = []
+    for t in tensors:
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), chunk):
+            total += bits[i:i + chunk].sum(dtype=torch.int64)
+        out.append(int(total))
+    return out
+
+
+def adamw_master_case(torch, gen, n):
+    """AdamW's master form (amp O2) over one flat group of n elements at
+    step 3 with a device-scalar clip factor: an fp32 master, m and v, a bf16
+    gradient and the bf16 parameters' copy. The kernel updates clones, the
+    plain version the originals. Master, m and v within 1e-6 of the value
+    + 1e-6 of the RMS (the same fp32 operations, an FMA here and there);
+    the kernel's bf16 copy must equal its own master cast to bf16 (round to
+    nearest even), bitwise; a launch with the skip flag set must change no
+    byte of any of its buffers (bit_sums before and after). Yardstick:
+    torch._fused_adamw_ over the fp32 master (with an fp32 copy of the
+    gradient, made once) followed by one copy_ into the bf16 buffer."""
+    from paddle_tpu_torch.ops.gpu import fused_adamw as fw
+
+    master = torch.randn(n, device="cuda", generator=gen)
+    g = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
+    m = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    v = 0.01 * torch.rand(n, device="cuda", generator=gen)
+    low = master.to(torch.bfloat16)
+    km, kmm, kv, klow = master.clone(), m.clone(), v.clone(), low.clone()
+    scale = torch.tensor(0.5, device="cuda")
+    kw = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              bias_correction1=1 - 0.9 ** 3,
+              bias_correction2=1 - 0.999 ** 3, grad_scale=scale)
+    steps = torch.tensor(3.0, device="cuda")
+    g32 = []
+
+    def check():
+        fw.fused_adamw_master(km, g, kmm, kv, klow, **kw)
+        fw.adamw_plain(master, g, m, v, low=low, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(klow, km.to(torch.bfloat16)):
+            raise AssertionError("adamw_master: the bf16 copy differs from "
+                                 "the kernel's master cast to bf16")
+        bufs = (km, kmm, kv, klow, g)
+        before = bit_sums(torch, bufs)
+        fw.fused_adamw_master(km, g, kmm, kv, klow, skip=torch.ones(
+            (), dtype=torch.int32, device="cuda"), **kw)
+        if bit_sums(torch, bufs) != before:
+            raise AssertionError("adamw_master: a launch with the skip flag "
+                                 "set changed its buffers")
+        return (km, kmm, kv), (master, m, v)
+
+    def library():
+        if not g32:
+            g32.append(g.float())
+        torch._fused_adamw_([km], g32, [kmm], [kv], [], [steps], lr=1e-4,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False,
+                            grad_scale=None, found_inf=None)
+        klow.copy_(km)
+
+    big = n > 1 << 26
+    return dict(name="adamw_master", shape=[n], check=check,
+                tol={torch.float32: (1e-6, 1e-6)},
+                kernel=lambda: fw.fused_adamw_master(km, g, kmm, kv, klow,
+                                                     **kw),
+                plain=lambda: fw.adamw_plain(master, g, m, v, low=low, **kw),
+                library=library, nbytes=28 * n, nops=15 * n,
+                iters=3 if big else 20, reps=3 if big else 5)
+
+
 def _tables(torch, P, d, theta=10000.0):
     inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                         device="cuda") / d))
@@ -1461,10 +1559,11 @@ def kernels_phase(torch):
 
     for n, main in ((gpt_numel(GPTConfig.gpt3_1p3b()), True),
                     (1_000_003, False)):
-        row = run_case(torch, adamw_case(torch, gen, n), torch.float32)
-        if main:
-            rows["adamw"] = row
-        torch.cuda.empty_cache()
+        for make in (adamw_case, adamw_master_case):
+            row = run_case(torch, make(torch, gen, n), torch.float32)
+            if main:
+                rows[row["name"]] = row
+            release(torch)
     return rows
 
 
@@ -2764,6 +2863,274 @@ def train_slice_phase(torch, reset, counts, batch=4, seq=2048, steps=3,
     }
 
 
+def _o2_step(torch, model, opt, device, **kw):
+    """TrainStep under amp O2 for a model and optimizer that `decorate`
+    has turned bf16 with fp32 masters; loss_fn(ids, poison) multiplies the
+    loss by the 0-d `poison` (1, or NaN for a poisoned step)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+    def loss_fn(ids, poison):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model(ids, labels=ids) * poison
+
+    return TrainStep(model, loss_fn, opt, device=device, **kw)
+
+
+def train_o2_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
+    """Three amp O2 TrainSteps (bf16 parameters, fp32 masters through the
+    kernel's master form, global-norm clip) of a 2-layer GPT at GPT-3
+    1.3B's width on the card and on the CPU (plain versions), from the
+    same weights and batch. Losses to 1e-3 relative, the bound the CPU O1
+    and O2 parity tests hold against the reference (the matmuls, attention
+    and the residual stream round to bf16 on both sides, in another order
+    here). Masters: every element within 2.02 lr a step (Adam moves an
+    element by |m_hat| / sqrt(v_hat) lr a step, at most 1.0036 lr in the
+    first three at beta1 0.9 and beta2 0.999, and an element whose bf16
+    gradients round to opposite signs near zero can step the other way on
+    the other device), the mean difference under 0.02 lr (the CPU O2
+    test's bound). Every parameter is bf16 and equals its master cast to
+    bf16 on the card."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_layers = 2
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (batch, seq))
+    models = {"cuda": GPTForCausalLM(cfg, device="cuda", seed=SEED),
+              "cpu": GPTForCausalLM(cfg, device="cpu", seed=SEED)}
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["cuda"].state_dict().items()})
+    losses, opts, secs = {}, {}, {}
+    one = np.float32(1.0)
+    for device, model in models.items():
+        opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = _o2_step(torch, model, opt, device)
+        t0 = time.perf_counter()
+        losses[device] = [float(step(ids, one)) for _ in range(steps)]
+        secs[device] = time.perf_counter() - t0
+        opts[device] = opt
+    got, want = losses["cuda"], losses["cpu"]
+    rel = max(abs(g / w - 1) for g, w in zip(got, want))
+    worst, total, count = 0.0, 0.0, 0
+    cpu_params = list(models["cpu"].parameters())
+    for p, q in zip(models["cuda"].parameters(), cpu_params):
+        sc = opts["cuda"]._get_state(p)
+        if p.dtype != torch.bfloat16 or \
+                sc["master"].dtype != torch.float32 or \
+                not torch.equal(p.detach(), sc["master"].to(torch.bfloat16)):
+            raise AssertionError("O2: a parameter is not the bf16 copy of "
+                                 "its fp32 master")
+        diff = (sc["master"].cpu() - opts["cpu"]._get_state(q)["master"]
+                ).abs()
+        worst = max(worst, float(diff.max()))
+        total += float(diff.sum())
+        count += diff.numel()
+    bounds = {"loss_rel": 1e-3, "master_max": 2.02 * lr * steps,
+              "master_mean": 0.02 * lr}
+    row = {"phase": "train_o2_parity", "model": "GPT", "amp": "O2 bfloat16",
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "batch": [batch, seq], "lr": lr, "loss_card": got,
+           "loss_cpu": want, "max_rel_loss_diff": rel,
+           "max_master_diff": worst, "mean_master_diff": total / count,
+           "bounds": bounds, "seconds": secs}
+    if not all(np.isfinite(got)) or rel > bounds["loss_rel"] \
+            or worst > bounds["master_max"] \
+            or total / count > bounds["master_mean"]:
+        raise AssertionError(f"card and CPU O2 training differ: {row}")
+    return row
+
+
+def train_o2_slice_phase(torch, reset, counts, o1_step_s, batch=4,
+                         seq=2048, steps=3, lr=1e-4):
+    """Main path 2 under amp O2: GPT-3 1.3B decorated to bf16 with fp32
+    masters, auto_cast O2, global-norm clip 1.0, AdamW over
+    LinearWarmup(CosineAnnealingDecay), TrainStep(nan_guard=True,
+    telemetry=True) with FLAGS_metrics on (a temporary metrics dir), on
+    the O1 slice's seeded batch: one warm-up step, `steps` timed steps,
+    one step whose loss is NaN, one clean step. Checks: every parameter
+    bf16 and every master fp32; the three flash kernels and the AdamW
+    master form launched (and the fp32 form not); the poisoned step
+    skipped (last_skipped, skipped_steps 1) with the flat buffers' bits
+    (parameters, masters, moments) and the beta powers unchanged across
+    it; one step record a step in the JSONL log, skipped only on the
+    poisoned one, MFU from the H100 peak; a nan_guard flight dump. Then
+    GradScaler drives two eager steps of the same model: the first's loss
+    is multiplied by inf, so its scaled gradients overflow (bf16 shares
+    fp32's exponent range: at any finite scale this model's scaled
+    gradients stay finite, so the overflow comes from the loss) and
+    found-inf skips it and halves the scale; the second is clean and
+    updates."""
+    import glob
+    import math
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lrs
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    resident = torch.cuda.memory_allocated()
+    metrics_dir = tempfile.TemporaryDirectory()
+    tobs.reset_all()
+    flags.set_flags({"metrics": "on", "metrics_dir": metrics_dir.name})
+    try:
+        t0 = time.perf_counter()
+        model = GPTForCausalLM(cfg, seed=SEED)
+        sched = lrs.LinearWarmup(lrs.CosineAnnealingDecay(lr, T_max=1000),
+                                 warmup_steps=2, start_lr=lr / 10,
+                                 end_lr=lr)
+        opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = _o2_step(torch, model, opt, None, nan_guard=True,
+                        telemetry=True)
+        ids = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+            0, cfg.vocab_size, (batch, seq))).cuda()
+        one = torch.ones((), device="cuda")
+        nan = torch.full((), float("nan"), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        if {p.dtype for p in model.parameters()} != {torch.bfloat16}:
+            raise AssertionError("O2: parameters are not all bf16")
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t1 = time.perf_counter()
+        losses = [step(ids, one)]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        masters = {g.master.dtype for g in opt._groups}
+        if masters != {torch.float32} or \
+                any(g.p.dtype != torch.bfloat16 for g in opt._groups):
+            raise AssertionError(f"O2: masters {masters}, parameters "
+                                 f"{[g.p.dtype for g in opt._groups]}")
+        t2 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(step(ids, one))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+        peak = torch.cuda.max_memory_allocated()
+        # the poisoned step: bits of every flat buffer and the beta powers
+        bufs = [t for g in opt._groups for t in (g.p, g.master, g.m, g.v)]
+        pows = [(st["beta1_pow"], st["beta2_pow"])
+                for st in opt._state.values()]
+        before = bit_sums(torch, bufs)
+        losses.append(step(ids, nan))
+        if not step.last_skipped or step.skipped_steps != 1:
+            raise AssertionError(f"the poisoned step was not skipped "
+                                 f"(last_skipped {step.last_skipped}, "
+                                 f"skipped_steps {step.skipped_steps})")
+        if bit_sums(torch, bufs) != before or pows != [
+                (st["beta1_pow"], st["beta2_pow"])
+                for st in opt._state.values()]:
+            raise AssertionError("the skipped step changed the parameters, "
+                                 "masters, moments or beta powers")
+        losses.append(step(ids, one))
+        if step.last_skipped or step.skipped_steps != 1:
+            raise AssertionError("the clean step after the poisoned one "
+                                 "was skipped")
+        torch.cuda.synchronize()
+        launches = counts()
+        tele = tobs.telemetry.get_telemetry()
+        tele.finalize()
+        with open(os.path.join(metrics_dir.name, "events.jsonl")) as f:
+            records = [r for r in (json.loads(x) for x in f)
+                       if r["kind"] == "step"]
+        dumps = [json.load(open(p)) for p in glob.glob(
+            os.path.join(metrics_dir.name, "flight", "*.json"))]
+    finally:
+        flags.set_flags({"metrics": "off", "metrics_dir": ""})
+        tobs.reset_all()
+        metrics_dir.cleanup()
+    losses = [float(x) for x in losses]
+    n_calls = steps + 3
+    per_step = {k: v / n_calls for k, v in launches.items()}
+    want = {"flash_fwd": cfg.num_layers, "flash_dq": cfg.num_layers,
+            "flash_dkv": cfg.num_layers, "adamw_master": len(opt._groups),
+            "adamw": 0}
+    if per_step != want:
+        raise AssertionError(f"O2 launches per step {per_step}, expected "
+                             f"{want}")
+    clean = losses[:steps + 1] + losses[-1:]
+    if not all(math.isfinite(x) for x in clean) \
+            or abs(losses[0] - math.log(cfg.vocab_size)) > 0.5 \
+            or not losses[steps] < losses[0] or not math.isnan(losses[-2]):
+        raise AssertionError(f"GPT-3 1.3B O2 losses {losses}: the first "
+                             f"should be within 0.5 of ln(vocab), the last "
+                             f"timed one below it, the poisoned one NaN")
+    if [r["step"] for r in records] != list(range(n_calls)) or \
+            [r["skipped"] for r in records] != [i == steps + 1 for i in
+                                                range(n_calls)]:
+        raise AssertionError(f"step records: "
+                             f"{[(r['step'], r['skipped']) for r in records]}")
+    peak_flops = tobs.telemetry.H100_BF16_PEAK_FLOPS
+    for r in records:
+        want_mfu = 6.0 * n_params * batch * seq / r["step_wall_s"] / \
+            peak_flops
+        # the record rounds mfu and step_wall_s to 6 decimals
+        if "mfu" not in r or abs(r["mfu"] - want_mfu) > 1e-3 * want_mfu \
+                + 1e-6:
+            raise AssertionError(f"step record's mfu {r.get('mfu')} is not "
+                                 f"6 N tokens / wall / the H100 peak "
+                                 f"({want_mfu:.6f})")
+    if [d["reason"] for d in dumps] != ["nan_guard"]:
+        raise AssertionError(f"flight dumps: {[d['reason'] for d in dumps]}")
+    # GradScaler: two eager steps of the same model and optimizer
+    scaler = amp.GradScaler()
+    scaler_steps = []
+    for poison in (float("inf"), 1.0):
+        bits = bit_sums(torch, [g.p for g in opt._groups])
+        scale = scaler.get_loss_scaling()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = model(ids, labels=ids) * poison
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        scaler_steps.append({
+            "loss_factor": str(poison), "scale_before": scale,
+            "found_inf": bool(scaler._found_inf_t),
+            "scale_after": scaler.get_loss_scaling(),
+            "updated": bit_sums(torch, [g.p for g in opt._groups]) != bits})
+    first, second = scaler_steps
+    if not (first["found_inf"] and not first["updated"]
+            and first["scale_after"] == first["scale_before"] * 0.5
+            and not second["found_inf"] and second["updated"]
+            and second["scale_after"] == first["scale_after"]):
+        raise AssertionError(f"GradScaler steps: {scaler_steps}")
+    step_s = wall / steps
+    return {
+        "phase": "train_o2_slice", "model": "GPT-3 1.3B", "params": n_params,
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "amp": "O2 bfloat16 (decorate, fp32 masters)",
+        "batch": [batch, seq], "init_s": init_s, "warmup_step_s": warm_s,
+        "losses": [x if math.isfinite(x) else str(x) for x in losses],
+        "step_s": step_s, "o1_step_s": o1_step_s,
+        "o2_over_o1": step_s / o1_step_s,
+        "tokens_per_s": batch * seq / step_s,
+        "peak_mem_bytes": peak, "resident_bytes_before": resident,
+        "skipped_steps": step.skipped_steps,
+        "records": len(records), "mfu": [r["mfu"] for r in records],
+        "grad_norm": [r["grad_norm"] if math.isfinite(r["grad_norm"])
+                      else str(r["grad_norm"]) for r in records],
+        "lr": [r["lr"] for r in records], "flight_dumps": len(dumps),
+        "grad_scaler": scaler_steps, "adamw_groups": len(opt._groups),
+        "launches": launches, "launches_per_step": per_step,
+    }
+
+
 def train_packed_slice_phase(torch, reset, counts, rows=2, seq=4096,
                              steps=3, lr=1e-4):
     """Main path 3: Llama-2-7B at its published widths, depth cut to 8
@@ -2875,6 +3242,8 @@ KERNELS = {
                       "paddle_tpu/ops/pallas/flash_attention.py:494"),
     "adamw": ("triton", "paddle_tpu_torch/ops/gpu/fused_adamw.py",
               "paddle_tpu/ops/pallas/fused_adamw.py:21"),
+    "adamw_master": ("triton", "paddle_tpu_torch/ops/gpu/fused_adamw.py",
+                     "paddle_tpu/ops/pallas/fused_adamw.py:21"),
 }
 # the serving graphs' kernels (contiguous RoPE runs in generate(), whose
 # host-int pos the parity phase drives)
@@ -2884,6 +3253,8 @@ SHORT = ("rms_norm", "rope", "rope_packed", "paged_decode")
 SPEC = SERVING + ("paged_verify",)
 GPT_SERVING = ("paged_decode", "paged_verify")
 TRAINING = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
+# the O2 slice's kernels, and the fp32 AdamW form it must not launch
+TRAINING_O2 = ("flash_fwd", "flash_dq", "flash_dkv", "adamw_master", "adamw")
 # the packed slice's kernels, and those it must not launch (read as 0)
 PACKED = ("flash_seg_fwd", "flash_seg_dq", "flash_seg_dkv", "rms_norm",
           "rms_norm_bwd", "rope_packed", "adamw", "flash_fwd", "flash_dq",
@@ -3010,6 +3381,15 @@ def main():
     emit(train)
     release(torch)
 
+    emit(train_o2_parity_phase(torch))
+    release(torch)
+
+    o2 = train_o2_slice_phase(torch, gpu.reset_launch_counts,
+                              lambda: gpu.launch_counts(TRAINING_O2),
+                              train["step_s"])
+    emit(o2)
+    release(torch)
+
     emit(packed_parity_phase(torch))
     release(torch)
 
@@ -3020,11 +3400,12 @@ def main():
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged
     # decode (replays included), generate() for contiguous RoPE,
     # speculative serving for paged verify, GPT training for dense flash
-    # and AdamW, packed Llama training for segmented flash and RMSNorm
-    # backward
+    # and AdamW, GPT training under amp O2 for AdamW's master form, packed
+    # Llama training for segmented flash and RMSNorm backward
     launches = {**packed["launches"], **train["launches"],
                 **server["launches"], "rope": parity["generate_rope_launches"],
-                "paged_verify": spec["launches"]["paged_verify"]}
+                "paged_verify": spec["launches"]["paged_verify"],
+                "adamw_master": o2["launches"]["adamw_master"]}
 
     print(card, flush=True)
     kernels = []

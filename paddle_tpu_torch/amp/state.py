@@ -12,6 +12,14 @@ example for layer_norm's output and for gelu).
 
 The lists are the reference's (paddle_tpu/ops/ops.yaml, the reduction,
 linalg and nn_ops groups' amp_white / amp_black).
+
+Level O2: the reference's rule casts every op that is not black to the
+low-precision dtype (amp/state.py:65), but its dispatcher consults the rule
+only for ops that have a category (ops/registry.py:290), so O2 casts
+exactly the ops O1 casts; custom lists, likewise, re-file only ops that
+have one. What O2 changes is the parameters: `amp.decorate` makes them
+bf16, so the embeddings, the residual stream, GELU and dropout run in bf16
+because their inputs are bf16, not because an op casts them.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ class _AmpState(threading.local):
     def __init__(self):
         self.enabled = False
         self.dtype = torch.bfloat16
+        self.level = "O1"
         self.custom_white = frozenset()
         self.custom_black = frozenset()
 
@@ -55,7 +64,10 @@ def amp_state() -> _AmpState:
 
 
 def category(op_name: str):
-    """'white', 'black' or None for an op under the current lists."""
+    """'white', 'black' or None for an op under the current lists (None for
+    an op that neither list names, whatever the custom lists say)."""
+    if op_name not in WHITE_LIST and op_name not in BLACK_LIST:
+        return None
     if op_name in _state.custom_white:
         return "white"
     if op_name in _state.custom_black:
@@ -68,12 +80,12 @@ def category(op_name: str):
 
 
 def cast_inputs(op_name: str, *tensors):
-    """The op's tensor inputs as the reference's O1 dispatch casts them
-    (None and non-float entries pass through); unchanged when amp is off."""
+    """The op's tensor inputs as the reference's dispatch casts them (None
+    and non-float entries pass through); unchanged when amp is off."""
     if not _state.enabled:
         return tensors
     cat = category(op_name)
-    if cat == "white":
+    if cat == "white":      # O1 and O2 alike (see the module note)
         target, froms = _state.dtype, (torch.float32,)
     elif cat == "black":
         target, froms = torch.float32, _LOW

@@ -1,8 +1,9 @@
 """Observability (counterpart of paddle_tpu/observability), cut to what
-serving uses: the metrics registry, sinks, the span ring, the flight
-recorder, the anomaly engine, memory gauges and the /metrics + /healthz
-endpoint. Importing it defines FLAGS_metrics, FLAGS_metrics_dir and
-FLAGS_anomaly."""
+serving and single-card training use: the metrics registry, sinks, the
+span ring, the flight recorder (with its step ring and training
+triggers), per-step training telemetry, the anomaly engine, memory gauges
+and the /metrics + /healthz endpoint. Importing it defines FLAGS_metrics,
+FLAGS_metrics_dir, FLAGS_anomaly and FLAGS_flight_recorder_steps."""
 from . import (anomaly, flight_recorder, memory, registry,  # noqa: F401
                serve, sinks, spans, telemetry)
 from .anomaly import AnomalyEngine  # noqa: F401

@@ -1,15 +1,17 @@
-"""Flight recorder: bounded rings of recent events and anomalies, with the
-span tail and a metrics snapshot, dumped atomically on a trigger
-(counterpart of
-paddle_tpu/observability/flight_recorder.py; the serving arm in
-serving/observability.py dumps through it when a serving anomaly fires).
+"""Flight recorder: bounded rings of recent step records, events and
+anomalies, with the span tail and a metrics snapshot, dumped atomically on
+a trigger (counterpart of paddle_tpu/observability/flight_recorder.py).
 
-A dump is written to a temporary file, fsynced and renamed into place, so
-a crash mid-dump never leaves a torn file. Dumps land in
-FLAGS_metrics_dir/flight/ (or ./flight_recorder when no metrics dir is
-set). The per-step training ring, the cluster view and the training
-triggers (NaN guard, preemption, membership) wait for the training and
-fleet slices.
+Training feeds the step ring through telemetry (one record a TrainStep
+call, FLAGS_flight_recorder_steps deep); the NaN guard's skip
+(`on_nan_skip`) and an exception escaping a training loop
+(`on_exception`) dump it; the serving arm in serving/observability.py dumps
+through it when a serving anomaly fires. A dump is written to a temporary
+file, fsynced and renamed into place, so a crash mid-dump never leaves a
+torn file. Dumps land in FLAGS_metrics_dir/flight/ (or ./flight_recorder
+when no metrics dir is set). The triggers do nothing while FLAGS_metrics
+is off. The cluster view and the preemption and membership triggers wait
+for the distributed slice.
 """
 from __future__ import annotations
 
@@ -24,9 +26,14 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 from . import spans
-from .registry import counter, default_registry
+from .registry import counter, default_registry, metrics_enabled
 from .sinks import _json_default
-from ..core.flags import get_flag
+from ..core.flags import define_flag, get_flag
+
+define_flag(
+    "flight_recorder_steps", 64,
+    "Ring-buffer capacity of the crash flight recorder: how many of the "
+    "most recent per-step telemetry records survive into a crash dump.")
 
 _DUMPS = counter("flight_recorder_dumps_total",
                  "Flight-recorder dumps written, by trigger reason.",
@@ -62,11 +69,21 @@ def note_anomaly(event: Dict[str, Any]) -> None:
 class FlightRecorder:
     """Bounded in-memory black box; `dump()` writes it atomically."""
 
-    def __init__(self):
+    def __init__(self, capacity: Optional[int] = None):
+        if capacity is None:
+            capacity = max(int(get_flag("flight_recorder_steps")), 1)
+        self.capacity = capacity
         self._lock = threading.Lock()
+        self._steps: deque = deque(maxlen=capacity)
         self._events: deque = deque(maxlen=_EVENT_RING)
         self._anomalies: deque = deque(maxlen=_ANOMALY_RING)
         self._dump_count = 0
+
+    def record_step(self, record: Dict[str, Any]) -> None:
+        """Push one step record (kept by reference, so a phase merged into
+        it after the step still shows in a later dump)."""
+        with self._lock:
+            self._steps.append(record)
 
     def note(self, kind: str, **data) -> None:
         """Record an irregular event."""
@@ -78,6 +95,14 @@ class FlightRecorder:
     def record_anomaly(self, event: Dict[str, Any]) -> None:
         with self._lock:
             self._anomalies.append(dict(event))
+
+    def steps(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._steps)
+
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._events)
 
     def anomalies(self) -> List[Dict[str, Any]]:
         with self._lock:
@@ -100,12 +125,14 @@ class FlightRecorder:
         with self._lock:
             self._dump_count += 1
             n = self._dump_count
+            steps = list(self._steps)
             events = list(self._events)
             anomalies = list(self._anomalies)
         payload: Dict[str, Any] = {
             "kind": "flight_recorder_dump", "reason": str(reason),
             "ts": time.time(), "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
-            "pid": os.getpid(), "events": events, "anomalies": anomalies,
+            "pid": os.getpid(), "capacity": self.capacity, "steps": steps,
+            "events": events, "anomalies": anomalies,
             "spans": spans.tail(_SPAN_TAIL),
             "metrics": default_registry().snapshot(),
         }
@@ -153,3 +180,24 @@ def reset() -> None:
     global _recorder
     with _recorder_lock:
         _recorder = None
+
+
+# -- training triggers (called by jit.TrainStep and training loops) ----------
+def on_nan_skip(step: int, loss: Optional[float] = None) -> Optional[str]:
+    """The NaN guard skipped a step: note it and dump. Returns the dump's
+    path, or None while metrics are off (the guard skips either way)."""
+    if not metrics_enabled():
+        return None
+    rec = get_flight_recorder()
+    rec.note("nan_skip", step=int(step), loss=loss)
+    return rec.dump("nan_guard")
+
+
+def on_exception(exc: BaseException) -> Optional[str]:
+    """An exception escaped a training loop: note it and dump it with its
+    traceback. None while metrics are off."""
+    if not metrics_enabled():
+        return None
+    rec = get_flight_recorder()
+    rec.note("exception", type=type(exc).__name__, message=str(exc)[:500])
+    return rec.dump("exception", exc=exc)

@@ -23,6 +23,7 @@ KERNEL_WRAPPERS = {
     "flash_seg_dq": flash_attention.flash_seg_dq,
     "flash_seg_dkv": flash_attention.flash_seg_dkv,
     "adamw": fused_adamw.fused_adamw,
+    "adamw_master": fused_adamw.fused_adamw_master,
 }
 
 

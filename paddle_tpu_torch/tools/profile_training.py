@@ -1,6 +1,7 @@
 """Where a training step's time goes on the card.
 
     python3 -m paddle_tpu_torch.tools.profile_training [--model gpt]
+    python3 -m paddle_tpu_torch.tools.profile_training --amp O2
     python3 -m paddle_tpu_torch.tools.profile_training --model llama_packed
 
 `gpt` (the default) builds GPT-3 1.3B (seeded random weights, dropout 0) at
@@ -10,12 +11,18 @@ batch 4 x 2048, as chip_smoke.py's train_slice phase drives it.
 tokens (`packed_batch`: seeded documents of 64-2048 tokens through
 PackedLMBatches), as chip_smoke.py's train_packed_slice phase drives it.
 Both run AdamW (lr 1e-4, weight decay 0.01) behind TrainStep under amp O1
-(bf16). After two warm-up steps the tool times 3 steps without the profiler
+(bf16) by default; `--amp O2` first decorates the model and the optimizer
+(bf16 parameters and gradients, fp32 master weights updated by AdamW's
+master form) and runs the loss under auto_cast(level="O2"), as
+chip_smoke.py's train_o2_slice phase does (without its guard and
+telemetry, so that the two levels differ in nothing else). After two
+warm-up steps the tool times 3 steps without the profiler
 (synchronised host clock), then traces 2 steps with torch.profiler and
 prints one JSON line: host wall time per step (with and without the
 profiler), device busy time per step (the union of the kernels' intervals),
 the busy share, kernels per step, device time per step by group (the port's
-kernels by name; cuBLAS GEMMs; everything else), the device time of each
+kernels by name; cuBLAS GEMMs; ATen's copy kernels, which carry every
+dtype cast and layout copy; everything else), the device time of each
 GEMM by its operator and input shapes (forward and backward products
 apart), and the kernels with the most device time (names cut to 80
 characters). Needs one CUDA device.
@@ -36,7 +43,8 @@ GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
           ("rms_norm_bwd", ("_rms_bwd", "_rms_dw")),
           ("rope", ("rope_qk_kernel",)),
           ("adamw", ("_adamw",)),
-          ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
+          ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+          ("copy", ("copy_kernel",)))
 
 
 def _group(name):
@@ -74,8 +82,8 @@ def packed_batch(vocab, rows=2, capacity=4096, seed=0):
     return next(iter(PackedLMBatches(docs, capacity, rows)))
 
 
-def _build(model_name):
-    """(TrainStep, batch tuple on the card, model label)."""
+def _build(model_name, level="O1"):
+    """(TrainStep, batch tuple on the card, model label) at amp `level`."""
     import numpy as np
     import torch
 
@@ -90,7 +98,7 @@ def _build(model_name):
         model = GPTForCausalLM(cfg, seed=0)
 
         def loss_fn(ids):
-            with amp.auto_cast(level="O1", dtype="bfloat16"):
+            with amp.auto_cast(level=level, dtype="bfloat16"):
                 return model(ids, labels=ids)
 
         batch = (torch.from_numpy(np.random.default_rng(0).integers(
@@ -101,22 +109,24 @@ def _build(model_name):
         model = LlamaForCausalLM(cfg, seed=0)
 
         def loss_fn(ids, seg, labels):
-            with amp.auto_cast(level="O1", dtype="bfloat16"):
+            with amp.auto_cast(level=level, dtype="bfloat16"):
                 return model(ids, labels=labels, segments=seg)
 
         batch = tuple(torch.from_numpy(a).cuda()
                       for a in packed_batch(cfg.vocab_size))
         label = f"Llama-2-7B widths, {cfg.num_layers} layers, packed"
     opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01)
+    if level == "O2":
+        amp.decorate(model, opt, level="O2", dtype="bfloat16")
     return TrainStep(model, loss_fn, opt), batch, label
 
 
-def main(model_name="gpt", steps=2):
+def main(model_name="gpt", level="O1", steps=2):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    step, batch, label = _build(model_name)
+    step, batch, label = _build(model_name, level)
     tokens = batch[0].numel()
     real = int((batch[1] >= 0).sum()) if len(batch) > 1 else tokens
     for _ in range(2):
@@ -154,7 +164,7 @@ def main(model_name="gpt", steps=2):
             gemm_ops[f"{e.key} {e.input_shapes}"] = us / 1e3 / steps
     busy = _busy_us(kernels) / 1e3 / steps
     print(json.dumps({
-        "phase": "train_step", "model": label, "amp": "O1 bfloat16",
+        "phase": "train_step", "model": label, "amp": f"{level} bfloat16",
         "batch": list(batch[0].shape), "real_tokens": real,
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -180,4 +190,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("gpt", "llama_packed"),
                     default="gpt")
-    main(ap.parse_args().model)
+    ap.add_argument("--amp", choices=("O1", "O2"), default="O1")
+    args = ap.parse_args()
+    main(args.model, args.amp)

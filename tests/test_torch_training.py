@@ -136,9 +136,11 @@ def test_amp_o1_casts_as_the_reference():
         assert tf().dtype == torch.float32       # amp off again
     with amp.auto_cast(custom_black_list=["linear"]):
         assert tops.linear(tx, tw).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="O2"):
-        with amp.auto_cast(level="O2"):
-            pass
+    # O2 casts the ops O1 casts (its parameters differ: amp.decorate);
+    # tests/test_torch_amp_o2.py holds it against the reference
+    with amp.auto_cast(level="O2"):
+        assert tops.linear(tx, tw).dtype == torch.bfloat16
+        assert tops.layer_norm(tx, 32).dtype == torch.float32
 
 
 # ------------------------------------------------------------------ AdamW
@@ -386,12 +388,14 @@ def test_import_guard_walks_the_training_modules():
                 "nn.clip", "ops.gpu.flash_attention", "ops.gpu.fused_adamw",
                 "io", "io.packing", "models.llama", "models.generation",
                 "ops.gpu.fused_norm", "ops.gpu.rope",
-                "tools.profile_training"):
+                "tools.profile_training", "optimizer.lr",
+                "observability.telemetry", "observability.flight_recorder",
+                "observability.spans"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
     # the packed slice's kernels are registered wrappers with counters
     from paddle_tpu_torch.ops.gpu import KERNEL_WRAPPERS
     for name in ("flash_seg_fwd", "flash_seg_dq", "flash_seg_dkv",
-                 "rms_norm_bwd"):
+                 "rms_norm_bwd", "adamw_master"):
         assert isinstance(KERNEL_WRAPPERS[name].launches, int), name
 
 
@@ -405,6 +409,9 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
         GPTForCausalLM(GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrainStep(tm, lambda x: tm(x, labels=x), opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainStep(tm, lambda x: tm(x, labels=x), opt, nan_guard=True,
+                  telemetry=True)
     # the packed Llama: model and step
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(LlamaConfig.tiny())
