@@ -2,9 +2,10 @@
 """Drive paddle_tpu_torch's serving paths (Llama, greedy and sampled,
 with and without self-speculation, every decode tick, verify window and
 prefill chunk a CUDA graph replay, behind the HTTP server, and GPT) and
-training paths (GPT under amp O1 and O2, and Llama on packed documents) on
-one H100 and hold
-each of its hand-written kernels against its plain PyTorch version.
+training paths (GPT under amp O1 and O2, with and without recompute, and
+Llama on packed documents; the resilient loop with its data feed and
+checkpoints) on one H100 and hold each of its hand-written kernels against
+its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -192,6 +193,45 @@ final line):
                expected counts (segmented flash 8 each, RMSNorm and its
                backward 17, per-token RoPE 16 (q and k in one launch,
                forward and backward), AdamW 1, dense flash 0)
+ 20. recompute_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32
+               off) and amp O2, and the packed Llama at Llama-2-7B's
+               width, 2 layers, fp32 on one 256-token row: three
+               TrainSteps with recompute on and three with it off from the
+               same weights and batch; losses, parameters, masters and
+               moments must be bitwise equal, and the launches a step
+               those of `_want_launches` (a block's forward kernels twice,
+               the backward ones once)
+ 21. recompute_slice - main path 5: GPT-3 1.3B at full depth under amp O2
+               as the O2 slice runs it, first without recompute and then
+               with recompute=True, batch 4 x 2048: a warm-up and three
+               timed steps each (step time beside the O2 slice's, tokens/s,
+               peak memory; flash forward 48, dQ 24, dK/dV 24 and the AdamW
+               master form 1 a step with recompute); then batch 16 x 2048
+               with recompute, a warm-up and two steps, whose peak must
+               stay under the card's memory, beside the no-recompute peak
+               extrapolated from batch 4
+ 22. io_feed - a seeded dataset of 64 token rows of 2048 through
+               DataLoader(num_workers=2, forked process workers, shared
+               memory, shuffle=True): the batch order must equal
+               num_workers=0's; then through DevicePrefetcher(depth=2):
+               batches/s, the prefetcher's wait, every batch on the card
+ 23. resilient_slice - GPT-3 1.3B's widths cut to 2 layers (a ~2.9 GB
+               checkpoint), amp O2, recompute, hidden dropout 0.1, fed by
+               io_feed's loader through the prefetcher, through
+               ResilientTrainer over an async CheckpointManager
+               (keep_last_n=2, save every 2 steps, NaN guard, FLAGS_metrics
+               on); one step poisoned by chaos in every run: 8 steps
+               uninterrupted (the poisoned step skipped, every flat
+               buffer's bits unchanged across it); a crash injected at the
+               step-6 commit, then a fresh trainer from other weights
+               resumes from step 4; a SIGTERM before batch 3 (status
+               "preempted", a final checkpoint), then a resume: both end
+               bitwise equal to the uninterrupted run (parameters, masters,
+               moments, beta powers, losses from the resume on); checkpoint
+               bytes, the async save's caller and background seconds, the
+               restore's seconds, telemetry's data and save phases; raises
+               first if the temporary directory has less free space than
+               five checkpoints, and removes it at the end
 
 The last two lines are the kernel summary {"kernels": [...]} and
 {"ok": true, "device": {...}}. Exits non-zero without them when no CUDA
@@ -199,6 +239,7 @@ device is present or the package is not beside this script.
 """
 import gc
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -3215,6 +3256,526 @@ def train_packed_slice_phase(torch, reset, counts, rows=2, seq=4096,
     }
 
 
+# ------------------------------------------- recompute, checkpoints, feed
+def _flat_bufs(opt):
+    """Every flat buffer of the optimizer's groups that holds state:
+    parameters, masters, moments (not the gradients)."""
+    return [t for g in opt._groups for t in (g.p, g.master, g.m, g.v)
+            if t is not None]
+
+
+def _want_launches(kind, layers, groups, master, recompute):
+    """Launches a step by kernel name (every kernel of KERNELS keyed) for
+    the GPT ("gpt") or packed Llama ("llama") step: under recompute each
+    kernel inside a block launches twice (the forward, then again in the
+    backward), the backward kernels and those outside the blocks once."""
+    L, r = layers, 2 if recompute else 1
+    want = dict.fromkeys(KERNELS, 0)
+    if kind == "gpt":
+        want.update(flash_fwd=r * L, flash_dq=L, flash_dkv=L)
+    else:
+        want.update(flash_seg_fwd=r * L, flash_seg_dq=L, flash_seg_dkv=L,
+                    rms_norm=2 * r * L + 1, rms_norm_bwd=2 * L + 1,
+                    rope_packed=(r + 1) * L)
+    want["adamw_master" if master else "adamw"] = groups
+    return want
+
+
+def _same_floats(a, b):
+    """Bitwise equal lists of floats (NaN equal to NaN)."""
+    import math
+
+    return len(a) == len(b) and all(
+        x == y or (math.isnan(x) and math.isnan(y)) for x, y in zip(a, b))
+
+
+def recompute_parity_phase(torch, reset, counts, steps=3, lr=1e-5, batch=2,
+                           seq=128, device="cuda", gpt_cfg=None,
+                           llama_cfg=None, llama_seq=256):
+    """Three TrainSteps (AdamW, global-norm clip) with recompute on and
+    three with it off, from the same weights and batch, for GPT at GPT-3
+    1.3B's width (2 layers) in fp32 and under amp O2, and the packed Llama
+    at Llama-2-7B's width (2 layers) in fp32 on one 256-token row of four
+    documents: losses, parameters, masters and moments must be bitwise
+    equal (the kernels use no atomics, so the recomputed forward is the
+    first one bit for bit, and non-reentrant checkpointing keeps the
+    backward graph). Launches a step must be `_want_launches`' (`counts`
+    None skips that check, for a run on the CPU)."""
+    import copy
+
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.io import pack_examples
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaForCausalLM)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools.profile_training import packed_llama_config
+
+    if gpt_cfg is None:
+        gpt_cfg = GPTConfig.gpt3_1p3b()
+        gpt_cfg.num_layers = 2
+        gpt_cfg.hidden_dropout_prob = gpt_cfg.attention_dropout_prob = 0.0
+    llama_cfg = llama_cfg or packed_llama_config(layers=2)
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, gpt_cfg.vocab_size, (batch, seq))
+    docs = [rng.integers(0, llama_cfg.vocab_size, n) for n in (70, 50, 90, 30)]
+    packed = pack_examples(docs, llama_seq)
+    cases = (("GPT fp32", "gpt", gpt_cfg, None, (ids,)),
+             ("GPT amp O2", "gpt", gpt_cfg, "O2", (ids,)),
+             ("Llama packed fp32", "llama", llama_cfg, None, packed))
+    rows = []
+    for label, kind, base, level, args in cases:
+        runs = {}
+        for rc in (False, True):
+            cfg = copy.deepcopy(base)
+            cfg.recompute = rc
+            cls = GPTForCausalLM if kind == "gpt" else LlamaForCausalLM
+            model = cls(cfg, device=device, seed=SEED)
+            opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            if level:
+                amp.decorate(model, opt, level=level, dtype="bfloat16")
+
+            def loss_fn(x, seg=None, labels=None, model=model):
+                with amp.auto_cast(enable=level is not None,
+                                   level=level or "O1", dtype="bfloat16"):
+                    return model(x, labels=x if labels is None else labels,
+                                 segments=seg)
+
+            step = TrainStep(model, loss_fn, opt, device=device)
+            reset()
+            t0 = time.perf_counter()
+            losses = [float(step(*args)) for _ in range(steps)]
+            secs = time.perf_counter() - t0
+            per_step = {k: v / steps for k, v in counts().items()} \
+                if counts else None
+            runs[rc] = (opt, losses, per_step, secs)
+        (o_off, l_off, c_off, s_off), (o_on, l_on, c_on, s_on) = \
+            runs[False], runs[True]
+        groups = len(o_on._groups)
+        want = {rc: _want_launches(kind, base.num_layers, groups,
+                                   level == "O2", rc) for rc in runs}
+        same_bufs = all(torch.equal(a, b) for a, b in
+                        zip(_flat_bufs(o_off), _flat_bufs(o_on)))
+        pows = [[(st["beta1_pow"], st["beta2_pow"])
+                 for st in o._state.values()] for o in (o_off, o_on)]
+        row = {"case": label, "layers": base.num_layers,
+               "hidden": base.hidden_size,
+               "batch": list(np.shape(args[0])), "losses_off": l_off,
+               "losses_on": l_on, "bitwise_equal_state": same_bufs,
+               "launches_per_step_off": c_off,
+               "launches_per_step_on": c_on, "seconds_off": s_off,
+               "seconds_on": s_on}
+        if not all(np.isfinite(l_on)) or l_on != l_off or not same_bufs \
+                or pows[0] != pows[1]:
+            raise AssertionError(f"recompute changed the training: {row}")
+        if counts and (c_off != want[False] or c_on != want[True]):
+            raise AssertionError(f"launches a step {row}, expected {want}")
+        rows.append(row)
+        del runs, o_off, o_on
+        release(torch)
+    return {"phase": "recompute_parity", "steps": steps, "lr": lr,
+            "cases": rows}
+
+
+def recompute_slice_phase(torch, reset, counts, o2_step_s, batch=4,
+                          seq=2048, steps=3, big_batch=16, big_steps=2,
+                          lr=1e-4, cfg=None):
+    """Main path 5: GPT-3 1.3B at full depth under amp O2 as the O2 slice
+    runs it (decorate, auto_cast O2, global-norm clip, AdamW over
+    LinearWarmup(CosineAnnealingDecay), the NaN guard; telemetry off),
+    first without recompute (the same options, for the step time and the
+    activations' footprint in this call), then with recompute=True: at
+    batch x seq one warm-up and `steps` timed steps (step time, tokens/s,
+    peak memory, launches a step: flash forward 2 a layer, dQ and dK/dV 1,
+    the AdamW master form once a group), then at big_batch x seq a warm-up
+    and `big_steps` steps, whose peak must stay under the card's memory.
+    Beside it, the no-recompute peak at big_batch extrapolated from batch:
+    the state plus big_batch / batch times the activations."""
+    import copy
+    import math
+
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lrs
+
+    if cfg is None:
+        cfg = GPTConfig.gpt3_1p3b()
+        cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    resident = torch.cuda.memory_allocated()
+    one = torch.ones((), device="cuda")
+
+    def build(recompute):
+        c = copy.deepcopy(cfg)
+        c.recompute = recompute
+        model = GPTForCausalLM(c, seed=SEED)
+        sched = lrs.LinearWarmup(lrs.CosineAnnealingDecay(lr, T_max=1000),
+                                 warmup_steps=2, start_lr=lr / 10, end_lr=lr)
+        opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        return model, opt, _o2_step(torch, model, opt, None, nan_guard=True)
+
+    def timed(step, ids, n):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step(ids, one)]
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(n):
+            losses.append(step(ids, one))
+        torch.cuda.synchronize()
+        return ([float(x) for x in losses], warm,
+                (time.perf_counter() - t1) / n,
+                torch.cuda.max_memory_allocated())
+
+    rng = np.random.default_rng(SEED + 2)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).cuda()
+    model, opt, step = build(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    off_losses, _, off_s, off_peak = timed(step, ids, steps)
+    state = torch.cuda.memory_allocated() - resident
+    del model, opt, step
+    release(torch)
+
+    model, opt, step = build(True)
+    reset()
+    losses, warm_s, step_s, peak = timed(step, ids, steps)
+    launches = counts()
+    per_step = {k: v / (steps + 1) for k, v in launches.items()}
+    want = _want_launches("gpt", cfg.num_layers, len(opt._groups), True,
+                          True)
+    if per_step != want:
+        raise AssertionError(f"recompute launches per step {per_step}, "
+                             f"expected {want}")
+    if not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - math.log(cfg.vocab_size)) > 0.5 \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"recompute losses {losses}: the first should "
+                             f"be within 0.5 of ln(vocab), the last below it")
+    if losses[0] != off_losses[0]:
+        raise AssertionError(f"the first step's loss differs with recompute: "
+                             f"{losses[0]} against {off_losses[0]}")
+    big = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (big_batch, seq))).cuda()
+    big_losses, big_warm_s, big_step_s, big_peak = timed(step, big,
+                                                         big_steps)
+    card = torch.cuda.get_device_properties(0).total_memory
+    if not all(math.isfinite(x) for x in big_losses) or big_peak >= card:
+        raise AssertionError(f"batch {big_batch}: losses {big_losses}, peak "
+                             f"{big_peak} of the card's {card} bytes")
+    activations = off_peak - resident - state
+    peak_flops = 989e12
+    return {
+        "phase": "recompute_slice", "model": "GPT-3 1.3B",
+        "params": n_params, "layers": cfg.num_layers,
+        "amp": "O2 bfloat16 (decorate, fp32 masters)", "recompute": True,
+        "batch": [batch, seq], "warmup_step_s": warm_s, "losses": losses,
+        "step_s": step_s, "no_recompute_step_s": off_s,
+        "recompute_over_no_recompute": step_s / off_s,
+        "o2_slice_step_s": o2_step_s,
+        "recompute_over_o2_slice": step_s / o2_step_s,
+        "tokens_per_s": batch * seq / step_s,
+        "mfu_6n": 6.0 * n_params * batch * seq / step_s / peak_flops,
+        "peak_mem_bytes": peak, "no_recompute_peak_mem_bytes": off_peak,
+        "state_bytes": state, "resident_bytes_before": resident,
+        "launches": launches, "launches_per_step": per_step,
+        "big_batch": [big_batch, seq], "big_losses": big_losses,
+        "big_warmup_step_s": big_warm_s, "big_step_s": big_step_s,
+        "big_tokens_per_s": big_batch * seq / big_step_s,
+        "big_peak_mem_bytes": big_peak,
+        "no_recompute_big_peak_extrapolated_bytes":
+            resident + state + big_batch / batch * activations,
+        "card_memory_bytes": card,
+    }
+
+
+class TokenRows:
+    """A seeded map-style dataset of token rows, as numpy: row i is `seq`
+    tokens below `vocab` from default_rng((seed, i)), with a loss weight
+    of 1.0 (a float leaf the chaos harness can poison)."""
+
+    def __init__(self, n, seq, vocab, seed=SEED):
+        self.n, self.seq, self.vocab, self.seed = n, seq, vocab, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        ids = np.random.default_rng((self.seed, i)).integers(
+            0, self.vocab, self.seq)
+        return ids, np.float32(1.0)
+
+
+def io_feed_phase(torch, rows=64, batch=4, seq=2048, vocab=50304,
+                  device="cuda"):
+    """TokenRows through DataLoader(num_workers=2, process workers, shared
+    memory, shuffle=True): the batch order must equal the same loader's
+    with num_workers=0; then through DevicePrefetcher(depth=2): batches/s,
+    the prefetcher's wait seconds, every batch on `device` and equal to the
+    host one."""
+    from paddle_tpu_torch.io import DataLoader, DevicePrefetcher
+
+    ds = TokenRows(rows, seq, vocab)
+    kw = dict(batch_size=batch, shuffle=True, places="cpu")
+    inline = list(DataLoader(ds, **kw))
+    t0 = time.perf_counter()
+    proc = list(DataLoader(ds, num_workers=2, mode="process",
+                           use_shared_memory=True, **kw))
+    proc_s = time.perf_counter() - t0
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x.cpu(), y) for u, v in zip(a, b)
+            for x, y in zip(u, v))
+
+    if not same(proc, inline):
+        raise AssertionError("the process loader's batches differ from the "
+                             "inline loader's")
+    it = iter(DataLoader(ds, num_workers=2, mode="process", **kw))
+    t1 = time.perf_counter()
+    with DevicePrefetcher(it, depth=2, device=device) as pf:
+        placed = list(pf)
+    if placed[0][0].is_cuda:
+        torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t1
+    on_device = all(t.device.type == torch.device(device).type
+                    for b in placed for t in b)
+    if not on_device or not same(placed, inline):
+        raise AssertionError("prefetched batches are not the host batches "
+                             f"on {device}")
+    return {"phase": "io_feed", "rows": rows, "batch": [batch, seq],
+            "batches": len(placed), "workers": 2,
+            "process_loader_batches_per_s": len(proc) / proc_s,
+            "prefetched_batches_per_s": len(placed) / feed_s,
+            "prefetched_tokens_per_s": len(placed) * batch * seq / feed_s,
+            "prefetch_wait_s": pf.stats["wait_s"],
+            "prefetch_batches": pf.stats["batches"],
+            "on_device": on_device, "device": str(device)}
+
+
+def resilient_slice_phase(torch, steps=8, save_every=2, batch=4, seq=2048,
+                          lr=1e-4, poison_step=5, preempt_at=3, cfg=None,
+                          device="cuda"):
+    """GPT-3 1.3B's widths cut to 2 layers (a checkpoint of ~2.9 GB), amp
+    O2 with recompute, hidden dropout 0.1 from the model's generator, fed
+    by io_feed's loader through the DevicePrefetcher, through
+    ResilientTrainer(CheckpointManager(tmp, keep_last_n=2,
+    async_save=True), save_every=2, nan_guard=True) with FLAGS_metrics on.
+    Step `poison_step` is poisoned by chaos.poison_steps in every run.
+    1. `steps` steps uninterrupted: the poisoned step skipped with every
+       flat buffer's bits unchanged across it; then one more async save,
+       timed on the caller's side and in the background.
+    2. A crash injected at ckpt.before_commit of the step-6 save (it
+       surfaces at the step-8 save); a fresh trainer from other initial
+       weights restores step 4 (timed) and runs to `steps`.
+    3. chaos.fake_preemption before batch `preempt_at`: "preempted" with a
+       final checkpoint; a fresh trainer resumes and runs to `steps`.
+    The resumed runs' losses from the resume on, and their final
+    parameters, masters, moments and beta powers, must equal run 1's
+    bitwise. Raises first if the temporary directory has less free space
+    than five checkpoints; deletes it at the end."""
+    import copy
+    import math
+    import shutil
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.io import DataLoader, DevicePrefetcher
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import CheckpointManager, chaos
+    from paddle_tpu_torch.resilience.trainer import ResilientTrainer
+
+    if cfg is None:
+        cfg = GPTConfig.gpt3_1p3b()
+        cfg.num_layers = 2
+        cfg.attention_dropout_prob = 0.0      # flash; hidden dropout 0.1
+    cfg = copy.deepcopy(cfg)
+    cfg.recompute = True
+    n_params = gpt_numel(cfg)
+    estimate = 14 * n_params     # bf16 parameters, fp32 masters, m and v
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(root).free
+    if free < 5 * estimate:
+        shutil.rmtree(root)
+        raise RuntimeError(f"{free} bytes free under {root}; the phase "
+                           f"needs five checkpoints of ~{estimate}")
+    ds = TokenRows(steps * batch, seq, cfg.vocab_size)
+    tobs.reset_all()
+    flags.set_flags({"metrics": "on",
+                     "metrics_dir": os.path.join(root, "metrics")})
+
+    def feed(preempt=None):
+        def epoch():
+            it = iter(DataLoader(ds, batch_size=batch, shuffle=True,
+                                 places="cpu", num_workers=2))
+            pf = DevicePrefetcher(it, depth=2, device=device)
+            try:
+                for i, b in enumerate(pf):
+                    if i == preempt:
+                        chaos.fake_preemption(signal.SIGTERM)
+                    yield b
+            finally:
+                pf.close()
+                it.close()
+        return epoch
+
+    def make(tag, seed):
+        model = GPTForCausalLM(cfg, device=device, seed=seed)
+        opt = AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        losses, bits = {}, {}
+
+        def loss_fn(ids, w):
+            i = tr.step._step_i - 1      # this step's global index
+            if i in (poison_step, poison_step + 1):
+                bits[i] = bit_sums(torch, _flat_bufs(opt))
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss = model(ids, labels=ids) * w.mean()
+            losses[i] = loss.detach()
+            return loss
+
+        mgr = CheckpointManager(os.path.join(root, tag), keep_last_n=2,
+                                async_save=True)
+        tr = ResilientTrainer(model, loss_fn, opt, mgr,
+                              save_every=save_every, nan_guard=True,
+                              device=device)
+        return tr, losses, bits
+
+    def state_of(tr):
+        opt = tr.optimizer
+        return (_flat_bufs(opt), [(st["beta1_pow"], st["beta2_pow"])
+                                  for st in opt._state.values()])
+
+    def floats(losses, start):
+        return [float(losses[i]) for i in sorted(losses) if i >= start]
+
+    try:
+        # 1. uninterrupted
+        chaos.poison_steps([poison_step])
+        ref, ref_losses, ref_bits = make("uninterrupted", SEED)
+        t0 = time.perf_counter()
+        rep1 = ref.run(feed())
+        run_s = time.perf_counter() - t0
+        chaos.clear()
+        last = ref.manager._dir_for(ref.manager.latest_step())
+        ckpt_bytes = sum(os.path.getsize(os.path.join(last, f))
+                         for f in os.listdir(last))
+        if rep1["status"] != "completed" or rep1["step"] != steps \
+                or rep1["steps_skipped"] != 1 \
+                or ref_bits[poison_step] != ref_bits[poison_step + 1]:
+            raise AssertionError(f"uninterrupted run {rep1}: the poisoned "
+                                 f"step must be skipped with every flat "
+                                 f"buffer's bits unchanged")
+        t1 = time.perf_counter()
+        ref.save()
+        caller_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        ref.manager.wait()
+        write_s = time.perf_counter() - t2
+        want_state = state_of(ref)
+        want_losses = floats(ref_losses, 0)
+
+        def check(tr, losses, start, what):
+            got = state_of(tr)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(got[0], want_state[0])) and got[1] == want_state[1]
+            if not same or not _same_floats(floats(losses, start),
+                                            want_losses[start:]):
+                raise AssertionError(f"{what}: the resumed run differs from "
+                                     f"the uninterrupted one (losses "
+                                     f"{floats(losses, start)} against "
+                                     f"{want_losses[start:]})")
+
+        # 2. killed at the step-6 commit, resumed from step 4
+        chaos.poison_steps([poison_step])
+        chaos.inject_crash("ckpt.before_commit", after=2)
+        crashed, _, _ = make("crash", SEED)
+        try:
+            crashed.run(feed())
+            raise AssertionError("the injected crash did not surface")
+        except chaos.InjectedCrash:
+            pass
+        crashed_at = crashed.step._step_i
+        del crashed
+        gc.collect()
+        chaos.clear()
+        chaos.poison_steps([poison_step])
+        resumed, losses2, _ = make("crash", SEED + 7)
+        t3 = time.perf_counter()
+        restored = resumed.restore()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t3
+        rep2 = resumed.run(feed(), resume=False)
+        chaos.clear()
+        if restored.step != 4 or rep2["step"] != steps:
+            raise AssertionError(f"crash case: restored {restored.step}, "
+                                 f"report {rep2}")
+        check(resumed, losses2, 4, "crash at ckpt.before_commit")
+        del resumed
+        gc.collect()
+
+        # 3. preempted by SIGTERM, resumed
+        chaos.poison_steps([poison_step])
+        pre, _, _ = make("preempt", SEED)
+        rep3 = pre.run(feed(preempt=preempt_at))
+        del pre
+        gc.collect()
+        resumed, losses3, _ = make("preempt", SEED + 7)
+        rep3b = resumed.run(feed())
+        chaos.clear()
+        if rep3["status"] != "preempted" or rep3["step"] != preempt_at \
+                or rep3b["resumed_from"] != preempt_at \
+                or rep3b["status"] != "completed" or rep3b["step"] != steps:
+            raise AssertionError(f"preemption case: {rep3} then {rep3b}")
+        check(resumed, losses3, preempt_at, "preemption")
+        del resumed, ref
+        gc.collect()
+        children = multiprocessing.active_children()
+        if children:
+            raise AssertionError(f"worker processes left: {children}")
+    finally:
+        chaos.clear()
+        flags.set_flags({"metrics": "off", "metrics_dir": ""})
+        tobs.reset_all()
+        shutil.rmtree(root, ignore_errors=True)
+    tele = rep1.get("telemetry", {})
+    return {
+        "phase": "resilient_slice",
+        "model": "GPT-3 1.3B widths, 2 layers (depth cut: a checkpoint of "
+                 "~2.9 GB)", "params": n_params, "amp": "O2 bfloat16",
+        "recompute": True, "hidden_dropout": cfg.hidden_dropout_prob,
+        "batch": [batch, seq], "steps": steps, "save_every": save_every,
+        "poisoned_step": poison_step,
+        "losses": [x if math.isfinite(x) else str(x) for x in want_losses],
+        "run_s": run_s, "checkpoint_bytes": ckpt_bytes,
+        "free_bytes_before": free,
+        "async_save_caller_s": caller_s, "background_write_s": write_s,
+        "background_write_gb_per_s": ckpt_bytes / write_s / 1e9,
+        "restore_s": restore_s, "restored_step": restored.step,
+        "crashed_at_step": crashed_at, "preempted": rep3,
+        "resumed_after_preemption": {k: rep3b[k] for k in
+                                     ("status", "step", "resumed_from",
+                                      "steps_run", "steps_skipped")},
+        "telemetry_phase_ms_avg": tele.get("phase_ms_avg"),
+        "telemetry_records": tele.get("records"),
+    }
+
+
 KERNELS = {
     "rms_norm": ("cuda", "paddle_tpu_torch/csrc/fused_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
@@ -3396,6 +3957,19 @@ def main():
     packed = train_packed_slice_phase(torch, gpu.reset_launch_counts,
                                       lambda: gpu.launch_counts(PACKED))
     emit(packed)
+    release(torch)
+
+    emit(recompute_parity_phase(torch, gpu.reset_launch_counts,
+                                gpu.launch_counts))
+    release(torch)
+
+    emit(recompute_slice_phase(torch, gpu.reset_launch_counts,
+                               gpu.launch_counts, o2["step_s"]))
+    release(torch)
+
+    emit(io_feed_phase(torch))
+    emit(resilient_slice_phase(torch))
+    release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged
     # decode (replays included), generate() for contiguous RoPE,

@@ -2,6 +2,8 @@
 
 The JAX package `paddle_tpu` beside it is the reference; this package never
 imports it (nor JAX). Its layout mirrors paddle_tpu (core/, ops/, nn/,
-models/, serving/). Entry points run on the CUDA device unless the caller
-passes device="cpu"; with no GPU they raise instead of falling back.
+models/, serving/, jit/, amp/, optimizer/, io/, resilience/, framework/,
+distributed/, profiler/, observability/). Entry points run on the CUDA
+device unless the caller passes device="cpu"; with no GPU they raise
+instead of falling back.
 """

@@ -24,8 +24,11 @@ cached forwards take the cached and paged attentions. Packed batches
 (`segments=` [b, s] document ids, padding -1; bench.py's BENCH_PACKED path)
 restart the learned positions at every document, attend within each
 document through ops.nn_ops.segmented_attention (the segmented flash
-kernels) and mask the loss's pairs across documents. The
-`sequence_parallel`, `recompute` and rotary branches of the reference raise
+kernels) and mask the loss's pairs across documents. With
+`recompute=True` a training forward runs each block through
+distributed.fleet.recompute (gpt.py:310-317), under `recompute_policy`:
+the block's activations are recomputed in the backward pass. The
+`sequence_parallel` and rotary branches of the reference raise
 NotImplementedError naming the ROADMAP item that brings them.
 
 Parameters are created on the target device and filled there from a seeded
@@ -42,6 +45,7 @@ from torch import nn
 
 from ..core.dtype import convert_dtype
 from ..core.place import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                   RowParallelLinear, VocabParallelEmbedding)
 from ..ops import nn_ops
@@ -173,8 +177,6 @@ class GPTModel(nn.Module):
         if config.sequence_parallel:
             raise _not_ported("sequence_parallel",
                               "distributed and fleet (context parallel)")
-        if config.recompute:
-            raise _not_ported("recompute", "distributed and fleet")
         self.config = config
         self.wte = VocabParallelEmbedding(config.vocab_size,
                                           config.hidden_size, **factory)
@@ -231,7 +233,11 @@ class GPTModel(nn.Module):
             positions = torch.arange(s, device=input_ids.device)
         h = self.drop(self.wte(input_ids) + self.wpe(positions))
         for block in self.blocks:
-            h = block(h, segments=segments)
+            if self.config.recompute and self.training:
+                h = recompute(block, h, segments=segments,
+                              policy=self.config.recompute_policy)
+            else:
+                h = block(h, segments=segments)
         return self.ln_f(h)
 
 

@@ -15,6 +15,10 @@ reference's forward modes (llama.py:182-256):
   * contiguous cache, per-row `pos` vector [b]: ragged batched prefill;
   * paged caches (serving.paged.PagedLayerCache): the engine's decode step.
 
+With `recompute=True` a training forward without a cache runs each decoder
+layer through distributed.fleet.recompute (llama.py:248-255), under
+`recompute_policy`.
+
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, norms at 1), so a 7B model
 is never built on the host. The rope cos/sin tables are plain fp32 tensors
@@ -32,6 +36,7 @@ from torch import nn
 
 from ..core.dtype import convert_dtype
 from ..core.place import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..nn import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
                   VocabParallelEmbedding)
 from ..ops import nn_ops
@@ -52,6 +57,7 @@ class LlamaConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     recompute: bool = False
+    recompute_policy: str = None
 
     def __post_init__(self):
         if not self.num_key_value_heads:
@@ -172,10 +178,6 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "Llama recompute is not ported yet (ROADMAP queue 1: "
-                "distributed and fleet)")
         self.config = config
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, **factory)
@@ -239,7 +241,11 @@ class LlamaModel(nn.Module):
             rope = rope + (packed_positions(segments, s),)
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h, rope, segments=segments)
+            if self.config.recompute and self.training:
+                h = recompute(layer, h, rope, segments=segments,
+                              policy=self.config.recompute_policy)
+            else:
+                h = layer(h, rope, segments=segments)
         return self.norm(h)
 
 

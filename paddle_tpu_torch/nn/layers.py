@@ -33,6 +33,24 @@ class VocabParallelEmbedding(Embedding):
     vocabulary is local)."""
 
 
+def module_generators(obj) -> list:
+    """The torch.Generators held by `obj`'s modules (`obj` a Module or a
+    bound method of one; otherwise none), deduplicated, in module order:
+    the sources of the dropout masks that recomputation replays and a
+    checkpoint carries."""
+    owner = obj if isinstance(obj, nn.Module) \
+        else getattr(obj, "__self__", None)
+    if not isinstance(owner, nn.Module):
+        return []
+    seen, out = set(), []
+    for m in owner.modules():
+        for v in vars(m).values():
+            if isinstance(v, torch.Generator) and id(v) not in seen:
+                seen.add(id(v))
+                out.append(v)
+    return out
+
+
 class Dropout(nn.Module):
     """Dropout whose keep mask comes from `generator` (a torch.Generator on
     the input's device; None draws from torch's default one)."""

@@ -3,7 +3,8 @@ serving and single-card training use: the metrics registry, sinks, the
 span ring, the flight recorder (with its step ring and training
 triggers), per-step training telemetry, the anomaly engine, memory gauges
 and the /metrics + /healthz endpoint. Importing it defines FLAGS_metrics,
-FLAGS_metrics_dir, FLAGS_anomaly and FLAGS_flight_recorder_steps."""
+FLAGS_metrics_dir, FLAGS_metrics_port, FLAGS_anomaly and
+FLAGS_flight_recorder_steps."""
 from . import (anomaly, flight_recorder, memory, registry,  # noqa: F401
                serve, sinks, spans, telemetry)
 from .anomaly import AnomalyEngine  # noqa: F401
@@ -18,9 +19,11 @@ from .spans import record_span  # noqa: F401
 
 
 def reset_all() -> None:
-    """Zero metrics, clear spans and drop the telemetry and flight-recorder
-    singletons (test isolation)."""
+    """Zero metrics, clear spans, drop the telemetry and flight-recorder
+    singletons and stop the process-wide metrics server (test
+    isolation)."""
     registry.REGISTRY.reset()
     spans.clear()
     telemetry.reset()
     flight_recorder.reset()
+    serve.reset()

@@ -1,14 +1,18 @@
-"""Online anomaly detection over per-tick records (counterpart of
-paddle_tpu/observability/anomaly.py: the rolling-window engine and the
-serving detectors; the training and fleet detectors wait for those
-slices).
+"""Online anomaly detection over per-step and per-tick records
+(counterpart of paddle_tpu/observability/anomaly.py: the rolling-window
+engine, the training detectors and the serving detectors; the fleet
+detectors wait for that slice).
 
-Detectors consume the records the serving arm already assembles
-(serving/observability.py) and turn a regression into a structured
-`anomaly` event: counted, written to the event log, noted in the flight
-recorder and, unless disarmed, dumped with it. They fire only once warm
-(min_points) and re-arm after `cooldown` records, so one bad phase gives
-one anomaly, not one per tick. Inert unless FLAGS_metrics=on.
+Detectors consume the records telemetry (training) and the serving arm
+(serving/observability.py) already assemble and turn a regression into a
+structured `anomaly` event: counted, written to the event log, noted in
+the flight recorder and, unless disarmed, dumped with it. They fire only
+once warm (min_points) and re-arm after `cooldown` records, so one bad
+phase gives one anomaly, not one per step. Inert unless FLAGS_metrics=on;
+the ResilientTrainer builds the training engine only when FLAGS_anomaly is
+on too (`from_flags`). The reference's compile-cache collapse detector is
+left out: the port compiles no programs whose cache could collapse, and
+its step records carry no compile-cache counters.
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 from . import flight_recorder, telemetry
-from .registry import counter
-from ..core.flags import define_flag
+from .registry import counter, metrics_enabled
+from ..core.flags import define_flag, get_flag
 
 define_flag(
     "anomaly", "off",
@@ -29,6 +33,12 @@ define_flag(
 _ANOMALIES = counter("anomaly_events_total",
                      "Anomalies detected by the online engine, by kind.",
                      labelnames=("kind",))
+
+_TRUE = ("1", "on", "true", "yes")
+
+
+def anomaly_enabled() -> bool:
+    return metrics_enabled() and str(get_flag("anomaly")).lower() in _TRUE
 
 class RollingDetector:
     """Keeps a bounded window of one scalar field; subclasses decide."""
@@ -72,6 +82,35 @@ class RollingDetector:
         return out
 
 
+class _ZSpike(RollingDetector):
+    """value > mean + z*sigma AND > factor*mean: both a statistical outlier
+    and materially larger (sigma floors keep flat phases from firing)."""
+
+    z = 6.0
+    factor = 1.5
+
+    def check(self, v, rec):
+        vals = list(self.window)
+        n = len(vals)
+        mean = sum(vals) / n
+        var = sum((x - mean) ** 2 for x in vals) / n
+        sigma = max(var ** 0.5, abs(mean) * 0.02, 1e-12)
+        if v > mean + self.z * sigma and v > self.factor * abs(mean):
+            return {"mean": round(mean, 6), "sigma": round(sigma, 6),
+                    "zscore": round((v - mean) / sigma, 3)}
+        return None
+
+
+class LossSpike(_ZSpike):
+    kind = "loss_spike"
+    field = "loss"
+
+
+class GradNormSpike(_ZSpike):
+    kind = "grad_norm_spike"
+    field = "grad_norm"
+
+
 class _SustainedRatio(RollingDetector):
     """value / rolling median past a bound for `patience` consecutive
     records (one hiccup is not a regression)."""
@@ -108,6 +147,33 @@ class _SustainedRatio(RollingDetector):
         self._streak = 0
         return {"median": round(med, 6), "ratio": round(r, 3),
                 "patience": self.patience}
+
+
+class StepTimeRegression(_SustainedRatio):
+    kind = "step_time_regression"
+    field = "step_wall_s"
+    ratio = 2.0
+    direction = "above"
+
+
+class ThroughputCollapse(_SustainedRatio):
+    kind = "throughput_collapse"
+    field = "tokens_per_s"
+    ratio = 0.5
+    direction = "below"
+
+    def value(self, rec):
+        v = rec.get("tokens_per_s", rec.get("samples_per_s"))
+        try:
+            return float(v) if v is not None else None
+        except (TypeError, ValueError):
+            return None
+
+
+def default_detectors(**kw) -> List[RollingDetector]:
+    """The training detectors over TrainStep's step records."""
+    return [LossSpike(**kw), GradNormSpike(**kw), StepTimeRegression(**kw),
+            ThroughputCollapse(**kw)]
 
 
 class TTFTRegression(_SustainedRatio):
@@ -170,9 +236,10 @@ class AnomalyEngine:
     disarmed, dumps the flight recorder with the anomaly attached.
     `recent()` is safe to read from another thread."""
 
-    def __init__(self, detectors: List[RollingDetector], *,
-                 dump: bool = True, dump_cooldown_steps: int = 50):
-        self.detectors = list(detectors)
+    def __init__(self, detectors: Optional[List[RollingDetector]] = None,
+                 *, dump: bool = True, dump_cooldown_steps: int = 50):
+        self.detectors = list(detectors if detectors is not None
+                              else default_detectors())
         self.dump = bool(dump)
         self.dump_cooldown_steps = int(dump_cooldown_steps)
         self._dump_armed_at = -1
@@ -206,3 +273,9 @@ class AnomalyEngine:
     def recent(self, n: int = 16) -> List[Dict[str, Any]]:
         with self._lock:
             return list(self._recent)[-int(n):]
+
+
+def from_flags(**kw) -> Optional[AnomalyEngine]:
+    """A training engine when FLAGS_metrics=on and FLAGS_anomaly=on, else
+    None (the ResilientTrainer's one-liner)."""
+    return AnomalyEngine(**kw) if anomaly_enabled() else None

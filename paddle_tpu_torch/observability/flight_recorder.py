@@ -5,13 +5,14 @@ a trigger (counterpart of paddle_tpu/observability/flight_recorder.py).
 Training feeds the step ring through telemetry (one record a TrainStep
 call, FLAGS_flight_recorder_steps deep); the NaN guard's skip
 (`on_nan_skip`) and an exception escaping a training loop
-(`on_exception`) dump it; the serving arm in serving/observability.py dumps
+(`on_exception`) and a latched preemption (`on_preemption`) dump it;
+the serving arm in serving/observability.py dumps
 through it when a serving anomaly fires. A dump is written to a temporary
 file, fsynced and renamed into place, so a crash mid-dump never leaves a
 torn file. Dumps land in FLAGS_metrics_dir/flight/ (or ./flight_recorder
 when no metrics dir is set). The triggers do nothing while FLAGS_metrics
-is off. The cluster view and the preemption and membership triggers wait
-for the distributed slice.
+is off. The cluster view and the membership trigger wait for the
+distributed slice.
 """
 from __future__ import annotations
 
@@ -201,3 +202,12 @@ def on_exception(exc: BaseException) -> Optional[str]:
     rec = get_flight_recorder()
     rec.note("exception", type=type(exc).__name__, message=str(exc)[:500])
     return rec.dump("exception", exc=exc)
+
+
+def on_preemption(reason: str) -> Optional[str]:
+    """PreemptionHandler latched (SIGTERM, SIGINT or a manual trigger)."""
+    if not metrics_enabled():
+        return None
+    rec = get_flight_recorder()
+    rec.note("preemption", reason=str(reason))
+    return rec.dump(f"preemption_{reason}")

@@ -419,8 +419,7 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
         TrainStep(lm, lambda x, s, y: lm(x, labels=y, segments=s), lopt)
     lcfg = LlamaConfig.tiny()
     lcfg.recompute = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(lcfg, device="cpu")
+    assert LlamaForCausalLM(lcfg, device="cpu").config.recompute
     with pytest.raises(NotImplementedError, match="segments"):
         lm(torch.zeros(1, 4, dtype=torch.long), caches=[],
            segments=torch.zeros(1, 4, dtype=torch.int32))
