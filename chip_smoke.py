@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving paths (Llama, greedy and sampled,
-with and without self-speculation, every decode tick, verify window and
-prefill chunk a CUDA graph replay, behind the HTTP server, and GPT) and
+with and without self-speculation, every decode tick, verify window,
+prefill chunk and batched prefill a CUDA graph replay, behind the HTTP
+server, across a fleet of replicas, and GPT, rotary too) and
 training paths (GPT under amp O1 and O2, with and without recompute, and
 Llama on packed documents; the resilient loop with its data feed and
 checkpoints) on one H100 and hold each of its hand-written kernels against
@@ -119,8 +120,11 @@ final line):
                graph body run eagerly against its replay from one saved
                state: greedy k = 1 and 4 (tokens, bitwise K/V rows), the
                sampled step (the greedy slots' tokens, K/V rows), a 256-token
-               prefill chunk in the lane (logits, lane rows) and, on a spec_k
-               = 4 engine, the verify window (greedy, acc, nxt, K/V rows);
+               prefill chunk in the lane (logits, lane rows), a batched
+               prefill of 8 rows of 64 tokens at P 256 and at a 2,000-token
+               offset (the largest P captured; first tokens, the rows'
+               suffix blocks bitwise) and, on a spec_k = 4 engine, the
+               verify window (greedy, acc, nxt, K/V rows);
                a replay's launches RMSNorm 65, RoPE 32, and paged decode 32
                a step or paged verify 32; the kernel names torch.profiler
                records for one decode replay; wall and device-busy ms and
@@ -146,7 +150,43 @@ final line):
                ticks and paged decode 32 x plain decode ticks, every tick
                must have replayed its graph, verify replays > 0 on the main
                path, with drafts accepted and rolled back
- 13. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
+ 13. fleet_parity - the fleet in fp32 (TF32 off): two replicas from an
+               identically seeded factory (Llama-2-7B widths, 2 layers; 4
+               slots, 1024 context), real threads under a FleetRouter;
+               every request's tokens must equal model.generate's in each
+               scenario: affinity (a shared 256-token prefix served where
+               it is cached), a kill mid-decode with re-dispatch, a hedge
+               past the TTFT deadline (loser cancelled, its slot and KV
+               freed), drain and resume, a migrating drain mid-decode
+               (every migrated session a full prefix hit on its streamed
+               chain), 1 prefill + 1 decode (no prefill token on the decode
+               replica), the autoscaler growing 1 -> 2 (the new engine
+               captured while replica-0 replays: equal launch deltas) and
+               shrinking back; no breaker strike, no unfinished request;
+               then a rotary GPT (GPT-3 1.3B widths, 2 layers):
+               generate() and the engine equal, RoPE launched by both
+ 14. fleet_slice - two Llama-2-7B replicas at full width in bf16 (8
+               slots, 16-token blocks, 256-token chunks, 2048 context)
+               under a FleetRouter with real threads, fresh engines an
+               arm: one replica against two on slice 1's 10 requests and
+               a burst of 24 prompts of 16-48 tokens (32-64 new); 1
+               prefill + 1 decode on the burst; one 16-slot replica on
+               both; two replicas with a migrate=True drain of replica-0
+               a third into a burst answered at 128-256 tokens, once as
+               a user drains (the replica ticking on) and once with it
+               paused: tokens/s,
+               mean TTFT, re-dispatched, hedged, shed and migrated
+               requests, each KV transfer's blocks, bytes and export
+               and ingest seconds, prefill tokens by replica,
+               graph_stats() by replica, peak memory, construction
+               seconds; a device trace of one burst on one replica and
+               on two (busy share, streams, gaps); raises on a breaker
+               strike, an unfinished request, a prefill token on the
+               decode replica, a drain that moved nothing or a
+               moved session without its streamed prefix, a serving
+               kernel not launched or a tick not replayed (batched
+               prefills included)
+ 15. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
                slots, 16-token blocks, 2048 context = its positions): a
                1,990-token repetitive prompt that reaches the end of the
                context, five shorter ones, then a 1,984-token cached prefix
@@ -156,20 +196,20 @@ final line):
                request's windows run past the table too); no output logit
                may be non-finite, paged decode and verify must launch, and
                every tick must have replayed its graph
- 14. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+ 16. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
                three TrainSteps (AdamW, global-norm clip) on the card and the
                same three on the CPU (plain versions) from the same weights
                and batch; losses and parameters must agree (bounds below)
- 15. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
+ 17. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
                AdamW, batch 4 x 2048 through TrainStep: one warm-up step and
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
- 16. train_o2_parity - GPT at GPT-3 1.3B's width, 2 layers, amp O2
+ 18. train_o2_parity - GPT at GPT-3 1.3B's width, 2 layers, amp O2
                (decorate: bf16 parameters, fp32 masters): three TrainSteps
                on the card and on the CPU from the same weights and batch;
                losses and masters must agree (bounds below)
- 17. train_o2_slice - main path 2 under amp O2: GPT-3 1.3B decorated,
+ 19. train_o2_slice - main path 2 under amp O2: GPT-3 1.3B decorated,
                auto_cast O2, global-norm clip, AdamW over LinearWarmup(
                CosineAnnealingDecay), TrainStep(nan_guard=True,
                telemetry=True) with FLAGS_metrics on: a warm-up and three
@@ -182,10 +222,10 @@ final line):
                H100 peak; then GradScaler over two eager steps (an
                overflowing one skipped with the scale halved, a clean one
                that updates)
- 18. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 20. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
                three TrainSteps on the card and on the CPU, as in 14
- 19. train_packed_slice - main path 3: Llama-2-7B at its published widths
+ 21. train_packed_slice - main path 3: Llama-2-7B at its published widths
                cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
                tokens from PackedLMBatches: one warm-up step and three
                timed steps; loss, step time, tokens/s (all and non-padding),
@@ -193,7 +233,7 @@ final line):
                expected counts (segmented flash 8 each, RMSNorm and its
                backward 17, per-token RoPE 16 (q and k in one launch,
                forward and backward), AdamW 1, dense flash 0)
- 20. recompute_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32
+ 22. recompute_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32
                off) and amp O2, and the packed Llama at Llama-2-7B's
                width, 2 layers, fp32 on one 256-token row: three
                TrainSteps with recompute on and three with it off from the
@@ -201,7 +241,7 @@ final line):
                moments must be bitwise equal, and the launches a step
                those of `_want_launches` (a block's forward kernels twice,
                the backward ones once)
- 21. recompute_slice - main path 5: GPT-3 1.3B at full depth under amp O2
+ 23. recompute_slice - main path 5: GPT-3 1.3B at full depth under amp O2
                as the O2 slice runs it, first without recompute and then
                with recompute=True, batch 4 x 2048: a warm-up and three
                timed steps each (step time beside the O2 slice's, tokens/s,
@@ -210,12 +250,12 @@ final line):
                with recompute, a warm-up and two steps, whose peak must
                stay under the card's memory, beside the no-recompute peak
                extrapolated from batch 4
- 22. io_feed - a seeded dataset of 64 token rows of 2048 through
+ 24. io_feed - a seeded dataset of 64 token rows of 2048 through
                DataLoader(num_workers=2, forked process workers, shared
                memory, shuffle=True): the batch order must equal
                num_workers=0's; then through DevicePrefetcher(depth=2):
                batches/s, the prefetcher's wait, every batch on the card
- 23. resilient_slice - GPT-3 1.3B's widths cut to 2 layers (a ~2.9 GB
+ 25. resilient_slice - GPT-3 1.3B's widths cut to 2 layers (a ~2.9 GB
                checkpoint), amp O2, recompute, hidden dropout 0.1, fed by
                io_feed's loader through the prefetcher, through
                ResilientTrainer over an async CheckpointManager
@@ -2404,6 +2444,41 @@ def graph_tick_phase(torch, model, engine_kw, new_tokens=512,
 
     out["prefill"] = check("prefill", key, lane_rows, scribble,
                            lambda o: o, norm_rope)
+    # a burst of max_slots rows through the batched prefill, fresh rows at
+    # P 256 and rows at a 2,000-token offset at the largest P captured;
+    # each row's suffix blocks are free blocks of the pool, its prefix the
+    # null page
+    rng = np.random.default_rng(SEED + 11)
+    free = list(eng.allocator._free)
+    bs, n, s_top = eng.block_size, eng.max_slots, eng._bp_S[-1]
+    for name, S, off in (("batched_prefill_p256", 64, 0),
+                         ("batched_prefill_pmax", 64, 2000)):
+        P = next(v for v in eng._bp_P if v >= off + S)
+        ns = -(-S // bs)
+        blocks = torch.tensor(free[:n * ns], device=eng.device)
+        free = free[n * ns:]
+        x = eng._bp_in.host()
+        x[:] = 0
+        x[:, :S] = rng.integers(0, vocab, (n, S))
+        x[:, s_top] = off
+        x[:, s_top + 1] = S - 1 - np.arange(n)
+        x[:, s_top + 2 + off // bs:s_top + 2 + off // bs + ns] = (
+            blocks.cpu().numpy().reshape(n, ns))
+        eng._bp_in.push()
+        saved = [(kp[blocks].clone(), vp[blocks].clone())
+                 for kp, vp in eng.pool.layers]
+
+        def block_rows(blocks=blocks):
+            return [t[blocks] for kv in eng.pool.layers for t in kv]
+
+        def put_back(blocks=blocks, saved=saved):
+            for (kp, vp), (k_, v_) in zip(eng.pool.layers, saved):
+                kp[blocks] = k_
+                vp[blocks] = v_
+
+        out[name] = dict(check(name, ("batched_prefill", (S, P)),
+                               block_rows, put_back, lambda o: o,
+                               norm_rope), S=S, P=P, offset=off, rows=n)
     # whole engine ticks: replay, deferred fetch and bookkeeping
     ticks = {}
     for k in (1, 4):
@@ -2706,6 +2781,568 @@ def gpt_serve_slice_phase(torch, reset, counts, cfg=None, device="cuda",
             "init_s": init_s, "prompt_tokens": [len(p) for p in
                                                 wave1 + wave2],
             "wpe_positions": ctx, "arms": arms}
+
+
+# ------------------------------------------------------------ the fleet
+def _fleet_faults(replicas):
+    """Raise unless no replica's breaker was struck and no replica loop
+    raised: a tick that raises is a breaker strike, which the router hides
+    behind re-dispatch."""
+    bad = {rid: (rep.breaker.failures, rep.last_error)
+           for rid, rep in replicas.items()
+           if rep.breaker.failures or rep.last_error}
+    if bad:
+        raise AssertionError(f"unplanned replica faults: {bad}")
+
+
+def _settle(freqs, timeout=600):
+    late = [f.request_id for f in freqs if not f.wait(timeout)]
+    if late:
+        raise AssertionError(f"fleet requests left unfinished: {late}")
+
+
+def _until(cond, what, timeout=120):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def _mid_decode(f):
+    """The fleet request's live attempt has its first token (its fetch
+    may be deferred) and has not finished."""
+    att = f.live_attempts()
+    return bool(att) and att[-1].req.first_token_time is not None \
+        and att[-1].req.state != "finished"
+
+
+def fleet_parity_phase(torch, cfg, new_tokens=48):
+    """The fleet on the card in fp32 (TF32 off): two replicas from an
+    identically seeded factory (Llama-2-7B widths, 2 layers; 4 slots,
+    16-token blocks, 256-token chunks, 1024 context), each a ServingEngine
+    whose ticks replay CUDA graphs, run by real threads under a
+    FleetRouter. Every request's tokens must equal model.generate's, in
+    every scenario: affinity (a shared 256-token prefix lands on the
+    replica that holds it and is served from its cache); a kill with
+    re-dispatch (replica-0 dies mid-decode); a hedge (replica-0 paused past
+    the TTFT deadline: the hedge wins, the loser's slot and KV are freed);
+    drain and resume (routed around, then affinity back); a drain with
+    migrate=True mid-decode (every migrated session admits its streamed
+    chain as a full prefix hit); disaggregated 1 prefill + 1 decode (no
+    prefill token on the decode replica); the autoscaler growing 1 -> 2
+    replicas (the new engine built and captured while replica-0's loop
+    replays its graphs: its launch deltas must equal replica-0's) and
+    shrinking back. No replica's breaker may be struck and no request left
+    unfinished. Then a rotary GPT (GPT-3 1.3B widths, 2 layers,
+    use_rotary): generate() and the engine equal, through the RoPE kernel
+    (contiguous in generate(), per token in the engine's graphs)."""
+    import numpy as np
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaForCausalLM)
+    from paddle_tpu_torch.ops import gpu
+    from paddle_tpu_torch.serving import (FleetAutoscaler, FleetRouter,
+                                          ServingEngine)
+
+    kw = dict(max_slots=4, block_size=16, prefill_chunk=256,
+              max_model_len=1024)
+
+    def factory():
+        return LlamaForCausalLM(cfg, device="cuda", dtype="float32",
+                                seed=SEED)
+
+    ref = factory()
+    rng = np.random.default_rng(SEED + 20)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    def check(freqs, name):
+        for f in freqs:
+            want = _greedy(torch, ref, f.prompt, f.max_new_tokens)
+            if f.output_tokens != want or f.finish_reason != "length":
+                raise AssertionError(
+                    f"fleet {name}: request {f.request_id} "
+                    f"({len(f.prompt)} tokens) gave {f.output_tokens[:8]}"
+                    f"..., generate() {want[:8]}... ({f.finish_reason})")
+
+    engines = [ServingEngine(factory(), **kw) for _ in range(2)]
+    seen = {}
+    out = {"phase": "fleet_parity", "layers": cfg.num_layers,
+           "new_tokens": new_tokens}
+
+    def router(n=2, **rkw):
+        r = FleetRouter(engines[:n], **rkw)
+        seen.update({f"{len(seen)}:{k}": v for k, v in r.replicas.items()})
+        return r.start()
+
+    # affinity: the prefix's owner gets the follow-up
+    prefix = toks(256)
+    r = router()
+    a = r.submit(prefix + toks(20), max_new_tokens=new_tokens)
+    _settle([a])
+    b = r.submit(prefix + toks(30), max_new_tokens=new_tokens)
+    c = r.submit(toks(40), max_new_tokens=new_tokens)
+    _settle([b, c])
+    check([a, b, c], "affinity")
+    homes = [f.attempts[0].replica.rid for f in (a, b, c)]
+    if homes[1] != homes[0] or b.attempts[0].req.prefix_matched != 256:
+        raise AssertionError(f"affinity: homes {homes}, matched "
+                             f"{b.attempts[0].req.prefix_matched}")
+    out["affinity"] = {"homes": homes,
+                       "prefix_matched": b.attempts[0].req.prefix_matched}
+    r.stop()
+
+    # kill: replica-0 dies mid-decode, its requests move to replica-1
+    r = router()
+    for rep in r.replicas.values():
+        rep.pause()
+    freqs = [r.submit(toks(n), max_new_tokens=4 * new_tokens)
+             for n in (40, 300, 77, 150)]
+    doomed = [f for f in freqs if f.attempts[0].replica.rid == "replica-0"]
+    r.replicas["replica-0"].unpause()
+    _until(lambda: all(_mid_decode(f) for f in doomed),
+           "replica-0 decoding")
+    r.kill_replica("replica-0")
+    r.replicas["replica-1"].unpause()
+    _settle(freqs)
+    check(freqs, "kill")
+    moved = sum(f.redispatches for f in freqs)
+    if moved != len(doomed) or not doomed:
+        raise AssertionError(f"kill: {moved} re-dispatched of "
+                             f"{len(doomed)} on replica-0")
+    out["kill"] = {"requests": len(freqs), "redispatched": moved}
+    r.stop()
+
+    # hedge: replica-0 hangs, the hedge on replica-1 wins
+    r = router(hedge_ttft_ms=100.0)
+    r.replicas["replica-0"].pause()
+    h = r.submit(toks(60), max_new_tokens=new_tokens)
+    _settle([h])
+    check([h], "hedge")
+    kinds = [(a.kind, a.replica.rid, a.failed) for a in h.attempts]
+    st = engines[0].stats()
+    if kinds != [("primary", "replica-0", True),
+                 ("hedge", "replica-1", False)] or st["running"] \
+            or st["waiting"] or st["prefilling"] or st["reserved_blocks"]:
+        raise AssertionError(f"hedge: attempts {kinds}, loser {st}")
+    r.replicas["replica-0"].unpause()
+    out["hedge"] = {"attempts": kinds}
+    r.stop()
+
+    # drain and resume
+    r = router()
+    p = toks(100)
+    long = r.submit(p, max_new_tokens=4 * new_tokens)
+    r.drain("replica-0")
+    side = r.submit(p, max_new_tokens=new_tokens)
+    _settle([long, side])
+    _until(lambda: r.drained("replica-0"), "the drain")
+    r.resume("replica-0")
+    back = r.submit(p, max_new_tokens=new_tokens)
+    _settle([back])
+    check([long, side, back], "drain")
+    homes = [f.attempts[0].replica.rid for f in (long, side, back)]
+    if homes != ["replica-0", "replica-1", "replica-0"]:
+        raise AssertionError(f"drain: homes {homes}")
+    out["drain_resume"] = {"homes": homes}
+    r.stop()
+
+    # a migrating drain mid-decode: block-multiple prompts, so the
+    # streamed chain is the whole prompt
+    r = router()
+    freqs = [r.submit(toks(n), max_new_tokens=new_tokens)
+             for n in (64, 128, 256, 192)]
+    on0 = [f for f in freqs if f.attempts[0].replica.rid == "replica-0"]
+    _until(lambda: all(_mid_decode(f) for f in on0),
+           "replica-0 decoding")
+    r.replicas["replica-0"].pause()
+    r.drain("replica-0", migrate=True)
+    r.replicas["replica-0"].unpause()
+    _settle(freqs)
+    check(freqs, "migrate")
+    migs = [f for f in freqs if f.migrations]
+    matched = [(len(f.prompt), f.attempts[-1].req.prefix_matched)
+               for f in migs]
+    if len(migs) != len(on0) or any(m != n for n, m in matched):
+        raise AssertionError(f"migrate: {len(migs)} of {len(on0)} moved, "
+                             f"(prompt, matched) {matched}")
+    out["migrate"] = {"migrated": len(migs), "prompt_and_matched": matched,
+                      "kv": [f.kv_streamed for f in migs]}
+    r.resume("replica-0")
+    r.stop()
+
+    # disaggregated: 1 prefill + 1 decode
+    r = router(roles="prefill:1,decode:1")
+    before = engines[1].prefill_tokens
+    freqs = [r.submit(toks(n), max_new_tokens=new_tokens)
+             for n in (16, 32, 48, 64, 128, 256)]
+    _settle(freqs)
+    check(freqs, "disaggregated")
+    decode_prefill = engines[1].prefill_tokens - before
+    if decode_prefill or any(f.attempts[-1].replica.rid != "replica-1"
+                             or f.kv_streamed is None for f in freqs):
+        raise AssertionError(f"disaggregated: {decode_prefill} prefill "
+                             f"tokens on the decode replica")
+    out["disaggregated"] = {"decode_replica_prefill_tokens": decode_prefill,
+                            "kv_bytes": sum(f.kv_streamed["bytes"]
+                                            for f in freqs)}
+    r.stop()
+
+    # the autoscaler: 1 -> 2 while replica-0 replays, then back to 1
+    r = router(n=1)
+    spawned = []
+
+    def spawn():
+        spawned.append(ServingEngine(factory(), **kw))
+        return spawned[-1]
+
+    scaler = FleetAutoscaler(r, spawn, min_replicas=1, max_replicas=2,
+                             hi=0.75, lo=0.25, cooldown_s=0.5,
+                             slots_per_replica=kw["max_slots"])
+    r.attach_autoscaler(scaler)
+    freqs = [r.submit(toks(n), max_new_tokens=new_tokens)
+             for n in (30, 60, 90, 120, 150, 180, 210, 240)]
+    _until(lambda: len(r.replicas) == 2, "the scale-up")
+    seen.update({f"{len(seen)}:{k}": v for k, v in r.replicas.items()})
+    freqs += [r.submit(toks(n), max_new_tokens=new_tokens)
+              for n in (50, 70, 90, 110)]
+    _settle(freqs)
+    check(freqs, "autoscaler")
+    _until(lambda: len(r.replicas) == 1 and scaler._retiring is None,
+           "the scale-down")
+    deltas = {k: v[1] for k, v in engines[0]._graphs.items()}
+    if {k: v[1] for k, v in spawned[0]._graphs.items()} != deltas:
+        raise AssertionError("the engine captured beside a replaying one "
+                             "recorded other launch deltas")
+    out["autoscaler"] = {"events": [(e["dir"], e["replica"],
+                                     e["utilization"])
+                                    for e in scaler.events],
+                         "served_by_new": sum(
+                             f.attempts[-1].replica.engine is spawned[0]
+                             for f in freqs)}
+    r.stop()
+    _fleet_faults(seen)
+    out["graphs"] = [graph_gate(e) for e in engines + spawned]
+    del engines, spawned, ref
+    release(torch)
+
+    # the rotary GPT
+    gcfg = GPTConfig.gpt3_1p3b()
+    gcfg.num_layers = 2
+    gcfg.use_rotary = True
+    gcfg.hidden_dropout_prob = gcfg.attention_dropout_prob = 0.0
+    gpt = GPTForCausalLM(gcfg, device="cuda", dtype="float32", seed=SEED)
+    prompts = [[int(t) for t in rng.integers(0, gcfg.vocab_size, n)]
+               for n in (30, 300, 41)]
+    gpu.reset_launch_counts()
+    wants = [_greedy(torch, gpt, q, new_tokens) for q in prompts]
+    rope_gen = gpu.launch_counts(("rope",))["rope"]
+    eng = ServingEngine(gpt, **kw)
+    gpu.reset_launch_counts()
+    got = eng.generate(prompts, max_new_tokens=new_tokens)
+    rope_eng = gpu.launch_counts(("rope_packed",))["rope_packed"]
+    same = [g[len(q):] for g, q in zip(got, prompts)] == wants
+    if not same or not rope_gen or not rope_eng:
+        raise AssertionError(f"rotary GPT: engine equals generate() "
+                             f"{same}, RoPE launches {rope_gen}, "
+                             f"{rope_eng}")
+    out["rotary_gpt"] = {"layers": gcfg.num_layers, "token_match": True,
+                         "rope_launches_generate": rope_gen,
+                         "rope_packed_launches_engine": rope_eng,
+                         "graphs": graph_gate(eng, ("decode", "prefill"))}
+    return out
+
+
+def _burst(rng, vocab, count=24, new=(32, 64)):
+    """tools/servebench.py's disaggregation trace, cut to one burst:
+    block-multiple prompts of 16, 32 or 48 tokens, 32-64 new tokens (or
+    `new`, inclusive)."""
+    return [([int(t) for t in rng.integers(0, vocab, int(rng.choice(
+        (16, 32, 48))))], int(rng.integers(new[0], new[1] + 1)))
+        for _ in range(count)]
+
+
+def _union_s(spans):
+    """Seconds covered by the union of (start, end) spans in microseconds,
+    and the idle gaps between them."""
+    busy, gaps = 0.0, []
+    cur = None
+    for s, e in sorted(spans):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+                gaps.append(s - cur[1])
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return busy / 1e6, [g / 1e6 for g in gaps]
+
+
+def _device_trace(torch, run):
+    """Run `run()` under torch.profiler (device activity only) and sum the
+    trace's kernels, copies and sets: the window from the first one's
+    start to the last one's end, the busy share (their union over the
+    window), per stream its events and busy seconds, `concurrent_s` (the
+    streams' busy seconds summed, less the union: time two streams ran at
+    once), and the five longest idle gaps. A trace with no device event
+    says so; a profiler that fails gives its error, not the phase's."""
+    import json
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    # the trace is a measurement: a profiler fault is reported, and `run`
+    # runs (and raises) whatever the profiler does
+    err = None
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # noqa: BLE001
+        prof, err = None, repr(e)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+            except Exception as e:  # noqa: BLE001
+                prof, err = None, repr(e)
+    if prof is None:
+        return {"error": err}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+    except Exception as e:  # noqa: BLE001
+        return {"error": repr(e)}
+    dev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+            e.get("args", {}).get("stream"), e.get("cat"))
+           for e in events if isinstance(e, dict) and "ts" in e
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return {"device_events": 0}
+    window = (max(e for _, e, _, _ in dev)
+              - min(s for s, _, _, _ in dev)) / 1e6
+    busy, gaps = _union_s([(s, e) for s, e, _, _ in dev])
+    streams = {}
+    for st in {st for _, _, st, _ in dev}:
+        mine = [(s, e) for s, e, x, _ in dev if x == st]
+        streams[str(st)] = {"events": len(mine),
+                            "busy_s": _union_s(mine)[0]}
+    return {"device_events": len(dev),
+            "kernels": sum(c == "kernel" for *_, c in dev),
+            "window_s": window, "busy_s": busy,
+            "busy_share": busy / window if window else None,
+            "streams": streams,
+            "concurrent_s": sum(v["busy_s"] for v in streams.values())
+            - busy,
+            "longest_gaps_s": sorted(gaps, reverse=True)[:5]}
+
+
+def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
+    """Two Llama-2-7B replicas at full width (bf16, seeded alike) on one
+    card, each a ServingEngine as slice 1 runs it (8 slots, 16-token
+    blocks, 256-token chunks, 2048 context), under a FleetRouter with real
+    replica threads. Arms, each on fresh engines: one replica against two
+    symmetric ones on slice 1's 10 requests (two waves) and on a burst of
+    24 short greedy prompts; one replica of 16 slots on both; 1 prefill +
+    1 decode on the same burst; two symmetric replicas with a
+    migrate=True drain of replica-0 once a third of another such burst,
+    answered at 128-256 tokens, has finished: once as FleetServer's
+    /drain?migrate=1 and the autoscaler drain do it (replica-0 ticking
+    on: a session that finishes before its transfer does stays) and
+    once with replica-0 paused around the drain (a replica that must go
+    now). For each: tokens/s,
+    mean TTFT (router arrival to first token), requests re-dispatched,
+    hedged, shed and migrated, every KV transfer's blocks, bytes, seconds
+    and its export and ingest halves, prefill tokens on the decode
+    replica, graph_stats() per replica, peak memory and engine
+    construction seconds. One more burst on one replica and on two runs
+    under torch.profiler (_device_trace). Raises on an unplanned breaker
+    strike, an unfinished request, a request without its tokens, a
+    prefill token on the decode replica, a drain that moved no session,
+    a moved session that did not admit its streamed chain, a
+    serving kernel not launched, or a tick not replayed. Two replicas
+    share one card's SMs and memory: this is not scale-out, and no gain
+    is expected."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import registry
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine
+
+    cfg = LlamaConfig.llama2_7b()
+    kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
+              max_model_len=2048)
+    t0 = time.perf_counter()
+    models = [LlamaForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                               seed=SEED) for _ in range(2)]
+    torch.cuda.synchronize()
+    model_init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 1)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    # slice 1's requests (slice_phase's seed and order)
+    shared = toks(256)
+    lens = (16, 64, 128, 512, 768, 1024, 288, 356)
+    wave1 = [toks(n) for n in lens[:-2]]
+    wave1 += [shared + toks(n - 256) for n in lens[-2:]]
+    repeat = next(p for p in wave1 if len(p) % 16 == 0)
+    slice10 = [[(p, new_tokens) for p in wave1],
+               [(shared + toks(48), new_tokens), (list(repeat), new_tokens)]]
+    burst = [_burst(np.random.default_rng(SEED + 30), cfg.vocab_size)]
+    # the drains' burst answers at 128-256 tokens: a session then outlasts
+    # a KV transfer (0.2-0.5 s behind the other replica's queued ticks)
+    burst_m = [_burst(np.random.default_rng(SEED + 31), cfg.vocab_size,
+                      new=(128, 256))]
+    burst_p = [_burst(np.random.default_rng(SEED + 32), cfg.vocab_size)]
+    names = ("fleet_requests_redispatched_total",
+             "fleet_requests_hedged_total", "fleet_requests_shed_total")
+
+    def total(name):
+        return registry.REGISTRY.get(name).total()
+
+    def run_arm(n, traces, roles=None, drain_frac=None, pause=False,
+                slots=8, traced=None):
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engines = [ServingEngine(models[i], **dict(kw, max_slots=slots))
+                   for i in range(n)]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        router = FleetRouter(engines, roles=roles)
+        transfers = []
+        stream = router._stream_kv
+
+        def timed_stream(freq, src, dst, kind):
+            t = time.perf_counter()
+            st = stream(freq, src, dst, kind)
+            if st is not None:
+                transfers.append({"kind": kind, "blocks": st["imported"]
+                                  + st["dedup"], "bytes": st["bytes"],
+                                  "seconds": time.perf_counter() - t,
+                                  "export_s": st["export_s"],
+                                  "ingest_s": st["ingest_s"]})
+            return st
+
+        router._stream_kv = timed_stream
+        router.start()
+        runs = []
+        device_trace = None
+
+        def serve(trace):
+            freqs = []
+            for wave in trace:
+                mine = [router.submit(p, max_new_tokens=m) for p, m in wave]
+                freqs += mine
+                if drain_frac is not None:
+                    _until(lambda: sum(f.done for f in mine)
+                           >= drain_frac * len(mine), "a third done")
+                    if pause:
+                        router.replicas["replica-0"].pause()
+                    router.drain("replica-0", migrate=True)
+                    if pause:
+                        router.replicas["replica-0"].unpause()
+                _settle(mine)
+            return freqs
+
+        for trace in traces + ([traced] if traced else []):
+            before = {k: total(k) for k in names}
+            pf0 = [e.prefill_tokens for e in engines]
+            reset()
+            t1 = time.perf_counter()
+            if trace is traced:
+                out = {}
+                device_trace = _device_trace(
+                    torch, lambda: out.setdefault("f", serve(trace)))
+                freqs = out["f"]
+            else:
+                freqs = serve(trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = counts()
+            short = [f.request_id for f in freqs
+                     if len(f.output_tokens) != f.max_new_tokens
+                     or not all(0 <= t < cfg.vocab_size
+                                for t in f.output_tokens)]
+            if short or any(v <= 0 for v in launches.values()):
+                raise AssertionError(f"requests without their tokens "
+                                     f"{short}; launches {launches}")
+            gen = sum(len(f.output_tokens) for f in freqs)
+            runs.append({
+                "profiled": trace is traced,
+                "requests": len(freqs), "generated_tokens": gen,
+                "wall_s": wall, "tokens_per_s": gen / wall,
+                "mean_ttft_s": statistics.mean(
+                    f.first_token_ts - f.submit_ts for f in freqs),
+                **{k.split("_")[2]: total(k) - before[k] for k in names},
+                "migrated": sum(f.migrations for f in freqs),
+                "prefill_tokens": [e.prefill_tokens - b
+                                   for e, b in zip(engines, pf0)],
+                "launches": launches,
+                "tokens": {i: f.output_tokens for i, f in enumerate(freqs)},
+                # sessions whose KV streamed (those still queued had none)
+                "migrated_matched": [
+                    (len(f.prompt), f.attempts[-1].req.prefix_matched)
+                    for f in freqs if f.migrations and f.kv_streamed]})
+        router.stop()
+        _fleet_faults(router.replicas)
+        graphs = [graph_gate(e) for e in engines]
+        out = {"replicas": n, "slots": slots,
+               "roles": roles or "symmetric",
+               "drain": (None if drain_frac is None else
+                         "paused" if pause else "ticking"),
+               "engine_init_s": init_s, "runs": runs,
+               "device_trace": device_trace,
+               "kv_transfers": transfers, "graphs": graphs,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "kv_pool_bytes": [e.pool.nbytes() for e in engines]}
+        del router, engines
+        return out
+
+    arms = {"one": run_arm(1, [slice10, burst], traced=burst_p),
+            "two": run_arm(2, [slice10, burst], traced=burst_p),
+            "one_16_slots": run_arm(1, [slice10, burst], slots=16),
+            "disaggregated": run_arm(2, [burst], roles="prefill:1,decode:1"),
+            "migrate_drain": run_arm(2, [burst_m], drain_frac=1 / 3),
+            "migrate_drain_paused": run_arm(2, [burst_m], drain_frac=1 / 3,
+                                            pause=True)}
+    release(torch)
+    dis = arms["disaggregated"]["runs"][0]
+    if dis["prefill_tokens"][1]:
+        raise AssertionError(f"{dis['prefill_tokens'][1]} prefill tokens "
+                             f"on the decode replica")
+    for arm in ("migrate_drain", "migrate_drain_paused"):
+        mig = arms[arm]["runs"][0]
+        if not mig["migrated"] or any(m != n for n, m in
+                                      mig["migrated_matched"]):
+            raise AssertionError(
+                f"{arm}: {mig['migrated']} moved, (prompt, matched) "
+                f"{mig['migrated_matched']}")
+    if not any(g["replays"]["batched_prefill"]
+               for a in arms.values() for g in a["graphs"]):
+        raise AssertionError("no batched prefill replayed on the fleet")
+    # the bf16 agreement of one and two replicas on the same requests
+    agree = {}
+    for i, trace in enumerate(("slice", "burst")):
+        a = arms["one"]["runs"][i]["tokens"]
+        b = arms["two"]["runs"][i]["tokens"]
+        agree[trace] = sum(a[k] == b[k] for k in a) / len(a)
+    for arm in arms.values():
+        for run in arm["runs"]:
+            del run["tokens"]
+    return {"phase": "fleet_slice", "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "dtype": "torch.bfloat16",
+            "engine_kw": kw, "model_init_s": model_init_s,
+            "kernels": list(kernels), "arms": arms,
+            "same_tokens_one_vs_two": agree}
 
 
 # ------------------------------------------------------------ training path
@@ -3927,6 +4564,13 @@ def main():
         counts=lambda: gpu.launch_counts(SPEC), kernels=SPEC)
     emit(spec)
     del model
+    release(torch)
+
+    emit(fleet_parity_phase(torch, cfg2))
+    release(torch)
+
+    emit(fleet_slice_phase(torch, gpu.reset_launch_counts,
+                           lambda: gpu.launch_counts(SERVING), SERVING))
     release(torch)
 
     gpt_serve = gpt_serve_slice_phase(

@@ -1,8 +1,10 @@
 """GPT family (counterpart of paddle_tpu/models/gpt.py:33-378): pre-LN
-blocks, fused QKV projection, learned positions, GELU (tanh) MLP and the
+blocks, fused QKV projection, learned positions (or, with `use_rotary`,
+rotary ones: no `wpe`, q and k rotated by tables built once up to
+max_position_embeddings, gpt.py:182-212), GELU (tanh) MLP and the
 head tied to the token embedding, with the shifted next-token cross entropy
 when `labels` are given, and the reference's cached forwards for generation
-and serving (gpt.py:217-286):
+and serving (gpt.py:217-304):
 
   * contiguous cache, scalar `pos`: prefill and static-cache decode (a 0-d
     device `pos` is never read on the host, so a prefill chunk can be
@@ -11,6 +13,12 @@ and serving (gpt.py:217-286):
   * paged caches (serving.paged.PagedLayerCache): the engine's decode step
     and, with s > 1, the speculative verify window at positions
     seq_lens .. seq_lens + s - 1.
+
+Rotary positions go through the RoPE kernel (ops/gpu/rope.py): contiguous
+positions in the plain forward and at a host-int `pos`, per-token ones on
+packed rows, at a 0-d device `pos`, per row and in the paged paths. As in
+the reference, a scalar-`pos` window's table slice starts at pos clamped to
+[0, max_position_embeddings - s] (lax.dynamic_slice).
 
 Learned positions past the `wpe` table (bucket padding of a batched
 prefill, the padded tail of a verify window near max_model_len) are clamped
@@ -28,8 +36,8 @@ kernels) and mask the loss's pairs across documents. With
 `recompute=True` a training forward runs each block through
 distributed.fleet.recompute (gpt.py:310-317), under `recompute_policy`:
 the block's activations are recomputed in the backward pass. The
-`sequence_parallel` and rotary branches of the reference raise
-NotImplementedError naming the ROADMAP item that brings them.
+reference's `sequence_parallel` branch raises NotImplementedError naming
+the ROADMAP item that brings it.
 
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, LayerNorm weights at 1,
@@ -50,6 +58,7 @@ from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                   RowParallelLinear, VocabParallelEmbedding)
 from ..ops import nn_ops
 from .generation import GenerationMixin, causal_lm_loss, packed_positions
+from .llama import _rope_tables
 
 
 @dataclass
@@ -109,12 +118,18 @@ class CausalSelfAttention(nn.Module):
                                      generator=generator)
         self._generator = generator
 
-    def forward(self, x, cache=None, pos=None, segments=None):
+    def forward(self, x, rope=None, cache=None, pos=None, segments=None):
         b, s, _ = x.shape
         qkv = self.qkv_proj(x)
         # [b, s, heads, 3 * head_dim], split on the LAST axis (gpt.py:93-94)
         qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
+        if rope is not None:
+            if len(rope) == 3:  # per-token: (cos_table, sin_table, pos2d)
+                q, k = nn_ops.rotary_position_embedding_packed(q, k, *rope)
+            else:
+                q, k = nn_ops.rotary_position_embedding(q, k, rope[0],
+                                                        rope[1])
         if cache is not None:
             if hasattr(cache, "block_table"):
                 # paged (serving engine): per-slot lengths in the cache view
@@ -160,36 +175,59 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(config.hidden_size, **factory)
         self.mlp = GPTMLP(config, generator, **factory)
 
-    def forward(self, x, cache=None, pos=None, segments=None):
+    def forward(self, x, rope=None, cache=None, pos=None, segments=None):
         if cache is not None:
-            a, new_cache = self.attn(self.ln_1(x), cache=cache, pos=pos)
+            a, new_cache = self.attn(self.ln_1(x), rope=rope, cache=cache,
+                                     pos=pos)
             x = x + a
             return x + self.mlp(self.ln_2(x)), new_cache
-        x = x + self.attn(self.ln_1(x), segments=segments)
+        x = x + self.attn(self.ln_1(x), rope=rope, segments=segments)
         return x + self.mlp(self.ln_2(x))
 
 
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, generator=None, **factory):
         super().__init__()
-        if config.use_rotary:
-            raise _not_ported("with rotary positions", "GPT use_rotary")
         if config.sequence_parallel:
             raise _not_ported("sequence_parallel",
                               "distributed and fleet (context parallel)")
         self.config = config
         self.wte = VocabParallelEmbedding(config.vocab_size,
                                           config.hidden_size, **factory)
-        self.wpe = Embedding(config.max_position_embeddings,
-                             config.hidden_size, **factory)
+        if config.use_rotary:
+            # fp32 tables, not parameters or buffers: a dtype cast of the
+            # model leaves them (as the Llama's)
+            self._rope = _rope_tables(
+                config.hidden_size // config.num_heads,
+                config.max_position_embeddings, 10000.0, factory["device"])
+            self._rope_long = None
+        else:
+            self.wpe = Embedding(config.max_position_embeddings,
+                                 config.hidden_size, **factory)
         self.drop = Dropout(config.hidden_dropout_prob, generator=generator)
         self.blocks = nn.ModuleList([GPTBlock(config, generator, **factory)
                                      for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, **factory)
 
+    def _tables(self, n):
+        """The rotary tables, at least n rows. `_rope` is never rebound:
+        captured graphs read its storage. A plain forward past the
+        positions gets a longer table of its own, as the reference's cache
+        grows."""
+        if self._rope[0].shape[0] >= n:
+            return self._rope
+        if self._rope_long is None or self._rope_long[0].shape[0] < n:
+            self._rope_long = _rope_tables(
+                self.config.hidden_size // self.config.num_heads, n, 10000.0,
+                self._rope[0].device)
+        return self._rope_long
+
     def _cached(self, input_ids, caches, pos):
         b, s = input_ids.shape
         ar = torch.arange(s, dtype=torch.int64, device=input_ids.device)
+        rotary = self.config.use_rotary
+        max_pos = self.config.max_position_embeddings
+        rope = None
         if hasattr(caches[0], "block_table"):
             # paged: PER-SLOT positions seq_lens .. seq_lens + s - 1
             pos2d = caches[0].seq_lens.long()[:, None] + ar[None]
@@ -202,17 +240,30 @@ class GPTModel(nn.Module):
             # 0-d device pos (a captured prefill chunk): never read on the
             # host
             layer_pos = pos
-            pos2d = (ar + pos.to(device=input_ids.device,
-                                 dtype=torch.int64))[None]
+            p = pos.to(device=input_ids.device, dtype=torch.int64)
+            if rotary:
+                # the table slice at clamp(pos, 0, P - s), per token
+                p = torch.clamp(p, 0, max_pos - s)
+            pos2d = (ar + p)[None].expand(b, s)
         else:
             layer_pos = int(pos)
+            if rotary:
+                start = min(max(layer_pos, 0), max_pos - s)
+                cos, sin = self._tables(max_pos)
+                rope = (cos[start:start + s], sin[start:start + s])
             pos2d = (ar + layer_pos)[None]
-        # learned positions clamped to the table (see the module note)
-        pos2d = pos2d.clamp(0, self.config.max_position_embeddings - 1)
-        h = self.drop(self.wte(input_ids) + self.wpe(pos2d))
+        h = self.wte(input_ids)
+        if rotary:
+            if rope is None:
+                cos, sin = self._tables(max_pos)
+                rope = (cos[:max_pos], sin[:max_pos], pos2d.to(torch.int32))
+        else:
+            # learned positions clamped to the table (see the module note)
+            h = h + self.wpe(pos2d.clamp(0, max_pos - 1))
+        h = self.drop(h)
         new_caches = []
         for block, cache in zip(self.blocks, caches):
-            h, nc = block(h, cache=cache, pos=layer_pos)
+            h, nc = block(h, rope=rope, cache=cache, pos=layer_pos)
             new_caches.append(nc)
         return self.ln_f(h), new_caches
 
@@ -231,13 +282,23 @@ class GPTModel(nn.Module):
             positions = packed_positions(segments, s)
         else:
             positions = torch.arange(s, device=input_ids.device)
-        h = self.drop(self.wte(input_ids) + self.wpe(positions))
+        h = self.wte(input_ids)
+        rope = None
+        if self.config.use_rotary:
+            cos, sin = self._tables(s)
+            # tables sliced to s: positions are < s in both forms
+            rope = (cos[:s], sin[:s])
+            if segments is not None:
+                rope = rope + (positions,)
+        else:
+            h = h + self.wpe(positions)
+        h = self.drop(h)
         for block in self.blocks:
             if self.config.recompute and self.training:
-                h = recompute(block, h, segments=segments,
+                h = recompute(block, h, rope=rope, segments=segments,
                               policy=self.config.recompute_policy)
             else:
-                h = block(h, segments=segments)
+                h = block(h, rope=rope, segments=segments)
         return self.ln_f(h)
 
 

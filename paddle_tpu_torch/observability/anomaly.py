@@ -230,6 +230,93 @@ def serving_default_detectors(**kw) -> List[RollingDetector]:
             CacheHitCollapse(**kw), KVConservationBreach()]
 
 
+# the fleet's detectors bound absolute values: the healthy baseline of
+# hedges, re-dispatches and breaker transitions is zero, so a detector
+# relative to a median would never warm up into firing
+class _SustainedThreshold(RollingDetector):
+    """The value past an absolute bound for `patience` records in a row;
+    no warm-up history (the records' fields are windowed rates)."""
+
+    bound = 1.0
+    patience = 1
+    direction = "above"  # or "below"
+
+    def __init__(self, window: int = 32, min_points: int = 0,
+                 cooldown: int = 25, patience: Optional[int] = None,
+                 bound: Optional[float] = None):
+        super().__init__(window, min_points, cooldown)
+        if patience is not None:
+            self.patience = int(patience)
+        if bound is not None:
+            self.bound = float(bound)
+        self._streak = 0
+
+    def check(self, v, rec):
+        bad = v > self.bound if self.direction == "above" \
+            else v < self.bound
+        if not bad:
+            self._streak = 0
+            return None
+        self._streak += 1
+        if self._streak < self.patience:
+            return None
+        self._streak = 0
+        return {"bound": self.bound, "patience": self.patience}
+
+
+class HedgeRateSpike(_SustainedThreshold):
+    """Hedges fired over placements in the tick window past the bound: a
+    hedge storm (replicas slow across the board, or a deadline under an
+    honest TTFT); every hedge doubles the load."""
+
+    kind = "hedge_rate_spike"
+    field = "hedge_rate"
+    bound = 0.3
+    patience = 1
+
+
+class RedispatchStorm(_SustainedThreshold):
+    """Re-dispatches over placements in the tick window past the bound:
+    replicas dying (or declared dead) faster than one failure explains."""
+
+    kind = "redispatch_storm"
+    field = "redispatch_rate"
+    bound = 0.3
+    patience = 1
+
+
+class BreakerFlap(_SustainedThreshold):
+    """A replica's breaker transitions in the window at or past the bound
+    (two open -> half_open -> open cycles): probes keep succeeding into a
+    replica that keeps failing real traffic."""
+
+    kind = "breaker_flap"
+    field = "breaker_flaps"
+    bound = 4.0
+    patience = 1
+
+    def check(self, v, rec):
+        if v < self.bound:
+            self._streak = 0
+            return None
+        return {"bound": self.bound, "patience": self.patience}
+
+
+class ReplicaSkew(_SustainedThreshold):
+    """The largest replica p95 TTFT over the smallest past the bound,
+    sustained: one replica is slower than the rest."""
+
+    kind = "replica_skew"
+    field = "ttft_skew"
+    bound = 3.0
+    patience = 3
+
+
+def fleet_default_detectors(**kw) -> List[RollingDetector]:
+    return [HedgeRateSpike(**kw), RedispatchStorm(**kw),
+            BreakerFlap(**kw), ReplicaSkew(**kw)]
+
+
 class AnomalyEngine:
     """Feeds records through every detector; on a hit emits the `anomaly`
     event (counter, event log, flight-recorder note) and, unless

@@ -71,6 +71,11 @@ class _Metric:
         with self._lock:
             return self._values.get(self._key(labels), 0.0)
 
+    def total(self) -> float:
+        """Sum across all label sets (0.0 when never recorded)."""
+        with self._lock:
+            return sum(self._values.values())
+
     def samples(self) -> List[Tuple[Dict[str, str], float]]:
         with self._lock:
             items = list(self._values.items())
@@ -198,6 +203,18 @@ class Histogram(_Metric):
                 return lo + (b - lo) * (rank - prev_count) / in_bucket
             lo, prev_count = b, row[i]
         return self.buckets[-1] if self.buckets else None
+
+    def rollup_quantiles(self, qs=(0.5, 0.95, 0.99)) -> Dict[str, float]:
+        """Quantiles over the merge of every label set's row (bucket counts
+        and sums add), keyed "p50", "p95", ...; {} when nothing was
+        observed (the fleet's SLO rollups)."""
+        with self._lock:
+            rows = [list(r) for r in self._hist.values() if r[-2] > 0]
+        if not rows:
+            return {}
+        merged = [sum(col) for col in zip(*rows)]
+        return {f"p{int(round(float(q) * 100))}":
+                self._row_quantile(merged, float(q)) for q in qs}
 
     def samples(self):
         """(labels, value, series) triples, the text writer's expansion."""

@@ -4,10 +4,14 @@ Each module holds a kernel, its plain PyTorch version and a wrapper. The
 wrapper launches the kernel for CUDA tensors (or raises) and takes the plain
 version for CPU tensors; it counts its launches in a plain int attribute,
 `<wrapper>.launches`, so a run can show which kernels its path went through.
-A CUDA graph's replay runs no wrapper: its owner records the counts' deltas
-over the capture and adds them at each replay (`add_launch_counts`).
+A CUDA graph's replay runs no wrapper: its owner records the launches its
+capture made (`recording()`, which keeps them out of the counts and apart
+from other threads') and adds them at each replay (`add_launch_counts`).
 """
-from . import flash_attention, fused_adamw, fused_norm, paged_attention, rope
+import contextlib
+
+from . import (_counts, flash_attention, fused_adamw, fused_norm,
+               paged_attention, rope)
 
 KERNEL_WRAPPERS = {
     "rms_norm": fused_norm.fused_rms_norm,
@@ -41,4 +45,16 @@ def launch_counts(names=None) -> dict:
 def add_launch_counts(deltas: dict) -> None:
     """Add {name: launches} to the counts (a graph replay's launches)."""
     for name, n in deltas.items():
-        KERNEL_WRAPPERS[name].launches += n
+        _counts.add(KERNEL_WRAPPERS[name], n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches this thread's wrappers make in the block into
+    the yielded {name: launches} dict instead of the counts (filled when
+    the block ends): a CUDA graph capture's, which launch nothing."""
+    names = {fn: name for name, fn in KERNEL_WRAPPERS.items()}
+    out = {}
+    with _counts.recording() as rec:
+        yield out
+    out.update({names[fn]: n for fn, n in rec.items()})

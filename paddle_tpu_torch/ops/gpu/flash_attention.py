@@ -43,7 +43,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _counts
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -270,7 +270,7 @@ def _run_fwd(wrapper, q, k, v, seg_q, seg_k, scale, causal):
     status = _entries()[0](*_ptrs(q, k, v, seg_q, seg_k, o, lse),
                            *_geometry(q, k, scale, causal))
     _build.check_status(status, wrapper.__name__)
-    wrapper.launches += 1
+    _counts.count(wrapper)
     return o, lse
 
 
@@ -285,7 +285,7 @@ def _run_bwd(wrapper, outs, q, k, v, seg_q, seg_k, dout, lse, delta, scale,
         *_ptrs(q, k, v, seg_q, seg_k, dout, lse, delta, *outs),
         *_geometry(q, k, scale, causal))
     _build.check_status(status, wrapper.__name__)
-    wrapper.launches += 1
+    _counts.count(wrapper)
     return outs
 
 

@@ -47,7 +47,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _counts
 
 # Bound by _triton_kernel on first launch (see fused_norm.py).
 triton = tl = None
@@ -182,7 +182,7 @@ def _dispatch(wrapper, p, g, m, v, low, args, skip):
         raise ValueError(f"fused_adamw: no kernel for {p.device}")
     out = _kernel(p, g, m, v, low, *args, skip)
     if p.numel():
-        wrapper.launches += 1
+        _counts.count(wrapper)
     return out
 
 

@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _counts
 
 # Bound by _triton_kernel on first launch: the jitted body looks its names up
 # in this module's globals, and importing triton at module import would
@@ -171,7 +171,7 @@ def rms_norm_fwd(x, weight, eps, with_rstd=True):
             None if rstd is None else rstd.data_ptr(), n, d, eps,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], _build.stream_ptr(x))
         _build.check_status(status, "rms_norm_fwd")
-        fused_rms_norm.launches += 1
+        _counts.count(fused_rms_norm)
     return y, rstd
 
 
@@ -206,7 +206,7 @@ def fused_rms_norm_bwd(x, weight, rstd, g):
         reduce[(triton.cdiv(d, DW_COLS),)](partial, dw, parts, d,
                                            BLOCK_C=DW_COLS, BLOCK_R=DW_ROWS,
                                            num_warps=4)
-        fused_rms_norm_bwd.launches += 1
+        _counts.count(fused_rms_norm_bwd)
     else:
         dw.zero_()
     return dx, dw

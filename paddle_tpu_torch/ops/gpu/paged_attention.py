@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _counts
 
 NEG_INF = -1e30
 MAX_G = 8           # query rows per kv head the decode kernel's block holds
@@ -268,7 +268,7 @@ def _kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
         pa, pml, slots, hkv, g, d, bs, block_tables.shape[1], kv_splits,
         kernel, float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_status(status, "paged_attention_decode")
-    paged_attention.launches += 1
+    _counts.count(paged_attention)
     return out
 
 
@@ -320,7 +320,7 @@ def _verify_kernel(q, k_pages, v_pages, block_tables, context_lens, scale,
         pa, pml, slots, sq, hkv, g, d, bs, block_tables.shape[1], kv_splits,
         kernel, float(scale), _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check_status(status, "paged_attention_verify")
-    paged_attention_multi.launches += 1
+    _counts.count(paged_attention_multi)
     return out
 
 

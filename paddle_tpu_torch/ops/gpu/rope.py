@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _counts
 
 # dtype codes of the C entry point (q, k and the outputs share one)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -154,9 +154,9 @@ def rope_qk(q, k, cos, sin, pos2d=None, sign=1):
             _sign(sign), _DTYPES[x.dtype], _build.stream_ptr(x))
         _build.check_status(status, "rope_qk")
         if pos2d is None:
-            rope.launches += 1
+            _counts.count(rope)
         else:
-            rope_packed.launches += 1
+            _counts.count(rope_packed)
     return qo, ko
 
 

@@ -229,9 +229,11 @@ def _seq_major(c):
 
 
 def rotary_position_embedding(q, k, cos, sin, rotate_half=True):
-    """nn_ops.rotary_position_embedding:801. q, k [b, s, h, d]; cos, sin
-    [s, d] or [1, s, 1, d] go through the kernel; other layouts take the
-    `_rope_xla` composition."""
+    """nn_ops.rotary_position_embedding:801. q, k [b, s, h, d] in any
+    layout (the kernel gets contiguous copies of strided ones, such as
+    GPT's split of its fused projection); cos, sin [s, d] or [1, s, 1, d]
+    go through the kernel; other layouts take the `_rope_xla`
+    composition."""
     fused_ok = (rotate_half and _seq_major(cos) and _seq_major(sin)
                 and q.shape[1] == (cos.shape[1] if cos.dim() == 4
                                    else cos.shape[0]))
@@ -239,7 +241,8 @@ def rotary_position_embedding(q, k, cos, sin, rotate_half=True):
         if cos.dim() == 4:
             cos = cos.reshape(cos.shape[1], cos.shape[3])
             sin = sin.reshape(sin.shape[1], sin.shape[3])
-        return fused_rope(q, k, _kernel_form(cos, torch.float32),
+        return fused_rope(q.contiguous(), k.contiguous(),
+                          _kernel_form(cos, torch.float32),
                           _kernel_form(sin, torch.float32))
     return _rope_xla(q, k, cos, sin, rotate_half)
 
@@ -270,10 +273,12 @@ def _rope_xla(q, k, cos, sin, rotate_half):
 
 
 def rotary_position_embedding_packed(q, k, cos, sin, pos):
-    """nn_ops.rotary_position_embedding_packed:1191: q, k [b, s, h, d],
-    cos/sin TABLES [P, d], per-token positions pos [b, s] (clamped to
-    [0, P-1] as the TPU kernel clamps)."""
-    return fused_rope_packed(q, k, _kernel_form(cos, torch.float32),
+    """nn_ops.rotary_position_embedding_packed:1191: q, k [b, s, h, d] in
+    any layout (strided ones copied contiguous for the kernel), cos/sin
+    TABLES [P, d], per-token positions pos [b, s] (clamped to [0, P-1] as
+    the TPU kernel clamps)."""
+    return fused_rope_packed(q.contiguous(), k.contiguous(),
+                             _kernel_form(cos, torch.float32),
                              _kernel_form(sin, torch.float32),
                              _kernel_form(pos, torch.int32))
 
@@ -299,11 +304,23 @@ def cached_multihead_attention(q, k, v, k_cache, v_cache, pos, scale=None):
     ar_len = torch.arange(max_len, device=dev)
     ar_sq = torch.arange(sq, device=dev)
     if torch.is_tensor(pos) and pos.dim() == 1 and pos.shape[0] == b:
-        idx = pos.to(device=dev, dtype=torch.int64)[:, None] + ar_sq[None]
-        keep = (idx >= 0) & (idx < max_len)
+        p = pos.to(device=dev, dtype=torch.int64)[:, None]
+        idx = p + ar_sq[None]
+        # the drop without a host read (a batched prefill is captured):
+        # entry i of row r writes at its index clamped into the cache the
+        # value of the entry whose index that is, so the duplicates a clamp
+        # makes carry identical bytes; a row with no entry inside the cache
+        # writes back what the cache holds there
+        lo = (-p).clamp(min=0)
+        hi = (max_len - 1 - p).clamp(max=sq - 1)
+        src = torch.minimum(torch.maximum(ar_sq[None], lo), hi)
+        dst = (p + src).clamp(0, max_len - 1)
+        src = src.clamp(0, sq - 1)
         rows = torch.arange(b, device=dev)[:, None].expand(b, sq)
-        k_cache[rows[keep], idx[keep]] = k[keep].to(k_cache.dtype)
-        v_cache[rows[keep], idx[keep]] = v[keep].to(v_cache.dtype)
+        inside = (lo <= hi)[:, :, None, None]
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[rows, dst] = torch.where(
+                inside, new[rows, src].to(cache.dtype), cache[rows, dst])
         attn_mask = (ar_len[None, None, :] <= idx[:, :, None])[:, None]
     elif torch.is_tensor(pos):
         p = pos.to(device=dev, dtype=torch.int64)

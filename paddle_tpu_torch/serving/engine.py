@@ -31,7 +31,8 @@ One engine tick (`step()`) = admit -> prefill -> one decode step:
     masked. A partial prefix-cache hit gathers the cached blocks into the
     lane's head first; a full-prompt hit joins decode directly by
     copy-on-write of its last block; a burst of short greedy prompts
-    prefills in one batched call with per-row offsets (eagerly).
+    prefills in one batched call with per-row offsets (the reference's
+    `_batched_prefill_jit`).
     A `prefill_only` request keeps its indexed blocks and finishes with
     reason "prefill_complete" (disaggregated prefill); export_kv_blocks and
     ingest_kv_blocks move such blocks between engines.
@@ -51,15 +52,29 @@ prefill lane, so a captured graph reads them at every replay; host mirrors
 keep the bookkeeping.
 
 The engine's compiled programs, the counterparts of the reference's jitted
-ones, are graph bodies of four kinds: `decode` (k greedy steps, k = 1 and
+ones, are graph bodies of five kinds: `decode` (k greedy steps, k = 1 and
 fuse_steps), `sampled` (one step with the draw), `verify` (the window of
-W = spec_k + 1) and `prefill` (one chunk, one body for each key length,
-a multiple of the chunk up to the lane's). On a card each
-body is captured as a CUDA graph at construction and every tick of its kind
-replays it; on the CPU the same body runs eagerly. A body reads its
-per-call inputs (drafts and their lengths; a chunk's ids, position and the
-row its logits are kept for) from a static device tensor that the host
-fills with one non-blocking copy from a pinned buffer before the replay.
+W = spec_k + 1), `prefill` (one chunk, one body for each key length,
+a multiple of the chunk up to the lane's) and `batched_prefill` (a burst,
+one body for each (S, P): the rows' suffix length S, the prefill bucket
+times a power of two up to the chunk, and the workspace length P, the
+chunk times a power of two up to the longest context a row can need; the
+reference compiles one program for each (S, P) on the bucket and chunk
+grids, and a coarser grid pads more, which no real row's query sees). On a
+card each body is captured as a CUDA graph at construction and every tick
+of its kind replays it; on the CPU the same body runs eagerly. A body reads
+its per-call inputs (drafts and their lengths; a chunk's ids, position and
+the row its logits are kept for; a burst's ids, offsets, last indices and
+block tables) from a static device tensor that the host fills with one
+non-blocking copy from a pinned buffer before the replay.
+
+A batched prefill's workspace holds one layer: the model asks for layer
+l's cache after layer l - 1 has run (the models zip their layers with the
+caches), so `_LayerWorkspace` scatters layer l - 1's suffix blocks back to
+its pages and gathers layer l's rows into the same [n, P] buffers then.
+Only the suffix blocks go back (a row's cached prefix is unchanged), and
+those are the row's own or the null page, so no two rows write one live
+block; padding rows' tables are null, so their writes land in block 0.
 
 The graphs' rules: capture while every slot is idle (the warm-up run
 executes the body, which then writes only the null page and the lane);
@@ -203,6 +218,69 @@ class _Staging:
             self._copied.record()
 
 
+class _LayerWorkspace:
+    """The caches a batched prefill hands the model: one K and one V buffer
+    [n, P, kv_heads, head_dim], shared by every layer. Iterating gathers
+    layer l's blocks (`table`, [n * nb]) from its pages into the buffers,
+    after writing layer l - 1's suffix blocks (`src` rows of the buffers)
+    back to their pages (`dst`); `finish()` writes the last layer's.
+    The buffers hold one layer at a time, so the model must pull the
+    layers in order, once: only `caches[0]` may be indexed (the models
+    read it to pick their cached path), and a second iteration raises."""
+
+    def __init__(self, layers, wk, wv, n, P, table, src, dst):
+        self.layers = layers
+        self._flat = (wk, wv)
+        self._views = tuple(w.view(n, P, *w.shape[2:]) for w in (wk, wv))
+        self._table, self._src, self._dst = table, src, dst
+        self._done = 0
+        self._iterated = False
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __getitem__(self, i):
+        if i != 0:
+            raise IndexError("a batched prefill's caches hold one layer at "
+                             "a time: only caches[0] may be indexed")
+        return self._views
+
+    def _scatter(self, li):
+        for page, w in zip(self.layers[li], self._flat):
+            page.index_copy_(0, self._dst, w.index_select(0, self._src))
+
+    def __iter__(self):
+        if self._iterated:
+            raise RuntimeError("a batched prefill's caches are iterated "
+                               "once, layer by layer")
+        self._iterated = True
+        return self._layers()
+
+    def _layers(self):
+        for li, pages in enumerate(self.layers):
+            if li:
+                self._scatter(li - 1)
+            for page, w in zip(pages, self._flat):
+                torch.index_select(page, 0, self._table, out=w)
+            self._done = li + 1
+            yield self._views
+
+    def finish(self):
+        if self._done != len(self.layers):
+            raise RuntimeError(f"the model ran {self._done} of "
+                               f"{len(self.layers)} layers' caches")
+        self._scatter(self._done - 1)
+
+
+def _doubling(unit: int, top: int) -> List[int]:
+    """unit, 2 unit, 4 unit, ... below top, then top."""
+    out, v = [], unit
+    while v < top:
+        out.append(v)
+        v *= 2
+    return out + [top]
+
+
 class ServingEngine:
     """Continuous-batching serving runtime for a GenerationMixin causal LM
     (LlamaForCausalLM, GPTForCausalLM). `device=None` means the current
@@ -340,6 +418,23 @@ class ServingEngine:
         for keys in range(self.lane_len, 0, -chunk):
             self._bodies[("prefill", keys)] = (
                 lambda out, keys=keys: self._prefill_body(keys, out), pf_out)
+        # the batched prefill's (S, P) grid and its inputs: per row the ids
+        # [S], the offset, the last real index and the workspace's block
+        # table [P / block_size]; one output, each row's first token
+        if self.prefill_bucket > 0:
+            bucket = self.prefill_bucket
+            self._bp_S = _doubling(bucket, -(-chunk // bucket) * bucket)
+            s_top = self._bp_S[-1]
+            self._bp_P = _doubling(
+                chunk, -(-(self.max_model_len - 1 + s_top) // chunk) * chunk)
+            self._bp_in = _Staging(
+                (slots, s_top + 2 + self._bp_P[-1] // self.block_size), dev)
+            bp_out = torch.zeros(slots, dtype=torch.int64, device=dev)
+            for P in reversed(self._bp_P):
+                for S in reversed(self._bp_S):
+                    self._bodies[("batched_prefill", (S, P))] = (
+                        lambda out, S=S, P=P: self._batched_body(S, P, out),
+                        bp_out)
         # (kind, size) -> (CUDAGraph, launch deltas a replay adds)
         self._graphs = {}
         # bytes each kind's captures added to the shared graph pool
@@ -355,7 +450,10 @@ class ServingEngine:
             # stream share their scratch memory
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
-            for key in self._bodies:
+            # the largest bodies first: later captures reuse the blocks
+            # they freed in the shared pool
+            for key in sorted(self._bodies,
+                              key=lambda k: k[0] != "batched_prefill"):
                 self._capture(key)
 
     # -- registry-backed counter views --------------------------------------
@@ -408,13 +506,14 @@ class ServingEngine:
         return sum(self._stats[f"replays_{kind}"] for kind in GRAPH_KINDS)
 
     def graph_stats(self) -> dict:
-        """Replays, ticks (prefill: single-prompt chunks) and graph pool
-        bytes by kind: on a card replays equal ticks, on the CPU replays
-        are 0."""
+        """Replays, ticks (prefill: single-prompt chunks; batched_prefill:
+        bursts) and graph pool bytes by kind: on a card replays equal
+        ticks, on the CPU replays are 0."""
         ticks = {"decode": self._stats["decode_ticks"],
                  "sampled": self._stats["sampled_ticks"],
                  "verify": self.spec_ticks,
-                 "prefill": self._stats["prefill_chunks"]}
+                 "prefill": self._stats["prefill_chunks"],
+                 "batched_prefill": self.batched_prefills}
         return {"replays": {kind: self._stats[f"replays_{kind}"]
                             for kind in GRAPH_KINDS},
                 "ticks": ticks, "pool_bytes": dict(self.graph_pool_bytes)}
@@ -486,14 +585,17 @@ class ServingEngine:
                 return []
             blks = torch.tensor([r["block"] for r in recs],
                                 dtype=torch.int64, device=self.device)
-            # uint8 views carry any dtype's bits (numpy has no bfloat16)
-            layers = [(kp[blks].cpu().view(torch.uint8).numpy(),
-                       vp[blks].cpu().view(torch.uint8).numpy())
-                      for kp, vp in self.pool.layers]
+            # one gather and one copy to the host, [layer, K/V, block, ...]:
+            # a copy per page would wait for the card once per page, behind
+            # whatever else is queued on it. uint8 views carry any dtype's
+            # bits (numpy has no bfloat16)
+            raw = torch.stack([torch.stack((kp[blks], vp[blks]))
+                               for kp, vp in self.pool.layers]).cpu()
+            raw = raw.view(torch.uint8).numpy()
             return [{"digest": r["digest"].hex(), "prev": r["prev"].hex(),
                      "tokens": r["tokens"],
-                     "layers": [(k[i].tobytes(), v[i].tobytes())
-                                for k, v in layers]}
+                     "layers": [(kv[0, i].tobytes(), kv[1, i].tobytes())
+                                for kv in raw]}
                     for i, r in enumerate(recs)]
 
     def ingest_kv_blocks(self, records: List[dict]) -> dict:
@@ -547,16 +649,16 @@ class ServingEngine:
             if pend:
                 idx = torch.tensor([b for b, _ in pend], dtype=torch.int64,
                                    device=self.device)
-
-                def pages(li, kv):
-                    raw = np.frombuffer(b"".join(a[li][kv] for _, a in pend),
-                                        np.uint8).copy()
-                    return (torch.from_numpy(raw).view(kp0.dtype)
-                            .reshape(len(pend), *blk_shape).to(self.device))
-
-                for li, (kp, vp) in enumerate(self.pool.layers):
-                    kp[idx] = pages(li, 0)
-                    vp[idx] = pages(li, 1)
+                # one copy to the card, [layer, K/V, block, ...]
+                raw = bytearray(b"".join(a[li][kv] for li in range(n_layers)
+                                         for kv in (0, 1) for _, a in pend))
+                pages = (torch.frombuffer(raw, dtype=torch.uint8)
+                         .view(kp0.dtype)
+                         .reshape(n_layers, 2, len(pend), *blk_shape)
+                         .to(self.device))
+                for (kp, vp), kv in zip(self.pool.layers, pages):
+                    kp.index_copy_(0, idx, kv[0])
+                    vp.index_copy_(0, idx, kv[1])
         return {"imported": imported, "dedup": dedup, "rejected": rejected,
                 "skipped": skipped, "bytes": nbytes}
 
@@ -696,58 +798,68 @@ class ServingEngine:
             return self.allocator.table(req.request_id)
         return table
 
-    def _batched_prefill(self, reqs: List[Request]) -> None:
-        """Admit a burst of prompts in one model call: each row's cached
-        prefix is gathered from the pool into a contiguous [n, P] workspace,
-        the model runs over the padded [n, S] suffixes with per-row
-        offsets, each row's first token is the argmax at its last real
-        index (kept on the device, its fetch deferred), and the workspaces
-        scatter back to the pages.
-
-        Padding rows have all-null tables (their write-back lands in block
-        0) and no slot. Shared prefix blocks appear in several rows' tables;
-        every row scatters back the identical bytes it gathered."""
-        t0 = self.obs.now()
+    def _batched_body(self, S: int, P: int, out) -> None:
+        """A burst of up to max_slots prompts in one model call (the
+        reference's _batched_prefill_jit at this (S, P)): each row's blocks
+        gathered into an [n, P] workspace a layer at a time
+        (_LayerWorkspace), the model over the padded [n, S] suffixes at
+        their per-row offsets, each row's suffix blocks scattered back to
+        its pages, and the argmax at each row's last real index into out
+        [n]. What a CUDA graph captures; the CPU runs it eagerly."""
         dev = self.device
-        n = self.max_slots
+        n, bs = self.max_slots, self.block_size
+        nb, ns = P // bs, -(-S // bs)
+        s_top = self._bp_S[-1]
+        x = self._bp_in.dev
+        pos = x[:, s_top]
+        table = x[:, s_top + 2:s_top + 2 + nb]
+        # a row's offset is a block multiple and P covers offset + S, so
+        # its suffix is the ns blocks from column pos / bs
+        cols = (pos // bs)[:, None] + torch.arange(ns, device=dev)[None]
+        src = (torch.arange(n, device=dev)[:, None] * nb + cols).reshape(-1)
+        dst = table.gather(1, cols).reshape(-1)
+        _, n_kv, head_dim = self._geometry
+        wk = torch.empty(n * nb, bs, n_kv, head_dim, dtype=self._dtype,
+                         device=dev)
+        ws = _LayerWorkspace(self.pool.layers, wk, torch.empty_like(wk), n,
+                             P, table.reshape(-1), src, dst)
+        logits, _ = self.model(x[:, :S], caches=ws, pos=pos)
+        ws.finish()
+        lg = logits[torch.arange(n, device=dev), x[:, s_top + 1]].float()
+        out.copy_(torch.argmax(lg, dim=-1))
+
+    def _batched_prefill(self, reqs: List[Request]) -> None:
+        """Admit a burst of prompts in one call of the batched body: rows
+        are the burst's unmatched suffixes, padded to S on the grid (at
+        least the reference's bucketed length), over a workspace of P
+        tokens on the grid (at least every row's offset + S); each row's
+        first token is kept on the device, its fetch deferred. Padding
+        rows have all-null tables and no slot."""
+        t0 = self.obs.now()
         bs = self.block_size
-        bucket = max(self.prefill_bucket, 1)
+        bucket = self.prefill_bucket
         suffixes = [len(r.prompt) - r.prefill_pos for r in reqs]
-        S = -(-max(suffixes) // bucket) * bucket
+        S_ref = -(-max(suffixes) // bucket) * bucket
+        S = next(v for v in self._bp_S if v >= S_ref)
         ctx = max(r.prefill_pos + S for r in reqs)
-        # the workspace length rides the chunk grid, as in the reference
-        P = -(-ctx // self.prefill_chunk) * self.prefill_chunk
+        P = next(v for v in self._bp_P if v >= ctx)
         nb = P // bs
-        ids = np.zeros((n, S), np.int64)
-        pos = np.zeros(n, np.int32)
-        tP = np.zeros((n, nb), np.int64)
-        last = np.zeros(n, np.int64)
+        s_top = self._bp_S[-1]
+        x = self._bp_in.host()
+        x[:] = 0
         tables = []
         for r, req in enumerate(reqs):
             take = len(req.prompt) - req.prefill_pos
-            ids[r, :take] = req.prompt[req.prefill_pos:]
-            pos[r] = req.prefill_pos
+            x[r, :take] = req.prompt[req.prefill_pos:]
+            x[r, s_top] = req.prefill_pos
+            x[r, s_top + 1] = take - 1
             table = self.allocator.table(req.request_id)
-            tP[r, :min(nb, len(table))] = table[:nb]
-            last[r] = take - 1
+            m = min(nb, len(table))
+            x[r, s_top + 2:s_top + 2 + m] = table[:m]
             tables.append(table)
-        tP_d = torch.from_numpy(tP).to(dev)
-        caches = []
-        for kp, vp in self.pool.layers:
-            hkv, d = kp.shape[2], kp.shape[3]
-            caches.append((kp[tP_d].reshape(n, P, hkv, d),
-                           vp[tP_d].reshape(n, P, hkv, d)))
-        logits, ncs = self.model(torch.from_numpy(ids).to(dev),
-                                 caches=caches,
-                                 pos=torch.from_numpy(pos).to(dev))
-        lg = logits[torch.arange(n, device=dev),
-                    torch.from_numpy(last).to(dev)].float()
-        first = torch.argmax(lg, dim=-1)
-        flat = tP_d.reshape(-1)
-        for (kp, vp), (k, v) in zip(self.pool.layers, ncs):
-            hkv, d = kp.shape[2], kp.shape[3]
-            kp[flat] = k.reshape(n * nb, bs, hkv, d)
-            vp[flat] = v.reshape(n * nb, bs, hkv, d)
+        self._bp_in.push()
+        # the next run overwrites the static output
+        first = self._run(("batched_prefill", (S, P))).clone()
         self._stats.inc("batched_prefills")
         self._stats.inc("prefill_programs")
         computed = sum(suffixes)
@@ -935,7 +1047,8 @@ class ServingEngine:
         while every slot is idle (null tables, length 0, not live): the
         warm-up run, which fills the kernels' lazy state (loaded
         libraries, SM counts, cuBLAS workspaces) on the capture stream,
-        writes only the null page and the lane and leaves the lengths at 0;
+        writes only the null page and the lane (a batched body's staged
+        inputs are zeros: null tables) and leaves the lengths at 0;
         the tokens it feeds back are zeroed after. A body that draws has
         the engine's generator registered. Records the launch counts'
         deltas over the capture (added at every replay) and the bytes the
@@ -954,22 +1067,22 @@ class ServingEngine:
         if key[0] in ("sampled", "verify"):
             graph.register_generator_state(self._gen)
         pool_before = self._pool_bytes()
-        before = _gpu.launch_counts()
-        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
-                              capture_error_mode="thread_local"):
+        # this thread's launches only: another engine's thread may replay
+        # its graphs meanwhile
+        with _gpu.recording() as deltas, torch.cuda.graph(
+                graph, pool=self._graph_pool, stream=stream,
+                capture_error_mode="thread_local"):
             body(out)
-        after = _gpu.launch_counts()
         self.graph_pool_bytes[key[0]] += self._pool_bytes() - pool_before
         GRAPH_POOL_BYTES.set(self.graph_pool_bytes[key[0]],
                              engine=self._stats.eid, kind=key[0])
         self._d_toks.zero_()
-        deltas = {n: after[n] - before[n] for n in after
-                  if after[n] != before[n]}
         self._graphs[key] = (graph, deltas)
 
     def graph_launches(self, kind: str, size: int) -> dict:
         """{kernel: launches} one replay of a graph makes (size: k for
-        decode and sampled, W for verify, the key length for prefill)."""
+        decode and sampled, W for verify, the key length for prefill,
+        (S, P) for batched_prefill)."""
         return dict(self._graphs[(kind, size)][1])
 
     @torch.no_grad()

@@ -138,7 +138,7 @@ _ENGINE_EVENTS = _counter(
 
 #: the engine's graph bodies (engine.py): greedy decode steps, a sampled
 #: step, the speculative verify window, a prefill chunk
-GRAPH_KINDS = ("decode", "sampled", "verify", "prefill")
+GRAPH_KINDS = ("decode", "sampled", "verify", "prefill", "batched_prefill")
 
 GRAPH_POOL_BYTES = _gauge(
     "serving_graph_pool_bytes",

@@ -1,6 +1,6 @@
-"""Stdlib HTTP front end for the serving engine (counterpart of
-paddle_tpu/serving/server.py's ServingServer; the fleet's FleetServer waits
-for the fleet).
+"""Stdlib HTTP front ends for the serving engine and the fleet
+(counterpart of paddle_tpu/serving/server.py: ServingServer and
+FleetServer).
 
 One ThreadingHTTPServer plus daemon threads, no third-party web stack. The
 server owns the engine loop thread: handler threads only submit requests
@@ -31,6 +31,17 @@ the one engine loop (the only thread that touches the device).
 A full queue answers 503 with a jittered Retry-After. With
 FLAGS_serving_metrics_port > 0, /metrics and /healthz are also served on
 that port (observability/serve.py).
+
+FleetServer carries the same /generate over a FleetRouter (no streaming: a
+request may move between replicas, so its tokens are final once it
+settles), plus POST /drain {"replica": id} (?migrate=1 live-migrates the
+replica's sessions; without it FLAGS_fleet_drain_migrate decides) and POST
+/resume, GET /healthz (200 while any replica takes traffic, every
+replica's snapshot in the body), /stats (router and per-replica
+snapshots), /metrics (with the fleet SLO rollups refreshed) and
+/trace?id= (a request's merged cross-replica chrome trace). When every
+replica's queue is full, /generate answers 503 with a jittered
+Retry-After.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs
 
 from ..core.flags import define_flag, get_flag
 from ..observability import serve as _obs_serve
@@ -250,6 +262,146 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt, *args):  # requests must not spam stderr
         pass
+
+
+class _FleetHandler(_Handler):
+    """The fleet's front end: _Handler's wire protocol, with requests routed
+    across replicas by a FleetRouter (a replica's death, hedges and drains
+    show only in the reply's "fleet" block)."""
+
+    @property
+    def _router(self):
+        return self._srv.router
+
+    def do_POST(self):  # noqa: N802
+        split = self.path.split("?", 1)
+        path = split[0]
+        if path in ("/drain", "/resume"):
+            try:
+                body = json.loads(self._body() or b"{}")
+                rid = str(body.get("replica", ""))
+                query = parse_qs(split[1]) if len(split) > 1 else {}
+                migrate = (query.get("migrate") or [None])[0]
+            except _BAD_REQUEST as e:
+                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            if rid not in self._router.replicas:
+                self._reply(404, {"error": f"unknown replica {rid!r}"})
+                return
+            if path == "/drain":
+                self._router.drain(rid, migrate=(
+                    None if migrate is None
+                    else migrate.lower() in ("1", "true", "on", "yes")))
+                self._reply(200, {"replica": rid, "status": "draining",
+                                  "drained": self._router.drained(rid)})
+            else:
+                self._router.resume(rid)
+                self._reply(200, {"replica": rid, "status": "ok"})
+            return
+        if path != "/generate":
+            self._reply(404, {"error": "not found"})
+            return
+        try:
+            body = json.loads(self._body() or b"{}")
+            prompt = body.get("prompt")
+            if (not isinstance(prompt, list) or not prompt
+                    or not all(isinstance(t, int) for t in prompt)):
+                self._reply(400, {"error": "prompt must be a non-empty "
+                                           "list of token ids"})
+                return
+            freq = self._router.submit(
+                prompt,
+                max_new_tokens=int(body.get("max_new_tokens", 16)),
+                temperature=float(body.get("temperature", 0.0)),
+                eos_token_id=body.get("eos_token_id"),
+                tier=str(body.get("tier", "default")))
+        except QueueFullError as e:
+            self._reply(503, {"error": str(e), "queue_depth": e.depth,
+                              "queue_limit": e.limit,
+                              "retry_after_s": e.retry_after_s},
+                        headers={"Retry-After":
+                                 str(max(1, int(round(e.retry_after_s))))})
+            return
+        except _BAD_REQUEST as e:
+            self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+            return
+        timeout = float(get_flag("serving_request_timeout_s"))
+        if not freq.wait(timeout):
+            self._reply(504, {"error": "generation timed out",
+                              "request_id": freq.request_id})
+            return
+        self._reply(200, {
+            "request_id": freq.request_id,
+            "output_tokens": freq.output_tokens,
+            "finish_reason": freq.finish_reason,
+            "fleet": {"redispatches": freq.redispatches,
+                      "hedged": freq.hedged},
+        })
+
+    def do_GET(self):  # noqa: N802
+        split = self.path.split("?", 1)
+        path = split[0]
+        if path == "/stats":
+            self._reply(200, self._router.stats())
+        elif path == "/metrics":
+            # the fleet_slo_seconds gauges roll the attempt histograms up:
+            # recompute them for the scrape
+            self._router.obs.publish_rollups()
+            self._reply_raw(200, _obs_serve.metrics_body(),
+                            "text/plain; version=0.0.4; charset=utf-8")
+        elif path in ("/healthz", "/health"):
+            snap = self._router.health()
+            self._reply(200 if snap["ok"] else 503, snap)
+        elif path == "/trace":
+            query = parse_qs(split[1]) if len(split) > 1 else {}
+            rid = (query.get("id") or [None])[0]
+            if not rid:
+                self._reply(400, {"error": "usage: /trace?id=<request_id>"})
+                return
+            payload = self._router.obs.trace_payload(rid)
+            if payload is None:
+                self._reply(404, {
+                    "error": f"no merged trace for request {rid!r} "
+                             "(unknown id, evicted from the settled "
+                             "ring, or FLAGS_metrics was off at submit)"})
+                return
+            self._reply(200, payload)
+        else:
+            self._reply(404, {"error": "not found"})
+
+
+class FleetServer:
+    """HTTP front end over a FleetRouter. The router owns the replica loops
+    and the failure monitor; the server binds the socket and starts and
+    stops the router with it."""
+
+    def __init__(self, router, port: Optional[int] = None,
+                 host: str = "127.0.0.1"):
+        self.router = router
+        if port is None:
+            port = int(get_flag("serving_port"))
+        self._httpd = ThreadingHTTPServer((host, int(port)), _FleetHandler)
+        self._httpd.daemon_threads = True
+        self._httpd._serving_server = self  # type: ignore[attr-defined]
+        self.port = int(self._httpd.server_address[1])
+        self.host = host
+        self.router.start()
+        self._http_thread = threading.Thread(
+            target=self._httpd.serve_forever, kwargs={"poll_interval": 0.25},
+            name="fleet-http", daemon=True)
+        self._http_thread.start()
+
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._http_thread.join(timeout=5)
+        self.router.stop()
+
+    def __repr__(self):  # pragma: no cover
+        return f"FleetServer(port={self.port})"
 
 
 class ServingServer:

@@ -1,12 +1,14 @@
 """One side of a serving A/B between two checkouts on the same card.
 
-    cd <checkout> && python3 /path/to/paddle_tpu_torch/tools/ab_serving.py LABEL
+    cd <checkout> && python3 /path/to/paddle_tpu_torch/tools/ab_serving.py \
+        LABEL [slice sampled_slice tick batched_prefill spec_slice]
 
 Run as a file from the root of a checkout (the parent's or this one's): it
 drives that checkout's package, with the measuring code of this file and
 of its sibling profile_serving.py (loaded by path), so both trees are
 timed by the same code. It loads Llama-2-7B (bf16, seed 0) and prints one
-JSON line a measurement, each with the card's name and power limit:
+JSON line a measurement (all of them, or those named after LABEL), each
+with the card's name and power limit:
 
   * `slice`: chip_smoke.py's serving slice (10 requests in two waves,
     prompts 16-1024 tokens, 64 new tokens each, 8 slots, 2048 context) at
@@ -20,7 +22,14 @@ JSON line a measurement, each with the card's name and power limit:
     `decode` (greedy), `sampled` (every request at temperature 0.8),
     `verify` (spec_k 4, the head zeroed so every slot drafts), and
     `prefill` (one 256-token chunk a tick on an idle engine): wall ms a
-    tick unprofiled and profiled, device busy ms and share, kernels a tick.
+    tick unprofiled and profiled, device busy ms and share, kernels a tick;
+    `batched_prefill` (profile_serving.batched_prefill_calls): bursts of 8
+    fresh prompts of 16-48 tokens (`p256`: one 256-token workspace) and of
+    8 prompts of 40 fresh tokens on a cached 2,000-token prefix
+    (`offset2000`: the longest workspace), each through one batched
+    prefill call: wall ms a call, device busy ms a burst; with it,
+    `engine_init`, the engine's construction seconds (graph captures
+    included) and its graph count.
 
 For an A/B, run it in turns (parent, change, change, parent) in one call;
 the kernels are the same sources, so one build serves both trees (copy
@@ -89,7 +98,9 @@ def serve(torch, engine_cls, model, kw, waves, temperature=0.0,
                        else None)}
 
 
-def main(label):
+def main(label, only=()):
+    """Run every measurement, or those named in `only` (slice,
+    sampled_slice, tick, batched_prefill, spec_slice)."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -99,6 +110,9 @@ def main(label):
     from paddle_tpu_torch.ops import gpu
     from paddle_tpu_torch.ops.gpu import _build
     from paddle_tpu_torch.serving import ServingEngine
+
+    def want(what):
+        return not only or what in only
 
     ps = _profile_tools()
     card = cs.nvidia_smi()
@@ -116,15 +130,17 @@ def main(label):
                           **row}), flush=True)
 
     waves = slice_prompts(np, vocab)
-    for fuse in ((1, 4) if fused else (None,)):
-        ekw = dict(kw) if fuse is None else dict(kw, fuse_steps=fuse)
-        emit("slice", serve(torch, ServingEngine, model, ekw, waves),
-             fuse_steps=fuse)
+    if want("slice"):
+        for fuse in ((1, 4) if fused else (None,)):
+            ekw = dict(kw) if fuse is None else dict(kw, fuse_steps=fuse)
+            emit("slice", serve(torch, ServingEngine, model, ekw, waves),
+                 fuse_steps=fuse)
+            cs.release(torch)
+    if want("sampled_slice"):
+        emit("sampled_slice", serve(torch, ServingEngine, model, fuse4,
+                                    waves, temperature=0.8),
+             fuse_steps=fuse4.get("fuse_steps"), temperature=0.8)
         cs.release(torch)
-    emit("sampled_slice", serve(torch, ServingEngine, model, fuse4, waves,
-                                temperature=0.8),
-         fuse_steps=fuse4.get("fuse_steps"), temperature=0.8)
-    cs.release(torch)
 
     rng = np.random.default_rng(0)
 
@@ -146,30 +162,51 @@ def main(label):
             torch, ServingEngine(model, **kw), prompts(2000, 2)),
     }
     for kind, fn in ticks.items():
-        emit("tick", fn(), kind=kind)
+        if want("tick"):
+            emit("tick", fn(), kind=kind)
+            cs.release(torch)
+    if want("batched_prefill"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, **kw)
+        torch.cuda.synchronize()
+        emit("engine_init", {"init_s": time.perf_counter() - t0,
+                             "graphs": len(getattr(eng, "_graphs", ()))})
+        emit("tick", ps.batched_prefill_calls(torch, eng, lambda: [
+            [int(t) for t in rng.integers(0, vocab, int(n))]
+            for n in rng.choice((16, 32, 48), 8)]),
+            kind="batched_prefill", case="p256")
+        prefix = [int(t) for t in rng.integers(0, vocab, 2000)]
+        eng.generate([prefix + [1]], max_new_tokens=1)   # caches it
+        emit("tick", ps.batched_prefill_calls(torch, eng, lambda: [
+            prefix + [int(t) for t in rng.integers(0, vocab, 40)]
+            for _ in range(8)]), kind="batched_prefill", case="offset2000")
+        del eng
         cs.release(torch)
     # the verify tick and the spec slice zero the head: last, then restored
     head = model.lm_head.weight.detach().clone()
-    eng = ServingEngine(model, **dict(kw, spec_k=4))
-    with torch.no_grad():
-        model.lm_head.weight.zero_()
-    row = ps.steady_ticks(torch, eng, prompts(512, 8, pattern=True))
-    emit("tick", row, kind="verify")
-    del eng
-    cs.release(torch)
-    with torch.no_grad():
-        model.lm_head.weight.copy_(head)
-    spec = cs.spec_slice_phase(
-        torch, model, dict(kw, spec_k=4, spec_ngram=3, spec_pause=32),
-        new_tokens=64, reset=gpu.reset_launch_counts,
-        counts=lambda: gpu.launch_counts(cs.SPEC), kernels=cs.SPEC)
-    for arm, runs in spec["arms"].items():
-        emit("spec_slice", {k: {f: runs[k][f] for f in (
-            "tokens_per_s", "mean_ttft_s", "wall_s", "decode_ticks")}
-            for k in ("spec", "plain")}, arm=arm)
-    with torch.no_grad():
-        model.lm_head.weight.copy_(head)
+    if want("tick"):
+        eng = ServingEngine(model, **dict(kw, spec_k=4))
+        with torch.no_grad():
+            model.lm_head.weight.zero_()
+        row = ps.steady_ticks(torch, eng, prompts(512, 8, pattern=True))
+        emit("tick", row, kind="verify")
+        del eng
+        cs.release(torch)
+        with torch.no_grad():
+            model.lm_head.weight.copy_(head)
+    if want("spec_slice"):
+        spec = cs.spec_slice_phase(
+            torch, model, dict(kw, spec_k=4, spec_ngram=3, spec_pause=32),
+            new_tokens=64, reset=gpu.reset_launch_counts,
+            counts=lambda: gpu.launch_counts(cs.SPEC), kernels=cs.SPEC)
+        for arm, runs in spec["arms"].items():
+            emit("spec_slice", {k: {f: runs[k][f] for f in (
+                "tokens_per_s", "mean_ttft_s", "wall_s", "decode_ticks")}
+                for k in ("spec", "plain")}, arm=arm)
+        with torch.no_grad():
+            model.lm_head.weight.copy_(head)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], set(sys.argv[2:]))

@@ -41,7 +41,8 @@ and the verify kernels' device time per tick and share of the busy time,
 the RoPE kernel's device time and launches per tick (one launch a layer
 rotates q and k), the engine's graph replays and ticks by kind, and the
 kernels with the most device time (names cut to 80 characters).
-`steady_ticks` and `prefill_ticks` measure the same ticks for
+`steady_ticks`, `prefill_ticks` and `batched_prefill_calls` (a burst of
+short prompts through one batched prefill call) measure ticks for
 tools/ab_serving.py. Needs one CUDA device.
 """
 import argparse
@@ -155,6 +156,50 @@ def prefill_ticks(torch, eng, prompts, ticks=6):
             raise RuntimeError("a measured tick left prefill")
         eng.run_until_idle()
     return out
+
+
+def batched_prefill_calls(torch, eng, make_prompts, calls=6):
+    """Bursts of greedy prompts on an idle engine, each admitted and
+    prefilled by one batched prefill call (the engine's
+    `_batched_prefill`, a graph replay or an eager call): `make_prompts()`
+    gives each burst's fresh prompts (a burst of prompts seen before would
+    hit the prefix cache). The first burst warms up; then `calls` bursts
+    are timed unprofiled (wall ms of the call alone, synchronised) and
+    `calls` profiled (device busy ms of a burst: the call, the admission
+    and the cancel). The requests are cancelled after each burst.
+    Returns the profile with `wall_ms_per_call_unprofiled`."""
+
+    def burst():
+        reqs = [eng.submit(p, max_new_tokens=2) for p in make_prompts()]
+        eng.sched.admit()
+        batch = list(eng.sched.prefilling)
+        if len(batch) != len(reqs):
+            raise RuntimeError("a burst must fit the engine's idle slots")
+        return reqs, batch
+
+    def call_and_cancel(reqs, batch):
+        eng._batched_prefill(batch)
+        for r in reqs:
+            eng.cancel(r)
+        eng._flush_pending()
+
+    walls = []
+    # step() runs the call without autograd; so must this
+    with torch.no_grad():
+        for i in range(calls + 1):
+            reqs, batch = burst()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._batched_prefill(batch)
+            torch.cuda.synchronize()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+            for r in reqs:
+                eng.cancel(r)
+            eng._flush_pending()
+        prof = _profile(torch, lambda: call_and_cancel(*burst()), calls)
+    return {"wall_ms_per_call_unprofiled": sum(walls) / len(walls),
+            "burst": len(batch), **prof}
 
 
 def main(argv=None):

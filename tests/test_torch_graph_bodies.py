@@ -1,10 +1,11 @@
 """The serving engine's graph bodies against the JAX reference's compiled
 programs, on the CPU.
 
-On a card the engine captures four kinds of body as CUDA graphs (greedy
+On a card the engine captures five kinds of body as CUDA graphs (greedy
 decode steps, a sampled step, the speculative verify window, a prefill
-chunk) and replays them; on the CPU the same bodies run eagerly, so these
-cases hold the code a card replays:
+chunk, a batched prefill) and replays them; on the CPU the same bodies run
+eagerly, so these cases hold the code a card replays (the batched body's
+parity with the JAX program is in tests/test_torch_serving.py):
 
   * host-read guard: every body runs with Tensor.item, __bool__, __int__,
     __index__, __float__, tolist, cpu and numpy and torch.cuda.synchronize
@@ -138,7 +139,7 @@ def _decoding_engine(tm, temps, **kw):
 
 
 @pytest.mark.parametrize("body", ["decode1", "decode4", "sampled", "verify",
-                                  "prefill"])
+                                  "prefill", "batched_prefill"])
 def test_graph_bodies_read_nothing_on_the_host(pair, body):
     kind, _, tm = pair
     fuse = 4 if body == "decode4" else 1
@@ -164,6 +165,15 @@ def test_graph_bodies_read_nothing_on_the_host(pair, body):
         x[16] = 16
         eng._lane_in.push()
         key = ("prefill", 32)
+    elif body == "batched_prefill":
+        # two rows on null tables (their writes land in block 0)
+        x = eng._bp_in.host()
+        x[:] = 0
+        x[0, :5] = [1, 2, 3, 4, 5]
+        x[1, :9] = list(range(9))
+        x[:2, 17] = [4, 8]
+        eng._bp_in.push()
+        key = ("batched_prefill", (16, 32))
     else:
         key = ("sampled", 1) if body == "sampled" else ("decode", fuse)
     lens = eng._d_lens.clone()
@@ -171,7 +181,7 @@ def test_graph_bodies_read_nothing_on_the_host(pair, body):
         eng._run(key)
     # the body did its work: live lengths advanced (prefill: none)
     moved = (eng._d_lens - lens)[eng._d_live.bool()]
-    if body == "prefill":
+    if body in ("prefill", "batched_prefill"):
         assert bool((moved == 0).all())
     else:
         assert bool((moved >= 1).all()) and int(moved.max()) <= max(fuse, W)
@@ -207,7 +217,8 @@ def test_sampled_ticks_keep_the_greedy_rows_of_the_jax_engine(pair):
     g = eng.graph_stats()
     assert g["ticks"]["sampled"] > 0 and g["ticks"]["decode"] > 0
     assert g["replays"] == {"decode": 0, "sampled": 0, "verify": 0,
-                            "prefill": 0}               # eager on the CPU
+                            "prefill": 0,
+                            "batched_prefill": 0}       # eager on the CPU
     assert eng.stats()["steps"] == jeng.stats()["steps"]
 
 

@@ -241,7 +241,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "observability.sinks", "observability.flight_recorder",
                 "observability.telemetry", "observability.anomaly",
                 "observability.memory", "observability.serve",
-                "serving.observability", "serving.server"):
+                "serving.observability", "serving.server", "serving.fleet",
+                "serving.fleet_observability", "distributed.env"):
         assert "paddle_tpu_torch." + mod in seen, mod
 
 
@@ -254,3 +255,135 @@ def test_entry_points_raise_without_a_gpu(models, monkeypatch):
         ServingEngine(tm)
     with pytest.raises(ValueError):
         ServingEngine(tm, device="meta")
+
+
+def test_batched_prefill_body_matches_the_jax_program(models):
+    """The batched-prefill graph body (what a card replays) run eagerly
+    against the JAX engine's `_batched_prefill_jit` on the same pages and
+    inputs: a burst of three rows (two on a shared, cached 40-token prefix,
+    one fresh) and a padding row, with the port at its coarser grid (S 32,
+    P 128) and the reference at its own (S 24, P 64). Each row's first
+    token must be equal, and the pages within 1e-5 (fp32 sums in another
+    order); the blocks nobody's suffix covers keep their bytes, and the
+    padding row touches only the null page. Then whole engines over a
+    burst that reaches the batched call."""
+    import jax.numpy as jnp
+
+    jm, tm = models
+    kw = dict(max_slots=4, block_size=8, prefill_chunk=32,
+              prefill_bucket=8, max_model_len=128)
+    jeng = JaxEngine(jm, **kw)
+    teng = ServingEngine(tm, device="cpu", **kw)
+    assert teng._bp_S == [8, 16, 32] and teng._bp_P == [32, 64, 128, 160]
+    rng = np.random.default_rng(7)
+    kp0 = teng.pool.layers[0][0]
+    pages = [(rng.standard_normal(kp0.shape).astype(np.float32),
+              rng.standard_normal(kp0.shape).astype(np.float32))
+             for _ in teng.pool.layers]
+    for (kp, vp), (k, v) in zip(teng.pool.layers, pages):
+        kp.copy_(torch.from_numpy(k))
+        vp.copy_(torch.from_numpy(v))
+    prefix = list(range(1, 6))               # 5 cached blocks = 40 tokens
+    rows = [  # (offset, suffix, table)
+        (40, [int(t) for t in rng.integers(0, 512, 20)],
+         prefix + [6, 7, 8, 12, 13]),
+        (40, [int(t) for t in rng.integers(0, 512, 5)], prefix + [9, 14]),
+        (0, [int(t) for t in rng.integers(0, 512, 9)], [10, 11])]
+    n, bs = kw["max_slots"], kw["block_size"]
+
+    def host_inputs(S, P):
+        nb = P // bs
+        ids = np.zeros((n, S), np.int64)
+        pos, last = np.zeros(n, np.int64), np.zeros(n, np.int64)
+        tP = np.zeros((n, nb), np.int64)
+        for r, (off, suf, table) in enumerate(rows):
+            ids[r, :len(suf)] = suf
+            pos[r], last[r] = off, len(suf) - 1
+            tP[r, :min(nb, len(table))] = table[:nb]
+        return ids, pos, last, tP
+
+    # the reference program at (S 24, P 64)
+    ids, pos, last, tP = host_inputs(24, 64)
+    _, _, pv, bv = jeng._functional()
+    jeng._dev_init()
+    d_toks, d_bt, d_sl, d_temps, _ = jeng._dev
+    bt_rows = np.zeros((n, jeng.max_blocks_per_seq), np.int32)
+    for r, (_, _, table) in enumerate(rows):
+        bt_rows[r, :len(table)] = table
+    slots = np.array([0, 1, 2, n], np.int32)     # the padding row drops
+    first_j, new_pages, *_ = jeng._batched_prefill_jit(24, 64)(
+        pv, bv, [(jnp.asarray(k), jnp.asarray(v)) for k, v in pages],
+        jnp.asarray(ids, jnp.int32), jnp.asarray(pos, jnp.int32),
+        jnp.asarray(tP, jnp.int32), jnp.asarray(last, jnp.int32),
+        jnp.asarray(slots), jnp.asarray(bt_rows),
+        jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.float32),
+        d_toks, d_bt, d_sl, d_temps)
+    # the port's body at (S 32, P 128), inputs through its staging
+    S, P = 32, 128
+    ids, pos, last, tP = host_inputs(S, P)
+    x = teng._bp_in.host()
+    x[:] = 0
+    x[:, :S] = ids
+    x[:, 32], x[:, 33] = pos, last
+    x[:, 34:34 + P // bs] = tP
+    teng._bp_in.push()
+    first_t = teng._run(("batched_prefill", (S, P))).clone()
+    assert first_t[:3].tolist() == np.asarray(first_j)[:3].tolist()
+    written = {6, 7, 8, 9, 10, 11}             # the three rows' suffixes
+    # the port's longer S pads into blocks 12 and 14, each its row's own
+    # reservation past the prompt, which decode overwrites before it reads
+    padded = {12, 14}
+    for (kp, vp), (jk, jv), (k0, v0) in zip(teng.pool.layers, new_pages,
+                                            pages):
+        for got, want, before in ((kp.numpy(), np.asarray(jk), k0),
+                                  (vp.numpy(), np.asarray(jv), v0)):
+            same = [b for b in range(1, len(before)) if b not in padded]
+            np.testing.assert_allclose(got[same], want[same], atol=1e-5)
+            untouched = [b for b in same if b not in written]
+            # the cached prefix and every other block keep their bytes
+            np.testing.assert_array_equal(got[untouched], before[untouched])
+    # whole engines: a burst whose rows take the batched call, on a cached
+    # prefix, equals the reference engine token for token
+    pre = [int(t) for t in rng.integers(0, 512, 40)]
+    burst = [pre + [int(t) for t in rng.integers(0, 512, m)]
+             for m in (20, 5)] + [[int(t) for t in rng.integers(0, 512, 9)]]
+    for eng in (jeng, teng):
+        eng.generate([pre + [3]], max_new_tokens=2)
+    want = jeng.generate(burst, max_new_tokens=NEW)
+    assert teng.generate(burst, max_new_tokens=NEW) == want
+    assert teng.stats()["batched_prefills"] == jeng.stats()[
+        "batched_prefills"] >= 1
+    assert teng.graph_stats()["ticks"]["batched_prefill"] == \
+        teng.stats()["batched_prefills"]
+
+
+def test_batched_prefill_workspace_is_pulled_once_in_order():
+    """The batched prefill's caches share one layer's buffers, so reading
+    any layer but caches[0], iterating twice, or pulling fewer layers than
+    the pool holds raises instead of computing against the wrong K/V."""
+    from paddle_tpu_torch.serving.engine import _LayerWorkspace
+    layers = [(torch.zeros(4, 2, 1, 2), torch.zeros(4, 2, 1, 2))
+              for _ in range(3)]
+    for li, (kp, vp) in enumerate(layers):
+        kp.fill_(li + 1)
+        vp.fill_(-(li + 1))
+    wk = torch.empty(4, 2, 1, 2)
+    idx = torch.tensor([1, 2, 3, 0])
+
+    def ws():
+        return _LayerWorkspace(layers, wk, torch.empty_like(wk), 2, 4, idx,
+                               torch.tensor([1]), torch.tensor([1]))
+
+    w = ws()
+    assert w[0][0].shape == (2, 4, 1, 2)
+    with pytest.raises(IndexError):
+        w[1]
+    seen = [float(k[0, 0, 0, 0]) for k, _ in w]
+    assert seen == [1.0, 2.0, 3.0]
+    w.finish()
+    with pytest.raises(RuntimeError):
+        list(w)
+    short = ws()
+    next(iter(short))
+    with pytest.raises(RuntimeError):
+        short.finish()

@@ -423,8 +423,11 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(NotImplementedError, match="segments"):
         lm(torch.zeros(1, 4, dtype=torch.long), caches=[],
            segments=torch.zeros(1, 4, dtype=torch.int32))
+    # a rotary GPT builds (no wpe); context parallel still raises
     cfg = GPTConfig.tiny()
     cfg.use_rotary = True
+    assert not hasattr(GPTForCausalLM(cfg, device="cpu").gpt, "wpe")
+    cfg.sequence_parallel = "ring"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTForCausalLM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="segments"):
