@@ -186,7 +186,46 @@ final line):
                moved session without its streamed prefix, a serving
                kernel not launched or a tick not replayed (batched
                prefills included)
- 15. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
+ 15. proc_fleet_parity - the fleet's replicas as child processes
+               (serving/fleet_proc.py), in fp32 (TF32 off): two children
+               from an identically seeded factory (chip_smoke:
+               proc_llama_2l: Llama-2-7B widths, 2 layers; 4 slots, 1024
+               context) under a FleetRouter over a native.TCPStore, the
+               children's store traffic through a StorePartitionProxy;
+               generate()'s tokens are computed first and the card
+               freed. Every request's tokens must equal them across:
+               a cancel while the child replays decode graphs (the
+               child sheds it as a disconnect and frees its slot); a
+               SIGKILL mid-decode (re-dispatched; a respawn under fence
+               + 1, warming until its probe passes, last_exit -9); a
+               SIGSTOP (lease expiry, a respawn after the grace; on
+               SIGCONT the zombie exits 43 without beating its lease
+               again); a store stall that heals inside the grace (no
+               respawn, no fence bump); a migrate=1 drain mid-decode
+               (at least one session moved); 1 prefill + 1 decode (the
+               KV over /kv/export and /kv/ingest, no prefill token on
+               the decode child); the autoscaler spawning a process
+               replica from a spec under a burst and retiring one
+               through a migrating drain and remove_replica (its child
+               gone); every child launched every serving kernel; no
+               breaker strike, no unplanned respawn or exit, no child
+               alive after router.stop()
+ 16. proc_fleet_slice - Llama-2-7B at full width in bf16, each replica a
+               child process (proc_llama_7b; 8 slots, 16-token blocks,
+               256-token chunks, 2048 context), fresh children an arm:
+               one and two on fleet_slice's traffic, 1 prefill + 1
+               decode on its burst, and on the two a SIGKILL of
+               replica-0 a third into another burst (every request
+               finishes, replica-0 comes back): tokens/s, mean TTFT,
+               spawn-to-ready seconds by part, respawn seconds, KV
+               transfers, each child's memory (/stats) and nvidia-smi's
+               compute apps, replays by child, the serving kernels'
+               launches summed over the children (from each child's
+               /stats before and after a run), beside fleet_slice's
+               thread replicas of the same run; raises as
+               proc_fleet_parity does, and on a request without its
+               tokens or a prefill token on the decode child
+ 17. gpt_serve_slice - GPT-3 1.3B at full depth in bf16 with spec_k=4 (8
                slots, 16-token blocks, 2048 context = its positions): a
                1,990-token repetitive prompt that reaches the end of the
                context, five shorter ones, then a 1,984-token cached prefix
@@ -196,20 +235,20 @@ final line):
                request's windows run past the table too); no output logit
                may be non-finite, paged decode and verify must launch, and
                every tick must have replayed its graph
- 16. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+ 18. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
                three TrainSteps (AdamW, global-norm clip) on the card and the
                same three on the CPU (plain versions) from the same weights
                and batch; losses and parameters must agree (bounds below)
- 17. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
+ 19. train_slice - main path 2: GPT-3 1.3B at full depth, amp O1 (bf16),
                AdamW, batch 4 x 2048 through TrainStep: one warm-up step and
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
- 18. train_o2_parity - GPT at GPT-3 1.3B's width, 2 layers, amp O2
+ 20. train_o2_parity - GPT at GPT-3 1.3B's width, 2 layers, amp O2
                (decorate: bf16 parameters, fp32 masters): three TrainSteps
                on the card and on the CPU from the same weights and batch;
                losses and masters must agree (bounds below)
- 19. train_o2_slice - main path 2 under amp O2: GPT-3 1.3B decorated,
+ 21. train_o2_slice - main path 2 under amp O2: GPT-3 1.3B decorated,
                auto_cast O2, global-norm clip, AdamW over LinearWarmup(
                CosineAnnealingDecay), TrainStep(nan_guard=True,
                telemetry=True) with FLAGS_metrics on: a warm-up and three
@@ -222,10 +261,10 @@ final line):
                H100 peak; then GradScaler over two eager steps (an
                overflowing one skipped with the scale halved, a clean one
                that updates)
- 20. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 22. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
-               three TrainSteps on the card and on the CPU, as in 14
- 21. train_packed_slice - main path 3: Llama-2-7B at its published widths
+               three TrainSteps on the card and on the CPU, as in 18
+ 23. train_packed_slice - main path 3: Llama-2-7B at its published widths
                cut to 8 layers, amp O1, AdamW, one packed batch of 2 x 4096
                tokens from PackedLMBatches: one warm-up step and three
                timed steps; loss, step time, tokens/s (all and non-padding),
@@ -233,7 +272,7 @@ final line):
                expected counts (segmented flash 8 each, RMSNorm and its
                backward 17, per-token RoPE 16 (q and k in one launch,
                forward and backward), AdamW 1, dense flash 0)
- 22. recompute_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32
+ 24. recompute_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32
                off) and amp O2, and the packed Llama at Llama-2-7B's
                width, 2 layers, fp32 on one 256-token row: three
                TrainSteps with recompute on and three with it off from the
@@ -241,7 +280,7 @@ final line):
                moments must be bitwise equal, and the launches a step
                those of `_want_launches` (a block's forward kernels twice,
                the backward ones once)
- 23. recompute_slice - main path 5: GPT-3 1.3B at full depth under amp O2
+ 25. recompute_slice - main path 5: GPT-3 1.3B at full depth under amp O2
                as the O2 slice runs it, first without recompute and then
                with recompute=True, batch 4 x 2048: a warm-up and three
                timed steps each (step time beside the O2 slice's, tokens/s,
@@ -250,12 +289,12 @@ final line):
                with recompute, a warm-up and two steps, whose peak must
                stay under the card's memory, beside the no-recompute peak
                extrapolated from batch 4
- 24. io_feed - a seeded dataset of 64 token rows of 2048 through
+ 26. io_feed - a seeded dataset of 64 token rows of 2048 through
                DataLoader(num_workers=2, forked process workers, shared
                memory, shuffle=True): the batch order must equal
                num_workers=0's; then through DevicePrefetcher(depth=2):
                batches/s, the prefetcher's wait, every batch on the card
- 25. resilient_slice - GPT-3 1.3B's widths cut to 2 layers (a ~2.9 GB
+ 27. resilient_slice - GPT-3 1.3B's widths cut to 2 layers (a ~2.9 GB
                checkpoint), amp O2, recompute, hidden dropout 0.1, fed by
                io_feed's loader through the prefetcher, through
                ResilientTrainer over an async CheckpointManager
@@ -3144,6 +3183,27 @@ def _device_trace(torch, run):
             "longest_gaps_s": sorted(gaps, reverse=True)[:5]}
 
 
+def _fleet_traffic(vocab, new_tokens):
+    """The fleet slices' traffic: slice 1's 10 requests in two waves
+    (slice_phase's seed and order) and a burst of 24 short prompts."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, vocab, n)]
+
+    shared = toks(256)
+    lens = (16, 64, 128, 512, 768, 1024, 288, 356)
+    wave1 = [toks(n) for n in lens[:-2]]
+    wave1 += [shared + toks(n - 256) for n in lens[-2:]]
+    repeat = next(p for p in wave1 if len(p) % 16 == 0)
+    slice10 = [[(p, new_tokens) for p in wave1],
+               [(shared + toks(48), new_tokens), (list(repeat), new_tokens)]]
+    burst = [_burst(np.random.default_rng(SEED + 30), vocab)]
+    return slice10, burst
+
+
 def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
     """Two Llama-2-7B replicas at full width (bf16, seeded alike) on one
     card, each a ServingEngine as slice 1 runs it (8 slots, 16-token
@@ -3183,20 +3243,7 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
                                seed=SEED) for _ in range(2)]
     torch.cuda.synchronize()
     model_init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED + 1)
-
-    def toks(n):
-        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-
-    # slice 1's requests (slice_phase's seed and order)
-    shared = toks(256)
-    lens = (16, 64, 128, 512, 768, 1024, 288, 356)
-    wave1 = [toks(n) for n in lens[:-2]]
-    wave1 += [shared + toks(n - 256) for n in lens[-2:]]
-    repeat = next(p for p in wave1 if len(p) % 16 == 0)
-    slice10 = [[(p, new_tokens) for p in wave1],
-               [(shared + toks(48), new_tokens), (list(repeat), new_tokens)]]
-    burst = [_burst(np.random.default_rng(SEED + 30), cfg.vocab_size)]
+    slice10, burst = _fleet_traffic(cfg.vocab_size, new_tokens)
     # the drains' burst answers at 128-256 tokens: a session then outlasts
     # a KV transfer (0.2-0.5 s behind the other replica's queued ticks)
     burst_m = [_burst(np.random.default_rng(SEED + 31), cfg.vocab_size,
@@ -3343,6 +3390,767 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
             "engine_kw": kw, "model_init_s": model_init_s,
             "kernels": list(kernels), "arms": arms,
             "same_tokens_one_vs_two": agree}
+
+
+# ------------------------------------------------------ process replicas
+def proc_llama_2l():
+    """Process replica factory of proc_fleet_parity (a child imports it as
+    chip_smoke:proc_llama_2l): Llama-2-7B's widths cut to 2 layers, fp32
+    with TF32 off, the weights seeded on the card by the model's explicit
+    generator, so every incarnation is bitwise the parent's reference."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_layers = 2
+    return LlamaForCausalLM(cfg, device="cuda", dtype="float32", seed=SEED)
+
+
+def proc_llama_7b():
+    """Process replica factory of proc_fleet_slice: Llama-2-7B at full
+    width in bf16, seeded as fleet_slice's replicas are."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    return LlamaForCausalLM(LlamaConfig.llama2_7b(), device="cuda",
+                            dtype="bfloat16", seed=SEED)
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _compute_apps():
+    """nvidia-smi's processes on the card: [(pid, used MiB)] (a sandbox's
+    pid namespace may hide them)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return {"error": repr(e)}
+    rows = []
+    for line in out.stdout.strip().splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            rows.append((int(parts[0]), parts[1]))
+    return rows
+
+
+class _ProcFleet:
+    """One process fleet of a phase: a TCPStore master in this process
+    (the children's store traffic through a StorePartitionProxy when
+    asked), a FleetRouter over supervised process replicas built from
+    `factory`, each child's stderr in a temporary directory. ready() raises
+    with a child's last_exit and log tail as soon as an incarnation dies
+    before it is up; close() stops the router and raises if any child it
+    ever started is still alive."""
+
+    def __init__(self, n, factory, engine_kw, *, tag, roles=None,
+                 proxy=False, warmup_s=120.0, backoff_s=2.0,
+                 lease_ttl_s=2.0):
+        import tempfile
+
+        from paddle_tpu_torch import native
+        from paddle_tpu_torch.resilience import chaos
+        from paddle_tpu_torch.serving import build_process_fleet
+
+        self.log_dir = tempfile.mkdtemp(prefix=f"proc_fleet_{tag}_")
+        self.store = native.TCPStore("127.0.0.1", 0, is_master=True)
+        self.proxy = (chaos.StorePartitionProxy("127.0.0.1",
+                                                self.store.port)
+                      if proxy else None)
+        self.addr = ((self.proxy.host, self.proxy.port) if proxy
+                     else ("127.0.0.1", self.store.port))
+        root = os.path.dirname(os.path.abspath(__file__))
+        path = os.pathsep.join(
+            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        self.spec_kwargs = dict(
+            factory=factory, engine_kwargs=engine_kw, child_heartbeat_s=0.2,
+            warmup_timeout_s=warmup_s, respawn_backoff_s=backoff_s,
+            respawn_max=2, extra_env={"PYTHONPATH": path},
+            log_dir=self.log_dir)
+        self.prefix = f"/chip/{tag}"
+        self.router = build_process_fleet(
+            n, store=self.store, store_addr=self.addr,
+            spec_kwargs=self.spec_kwargs,
+            router_kwargs=dict(roles=roles, heartbeat_s=0.05,
+                               lease_ttl_s=lease_ttl_s, prefix=self.prefix))
+        self.pids = set()
+        self.t0 = time.monotonic()
+        self.router.start()
+
+    def logs(self, limit=1500):
+        out = {}
+        for name in sorted(os.listdir(self.log_dir)):
+            with open(os.path.join(self.log_dir, name), "rb") as f:
+                out[name] = f.read()[-limit:].decode(errors="replace")
+        return out
+
+    def note_pids(self):
+        for rep in self.router.replicas.values():
+            self.pids.update(rep.children())
+
+    def ready(self, timeout, exits_ok=()):
+        """Seconds until every replica passed its warm-up probe. Raises at
+        once when a replica not in `exits_ok` records an exit."""
+        t0 = time.monotonic()
+        while True:
+            reps = list(self.router.replicas.values())
+            bad = {r.rid: r.last_exit for r in reps
+                   if r.last_exit and r.rid not in exits_ok}
+            if bad:
+                raise AssertionError(f"a process replica died: {bad}; "
+                                     f"child logs {self.logs()}")
+            if all(not r.warming() for r in reps):
+                self.note_pids()
+                return time.monotonic() - t0
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"process replicas not ready after "
+                                     f"{timeout} s; logs {self.logs()}")
+            time.sleep(0.02)
+
+    def stats(self):
+        return {rid: rep.engine.stats()
+                for rid, rep in self.router.replicas.items()}
+
+    def histograms(self, series):
+        """{rid: (sum, count)} of a histogram in each child's /metrics."""
+        from paddle_tpu_torch.observability.sinks import \
+            parse_prometheus_text
+
+        out = {}
+        for rid, rep in self.router.replicas.items():
+            text = _http(rep.engine.base_url + "/metrics")[1].decode()
+            m = parse_prometheus_text(text)
+            out[rid] = tuple(sum(v for (name, _), v in m.items()
+                                 if name == f"{series}_{part}")
+                             for part in ("sum", "count"))
+        return out
+
+    def launches(self):
+        return {rid: dict(s.get("launches") or {})
+                for rid, s in self.stats().items()}
+
+    def faults(self, planned=()):
+        """Raise on any breaker strike, and on a respawn or a last_exit of
+        a replica not in `planned`."""
+        bad = {rid: (rep.breaker.failures, rep.respawns, rep.last_exit)
+               for rid, rep in self.router.replicas.items()
+               if rep.breaker.failures or (rid not in planned and (
+                   rep.respawns or rep.last_exit))}
+        if bad:
+            raise AssertionError(f"unplanned process replica faults "
+                                 f"(strikes, respawns, last exit): {bad}")
+
+    def close(self):
+        import shutil
+
+        try:
+            self.note_pids()
+            self.router.stop()
+        finally:
+            if self.proxy is not None:
+                self.proxy.close()
+            self.store.close()
+        left = sorted(p for p in self.pids if _alive(p))
+        for p in left:
+            os.kill(p, 9)
+        shutil.rmtree(self.log_dir, ignore_errors=True)
+        if left:
+            raise AssertionError(f"children alive after router.stop(): "
+                                 f"{left}")
+
+
+def _child_decoding(rep, ticks=16):
+    """Wait until the replica's child decodes a request and has ticked
+    `ticks` more times: a process replica's greedy stream is silent until
+    its end, so the child's /stats says where its requests are."""
+    _until(lambda: rep.engine.stats().get("running", 0) > 0,
+           f"{rep.rid} decoding")
+    s0 = rep.engine.stats()["steps"]
+    _until(lambda: rep.engine.stats()["steps"] >= s0 + ticks,
+           f"{rep.rid} ticking")
+
+
+def _launch_delta(before, after):
+    """{rid: {kernel: launches}} after minus before, and the sum over the
+    children (a child that is not in `before` counts from 0)."""
+    per = {rid: {k: v - before.get(rid, {}).get(k, 0) for k, v in l.items()}
+           for rid, l in after.items()}
+    summed = {}
+    for l in per.values():
+        for k, v in l.items():
+            summed[k] = summed.get(k, 0) + v
+    return per, summed
+
+
+def proc_fleet_parity_phase(torch, new_tokens=48):
+    """The fleet's process replicas on the card in fp32 (TF32 off): two
+    child processes from an identically seeded factory (proc_llama_2l:
+    Llama-2-7B widths, 2 layers; 4 slots, 16-token blocks, 256-token
+    chunks, 1024 context), each its own ServingEngine (CUDA graphs) behind
+    a ServingServer, under a FleetRouter over a native.TCPStore whose
+    children's traffic runs through a StorePartitionProxy. The parent
+    computes generate()'s tokens for every prompt first, then frees the
+    card. Scenarios, every request's tokens equal to generate()'s:
+    parity over both children; a cancel of a stream while its child
+    replays decode graphs (the child frees the slot and reservation,
+    having generated fewer tokens than asked); a SIGKILL of a replica
+    mid-decode (re-dispatched; the replica respawns under fence + 1,
+    warming until its probe passes, last_exit -9); a SIGSTOP (the lease
+    expires, a respawn after the grace; on SIGCONT the zombie exits 43
+    and never beats its lease again); a store stall that heals inside
+    the grace (leases expire and revive, no respawn, no fence bump); a
+    migrate=1 drain mid-decode that moves at least one session; 1
+    prefill + 1 decode (the roles set on the running fleet, as roles=
+    assigns them at construction: the KV over /kv/export and /kv/ingest,
+    no prefill token on the decode child); then a fleet of one with the
+    autoscaler, which spawns a process replica from a spec under a burst
+    and retires one through a migrating drain and remove_replica, whose
+    child then has exited. Raises on a serving kernel no child launched,
+    an unplanned strike, respawn or exit, an unfinished request, or a
+    child alive after router.stop()."""
+    import threading
+
+    import numpy as np
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.observability.flight_recorder import \
+        get_flight_recorder
+    from paddle_tpu_torch.observability.sinks import parse_prometheus_text
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import FleetAutoscaler, ProcessReplicaSpec
+
+    kw = dict(max_slots=4, block_size=16, prefill_chunk=256,
+              max_model_len=1024)
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_layers = 2
+    rng = np.random.default_rng(SEED + 40)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    long_new = 4 * new_tokens
+    work = {
+        "parity": [(toks(n), new_tokens) for n in (16, 40, 77, 150, 256,
+                                                    300)],
+        "kill": [(toks(n), long_new) for n in (40, 300, 77, 150)],
+        "stop": [(toks(n), new_tokens) for n in (33, 120)],
+        "heal": [(toks(n), new_tokens) for n in (50, 90)],
+        "migrate": [(toks(n), long_new) for n in (64, 128, 256, 192)],
+        "disagg": [(toks(n), new_tokens) for n in (16, 32, 48, 64, 128,
+                                                    256)],
+        "scale": [(toks(n), new_tokens) for n in (30, 60, 90, 120, 150,
+                                                   180, 210, 240)],
+        "scale2": [(toks(n), new_tokens) for n in (50, 70, 90, 110)],
+        "after": [(toks(n), new_tokens) for n in (45,)],
+    }
+    cancel_prompt = toks(64)
+    t0 = time.perf_counter()
+    ref = proc_llama_2l()
+    want = {}
+    for reqs in work.values():
+        for p, n in reqs:
+            want[(tuple(p), n)] = _greedy(torch, ref, p, n)
+    ref_s = time.perf_counter() - t0
+    del ref
+    release(torch)
+
+    def serve(key, router):
+        freqs = [router.submit(p, max_new_tokens=n) for p, n in work[key]]
+        _settle(freqs)
+        check(freqs, key)
+        return freqs
+
+    def check(freqs, name):
+        for f in freqs:
+            w = want[(tuple(f.prompt), f.max_new_tokens)]
+            if f.output_tokens != w or f.finish_reason != "length":
+                raise AssertionError(
+                    f"proc fleet {name}: request {f.request_id} "
+                    f"({len(f.prompt)} tokens) gave {f.output_tokens[:8]}"
+                    f"..., generate() {w[:8]}... ({f.finish_reason})")
+
+    rec = get_flight_recorder()
+    prev_dir = flags.get_flag("metrics_dir")
+    out = {"phase": "proc_fleet_parity", "layers": cfg.num_layers,
+           "new_tokens": new_tokens, "reference_generate_s": ref_s}
+    fa = _ProcFleet(2, "chip_smoke:proc_llama_2l", kw, tag="parity",
+                    proxy=True)
+    flags.set_flags({"metrics_dir": fa.log_dir})   # respawn dumps
+    try:
+        out["ready_s"] = fa.ready(300)
+        router = fa.router
+        out["spawns"] = {rid: rep.spawns[-1]
+                         for rid, rep in router.replicas.items()}
+        l0 = fa.launches()
+        freqs = serve("parity", router)
+        per, summed = _launch_delta(l0, fa.launches())
+        idle = [k for k in SERVING if not all(per[r].get(k) for r in per)]
+        if idle:
+            raise AssertionError(f"a child did not launch {idle}: {per}")
+        out["parity"] = {
+            "requests": len(freqs),
+            "homes": [f.attempts[-1].replica.rid for f in freqs],
+            "launches_by_child": per, "launches_summed": summed}
+
+        # cancel while the child replays decode graphs
+        r0 = router.replicas["replica-0"]
+        url = r0.engine.base_url
+
+        def metric(series, **labels):
+            text = _http(url + "/metrics")[1].decode()
+            return sum(v for (name, lab), v in parse_prometheus_text(
+                text).items() if name == series
+                and all((k, v2) in lab for k, v2 in labels.items()))
+
+        g0 = metric("serving_generated_tokens_total")
+        shed0 = metric("serving_shed_requests_total", reason="disconnect")
+        req = r0.engine.submit(cancel_prompt, max_new_tokens=900)
+        _child_decoding(r0)
+        t_c = time.monotonic()
+        r0.engine.cancel(req)
+        if not req.wait(30):
+            raise AssertionError("the cancelled stream did not end")
+
+        def freed():
+            s = r0.engine.stats()
+            return not (s["running"] or s["waiting"] or s["prefilling"]
+                        or s["reserved_blocks"])
+
+        _until(freed, "the child freeing the cancelled slot", 30)
+        freed_s = time.monotonic() - t_c
+        made = metric("serving_generated_tokens_total") - g0
+        shed = metric("serving_shed_requests_total",
+                      reason="disconnect") - shed0
+        if shed != 1 or made >= 900:
+            raise AssertionError(f"the cancel: {shed} disconnects shed, "
+                                 f"{made} tokens generated")
+        out["cancel"] = {"tokens_flushed_by_child": made,
+                         "slot_freed_s": freed_s,
+                         "finish_reason": req.finish_reason}
+
+        # SIGKILL mid-decode
+        freqs = [router.submit(p, max_new_tokens=n)
+                 for p, n in work["kill"]]
+        victim = freqs[0].attempts[0].replica
+        doomed = [f for f in freqs if f.attempts[0].replica is victim]
+        _child_decoding(victim)
+        vinc, vpid = victim.incarnation, victim.pid
+        warming, sampled = [], threading.Event()
+
+        def sample():
+            # when the victim was warming: from its death to its probe
+            while not sampled.is_set():
+                if victim.warming():
+                    warming.append(time.monotonic() - t_k)
+                time.sleep(0.002)
+
+        t_k = time.monotonic()
+        chaos.kill_process(vpid)
+        threading.Thread(target=sample, daemon=True).start()
+        _settle(freqs)
+        check(freqs, "kill")
+        _until(lambda: (victim.incarnation > vinc and not victim.warming()
+                        and not victim.dead(router.lease_ttl_s)),
+               f"{victim.rid} respawned", 300)
+        respawn_s = time.monotonic() - t_k
+        sampled.set()
+        fence = fa.store.add(f"{fa.prefix}/fence/{victim.rid}", 0)
+        moved = sum(f.redispatches for f in freqs)
+        le = victim.last_exit
+        if (moved < len(doomed) or victim.incarnation != vinc + 1
+                or fence != vinc + 1 or not warming
+                or le.get("exit_code") != -9 or le.get("reason") != "exit"
+                or _alive(vpid)):
+            raise AssertionError(
+                f"kill: {moved} re-dispatched of {len(doomed)}, "
+                f"incarnation {vinc} -> {victim.incarnation}, fence "
+                f"{fence}, warming seen {bool(warming)}, last_exit {le}")
+        fa.note_pids()
+        out["kill"] = {"replica": victim.rid, "requests": len(freqs),
+                       "redispatched": moved, "respawn_s": respawn_s,
+                       "warming_for_s": max(warming) - min(warming),
+                       "incarnation": [vinc, victim.incarnation],
+                       "last_exit": le, "spawn": victim.spawns[-1]}
+
+        # SIGSTOP: lease death, respawn, then the zombie fences itself
+        z = router.replicas["replica-1" if victim.rid == "replica-0"
+                            else "replica-0"]
+        zpid, zinc = z.pid, z.incarnation
+        hb_key = f"{fa.prefix}/hb/{z.rid}@{zinc}"
+        t_s = time.monotonic()
+        chaos.hang_process(zpid)
+        _until(lambda: (z.incarnation > zinc and not z.warming()
+                        and not z.dead(router.lease_ttl_s)),
+               f"{z.rid} replaced", 300)
+        replaced_s = time.monotonic() - t_s
+        if z.last_exit.get("reason") != "lease_expired" \
+                or z.last_exit.get("pid") != zpid or not _alive(zpid):
+            raise AssertionError(f"stop: last_exit {z.last_exit}")
+        fa.note_pids()
+        serve("stop", router)
+        hb = fa.store.get(hb_key, blocking=False)
+        n_ev = len(rec.events())
+        chaos.resume_process(zpid)
+        _until(lambda: (z.last_exit or {}).get("fenced_pid") == zpid,
+               "the zombie fencing itself", 60)
+        fenced = [e for e in rec.events()[n_ev:]
+                  if e["kind"] == "fleet_replica_fenced"
+                  and e.get("pid") == zpid]
+        beat = fa.store.get(hb_key, blocking=False) != hb
+        if (not fenced or fenced[0].get("exit_code") != 43 or beat
+                or _alive(zpid)):
+            raise AssertionError(f"stop: zombie events {fenced}, lease "
+                                 f"beaten after waking {beat}")
+        out["sigstop"] = {"replica": z.rid, "replaced_s": replaced_s,
+                          "incarnation": [zinc, z.incarnation],
+                          "zombie_exit_code": fenced[0]["exit_code"],
+                          "spawn": z.spawns[-1]}
+
+        # a store stall that heals inside the grace
+        before = {rid: (rep.incarnation, rep.respawns, rep.pid,
+                        fa.store.add(f"{fa.prefix}/fence/{rid}", 0))
+                  for rid, rep in router.replicas.items()}
+        n_ev = len(rec.events())
+        fa.proxy.partition(router.lease_ttl_s + 0.3, mode="stall")
+        _until(lambda: not fa.proxy.partitioned, "the heal", 30)
+
+        def events():
+            return [e["kind"] for e in rec.events()[n_ev:]]
+
+        # both leases revive within a few heartbeats of the heal
+        _until(lambda: events().count("fleet_replica_lease_revived") >= 2,
+               "the leases reviving", 10)
+        kinds = events()
+        after = {rid: (rep.incarnation, rep.respawns, rep.pid,
+                       fa.store.add(f"{fa.prefix}/fence/{rid}", 0))
+                 for rid, rep in router.replicas.items()}
+        if after != before or "fleet_replica_lease_revived" not in kinds \
+                or "fleet_replica_lease_expired" not in kinds:
+            raise AssertionError(f"heal: {before} -> {after}, events "
+                                 f"{kinds}")
+        serve("heal", router)
+        out["healed_partition"] = {
+            "stall_s": router.lease_ttl_s + 0.3,
+            "expired": kinds.count("fleet_replica_lease_expired"),
+            "revived": kinds.count("fleet_replica_lease_revived")}
+
+        # a migrating drain mid-decode
+        transfers = []
+        stream = router._stream_kv
+
+        def timed_stream(freq, src, dst, kind):
+            t = time.perf_counter()
+            st = stream(freq, src, dst, kind)
+            if st is not None:
+                transfers.append({"kind": kind, "bytes": st["bytes"],
+                                  "blocks": st["imported"] + st["dedup"],
+                                  "seconds": time.perf_counter() - t,
+                                  "export_s": st["export_s"],
+                                  "ingest_s": st["ingest_s"]})
+            return st
+
+        router._stream_kv = timed_stream
+        freqs = [router.submit(p, max_new_tokens=n)
+                 for p, n in work["migrate"]]
+        on0 = [f for f in freqs if f.attempts[0].replica.rid == "replica-0"]
+        _child_decoding(router.replicas["replica-0"])
+        router.drain("replica-0", migrate=True)
+        _settle(freqs)
+        check(freqs, "migrate")
+        migs = [f for f in freqs if f.migrations]
+        if not migs:
+            raise AssertionError(f"migrate: none of {len(on0)} moved")
+        router.resume("replica-0")
+        out["migrate"] = {
+            "on_replica_0": len(on0), "migrated": len(migs),
+            "prompt_and_matched": [(len(f.prompt),
+                                    f.attempts[-1].req.prefix_matched)
+                                   for f in migs],
+            "kv": [t for t in transfers if t["kind"] == "migrate"]}
+
+        # 1 prefill + 1 decode across the processes
+        router.replicas["replica-0"].role = "prefill"
+        router.replicas["replica-1"].role = "decode"
+        pf0 = {rid: s["prefill_tokens"] for rid, s in fa.stats().items()}
+        n_t = len(transfers)
+        freqs = serve("disagg", router)
+        pf = {rid: s["prefill_tokens"] - pf0[rid]
+              for rid, s in fa.stats().items()}
+        homes = [f.attempts[-1].replica.rid for f in freqs]
+        if pf["replica-1"] or any(h != "replica-1" for h in homes) \
+                or any(f.kv_streamed is None for f in freqs):
+            raise AssertionError(f"disaggregated: prefill tokens {pf}, "
+                                 f"homes {homes}")
+        out["disaggregated"] = {"prefill_tokens_by_replica": pf,
+                                "kv": transfers[n_t:]}
+        fa.faults(planned=(victim.rid, z.rid))
+        out["graphs"] = {rid: s["graphs"] for rid, s in fa.stats().items()}
+    except BaseException:
+        fa.close()
+        flags.set_flags({"metrics_dir": prev_dir})
+        raise
+    fa.close()
+
+    # the autoscaler spawns a process replica and retires one
+    fb = _ProcFleet(1, "chip_smoke:proc_llama_2l", kw, tag="scale")
+    flags.set_flags({"metrics_dir": fb.log_dir})
+    try:
+        fb.ready(300)
+        router = fb.router
+        scaler = FleetAutoscaler(
+            router, lambda: ProcessReplicaSpec(fb.addr, **fb.spec_kwargs),
+            min_replicas=1, max_replicas=2, hi=0.75, lo=0.25,
+            cooldown_s=0.5, slots_per_replica=kw["max_slots"])
+        router.attach_autoscaler(scaler)
+        t_b = time.monotonic()
+        freqs = [router.submit(p, max_new_tokens=n)
+                 for p, n in work["scale"]]
+        _until(lambda: len(router.replicas) == 2, "the scale-up")
+        new = [rid for rid in router.replicas if rid != "replica-0"][0]
+        pids = {"replica-0": router.replicas["replica-0"].children()}
+        fb.ready(300)
+        up_s = time.monotonic() - t_b
+        pids[new] = router.replicas[new].children()
+        spawn_new = router.replicas[new].spawns[-1]
+        freqs += [router.submit(p, max_new_tokens=n)
+                  for p, n in work["scale2"]]
+        _settle(freqs)
+        check(freqs, "autoscaler")
+        _until(lambda: len(router.replicas) == 1
+               and scaler._retiring is None, "the scale-down")
+        down = [e["replica"] for e in scaler.events if e["dir"] == "down"]
+        left = [p for p in pids[down[0]] if _alive(p)]
+        if left or len(down) != 1:
+            raise AssertionError(f"retired {down}; its children {left} "
+                                 f"still run")
+        after = serve("after", router)
+        fb.faults()
+        out["autoscaler"] = {
+            "events": [(e["dir"], e["replica"], e["utilization"])
+                       for e in scaler.events],
+            "spawned": new, "retired": down, "scale_up_to_ready_s": up_s,
+            "served_by_new": sum(f.attempts[-1].replica.rid == new
+                                 for f in freqs + after),
+            "spawn": spawn_new}
+    except BaseException:
+        fb.close()
+        raise
+    finally:
+        flags.set_flags({"metrics_dir": prev_dir})
+    fb.close()
+    return out
+
+
+def proc_fleet_slice_phase(torch, threads=None, new_tokens=64):
+    """Llama-2-7B replicas at full width in bf16, each a child process of
+    its own (proc_llama_7b; the serving cell's engine: 8 slots, 16-token
+    blocks, 256-token chunks, 2048 context) under a FleetRouter, fresh
+    children an arm: one replica and two on fleet_slice's traffic (slice
+    1's 10 requests and the 24-prompt burst), 1 prefill + 1 decode on the
+    burst, and on the two-replica fleet after its runs a SIGKILL of
+    replica-0 a third into another burst (every request finishes, replica-0
+    comes back). Each child first serves one short request of its own
+    (its seconds reported: a child's first request loads the kernels'
+    libraries and sets up cuBLAS), then the measured runs. For each arm:
+    tokens/s and mean TTFT, each child's mean time an output token (its
+    /metrics), spawn-to-ready seconds by part (the child's import,
+    weights, engine with its graphs; the ready line; the probe), respawn
+    seconds, every KV transfer's bytes and seconds, each child's peak and
+    reserved memory (its /stats) and nvidia-smi's compute apps, graph
+    replays by child, and each serving kernel's launches summed over the
+    children (read from each child's /stats before and after a run). `threads`, fleet_slice's thread
+    replicas of the same run, is copied in for comparison. Raises on a
+    serving kernel no child launched, an unplanned strike, respawn or
+    exit, a request without its tokens, or a child alive after
+    router.stop()."""
+    import numpy as np
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.resilience import chaos
+
+    cfg = LlamaConfig.llama2_7b()
+    kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
+              max_model_len=2048)
+    prev_dir = flags.get_flag("metrics_dir")
+    slice10, burst = _fleet_traffic(cfg.vocab_size, new_tokens)
+    burst_k = [_burst(np.random.default_rng(SEED + 33), cfg.vocab_size)]
+    warm = [[int(t) for t in np.random.default_rng(SEED + 34 + i).integers(
+        0, cfg.vocab_size, 16)] for i in range(2)]
+
+    def serve(router, trace):
+        freqs = []
+        for wave in trace:
+            mine = [router.submit(p, max_new_tokens=m) for p, m in wave]
+            freqs += mine
+            _settle(mine)
+        return freqs
+
+    def measured(freqs, wall):
+        short = [f.request_id for f in freqs
+                 if len(f.output_tokens) != f.max_new_tokens
+                 or not all(0 <= t < cfg.vocab_size
+                            for t in f.output_tokens)]
+        if short:
+            raise AssertionError(f"requests without their tokens {short}")
+        gen = sum(len(f.output_tokens) for f in freqs)
+        return {"requests": len(freqs), "generated_tokens": gen,
+                "wall_s": wall, "tokens_per_s": gen / wall,
+                "mean_ttft_s": statistics.mean(
+                    f.first_token_ts - f.submit_ts for f in freqs)}
+
+    def run_arm(n, traces, roles=None, kill=None):
+        release(torch)
+        fleet = _ProcFleet(n, "chip_smoke:proc_llama_7b", kw,
+                           tag=f"slice{n}" + ("_disagg" if roles else ""),
+                           roles=roles, warmup_s=180.0)
+        flags.set_flags({"metrics_dir": fleet.log_dir})   # respawn dumps
+        try:
+            ready_s = fleet.ready(600)
+            router = fleet.router
+            spawns = {rid: rep.spawns[-1]
+                      for rid, rep in router.replicas.items()}
+            # each child's first request pays its one-time costs (the
+            # kernels' libraries loaded, cuBLAS set up): one short request
+            # a child before the measured runs, its seconds reported
+            first = {}
+            for i, (rid, rep) in enumerate(router.replicas.items()):
+                t = time.perf_counter()
+                req = rep.engine.submit(warm[i], max_new_tokens=8)
+                if not req.wait(120) or req.finish_reason != "length":
+                    raise AssertionError(f"{rid}'s warm-up request: "
+                                         f"{req.finish_reason}")
+                first[rid] = time.perf_counter() - t
+            transfers = []
+            stream = router._stream_kv
+
+            def timed_stream(freq, src, dst, kind):
+                t = time.perf_counter()
+                st = stream(freq, src, dst, kind)
+                if st is not None:
+                    transfers.append({
+                        "kind": kind,
+                        "blocks": st["imported"] + st["dedup"],
+                        "bytes": st["bytes"],
+                        "seconds": time.perf_counter() - t,
+                        "export_s": st["export_s"],
+                        "ingest_s": st["ingest_s"]})
+                return st
+
+            router._stream_kv = timed_stream
+            runs = []
+            tokens = []
+            for trace in traces:
+                l0 = fleet.launches()
+                pf0 = {rid: s["prefill_tokens"]
+                       for rid, s in fleet.stats().items()}
+                tp0 = fleet.histograms("serving_tpot_seconds")
+                t1 = time.perf_counter()
+                freqs = serve(router, trace)
+                wall = time.perf_counter() - t1
+                tp = fleet.histograms("serving_tpot_seconds")
+                st = fleet.stats()
+                per, summed = _launch_delta(l0, {
+                    rid: s["launches"] for rid, s in st.items()})
+                if any(not summed.get(k) for k in SERVING):
+                    raise AssertionError(f"a serving kernel no child "
+                                         f"launched: {summed}")
+                runs.append({**measured(freqs, wall),
+                             "prefill_tokens": {
+                                 rid: s["prefill_tokens"] - pf0[rid]
+                                 for rid, s in st.items()},
+                             "homes": {rid: sum(
+                                 f.attempts[-1].replica.rid == rid
+                                 for f in freqs) for rid in st},
+                             # a child's mean seconds an output token
+                             "child_tpot_s": {
+                                 rid: (tp[rid][0] - tp0[rid][0])
+                                 / max(1, tp[rid][1] - tp0[rid][1])
+                                 for rid in tp},
+                             "launches_summed": summed,
+                             "launches_by_child": per})
+                tokens.append({i: f.output_tokens
+                               for i, f in enumerate(freqs)})
+            st = fleet.stats()
+            smi = _compute_apps()
+            out = {"replicas": n, "roles": roles or "symmetric",
+                   "ready_s": ready_s, "spawns": spawns,
+                   "first_request_s": first, "runs": runs,
+                   "kv_transfers": transfers,
+                   "memory": {rid: s["memory"]["device"]
+                              for rid, s in st.items()},
+                   "nvidia_smi_compute_apps": smi,
+                   "child_pids": {rid: rep.pid for rid, rep in
+                                  router.replicas.items()},
+                   "graphs": {rid: s["graphs"] for rid, s in st.items()}}
+            for rid, g in out["graphs"].items():
+                for kind, ticks in g["ticks"].items():
+                    if g["replays"][kind] != ticks:
+                        raise AssertionError(f"{rid}: {kind} replays "
+                                             f"{g['replays']} ticks "
+                                             f"{g['ticks']}")
+            fleet.faults()
+            if kill is not None:
+                t1 = time.perf_counter()
+                freqs = [router.submit(p, max_new_tokens=m)
+                         for p, m in kill[0]]
+                _until(lambda: sum(f.done for f in freqs)
+                       >= len(freqs) / 3, "a third done", 600)
+                victim = router.replicas["replica-0"]
+                vinc, vpid = victim.incarnation, victim.pid
+                t_k = time.monotonic()
+                chaos.kill_process(vpid)
+                _settle(freqs)
+                wall = time.perf_counter() - t1
+                _until(lambda: (victim.incarnation > vinc
+                                and not victim.warming()
+                                and not victim.dead(router.lease_ttl_s)),
+                       "replica-0 back", 600)
+                respawn_s = time.monotonic() - t_k
+                le = victim.last_exit
+                if le.get("exit_code") != -9 or _alive(vpid):
+                    raise AssertionError(f"kill: last_exit {le}")
+                fleet.note_pids()
+                fleet.faults(planned=("replica-0",))
+                out["kill"] = {**measured(freqs, wall),
+                               "redispatched": sum(f.redispatches
+                                                   for f in freqs),
+                               "respawn_s": respawn_s, "last_exit": le,
+                               "spawn": victim.spawns[-1]}
+        except BaseException:
+            fleet.close()
+            raise
+        finally:
+            flags.set_flags({"metrics_dir": prev_dir})
+        fleet.close()
+        return out, tokens
+
+    t0 = time.perf_counter()
+    one, one_tokens = run_arm(1, [slice10, burst])
+    two, two_tokens = run_arm(2, [slice10, burst], kill=burst_k)
+    dis, _ = run_arm(2, [burst], roles="prefill:1,decode:1")
+    if dis["runs"][0]["prefill_tokens"]["replica-1"]:
+        raise AssertionError(f"{dis['runs'][0]['prefill_tokens']} prefill "
+                             f"tokens on the decode replica")
+    agree = {trace: sum(a[k] == b[k] for k in a) / len(a)
+             for trace, a, b in zip(("slice", "burst"), one_tokens,
+                                    two_tokens)}
+    return {"phase": "proc_fleet_slice", "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "dtype": "torch.bfloat16",
+            "engine_kw": kw, "kernels": list(SERVING),
+            "arms": {"one": one, "two": two, "disaggregated": dis},
+            "same_tokens_one_vs_two": agree,
+            "phase_s": time.perf_counter() - t0,
+            "threads_same_run": threads}
 
 
 # ------------------------------------------------------------ training path
@@ -4569,8 +5377,20 @@ def main():
     emit(fleet_parity_phase(torch, cfg2))
     release(torch)
 
-    emit(fleet_slice_phase(torch, gpu.reset_launch_counts,
-                           lambda: gpu.launch_counts(SERVING), SERVING))
+    fleet = fleet_slice_phase(torch, gpu.reset_launch_counts,
+                              lambda: gpu.launch_counts(SERVING), SERVING)
+    emit(fleet)
+    release(torch)
+
+    # the process replicas: the parent holds nothing on the card now, and
+    # every library is built, so no child compiles inside its warm-up
+    emit(proc_fleet_parity_phase(torch))
+    release(torch)
+    emit(proc_fleet_slice_phase(torch, threads={
+        arm: [{k: run[k] for k in ("requests", "tokens_per_s",
+                                   "mean_ttft_s")}
+              for run in fleet["arms"][arm]["runs"] if not run["profiled"]]
+        for arm in ("one", "two")}))
     release(torch)
 
     gpt_serve = gpt_serve_slice_phase(

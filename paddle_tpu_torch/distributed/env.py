@@ -1,19 +1,18 @@
 """Process and rank environment, and the process-group store (counterpart
-of paddle_tpu/distributed/env.py, for one process).
+of paddle_tpu/distributed/env.py).
 
 What the serving fleet needs: the in-process store (`InProcStore`, the
-native TCPStore's API over a dict and a condition variable, which N threads
+TCPStore's API over a dict and a condition variable, which N threads
 share to act as N ranks), the cached process-group store (`get_store`,
 `reset_store`) and the store-based replica registry (`ReplicaRegistry`:
 a registration log, heartbeat leases aged on the reader's clock,
-tombstones). `ParallelEnv`, `get_rank` and `get_world_size` read the
-launcher's variables (PADDLE_TRAINER_ID, PADDLE_TRAINERS_NUM) and default
-to rank 0 of 1.
+tombstones), which works alike over either store. `ParallelEnv`,
+`get_rank` and `get_world_size` read the launcher's variables
+(PADDLE_TRAINER_ID, PADDLE_TRAINERS_NUM) and default to rank 0 of 1.
 
-A store across ranks (the reference's native TCPStore, chosen when
-PADDLE_MASTER is set and the world has more than one rank) waits for the
-distributed slice (ROADMAP queue 1): `get_store` raises for it rather than
-hand each rank a private store. Nothing here uses torch.distributed yet.
+With PADDLE_MASTER=host:port set and more than one rank, `get_store`
+returns the store across processes (native.TCPStore over
+torch.distributed's c10d store): rank 0 hosts it, the others connect.
 """
 from __future__ import annotations
 
@@ -135,10 +134,11 @@ _store_lock = threading.Lock()
 
 
 def get_store(world_size: Optional[int] = None, *, timeout_s: float = 60.0):
-    """The process-group store, resolved once per process: an InProcStore
-    that N threads can share. A store across ranks (PADDLE_MASTER set,
-    world > 1) raises NotImplementedError: it waits for the distributed
-    slice."""
+    """The process-group store, resolved once per process. With
+    PADDLE_MASTER=host:port set and world > 1: a native.TCPStore, hosted
+    by rank 0 on that endpoint, every other rank connected to it.
+    Otherwise an InProcStore that N threads can share to act as N ranks
+    (tests, one-process runs)."""
     global _store
     with _store_lock:
         if _store is not None:
@@ -147,10 +147,14 @@ def get_store(world_size: Optional[int] = None, *, timeout_s: float = 60.0):
                     else get_world_size())
         master = os.environ.get("PADDLE_MASTER", "")
         if world > 1 and master and ":" in master:
-            raise NotImplementedError(
-                f"a store across {world} ranks at PADDLE_MASTER={master} "
-                "(the reference's native TCPStore) is not ported yet "
-                "(ROADMAP queue 1: distributed and fleet)")
+            from .. import native
+
+            if native.available():
+                host, _, port = master.rpartition(":")
+                _store = native.TCPStore(
+                    host, int(port), is_master=(get_rank() == 0),
+                    world_size=world, timeout_s=timeout_s)
+                return _store
         _store = InProcStore(world_size=world)
         return _store
 

@@ -9,10 +9,12 @@ Pieces (wired together by ResilientTrainer, each usable alone):
   - PreemptionHandler  : SIGTERM/SIGINT latched into one flag the training
                          loop polls.
   - RetryPolicy        : backoff/jitter/deadline retries, adopted by the
-                         DataLoader worker respawn path.
+                         DataLoader worker respawn path and the process
+                         replicas' respawns.
   - chaos              : fault injection (crash points inside checkpoint
                          writes, NaN batch poisoning, worker kills, fake
-                         preemption signals) backing the tests and
+                         preemption signals, SIGKILL/SIGSTOP/SIGCONT of a
+                         process, store partitions) backing the tests and
                          chip_smoke.py.
 The elastic trainer and the multi-rank pieces wait for the distributed
 slice.

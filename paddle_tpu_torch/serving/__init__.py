@@ -1,11 +1,11 @@
 """Serving (counterpart of paddle_tpu/serving): continuous batching over a
 paged KV pool with prefix caching, self-speculative decoding, every tick
 kind as a CUDA graph, the KV-block wire, request traces and SLO metrics,
-the HTTP front end, and the fleet (a router over replica threads:
-prefix-affinity routing, leases and breakers, re-dispatch, hedges, drains
-with live KV migration, disaggregated prefill and decode, autoscaling,
-FleetServer). Replicas in processes of their own (the reference's
-fleet_proc.py) wait for the distributed slice."""
+the HTTP front end, and the fleet (a router over replica threads or
+supervised replica processes: prefix-affinity routing, leases and
+breakers, re-dispatch, hedges, drains with live KV migration,
+disaggregated prefill and decode, autoscaling, respawns under fence
+tokens, FleetServer)."""
 from .blocks import BlockAllocator  # noqa: F401
 from .observability import (  # noqa: F401
     RequestTrace,
@@ -33,6 +33,12 @@ from .fleet_observability import (  # noqa: F401
     FleetObservability,
     export_fleet_trace,
 )
+from .fleet_proc import (  # noqa: F401
+    ProcessReplica,
+    ProcessReplicaSpec,
+    build_process_fleet,
+    wait_fleet_ready,
+)
 from .server import (  # noqa: F401
     FleetServer,
     ServingServer,
@@ -52,6 +58,8 @@ __all__ = [
     "NgramDrafter",
     "PagedKVPool",
     "PagedLayerCache",
+    "ProcessReplica",
+    "ProcessReplicaSpec",
     "QueueFullError",
     "Replica",
     "Request",
@@ -62,10 +70,12 @@ __all__ = [
     "ServingServer",
     "SpecState",
     "build_fleet",
+    "build_process_fleet",
     "export_fleet_trace",
     "export_request_trace",
     "kv_wire_decode",
     "kv_wire_encode",
     "parse_fleet_roles",
+    "wait_fleet_ready",
     "write_prefix",
 ]

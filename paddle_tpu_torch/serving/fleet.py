@@ -2,11 +2,12 @@
 (counterpart of paddle_tpu/serving/fleet.py).
 
 One engine is one replica and one point of failure; the fleet puts a
-router in front of N of them. Replica loops run as threads of one process,
-discovery and liveness go through a process-group store
-(distributed/env.py's InProcStore and ReplicaRegistry), so on one card N
-engines, each with its own model, KV pool and CUDA graphs, form a real
-router over replicas:
+router in front of N of them. A replica is a thread of this process over
+its own engine (model, KV pool and CUDA graphs), or a supervised process
+of its own (serving/fleet_proc.py's ProcessReplica, built from a
+ProcessReplicaSpec). Discovery and liveness go through a process-group
+store (distributed/env.py's InProcStore or native.TCPStore, and its
+ReplicaRegistry):
 
   * prefix-cache-aware routing: the chain hashes of serving/blocks.py are
     content addresses, so the router asks each healthy replica how many
@@ -54,9 +55,9 @@ routers decide alike.
 A replica loop turns an exception in a tick into a breaker strike, as the
 reference does; `CircuitBreaker.failures` counts every strike and
 `Replica.last_error` keeps the last tick's traceback, so a caller can tell
-an injected fault from a real one. Replicas in processes of their own
-(the reference's fleet_proc.py, its `replica_specs`, `add_replica(spec=)`
-and supervision turn) wait for the distributed slice.
+an injected fault from a real one. Every poll runs each replica's
+supervision turn (`Replica.supervise`: nothing for a thread, the exit,
+lease, respawn and fence state machine for a process).
 """
 from __future__ import annotations
 
@@ -345,7 +346,12 @@ class Replica:
     """One ServingEngine plus its loop thread, heartbeat lease, breaker,
     and drain flag. kill() simulates a crash (loop exits, heartbeats
     stop, nothing cleaned up); pause() simulates a hang (loop alive and
-    heartbeating but not stepping — the hedging target)."""
+    heartbeating but not stepping — the hedging target).
+
+    A replica with real isolation (serving/fleet_proc.ProcessReplica)
+    overrides the lifecycle and liveness surface: dead(), warming(),
+    supervise() and the routing probes. The router only talks to this
+    interface, so threads and processes share one placement path."""
 
     def __init__(self, rid: str, engine: ServingEngine, *,
                  registry: ReplicaRegistry, heartbeat_s: float,
@@ -419,9 +425,15 @@ class Replica:
 
     def warming(self) -> bool:
         """True while the replica exists but must not take traffic yet.
-        A thread replica never is; health() and stats() report it, as the
-        reference's do."""
+        A thread replica never is; a process replica is until its
+        warm-up probe passes."""
         return False
+
+    def supervise(self, router: "FleetRouter") -> None:
+        """One supervision turn, called from every router poll. A thread
+        replica has no supervisor (a dead thread stays dead); a process
+        replica detects death and runs its backoff, fence and respawn
+        state machine here."""
 
     def _loop(self):
         hb_last = -float("inf")
@@ -467,8 +479,9 @@ class FleetRouter:
     and sheds. Replica engine loops and the monitor are daemon threads
     owned by the router (start()/stop())."""
 
-    def __init__(self, engines: List[ServingEngine], *, store=None,
-                 prefix: str = "/pt/fleet",
+    def __init__(self, engines: Optional[List[ServingEngine]] = None, *,
+                 replica_specs: Optional[List] = None,
+                 store=None, prefix: str = "/pt/fleet",
                  roles: Optional[str] = None,
                  hedge_ttft_ms: Optional[float] = None,
                  breaker_errors: Optional[int] = None,
@@ -476,9 +489,11 @@ class FleetRouter:
                  heartbeat_s: float = 0.05, lease_ttl_s: float = 0.5,
                  poll_interval_s: float = 0.02,
                  idle_sleep_s: float = 0.002, clock=time.monotonic):
-        engines = list(engines)
-        if not engines:
-            raise ValueError("FleetRouter needs at least one engine")
+        engines = list(engines or [])
+        replica_specs = list(replica_specs or [])
+        if not engines and not replica_specs:
+            raise ValueError("FleetRouter needs at least one engine or "
+                             "replica spec")
         self._clock = clock
         self.lease_ttl_s = float(lease_ttl_s)
         self.poll_interval_s = float(poll_interval_s)
@@ -507,6 +522,16 @@ class FleetRouter:
             self.replicas[rid] = rep
             self.registry.register(rid, meta={
                 "slots": eng.max_slots, "blocks": eng.num_blocks})
+        # replicas in processes of their own: each spec builds a Replica
+        # subclass (fleet_proc.ProcessReplicaSpec -> ProcessReplica) on the
+        # same placement and poll path as the threads
+        for j, spec in enumerate(replica_specs):
+            rid = f"replica-{len(engines) + j}"
+            self.replicas[rid] = spec.build(
+                rid, registry=self.registry, heartbeat_s=heartbeat_s,
+                breaker=CircuitBreaker(max_errors, cooldown, clock=clock),
+                clock=clock, idle_sleep_s=idle_sleep_s)
+            self.registry.register(rid, meta={"kind": "process"})
         role_spec = (str(_flags.get_flag("fleet_roles"))
                      if roles is None else roles)
         for rep, role in zip(self.replicas.values(),
@@ -725,9 +750,16 @@ class FleetRouter:
 
     # -- monitor pass (public so tests can drive it deterministically) -----
     def poll(self):
-        """One supervision pass: refresh health, settle finished
+        """One supervision pass: run each replica's supervision turn
+        (death detection and the respawn state machine of a process
+        replica; nothing for a thread), refresh health, settle finished
         requests, re-dispatch orphans of dead replicas, resolve and fire
         hedges."""
+        for rep in list(self.replicas.values()):
+            try:
+                rep.supervise(self)
+            except Exception:  # noqa: BLE001 — supervision must survive
+                pass
         self._refresh_health_gauges()
         if self.autoscaler is not None:
             try:
@@ -1067,10 +1099,15 @@ class FleetRouter:
         self.replicas[rid].kill()
 
     # -- elastic fleet membership ------------------------------------------
-    def add_replica(self, engine: ServingEngine, *,
-                    role: str = "any") -> str:
-        """Scale-up: join a new thread replica over `engine`. Started
-        immediately when the router is running."""
+    def add_replica(self, engine: Optional[ServingEngine] = None, *,
+                    spec=None, role: str = "any") -> str:
+        """Scale-up: join a new replica, a thread over `engine` or a
+        supervised process from `spec` (a ProcessReplicaSpec, unroutable
+        while it warms up). Started immediately when the router is
+        running."""
+        if (engine is None) == (spec is None):
+            raise ValueError("add_replica wants exactly one of engine= "
+                             "or spec=")
         if role not in _ROLES:
             raise ValueError(f"unknown fleet role {role!r}")
         max_errors, cooldown = self._breaker_cfg
@@ -1079,15 +1116,23 @@ class FleetRouter:
             self._next_rid += 1
             breaker = CircuitBreaker(max_errors, cooldown,
                                      clock=self._clock)
-            rep = Replica(rid, engine, registry=self.registry,
-                          heartbeat_s=self._heartbeat_s,
-                          breaker=breaker, clock=self._clock,
-                          idle_sleep_s=self._idle_sleep_s)
+            if engine is not None:
+                rep = Replica(rid, engine, registry=self.registry,
+                              heartbeat_s=self._heartbeat_s,
+                              breaker=breaker, clock=self._clock,
+                              idle_sleep_s=self._idle_sleep_s)
+                meta = {"slots": engine.max_slots,
+                        "blocks": engine.num_blocks}
+            else:
+                rep = spec.build(rid, registry=self.registry,
+                                 heartbeat_s=self._heartbeat_s,
+                                 breaker=breaker, clock=self._clock,
+                                 idle_sleep_s=self._idle_sleep_s)
+                meta = {"kind": "process"}
             rep.role = role
             self.replicas[rid] = rep
             self._breaker_seen[rid] = "closed"
-            self.registry.register(rid, meta={
-                "slots": engine.max_slots, "blocks": engine.num_blocks})
+            self.registry.register(rid, meta=meta)
             started = self._started
             n = len(self.replicas)
         if started:
@@ -1141,6 +1186,9 @@ class FleetRouter:
                 snap["dead"] = dead
                 snap["draining"] = rep.draining
                 snap["warming"] = rep.warming()
+                if snap["warming"]:
+                    # an incarnation still starting: not a fault
+                    snap["status"] = "warming"
                 snap["incarnation"] = rep.incarnation
                 snap["pid"] = rep.pid
                 snap["respawns"] = rep.respawns
@@ -1175,8 +1223,10 @@ class FleetAutoscaler:
 
     Ticked from every router poll (attach_autoscaler). Utilization is
     offered load over slot capacity across the pool's live replicas;
-    crossing `hi` spawns one replica (the `spawn` callback returns its
-    ServingEngine), crossing `lo` retires the least-loaded
+    crossing `hi` spawns one replica (the `spawn` callback returns a
+    ServingEngine for a thread replica or a ProcessReplicaSpec for a
+    supervised process, unroutable until warm, whose slots count from
+    its spawn on), crossing `lo` retires the least-loaded
     one through a migration-assisted drain followed by remove_replica
     once it runs dry. One action per cooldown window; floor/ceiling
     bound the pool. All timing runs on the router's clock, so
@@ -1215,10 +1265,13 @@ class FleetAutoscaler:
                    or self.slots_per_replica)
 
     def _pool(self) -> List[Replica]:
+        # a warming replica (a process incarnation starting up) counts:
+        # the reference leaves it out, so its autoscaler spawns again
+        # every cooldown until the first one is up
         return [rep for rep in self.router.replicas.values()
                 if rep.role == self.role
                 and not rep.draining
-                and not self.router.replica_dead(rep)]
+                and (rep.warming() or not self.router.replica_dead(rep))]
 
     def utilization(self) -> float:
         pool = self._pool()
@@ -1251,14 +1304,20 @@ class FleetAutoscaler:
             return None
         pool = self._pool()
         if u >= self.hi and len(pool) < self.max_replicas:
-            rid = self.router.add_replica(self.spawn(), role=self.role)
+            new = self.spawn()
+            kw = ({"spec": new} if hasattr(new, "build") else
+                  {"engine": new})
+            rid = self.router.add_replica(role=self.role, **kw)
             self._last_action = now
             self.events.append({"ts": now, "dir": "up", "replica": rid,
                                 "utilization": round(u, 4),
                                 "replicas": len(pool) + 1})
             return "up"
-        if u <= self.lo and len(pool) > self.min_replicas:
-            victim = min(pool, key=lambda r: (r.load(), r.rid))
+        # only a replica that is up may be retired, and only while enough
+        # others are up (a warming one serves nothing yet)
+        up = [rep for rep in pool if not rep.warming()]
+        if u <= self.lo and len(up) > self.min_replicas:
+            victim = min(up, key=lambda r: (r.load(), r.rid))
             self.router.drain(victim.rid, migrate=True)
             self._retiring = victim.rid
             self._last_action = now

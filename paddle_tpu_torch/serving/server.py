@@ -22,7 +22,12 @@ the one engine loop (the only thread that touches the device).
   POST /kv/ingest  that NDJSON -> {"imported", "dedup", "rejected",
                    "skipped", "bytes"}; chain-hash verified, idempotent
   GET  /stats      the engine's stats(graphs=True), one engine-lock
-                   snapshot
+                   snapshot, plus two keys of the port's own (as stats'
+                   "graphs" is), which a process replica's supervisor reads
+                   from its child: "launches", this process's launch counts
+                   of the serving kernels (ops.gpu.launch_counts), and
+                   "memory", the engine's card's allocator bytes (peak
+                   and reserved; null on the CPU) and the host RSS
   GET  /metrics    the metrics registry as Prometheus text
   GET  /healthz    200 {"ok": true, status, steps, last_tick_age_s, ...},
                    503 when the engine loop is dead, a serving anomaly fired
@@ -48,6 +53,8 @@ from __future__ import annotations
 import base64
 import binascii
 import json
+import select
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -55,7 +62,9 @@ from typing import Optional
 from urllib.parse import parse_qs
 
 from ..core.flags import define_flag, get_flag
+from ..observability import memory as _memory
 from ..observability import serve as _obs_serve
+from ..ops import gpu as _gpu
 from .engine import QueueFullError
 
 define_flag("serving_port", 0,
@@ -67,6 +76,10 @@ define_flag("serving_request_timeout_s", 300.0,
 
 # what a malformed request body raises while it is read and parsed
 _BAD_REQUEST = (ValueError, TypeError, KeyError, binascii.Error)
+
+# the kernels a serving engine launches (its graphs' replays included)
+SERVING_KERNELS = ("rms_norm", "rope", "rope_packed", "paged_decode",
+                   "paged_verify")
 
 
 # -------------------------------------------- KV-block wire format
@@ -193,7 +206,11 @@ class _Handler(BaseHTTPRequestHandler):
         """Chunked NDJSON: a line per engine flush with the newly fetched
         tokens, a last line with the finish reason and telemetry. Snapshots
         are taken under the engine lock, so a line never shows tokens past
-        an eos cut. A broken pipe (client gone) cancels the request."""
+        an eos cut. A client gone cancels the request: found at a write
+        (a broken pipe), or while nothing is due to be written (the socket
+        reads as closed), since a greedy request's tokens stay on the
+        device until its budget ends and the stream is silent until
+        then."""
         engine = self._srv.engine
         deadline = time.monotonic() + timeout
         sent = 0
@@ -219,10 +236,24 @@ class _Handler(BaseHTTPRequestHandler):
                     self._chunk({"request_id": req.request_id,
                                  "done": True, "finish_reason": "timeout"})
                     break
-                req.wait_progress(timeout=0.25)
+                if self._client_gone():
+                    engine.cancel(req, reason="disconnect")
+                    return
+                req.wait_progress(timeout=0.1)
             self.wfile.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
             engine.cancel(req, reason="disconnect")
+
+    def _client_gone(self) -> bool:
+        """Has the client closed its end? It sends nothing after the
+        request's body, so a readable socket means an end of file or a
+        reset."""
+        try:
+            ready, _, _ = select.select([self.connection], [], [], 0)
+            return bool(ready) and not self.connection.recv(
+                1, socket.MSG_PEEK)
+        except OSError:
+            return True
 
     def _chunk(self, obj) -> None:
         line = json.dumps(obj).encode() + b"\n"
@@ -232,7 +263,7 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802
         path = self.path.split("?", 1)[0]
         if path == "/stats":
-            self._reply(200, self._srv.engine.stats(graphs=True))
+            self._reply(200, self._srv.stats())
         elif path == "/metrics":
             self._reply_raw(200, _obs_serve.metrics_body(),
                             "text/plain; version=0.0.4; charset=utf-8")
@@ -445,6 +476,27 @@ class ServingServer:
 
     def loop_alive(self) -> bool:
         return self._loop.is_alive()
+
+    def stats(self) -> dict:
+        """The /stats body: the engine's stats(graphs=True), the serving
+        kernels' launch counts and this process's memory."""
+        out = self.engine.stats(graphs=True)
+        out["launches"] = _gpu.launch_counts(SERVING_KERNELS)
+        dev = self.engine.device
+        card = None
+        if dev.type == "cuda":
+            import torch
+
+            m = torch.cuda.memory_stats(dev)
+            card = {"peak_bytes_in_use": int(m.get(
+                        "allocated_bytes.all.peak", 0)),
+                    "bytes_reserved": int(m.get(
+                        "reserved_bytes.all.current", 0)),
+                    "peak_bytes_reserved": int(m.get(
+                        "reserved_bytes.all.peak", 0))}
+        out["memory"] = {"device": card,
+                         "host": _memory.host_memory_bytes()}
+        return out
 
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"

@@ -4,12 +4,11 @@ The same operation sequences run on both packages' InProcStore and
 ReplicaRegistry (the port's copy must answer every call as the reference
 does: values, counters, timeouts, barrier waves, registration order,
 leases on a fake clock, tombstones), get_store's in-process singleton and
-its refusal of a store across ranks, and ParallelEnv for one process.
+its store across ranks (a native.TCPStore that rank 0 hosts), and
+ParallelEnv for one process.
 Everything compares exactly: these are host data structures.
 """
 import threading
-
-import pytest
 
 from paddle_tpu.distributed import env as jenv
 from paddle_tpu_torch.distributed import env as tenv
@@ -138,13 +137,20 @@ def test_get_store_is_a_singleton_and_refuses_a_store_across_ranks(
         monkeypatch.setenv("PADDLE_MASTER", "127.0.0.1:6170")
         assert isinstance(tenv.get_store(), tenv.InProcStore)
         tenv.reset_store()
-        # world 2 with a master: the reference would connect a TCPStore;
-        # the port raises and names the slice, never a private store
+        # world 2 with a master: rank 0 hosts a TCPStore there (port 0
+        # binds an ephemeral one), never a private in-process store
+        from paddle_tpu_torch import native
+
+        monkeypatch.setenv("PADDLE_MASTER", "127.0.0.1:0")
         monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-        with pytest.raises(NotImplementedError, match="distributed"):
-            tenv.get_store()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tenv.get_store(world_size=4)
+        s2 = tenv.get_store()
+        assert type(s2) is native.TCPStore and s2.port > 0
+        assert s2.world_size == 2 and tenv.get_store() is s2
+        tenv.reset_store()
+        s4 = tenv.get_store(world_size=4)
+        assert type(s4) is native.TCPStore and s4.world_size == 4
+        tenv.reset_store()
+        monkeypatch.setenv("PADDLE_MASTER", "127.0.0.1:6170")
         # no master: N threads share one in-process store
         monkeypatch.delenv("PADDLE_MASTER")
         assert tenv.get_store().world_size == 2

@@ -806,9 +806,11 @@ def test_build_fleet_and_the_fleet_exports():
         router.replicas["replica-1"].engine.model
     for name in ("FleetRouter", "FleetRequest", "FleetAutoscaler",
                  "FleetServer", "CircuitBreaker", "build_fleet",
-                 "parse_fleet_roles", "export_fleet_trace"):
+                 "parse_fleet_roles", "export_fleet_trace",
+                 "build_process_fleet", "wait_fleet_ready",
+                 "ProcessReplica", "ProcessReplicaSpec"):
         assert name in tserving.__all__ and hasattr(tserving, name)
-    assert not hasattr(tserving, "build_process_fleet")
+        assert name in jserving.__all__
     for spec, n in ((None, 3), ("symmetric", 2), ("prefill:1,decode:2", 3)):
         assert tserving.parse_fleet_roles(spec, n) == \
             jserving.parse_fleet_roles(spec, n)

@@ -225,6 +225,18 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,\n"
         "                               'paddle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import os, runpy\n"
+        "# the process replica's entry point, run as a child runs it (it\n"
+        "# moves stdout onto stderr: put it back after)\n"
+        "out = os.dup(1)\n"
+        "sys.argv = ['fleet_proc', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('paddle_tpu_torch.serving.fleet_proc',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "os.dup2(out, 1)\n"
+        "sys.stdout = sys.__stdout__\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -242,7 +254,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "observability.telemetry", "observability.anomaly",
                 "observability.memory", "observability.serve",
                 "serving.observability", "serving.server", "serving.fleet",
-                "serving.fleet_observability", "distributed.env"):
+                "serving.fleet_observability", "serving.fleet_proc",
+                "distributed.env", "native", "resilience.chaos"):
         assert "paddle_tpu_torch." + mod in seen, mod
 
 
