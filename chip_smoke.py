@@ -5,7 +5,8 @@ prefill chunk and batched prefill a CUDA graph replay, behind the HTTP
 server, across a fleet of replicas, and GPT, rotary too) and
 training paths (GPT under amp O1 and O2, with and without recompute, and
 Llama on packed documents; the resilient loop with its data feed and
-checkpoints) on one H100 and hold each of its hand-written kernels against
+checkpoints; elastic data-parallel ranks as processes, reforming after a
+SIGKILL) on one H100 and hold each of its hand-written kernels against
 its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -116,7 +117,9 @@ final line):
                temperature 0.8, fuse_steps 4: tokens/s, TTFT, replays and
                ticks by kind, launches a replay; every sampled tick must
                have replayed the sampled graph, with paged decode 32 a step
- 10. graph_tick - the same model, 8 slots decoding at 512 context: each
+ 10. graph_tick - Llama-2-7B's widths cut to 8 layers (CUT_LAYERS, to
+               fit the time limit beside the elastic phases), bf16, 8 slots
+               decoding at 512 context: each
                graph body run eagerly against its replay from one saved
                state: greedy k = 1 and 4 (tokens, bitwise K/V rows), the
                sampled step (the greedy slots' tokens, K/V rows), a 256-token
@@ -125,8 +128,8 @@ final line):
                offset (the largest P captured; first tokens, the rows'
                suffix blocks bitwise) and, on a spec_k = 4 engine, the
                verify window (greedy, acc, nxt, K/V rows);
-               a replay's launches RMSNorm 65, RoPE 32, and paged decode 32
-               a step or paged verify 32; the kernel names torch.profiler
+               a replay's launches RMSNorm 2L + 1, RoPE L, and paged decode
+               L a step or paged verify L; the kernel names torch.profiler
                records for one decode replay; wall and device-busy ms and
                the busy share, eager body against graph, for each, and
                whole engine ticks at fuse_steps 1 and 4; pool bytes by kind
@@ -165,7 +168,8 @@ final line):
                shrinking back; no breaker strike, no unfinished request;
                then a rotary GPT (GPT-3 1.3B widths, 2 layers):
                generate() and the engine equal, RoPE launched by both
- 14. fleet_slice - two Llama-2-7B replicas at full width in bf16 (8
+ 14. fleet_slice - two replicas of Llama-2-7B's widths cut to 8 layers
+               (CUT_LAYERS) in bf16 (8
                slots, 16-token blocks, 256-token chunks, 2048 context)
                under a FleetRouter with real threads, fresh engines an
                arm: one replica against two on slice 1's 10 requests and
@@ -210,7 +214,8 @@ final line):
                gone); every child launched every serving kernel; no
                breaker strike, no unplanned respawn or exit, no child
                alive after router.stop()
- 16. proc_fleet_slice - Llama-2-7B at full width in bf16, each replica a
+ 16. proc_fleet_slice - Llama-2-7B's widths cut to 8 layers (CUT_LAYERS) in
+               bf16, each replica a
                child process (proc_llama_7b; 8 slots, 16-token blocks,
                256-token chunks, 2048 context), fresh children an arm:
                one and two on fleet_slice's traffic, 1 prefill + 1
@@ -311,8 +316,37 @@ final line):
                restore's seconds, telemetry's data and save phases; raises
                first if the temporary directory has less free space than
                five checkpoints, and removes it at the end
+ 28. elastic_parity - tools/faultbench.py's gate 4 with the port:
+               ElasticTrainer ranks as processes (distributed.spawn) over a
+               native.TCPStore this process hosts, GPT tiny (2 layers,
+               hidden 128) in fp32, AdamW: two incumbents and a joiner
+               that request_joins once the step-3 checkpoint committed,
+               then a SIGKILL of rank 1; survivors 0 and 2 must finish all
+               40 steps at world 2 after a grow to [0, 1, 2] and a shrink
+               to [0, 2], replay at most save_every steps, hold bitwise-
+               equal parameters and stay within 5e-3 of a clean two-thread
+               world's losses; then two processes of ResilientTrainer(
+               cluster=ClusterTelemetry) where rank 0 must flag the rank
+               that sleeps in its loss, and its flight dump must carry the
+               cluster view
+ 29. elastic_slice - GPT-3 1.3B at full width and depth, fp32
+               parameters, amp O1, AdamW (the fused kernel's fp32 form),
+               2 x 2048 tokens a rank, two rank processes on the card,
+               save_every 2; rank 1 SIGKILLed once the step-2 checkpoint
+               committed; the survivor reforms at world 1 from the
+               rank-sharded checkpoint and finishes step 6: each rank's
+               step split into fwd+bwd, D2H, pack, publish, collect,
+               unpack+average, H2D and apply, bytes and MB/s, peak device
+               memory, RSS of each rank and of the store's host, each
+               save's bytes and seconds, the reform's detection, restore
+               and first-step seconds, flash and AdamW launches summed over
+               the ranks; the survivor against a clean run of the same
+               six steps at world 1: its losses from the resumed step on
+               within 1e-3, its final parameters within 5e-4 relative,
+               a bound that must sit below the clean last update's move
 
-The last two lines are the kernel summary {"kernels": [...]} and
+Every phase's row carries `at_s`, the script's seconds when it ended. The
+last two lines are the kernel summary {"kernels": [...]} and
 {"ok": true, "device": {...}}. Exits non-zero without them when no CUDA
 device is present or the package is not beside this script.
 """
@@ -327,12 +361,23 @@ import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
+# the depth of the Llama-2-7B-width models of graph_tick, fleet_slice and
+# proc_fleet_slice, cut from 32 so that the elastic phases fit the
+# script's time limit (main path 1, the serving slice, keeps all 32)
+CUT_LAYERS = 8
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
                   "torch.float32": 67e12}
 SEED = 0
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row also gets `at_s`, the script's seconds
+    when it ended."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2375,8 +2420,8 @@ def _decoding(torch, eng, vocab, prompt_len, new_tokens, seed):
 
 def graph_tick_phase(torch, model, engine_kw, new_tokens=512,
                      prompt_len=512):
-    """Each kind of graph body on the 7B bf16 slice model, 8 slots decoding
-    512-token prompts:
+    """Each kind of graph body on a bf16 model of Llama-2-7B's widths (main
+    passes one cut to CUT_LAYERS), 8 slots decoding 512-token prompts:
 
       * replay against eager: from one saved state, the body run eagerly
         and its captured graph replayed must give equal outputs and bitwise
@@ -2386,9 +2431,10 @@ def graph_tick_phase(torch, model, engine_kw, new_tokens=512,
         4, drafts of 0-4 tokens: greedy, acc and nxt) and a 256-token
         prefill chunk at position 512 in the lane (the kept row's logits,
         the lane's new rows);
-      * launches: the counts' deltas a replay adds must be RMSNorm 65 and
-        per-token RoPE 32, and paged decode 32 a step (decode, sampled),
-        paged verify 32 (verify) or no paged kernel (prefill);
+      * launches: the counts' deltas a replay adds must be RMSNorm 2L + 1
+        and per-token RoPE L, and paged decode L a step (decode, sampled),
+        paged verify L (verify) or no paged kernel (prefill), L the
+        layers;
       * profiler: the kernel names torch.profiler records for one replay
         of the k = 1 and 4 decode graphs (or that it records none inside
         a graph);
@@ -3205,8 +3251,8 @@ def _fleet_traffic(vocab, new_tokens):
 
 
 def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
-    """Two Llama-2-7B replicas at full width (bf16, seeded alike) on one
-    card, each a ServingEngine as slice 1 runs it (8 slots, 16-token
+    """Two replicas of Llama-2-7B's widths cut to CUT_LAYERS (bf16, seeded
+    alike) on one card, each a ServingEngine as slice 1 runs it (8 slots, 16-token
     blocks, 256-token chunks, 2048 context), under a FleetRouter with real
     replica threads. Arms, each on fresh engines: one replica against two
     symmetric ones on slice 1's 10 requests (two waves) and on a burst of
@@ -3236,6 +3282,7 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
     from paddle_tpu_torch.serving import FleetRouter, ServingEngine
 
     cfg = LlamaConfig.llama2_7b()
+    cfg.num_layers = CUT_LAYERS
     kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
               max_model_len=2048)
     t0 = time.perf_counter()
@@ -3409,12 +3456,13 @@ def proc_llama_2l():
 
 
 def proc_llama_7b():
-    """Process replica factory of proc_fleet_slice: Llama-2-7B at full
-    width in bf16, seeded as fleet_slice's replicas are."""
+    """Process replica factory of proc_fleet_slice: Llama-2-7B's widths
+    cut to CUT_LAYERS in bf16, seeded as fleet_slice's replicas are."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    return LlamaForCausalLM(LlamaConfig.llama2_7b(), device="cuda",
-                            dtype="bfloat16", seed=SEED)
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_layers = CUT_LAYERS
+    return LlamaForCausalLM(cfg, device="cuda", dtype="bfloat16", seed=SEED)
 
 
 def _alive(pid):
@@ -3645,7 +3693,9 @@ def proc_fleet_parity_phase(torch, new_tokens=48):
         "kill": [(toks(n), long_new) for n in (40, 300, 77, 150)],
         "stop": [(toks(n), new_tokens) for n in (33, 120)],
         "heal": [(toks(n), new_tokens) for n in (50, 90)],
-        "migrate": [(toks(n), long_new) for n in (64, 128, 256, 192)],
+        # sessions that outlast a drain's KV transfer (0.5-0.9 s) on a
+        # fast host too: 480 new tokens
+        "migrate": [(toks(n), 10 * new_tokens) for n in (64, 128, 256, 192)],
         "disagg": [(toks(n), new_tokens) for n in (16, 32, 48, 64, 128,
                                                     256)],
         "scale": [(toks(n), new_tokens) for n in (30, 60, 90, 120, 150,
@@ -3979,6 +4029,7 @@ def proc_fleet_slice_phase(torch, threads=None, new_tokens=64):
     from paddle_tpu_torch.resilience import chaos
 
     cfg = LlamaConfig.llama2_7b()
+    cfg.num_layers = CUT_LAYERS
     kw = dict(max_slots=8, block_size=16, prefill_chunk=256,
               max_model_len=2048)
     prev_dir = flags.get_flag("metrics_dir")
@@ -5221,6 +5272,714 @@ def resilient_slice_phase(torch, steps=8, save_every=2, batch=4, seq=2048,
     }
 
 
+# -- elastic data parallelism: ranks as processes on the one card -----------
+
+# tools/faultbench.py's gate 4 knobs (_proc_elastic_gates) and its loss
+# continuity bound (LOSS_CONTINUITY_TOL: fp reassociation across a reshard)
+ELASTIC_PARITY = dict(nsteps=40, n_batches=12, save_every=3,
+                      lease_ttl_s=2.0, heartbeat_s=0.25,
+                      allreduce_timeout_s=8.0, sync_timeout_s=10.0)
+LOSS_CONTINUITY_TOL = 5e-3
+# elastic_slice (GPT-3 1.3B, bf16 O1, lr 1e-4): the survivor against a clean
+# world-1 run. On an H100 its losses read 2.2e-5 apart, where one update
+# moves the loss 0.008-0.025, and its final parameters 2.7e-4 apart
+# (relative), where the last update moves them 1.7e-3; the parameter bound
+# must stay under the last update's move (checked in the run)
+ELASTIC_SLICE_LOSS_TOL = 1e-3
+ELASTIC_SLICE_PARAM_TOL = 5e-4
+# the ElasticTrainer's training kernels (rows 6, 7, 8 and 13)
+ELASTIC = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
+
+
+def _elastic_batches(spec):
+    """`n_batches` global batches of token ids [rows, seq], from the seed."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig
+
+    vocab = (GPTConfig.tiny() if spec["model"] == "tiny"
+             else GPTConfig.gpt3_1p3b()).vocab_size
+    rng = np.random.default_rng(spec["seed"])
+    ids = rng.integers(0, vocab, (spec["n_batches"], spec["rows"],
+                                  spec["seq"]))
+    return [(ids[i],) for i in range(spec["n_batches"])]
+
+
+def _elastic_model(torch, spec, device):
+    """(model, AdamW, loss_fn) of an elastic rank: GPTConfig.tiny() (2
+    layers, hidden 128) in fp32, or GPT-3 1.3B at full width and depth
+    with fp32 parameters under amp O1 (bf16); seeded alike on every rank."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    if spec["model"] == "tiny":
+        cfg = GPTConfig.tiny()
+    else:
+        cfg = GPTConfig.gpt3_1p3b()
+        cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    cfg.recompute = bool(spec.get("recompute"))
+    model = GPTForCausalLM(cfg, device=device, seed=spec["seed"])
+    opt = AdamW(spec["lr"], parameters=model.parameters(),
+                weight_decay=0.01)
+    amp_on = bool(spec.get("amp"))
+
+    def loss_fn(ids):
+        with amp.auto_cast(enable=amp_on, level="O1", dtype="bfloat16"):
+            return model(ids, labels=ids)
+
+    return model, opt, loss_fn
+
+
+def _rel_dev(torch, got, want):
+    """|got - want| / |want| over lists of tensors, the norms in fp64."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach(), w.detach()
+        num += float(torch.linalg.vector_norm(
+            g.double() - w.double())) ** 2
+        den += float(torch.linalg.vector_norm(w, dtype=torch.float64)) ** 2
+    return (num / den) ** 0.5
+
+
+def _vm(pid, field):
+    """A /proc/<pid>/status size field (VmRSS) in bytes; 0 when the
+    process is gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(field + ":"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def _write_json(path, doc):
+    with open(path + ".tmp", "w") as f:
+        json.dump(doc, f)
+    os.replace(path + ".tmp", path)
+
+
+def _read_json(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def elastic_rank_main(spec):
+    """One elastic data-parallel rank as a process of its own, started by
+    distributed.spawn (which imports this module in the child). Connects a
+    TCPStore client to the parent's store, builds the seeded model, joins
+    the running world first when `join` (faultbench's choreography: wait
+    for the published view, then request_join with a membership that
+    heartbeats until the trainer's own takes over), and runs an
+    ElasticTrainer on the card. After every step and save it rewrites
+    `report_dir/rank<member>.json` (step parts and bytes, saves with their
+    bytes, reforms, launch counts, peak device memory), so a rank
+    that is killed leaves its last state behind; the finished report goes
+    there too and is returned."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    import hashlib
+
+    import torch
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed.elastic import ElasticMembership
+    from paddle_tpu_torch.ops import gpu
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.resilience.elastic import ElasticTrainer
+
+    device = spec.get("device", "cuda")
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:                   # three ranks' thread pools would fight for cores
+        torch.set_num_threads(1)
+    mid = int(spec.get("member_id", os.environ.get("PADDLE_TRAINER_ID", 0)))
+    host, port = spec["store"]
+    store = native.TCPStore(host, int(port), is_master=False,
+                            timeout_s=60.0)
+    model, opt, loss_fn = _elastic_model(torch, spec, device)
+    batches = _elastic_batches(spec)
+    if spec.get("step_delay_s"):
+        chaos.slow_rank(mid, spec["step_delay_s"])
+    path = os.path.join(spec["report_dir"], f"rank{mid}.json")
+
+    def progress(tr, **extra):
+        return {"member": mid, "pid": os.getpid(),
+                "step_parts": tr.step_parts, "saves": tr.saves,
+                "reforms": tr.reforms,
+                "losses": {str(k): v for k, v in tr.losses.items()},
+                "launches": gpu.launch_counts(ELASTIC),
+                "max_allocated": (torch.cuda.max_memory_allocated()
+                                  if on_card else 0),
+                "max_reserved": (torch.cuda.max_memory_reserved()
+                                 if on_card else 0), **extra}
+
+    class Reporting(ElasticTrainer):
+        def _train_step(self, batch):
+            super()._train_step(batch)
+            _write_json(path, progress(self))
+
+        def _save(self):
+            super()._save()
+            shard = os.path.join(
+                self.manager._dir_for(self._gstep), "shards",
+                f"shard_{self.manager.rank:05d}")
+            self.saves[-1]["bytes"] = sum(
+                os.path.getsize(os.path.join(shard, f))
+                for f in os.listdir(shard)) if os.path.isdir(shard) else 0
+            _write_json(path, progress(self))
+
+    pre = None
+    if spec.get("join"):
+        # into a running world: once the incumbents committed the
+        # `join_after` checkpoint
+        key = f"/pt/ckpt/g0/{spec['join_after']}/committed"
+        t0 = time.monotonic()
+        while store.get(key, blocking=False) is None:
+            if time.monotonic() - t0 > 240:
+                raise RuntimeError(f"member {mid}: the world never "
+                                   f"committed step {spec['join_after']}")
+            time.sleep(0.05)
+        pre = ElasticMembership(store, mid, [mid],
+                                lease_ttl_s=spec["lease_ttl_s"],
+                                heartbeat_s=spec["heartbeat_s"])
+        pre.start()
+        pre.request_join(timeout_s=120)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gpu.reset_launch_counts()
+    tr = Reporting(
+        model, loss_fn, opt, spec["root"], store=store, member_id=mid,
+        members=spec["members"], save_every=spec["save_every"],
+        keep_last_n=spec.get("keep_last_n", 3),
+        lease_ttl_s=spec["lease_ttl_s"], heartbeat_s=spec["heartbeat_s"],
+        allreduce_timeout_s=spec["allreduce_timeout_s"],
+        sync_timeout_s=spec["sync_timeout_s"], device=device)
+    try:
+        rep = tr.run(batches, total_steps=spec["nsteps"])
+    finally:
+        if pre is not None:
+            pre.stop()
+    if spec.get("hash_params"):
+        sha = hashlib.sha256()
+        for p in model.parameters():
+            sha.update(p.detach().cpu().numpy().tobytes())
+        rep["params_sha"] = sha.hexdigest()
+    if spec.get("dump_params"):
+        # the final parameters as fp32 words in model.parameters() order,
+        # one tensor at a time, for the parent's comparison with its clean
+        # run
+        with open(os.path.join(spec["report_dir"], f"rank{mid}.params"),
+                  "wb") as f:
+            for p in model.parameters():
+                f.write(p.detach().float().cpu().numpy().tobytes())
+    _write_json(path, progress(tr, report=rep))
+    store.close()
+    return rep
+
+
+def _thread_world(torch, spec, root, members, device):
+    """A clean run: one ElasticTrainer thread per member in this process,
+    over one InProcStore; their reports."""
+    import threading
+
+    from paddle_tpu_torch.distributed.env import InProcStore
+    from paddle_tpu_torch.resilience.elastic import ElasticTrainer
+
+    store = InProcStore()
+    batches = _elastic_batches(spec)
+    trainers = []
+    for mid in members:
+        model, opt, loss_fn = _elastic_model(torch, spec, device)
+        trainers.append(ElasticTrainer(
+            model, loss_fn, opt, root, store=store, member_id=mid,
+            members=members, save_every=spec["save_every"],
+            lease_ttl_s=spec["lease_ttl_s"], heartbeat_s=spec["heartbeat_s"],
+            allreduce_timeout_s=spec["allreduce_timeout_s"],
+            sync_timeout_s=spec["sync_timeout_s"], device=device))
+    reports = [None] * len(members)
+
+    def go(i):
+        reports[i] = trainers[i].run(batches, total_steps=spec["nsteps"])
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(members))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or None in reports:
+        raise AssertionError(f"the clean thread world did not finish: "
+                             f"{reports}")
+    return reports
+
+
+def _view_members(store):
+    raw = store.get("/pt/elastic/view", blocking=False)
+    return set(json.loads(bytes(raw).decode())["members"]) if raw else set()
+
+
+def _failures(*ctxs):
+    """The error of each spawned world that has one (a worker's traceback,
+    or how it exited), for a phase that saw a rank exit early."""
+    out = []
+    for ctx in ctxs:
+        try:
+            ctx.join(5)
+        except RuntimeError as e:
+            out.append(str(e)[-4000:])
+    return out
+
+
+def _join_killed(ctx, victim, timeout):
+    """ProcessContext.join for a world whose rank `victim` was SIGKILLed:
+    that rank must be the only failure, with no result and exit -9."""
+    try:
+        ctx.join(timeout)
+    except RuntimeError as e:
+        if f"spawn worker {victim} failed" not in str(e) \
+                or "exitcode -9" not in str(e):
+            raise AssertionError(f"a rank failed other than by the kill: "
+                                 f"{e}") from e
+    else:
+        raise AssertionError(f"rank {victim} finished despite its SIGKILL")
+
+
+def cluster_rank_main(spec):
+    """One rank of the ResilientTrainer(cluster=ClusterTelemetry) check, a
+    process of its own (distributed.spawn): a 2-layer fp32 GPT, metrics
+    on, every step record published through the parent's store; rank 1
+    sleeps in its loss function from step `slow_from` on. Rank 0 returns
+    its straggler events and the `cluster` entry of a flight-recorder dump
+    taken after the run."""
+    sys.stdout = sys.stderr
+    import torch
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.observability.cluster import ClusterTelemetry
+    from paddle_tpu_torch.resilience import CheckpointManager
+    from paddle_tpu_torch.resilience.trainer import ResilientTrainer
+
+    device = spec.get("device", "cuda")
+    if device == "cpu":     # two ranks' thread pools would fight for cores
+        torch.set_num_threads(1)
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    root = os.path.join(spec["root"], f"rank{rank}")
+    tobs.reset_all()
+    flags.set_flags({"metrics": "on",
+                     "metrics_dir": os.path.join(root, "metrics")})
+    host, port = spec["store"]
+    store = native.TCPStore(host, int(port), is_master=False,
+                            timeout_s=60.0)
+    cluster = ClusterTelemetry(store, rank, 2, k=spec["k"], m=spec["m"],
+                               timeout_s=60.0)
+    model, opt, inner = _elastic_model(torch, spec, device)
+    calls = [0]
+
+    def loss_fn(ids):
+        if rank == 1 and calls[0] >= spec["slow_from"]:
+            time.sleep(spec["delay_s"])
+        calls[0] += 1
+        return inner(ids)
+
+    tr = ResilientTrainer(model, loss_fn, opt,
+                          CheckpointManager(os.path.join(root, "ckpt")),
+                          save_every=0, cluster=cluster, device=device)
+    rep = tr.run(_elastic_batches(spec))
+    out = {"rank": rank, "status": rep["status"], "step": rep["step"]}
+    if rank == 0:
+        dump = tobs.flight_recorder.get_flight_recorder().dump(
+            "cluster_check")
+        with open(dump) as f:
+            out["dump_cluster"] = json.load(f).get("cluster")
+        out["straggler_events"] = cluster.straggler_events
+        out["aggregated_steps"] = len(cluster.aggregates)
+        out["last_aggregate"] = cluster.aggregates[-1] \
+            if cluster.aggregates else None
+    store.close()
+    return out
+
+
+def elastic_parity_phase(torch, device="cuda"):
+    """tools/faultbench.py's gate 4 (`_proc_elastic_gates`) with the port
+    on the card: elastic ranks as processes over a native.TCPStore this
+    process hosts, started by distributed.spawn: two incumbents (members
+    0, 1) and a third (member 2) that request_join()s the running world;
+    once its grow reform is published, chaos.kill_process SIGKILLs rank 1
+    (1.2 s later, as faultbench does). The joiner asks once the step-3
+    checkpoint has committed, so it enters a world already training. The
+    model is GPTConfig.tiny() (2
+    layers, hidden 128) in fp32 with TF32 off, trained by AdamW, 6 x 64
+    tokens a global step, faultbench's knobs (ELASTIC_PARITY), each rank
+    sleeping 0.2 s a step so the world is still running when the joiner
+    is up. Gates: survivors 0 and 2 finish all 40 steps at world 2; the
+    reforms show the grow to [0, 1, 2] and the shrink to [0, 2]; their
+    losses stay within LOSS_CONTINUITY_TOL of a clean two-thread world in
+    this process; their parameters hash equal; the shrink replays at most
+    `save_every` steps; rank 1 is the only rank that died, by the kill.
+    Then two processes through ResilientTrainer(cluster=ClusterTelemetry(
+    k=1.5, m=2)) with FLAGS_metrics on, rank 1 sleeping 0.4 s (1 s on the
+    CPU) in its loss from step 2: rank 0 must flag rank 1's compute phase at step 3 (m
+    steps on), never rank 0, and its flight-recorder dump must carry the
+    cluster snapshot. (At world 2 the median of two is their midpoint, so
+    k must be below 2 to flag anyone.)"""
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs     # spawn pickles functions of an importable
+    from paddle_tpu_torch import native          # module, not __main__
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.resilience import chaos
+
+    backend = "cuda" if device == "cuda" else "cpu"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    spec = dict(ELASTIC_PARITY, model="tiny", amp=False, rows=6, seq=64,
+                lr=1e-3, seed=SEED, device=device, step_delay_s=0.2,
+                hash_params=True)
+    t0 = time.perf_counter()
+    try:
+        clean = _thread_world(torch, spec, os.path.join(tmp, "clean"),
+                              [0, 1], device)
+        clean_s = time.perf_counter() - t0
+        clean_losses = clean[0]["losses"]
+        store = native.TCPStore("127.0.0.1", 0, is_master=True)
+        reports_dir = os.path.join(tmp, "reports")
+        os.makedirs(reports_dir)
+        base = dict(spec, store=["127.0.0.1", store.port],
+                    root=os.path.join(tmp, "proc"), members=[0, 1],
+                    report_dir=reports_dir)
+        t1 = time.perf_counter()
+        ctx = spawn(cs.elastic_rank_main, args=(base,), nprocs=2,
+                    join=False, backend=backend)
+        jctx = spawn(cs.elastic_rank_main,
+                     args=(dict(base, member_id=2, members=[0, 1, 2],
+                                join=True, join_after=3),),
+                     nprocs=1, join=False, backend=backend)
+        procs = {0: ctx.processes[0], 1: ctx.processes[1],
+                 2: jctx.processes[0]}
+        try:
+            t_join = time.monotonic()
+            while 2 not in _view_members(store):
+                dead = {m: p.returncode for m, p in procs.items()
+                        if p.poll() is not None}
+                if dead or time.monotonic() - t_join > 240:
+                    raise AssertionError(
+                        f"the joiner never entered the view (exited: "
+                        f"{dead}: {_failures(ctx, jctx)})")
+                time.sleep(0.05)
+            joined_s = time.perf_counter() - t1
+            time.sleep(1.2)     # let the grown world commit a checkpoint
+            chaos.kill_process(procs[1].pid)
+            _join_killed(ctx, 1, 600)
+            jctx.join(600)
+            procs_s = time.perf_counter() - t1
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+            store.close()
+        docs = {m: _read_json(os.path.join(reports_dir, f"rank{m}.json"))
+                for m in (0, 1, 2)}
+        r0, r2 = docs[0]["report"], docs[2]["report"]
+        nsteps = spec["nsteps"]
+        survivors_done = all(
+            r["status"] == "completed" and r["step"] == nsteps
+            and r["final_world_size"] == 2 and r["final_members"] == [0, 2]
+            for r in (r0, r2)) and r2["steps_run"] > 0
+        grew = any(f["members"] == [0, 1, 2] for f in r0["reforms"])
+        shrinks = [f for f in r0["reforms"] if f["members"] == [0, 2]]
+        replay = (max(f["detected_at_step"] - f["resumed_step"]
+                      for f in shrinks) if shrinks else None)
+        losses = {int(k): v for k, v in r0["losses"].items()}
+        loss_dev = (max(abs(losses[s] - clean_losses[s])
+                        for s in clean_losses)
+                    if set(losses) >= set(clean_losses) else None)
+        gates = {
+            "survivors_complete_at_world_2": bool(survivors_done),
+            "grow_then_shrink": bool(grew and shrinks),
+            "loss_continuity": (loss_dev is not None
+                                and loss_dev <= LOSS_CONTINUITY_TOL),
+            "survivors_bitwise": r0["params_sha"] == r2["params_sha"],
+            "replay_within_save_every": (replay is not None
+                                         and replay <= spec["save_every"]),
+        }
+        if not all(gates.values()):
+            raise AssertionError(f"elastic_parity gates {gates}: survivors "
+                                 f"{r0} {r2}, clean {clean_losses}")
+
+        # ResilientTrainer(cluster=...) in two processes, rank 1 slowed
+        store = native.TCPStore("127.0.0.1", 0, is_master=True)
+        # the sleep must exceed twice the other rank's compute (k 1.5 on
+        # a median of two): ~10 ms on the card, up to ~0.3 s on a loaded
+        # CPU
+        cspec = dict(model="tiny", amp=False, rows=4, seq=64, lr=1e-3,
+                     seed=SEED, n_batches=6, device=device, k=1.5, m=2,
+                     slow_from=2, delay_s=0.4 if device == "cuda" else 1.0,
+                     store=["127.0.0.1", store.port],
+                     root=os.path.join(tmp, "cluster"))
+        t2 = time.perf_counter()
+        try:
+            out = spawn(cs.cluster_rank_main, args=(cspec,), nprocs=2,
+                        backend=backend, timeout=600)
+        finally:
+            store.close()
+        cluster_s = time.perf_counter() - t2
+        c0 = out[0]
+        flagged = [(e["rank"], e["phase"], e["step"])
+                   for e in c0["straggler_events"]]
+        want = [(1, "compute", cspec["slow_from"] + cspec["m"] - 1)]
+        snap = c0["dump_cluster"] or {}
+        if flagged != want or "1" not in snap.get("flagged", {}) \
+                or any(o["status"] != "completed" for o in out):
+            raise AssertionError(f"cluster check: straggler events "
+                                 f"{flagged}, expected {want}; dump "
+                                 f"cluster {snap}; reports {out}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "phase": "elastic_parity", "model": "GPT tiny (2 layers, hidden "
+        "128), fp32, TF32 off", "knobs": ELASTIC_PARITY,
+        "step_delay_s": spec["step_delay_s"], "gates": gates,
+        "loss_continuity_dev": loss_dev,
+        "loss_continuity_tol": LOSS_CONTINUITY_TOL,
+        "reforms": r0["reforms"], "replayed_steps": replay,
+        "clean_world_s": clean_s, "join_s": joined_s, "procs_s": procs_s,
+        "survivor_steps_run": {0: r0["steps_run"], 2: r2["steps_run"]},
+        "rank1_last_step": max((p["step"] for p in docs[1]["step_parts"]),
+                               default=None) if docs[1] else None,
+        "cluster": {"straggler_events": flagged, "k": cspec["k"],
+                    "m": cspec["m"], "slow_from": cspec["slow_from"],
+                    "delay_s": cspec["delay_s"],
+                    "aggregated_steps": c0["aggregated_steps"],
+                    "dump_flagged": snap.get("flagged"),
+                    "last_compute_s": (c0["last_aggregate"] or {}).get(
+                        "phases", {}).get("compute"),
+                    "seconds": cluster_s},
+    }
+
+
+def elastic_slice_phase(torch, device="cuda", spec=None):
+    """GPT-3 1.3B at full width and depth (fp32 parameters, amp O1, AdamW
+    through the fused kernel's fp32 form), sequence 2048, global batch 4
+    (two rows a rank), in two rank processes on the one card (distributed.
+    spawn) over a native.TCPStore this process hosts, save_every 2: once
+    the step-2 checkpoint's commit marker is in the store, SIGKILL rank 1;
+    the survivor finds the loss, reforms at world 1 from the rank-sharded
+    checkpoint and finishes step 6, so four updates (steps 2-5) run after
+    the reform. Reports per rank and step the parts of the wall
+    (ElasticTrainer.step_parts), bytes sent and MB/s, peak device memory,
+    the ranks' and this process's (the store's host) RSS peaks, each
+    save's bytes and seconds, the reform's detection, restore and
+    first-step seconds, and the launches of rows 6-8 and 13 summed over
+    the ranks. The survivor is held against a clean run of the same six
+    steps at world 1 in this process (TrainStep, same seed and batches):
+    its losses from the resumed step on within ELASTIC_SLICE_LOSS_TOL, and
+    its final parameters (dumped by the rank) within
+    ELASTIC_SLICE_PARAM_TOL as |p - p_clean| / |p_clean| over all of them.
+    The parameter bound must also sit below the clean run's last update,
+    |p6 - p5| / |p6|, so a dropped update, AdamW moments lost in the
+    restore or an older step restored cannot pass. Raises if a rank dies
+    other than by the kill, or the survivor does not finish. Checks the
+    free disk first: two kept checkpoints, one in flight and the dump
+    (keep_last_n 2), else one kept (keep_last_n 1)."""
+    import math
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops import gpu
+    from paddle_tpu_torch.resilience import chaos
+
+    backend = "cuda" if device == "cuda" else "cpu"
+    spec = dict(spec or dict(
+        model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
+        nsteps=6, n_batches=6, save_every=2, lease_ttl_s=5.0,
+        heartbeat_s=0.25, allreduce_timeout_s=20.0, sync_timeout_s=300.0))
+    spec["device"] = device
+    spec["dump_params"] = True
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    state_bytes = 3 * 4 * gpt_numel(cfg)     # fp32 parameters, m and v
+    dump_bytes = 4 * gpt_numel(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_slice_")
+    free = shutil.disk_usage(tmp).free
+    with open("/proc/meminfo") as f:
+        meminfo = {ln.split(":")[0]: int(ln.split()[1]) * 1024
+                   for ln in f if ln.split(":")[0] in
+                   ("MemTotal", "MemAvailable")}
+    spec["keep_last_n"] = 2 if free >= 3.2 * state_bytes + dump_bytes \
+        else 1
+    if free < 2.2 * state_bytes + dump_bytes:
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"{free} bytes free under {tmp}: two "
+                           f"checkpoints of {state_bytes} and a dump of "
+                           f"{dump_bytes} do not fit")
+    reports_dir = os.path.join(tmp, "reports")
+    os.makedirs(reports_dir)
+    store = native.TCPStore("127.0.0.1", 0, is_master=True)
+    base = dict(spec, store=["127.0.0.1", store.port],
+                root=os.path.join(tmp, "ckpt"), members=[0, 1],
+                report_dir=reports_dir)
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    commit = f"/pt/ckpt/g0/{spec['save_every']}/committed"
+    t0 = time.perf_counter()
+    sampler = None
+    try:
+        ctx = spawn(cs.elastic_rank_main, args=(base,), nprocs=2,
+                    join=False, backend=backend)
+        procs = dict(enumerate(ctx.processes))
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {"store_host": os.getpid(),
+             **{f"rank{m}": p.pid for m, p in procs.items()}},))
+        sampler.start()
+        try:
+            while store.get(commit, blocking=False) is None:
+                dead = {m: p.returncode for m, p in procs.items()
+                        if p.poll() is not None}
+                if dead or time.perf_counter() - t0 > 900:
+                    raise AssertionError(
+                        f"the step-{spec['save_every']} checkpoint never "
+                        f"committed (exited: {dead}: {_failures(ctx)}; "
+                        f"reports {[_read_json(os.path.join(reports_dir, f'rank{m}.json')) for m in procs]})")
+                time.sleep(0.05)
+            t_kill = time.perf_counter()
+            chaos.kill_process(procs[1].pid)
+            _join_killed(ctx, 1, 1200)
+            done_s = time.perf_counter()
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            if sampler is not None:
+                sampler.join()
+            store.close()
+        docs = {m: _read_json(os.path.join(reports_dir, f"rank{m}.json"))
+                for m in (0, 1)}
+        rep = (docs[0] or {}).get("report")
+        if rep is None or rep["status"] != "completed" \
+                or rep["step"] != spec["nsteps"] \
+                or rep["final_world_size"] != 1:
+            raise AssertionError(f"the survivor did not finish at world 1: "
+                                 f"{docs[0]}")
+        (reform,) = rep["reforms"]
+        first = next(p for p in docs[0]["step_parts"]
+                     if p["gen"] == reform["gen"])
+        first_wall = next(w for s, w, g, _ in rep["step_walls"]
+                          if g == reform["gen"])
+
+        # the clean run: the same steps at world 1 on the same batches,
+        # keeping the parameters before the last update
+        model, opt, loss_fn = _elastic_model(torch, spec, device)
+        step = TrainStep(model, loss_fn, opt, device=device)
+        batches = _elastic_batches(spec)
+        params = list(model.parameters())
+        t1 = time.perf_counter()
+        clean = []
+        for s in range(spec["nsteps"]):
+            if s == spec["nsteps"] - 1:
+                before = [p.detach().clone() for p in params]
+            clean.append(float(step(*batches[s % len(batches)])))
+        clean_s = time.perf_counter() - t1
+        step_rel = _rel_dev(torch, before, params)
+        del before
+        words = np.memmap(os.path.join(reports_dir, "rank0.params"),
+                          dtype=np.float32, mode="r")
+        if words.size != sum(p.numel() for p in params):
+            raise AssertionError(f"the survivor dumped {words.size} "
+                                 f"parameters, the model has "
+                                 f"{sum(p.numel() for p in params)}")
+        offs = np.cumsum([0] + [p.numel() for p in params])
+        param_rel = _rel_dev(torch, (
+            torch.from_numpy(np.array(words[a:b])).to(p.device).view_as(p)
+            for p, a, b in zip(params, offs[:-1], offs[1:])), params)
+        del words, model, opt, step, params
+        release(torch)
+        losses = {int(k): v for k, v in rep["losses"].items()}
+        post = range(reform["resumed_step"], spec["nsteps"])
+        dev = max(abs(losses[s] - clean[s]) for s in post)
+        loss_tol, param_tol = ELASTIC_SLICE_LOSS_TOL, ELASTIC_SLICE_PARAM_TOL
+        if not all(math.isfinite(losses[s]) for s in losses) \
+                or len(post) < 2 or dev > loss_tol \
+                or not param_rel <= param_tol < step_rel:
+            raise AssertionError(
+                f"post-reform losses {losses} (steps {list(post)}, at "
+                f"least two wanted) against the clean run "
+                f"{clean}: {dev} (bound {loss_tol}); final parameters "
+                f"{param_rel} from the clean run's (bound {param_tol}, "
+                f"which must sit below the clean last update's {step_rel})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: sum((d or {}).get("launches", {}).get(k, 0)
+                       for d in docs.values()) for k in ELASTIC}
+    if any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"kernels not launched by the ranks: "
+                             f"{launches}")
+
+    def steps_of(doc):
+        out = []
+        for p in doc["step_parts"]:
+            sent, parts = p["bytes"]["sent"], p["parts"]
+            out.append({"step": p["step"], "gen": p["gen"],
+                        "world": p["world_size"], "parts_s": parts,
+                        "wall_s": sum(parts.values()),
+                        "bytes_sent": sent,
+                        "bytes_received": p["bytes"]["received"],
+                        "publish_mb_per_s": (sent / parts["publish"] / 1e6
+                                             if parts["publish"] else None),
+                        "collect_mb_per_s": (
+                            p["bytes"]["received"] / parts["collect"] / 1e6
+                            if parts["collect"] else None)})
+        return out
+
+    return {
+        "phase": "elastic_slice", "model": "GPT-3 1.3B", "layers":
+        cfg.num_layers, "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+        "amp": "O1 bfloat16, fp32 parameters", "batch": [spec["rows"],
+                                                         spec["seq"]],
+        "rows_a_rank": spec["rows"] // 2, "steps": spec["nsteps"],
+        "save_every": spec["save_every"], "keep_last_n": spec["keep_last_n"],
+        "free_disk_bytes": free, "meminfo": meminfo,
+        "state_bytes": state_bytes,
+        "per_rank": {m: {"steps": steps_of(d), "saves": d["saves"],
+                         "max_allocated": d["max_allocated"],
+                         "max_reserved": d["max_reserved"],
+                         "launches": d["launches"]}
+                     for m, d in docs.items() if d},
+        "rss_peak_sampled": rss,
+        "killed_after_s": t_kill - t0, "survivor_done_s": done_s - t0,
+        "reform": reform, "reform_first_step_s": first_wall,
+        "reform_first_step_parts": first["parts"],
+        "losses": [losses[s] for s in sorted(losses)],
+        "clean_losses": clean, "clean_run_s": clean_s,
+        "post_reform_steps": list(post),
+        "post_reform_max_abs_dev": dev, "loss_tolerance": loss_tol,
+        "clean_min_step_loss_move": min(abs(b - a) for a, b in
+                                        zip(clean, clean[1:])),
+        "final_params_rel_dev": param_rel, "param_tolerance": param_tol,
+        "clean_last_update_rel": step_rel,
+        "launches": launches,
+    }
+
+
 KERNELS = {
     "rms_norm": ("cuda", "paddle_tpu_torch/csrc/fused_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
@@ -5357,7 +6116,12 @@ def main():
     emit(summary)
     release(torch)
 
-    emit(graph_tick_phase(torch, model, engine_kw))
+    cfg8 = LlamaConfig.llama2_7b()
+    cfg8.num_layers = CUT_LAYERS
+    tick_model = LlamaForCausalLM(cfg8, device="cuda", dtype="bfloat16",
+                                  seed=SEED)
+    emit(graph_tick_phase(torch, tick_model, engine_kw))
+    del tick_model
     release(torch)
 
     server = server_slice_phase(
@@ -5433,6 +6197,13 @@ def main():
 
     emit(io_feed_phase(torch))
     emit(resilient_slice_phase(torch))
+    release(torch)
+
+    # elastic ranks, each a process on this card: this process hosts the
+    # store and holds nothing on the card meanwhile
+    emit(elastic_parity_phase(torch))
+    release(torch)
+    emit(elastic_slice_phase(torch))
     release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged

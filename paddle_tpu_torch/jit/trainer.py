@@ -30,6 +30,16 @@ dumps the flight recorder (`on_nan_skip`).
 
 Without the guard and telemetry the step has no host sync inside; the
 caller decides when to read the loss.
+
+`forward_backward(*batch)` is the step without its update (the
+reference's `_fwd_bwd_fn`), for a caller that exchanges the gradients
+before applying them (resilience.ElasticTrainer): the loss, under the amp
+state `loss_fn` sets, and every trainable parameter's gradient, a zero one
+where the loss did not reach it, as the reference's returns; with AdamW
+the gradients are its flat buffer's views. `invalidate_executables()` is
+the reference's hook for a changed world size: the port runs eagerly and
+compiles nothing, so it drops what the step cached from the batches it
+saw (the samples and tokens a telemetry record counts).
 """
 from __future__ import annotations
 
@@ -90,9 +100,7 @@ class TrainStep:
         t0 = time.perf_counter() if self._telemetry else 0.0
         with _span("jit.train_step", cat="jit"):
             batch = tuple(self._place(x) for x in batch)
-            loss = self.loss_fn(*batch)
-            loss.backward()
-            loss = loss.detach()
+            loss = self._fwd_bwd(batch)
             gsq = skip = None
             if self._nan_guard or self._telemetry:
                 gsq = opt.grad_square_sum()
@@ -110,6 +118,31 @@ class TrainStep:
         if self._telemetry:
             self._emit_step(loss, gsq, lr, t0, batch)
         return loss
+
+    def _fwd_bwd(self, batch):
+        loss = self.loss_fn(*batch)
+        loss.backward()
+        return loss.detach()
+
+    def forward_backward(self, *batch):
+        """(loss, grads): the forward and backward of one step, nothing
+        applied (see the module note)."""
+        loss = self._fwd_bwd(tuple(self._place(x) for x in batch))
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        prepare = getattr(self.optimizer, "_prepare", None)
+        if prepare is not None:        # AdamW: adopt into its flat buffers
+            prepare()
+        return loss, [p.grad for p in params]
+
+    def invalidate_executables(self) -> None:
+        """Forget what was cached from earlier batches (their samples and
+        tokens; the parameter count): a reformed world feeds other shard
+        sizes. Nothing is compiled, so nothing else is dropped."""
+        self._n_params = None
+        self._batch_dims = None
 
     def _emit_step(self, loss, gsq, lr, t0, batch):
         """Build and stage this step's record. Reading the loss and the norm

@@ -11,8 +11,10 @@ through it when a serving anomaly fires. A dump is written to a temporary
 file, fsynced and renamed into place, so a crash mid-dump never leaves a
 torn file. Dumps land in FLAGS_metrics_dir/flight/ (or ./flight_recorder
 when no metrics dir is set). The triggers do nothing while FLAGS_metrics
-is off. The cluster view and the membership trigger wait for the
-distributed slice.
+is off. Rank 0's latest cross-rank view (observability/cluster.py) rides
+in every dump as "cluster"; an adopted elastic membership view
+(`on_membership_change`) and an auto-ejection (`on_member_ejected`) dump
+too.
 """
 from __future__ import annotations
 
@@ -60,6 +62,25 @@ def dump_filename(reason: str, n: int) -> str:
     seq = next(_DUMP_SEQ)
     return (f"flight_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"
             f"_{int(n):03d}_{seq:04d}_{safe_reason(reason)}.json")
+
+
+# the last cluster view published by observability/cluster.py (rank 0);
+# module-level so it survives a recorder reset between runs
+_cluster_snapshot: Optional[Dict[str, Any]] = None
+_cluster_lock = threading.Lock()
+
+
+def set_cluster_snapshot(snapshot: Dict[str, Any]) -> None:
+    """Latest cluster aggregation and straggler view, embedded in every
+    dump."""
+    global _cluster_snapshot
+    with _cluster_lock:
+        _cluster_snapshot = snapshot
+
+
+def cluster_snapshot() -> Optional[Dict[str, Any]]:
+    with _cluster_lock:
+        return _cluster_snapshot
 
 
 def note_anomaly(event: Dict[str, Any]) -> None:
@@ -137,6 +158,9 @@ class FlightRecorder:
             "spans": spans.tail(_SPAN_TAIL),
             "metrics": default_registry().snapshot(),
         }
+        cluster = cluster_snapshot()
+        if cluster is not None:
+            payload["cluster"] = cluster
         for k, v in (extra or {}).items():
             payload.setdefault(k, v)
         if exc is not None:
@@ -177,10 +201,12 @@ def get_flight_recorder() -> FlightRecorder:
 
 
 def reset() -> None:
-    """Drop the singleton."""
-    global _recorder
+    """Drop the singleton and the cluster view."""
+    global _recorder, _cluster_snapshot
     with _recorder_lock:
         _recorder = None
+    with _cluster_lock:
+        _cluster_snapshot = None
 
 
 # -- training triggers (called by jit.TrainStep and training loops) ----------
@@ -211,3 +237,30 @@ def on_preemption(reason: str) -> Optional[str]:
     rec = get_flight_recorder()
     rec.note("preemption", reason=str(reason))
     return rec.dump(f"preemption_{reason}")
+
+
+def on_membership_change(info: Dict[str, Any]) -> Optional[str]:
+    """An elastic membership view was adopted (a rank lost, ejected or
+    joined): the dump carries the generation transition, to line the loss
+    trajectory up against when the ranks reformed. None while metrics are
+    off. The event notes the change under "membership": spread into the
+    note, as the reference spreads it, the change's own "kind" collides
+    with the note's and raises, so the reference never dumps one."""
+    if not metrics_enabled():
+        return None
+    rec = get_flight_recorder()
+    rec.note("membership_change", membership=dict(info))
+    return rec.dump(f"membership_gen{info.get('gen', '?')}",
+                    extra={"membership": dict(info)})
+
+
+def on_member_ejected(info: Dict[str, Any]) -> Optional[str]:
+    """ElasticTrainer auto-ejected a chronically slow rank (pinned at the
+    rebalance clamp past FLAGS_elastic_eject_patience windows): the
+    decision, with its evidence. None while metrics are off."""
+    if not metrics_enabled():
+        return None
+    rec = get_flight_recorder()
+    rec.note("member_ejected", **{k: info[k] for k in sorted(info)})
+    return rec.dump(f"eject_member{info.get('member', '?')}",
+                    extra={"ejection": dict(info)})

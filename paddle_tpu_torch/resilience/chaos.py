@@ -1,5 +1,5 @@
 """Fault injection for the resilience subsystem (counterpart of
-paddle_tpu/resilience/chaos.py, without the rank helpers).
+paddle_tpu/resilience/chaos.py).
 
 Production code calls `crash_point("name")` at chosen spots of checkpoint
 writes and file commits; tests and chip_smoke.py arm those points with
@@ -9,8 +9,10 @@ kills DataLoader worker processes, delivers fake preemption signals, and
 faults real processes: SIGKILL, SIGSTOP and SIGCONT of a process replica
 (`kill_process`, `hang_process`, `resume_process`), and a store partition
 (`StorePartitionProxy`, a byte-level TCP proxy a victim's store client
-connects through). The rank helpers (`kill_rank`, `slow_rank`) wait for
-the elastic slice.
+connects through). For elastic training it arms rank faults that the
+ElasticTrainer consults each step: a rank kill (`kill_rank`: the member
+stops heartbeating and leaves its loop unannounced) and a straggler delay
+(`slow_rank`).
 
 Standard library only: framework/io.py and forked DataLoader workers
 import it.
@@ -24,7 +26,9 @@ from typing import Dict, Iterable, Optional
 
 __all__ = [
     "InjectedCrash", "inject_crash", "crash_point", "clear", "armed",
-    "poison_steps", "should_poison", "note_poisoned", "kill_worker",
+    "poison_steps", "should_poison", "note_poisoned", "kill_rank",
+    "should_kill_rank", "note_rank_killed", "slow_rank", "rank_delay",
+    "kill_worker",
     "fake_preemption", "sigstop_supported", "kill_process", "hang_process",
     "resume_process", "StorePartitionProxy", "stats", "reset_stats",
     "scope",
@@ -42,12 +46,15 @@ class InjectedCrash(RuntimeError):
 _lock = threading.Lock()
 _crash_points: Dict[str, dict] = {}   # name -> {"after": int, "mode": str}
 _poison_steps: set = set()
+_rank_kills: Dict[int, int] = {}      # member id -> kill at global step
+_rank_delays: Dict[int, float] = {}   # member id -> extra seconds per step
 
 stats = {
     "crashes_injected": 0,
     "steps_poisoned": 0,
     "workers_killed": 0,
     "signals_sent": 0,
+    "ranks_killed": 0,
     "processes_killed": 0,
     "processes_hung": 0,
     "processes_resumed": 0,
@@ -65,6 +72,8 @@ def clear():
     with _lock:
         _crash_points.clear()
         _poison_steps.clear()
+        _rank_kills.clear()
+        _rank_delays.clear()
 
 
 def armed(point: Optional[str] = None) -> bool:
@@ -120,6 +129,46 @@ def note_poisoned(step: int):
     with _lock:
         _poison_steps.discard(int(step))
         stats["steps_poisoned"] += 1
+
+
+# -- elastic rank faults ----------------------------------------------------
+
+def kill_rank(member: int, at_step: int):
+    """Arm a rank kill: the elastic trainer checks should_kill_rank() at
+    the top of each global step and, once reached, the member stops
+    heartbeating and leaves its loop without a left marker: to the
+    survivors, an unannounced crash whose lease expires."""
+    with _lock:
+        _rank_kills[int(member)] = int(at_step)
+
+
+def should_kill_rank(member: int, step: int) -> bool:
+    with _lock:
+        at = _rank_kills.get(int(member))
+        return at is not None and int(step) >= at
+
+
+def note_rank_killed(member: int):
+    """The member died: disarm its kill (one-shot) and count it."""
+    with _lock:
+        _rank_kills.pop(int(member), None)
+        stats["ranks_killed"] += 1
+
+
+def slow_rank(member: int, delay_s: float):
+    """Arm a per-step straggler delay for one member (the elastic trainer
+    sleeps rank_delay() inside its step), which exercises the micro-batch
+    rebalancer without ejecting anyone; delay_s <= 0 disarms."""
+    with _lock:
+        if float(delay_s) <= 0:
+            _rank_delays.pop(int(member), None)
+        else:
+            _rank_delays[int(member)] = float(delay_s)
+
+
+def rank_delay(member: int) -> float:
+    with _lock:
+        return _rank_delays.get(int(member), 0.0)
 
 
 # -- process-level faults ---------------------------------------------------

@@ -46,9 +46,24 @@ file calls release the GIL, and a checkpoint of a few GB is otherwise
 bound by one core's crc32. The manifest, the commit and the messages are
 the reference's; only the order in which files reach the disk differs.
 
-Left for later slices: the reference's "orbax" and "sharded" backends and
-the store-synchronised multi-rank commit (checkpoint_manager.py:306-404);
-`store=` or `world_size > 1` raises.
+`backend="sharded"` writes the payload as distributed/checkpoint.py's
+rank-sharded layout under `step_N/shards/` (a manifest with no arrays
+around it), always synchronously: every rank writes its own slice, and a
+restore re-slices to any world size (`target_world_size=`,
+`target_rank=`).
+
+With a `store` and `world_size > 1`, the commit is synchronised across
+ranks as the reference's is (checkpoint_manager.py:306-404): rank 0 makes
+the tmp directory and, for "sharded", publishes a per-save nonce; the
+followers write their shards into it (an "npy" follower writes nothing:
+its state is replicated, its save is the barrier) and report ready; rank 0
+waits for every ready marker, renames, and publishes the committed marker
+the followers wait for. A timeout names the ranks that never reported
+ready. Every coordination key carries `commit_namespace` (the elastic
+trainer passes its membership generation), so a save that died in one
+generation can never satisfy or poison another's barrier.
+
+The reference's "orbax" backend is not ported (it raises).
 """
 from __future__ import annotations
 
@@ -75,6 +90,15 @@ _SAVES = _obs_counter(
     "Checkpoint saves by outcome: committed = the atomic rename landed, "
     "failed = the write raised before the commit point.",
     labelnames=("outcome",))
+
+_SYNC_COMMITS = _obs_counter(
+    "cluster_ckpt_commits_total",
+    "Multi-host synchronized checkpoint commits, by this rank's role "
+    "(leader = rank 0 performed the atomic rename after all ranks reported "
+    "ready; follower = waited for the leader's committed marker).",
+    labelnames=("role",))
+
+_CKPT_KEY_PREFIX = "/pt/ckpt"
 
 MANIFEST = "manifest.json"
 _FORMAT_VERSION = 1
@@ -293,31 +317,39 @@ class CheckpointManager:
         root: directory holding all `step_*` checkpoints.
         keep_last_n: committed checkpoints retained by GC (the newest valid
             checkpoint is NEVER removed regardless of this value).
-        backend: "npy" (raw array files + crc32 checksums).
+        backend: "npy" (raw array files + crc32 checksums) or "sharded"
+            (the rank-sharded layout; see the module note).
         async_save: snapshot on the caller's thread, write and commit on a
-            background thread (see the module note).
-        store / world_size: the multi-rank commit, not ported yet (any
-            other than None / 1 raises); `world_size` stays 1 for the
-            trainer's world-size check.
+            background thread ("npy" only; see the module note).
+        store / rank / world_size: the process-group store (distributed.env
+            get_store(), or native.TCPStore) enabling the synchronised
+            multi-rank commit; world_size 1 bypasses it.
+        sync_timeout_s: the commit barrier's wait bound; a rank missing past
+            it raises rather than committing a checkpoint the ranks
+            disagree on.
+        commit_namespace: mixed into every coordination key (the elastic
+            trainer's membership generation).
     """
 
     def __init__(self, root: str, keep_last_n: int = 3, backend: str = "npy",
-                 async_save: bool = False, store=None, world_size: int = 1):
-        if backend in ("orbax", "sharded"):
+                 async_save: bool = False, store=None, rank: int = 0,
+                 world_size: int = 1, sync_timeout_s: float = 60.0,
+                 commit_namespace: str = ""):
+        if backend == "orbax":
             raise NotImplementedError(
-                f"checkpoint backend {backend!r} is not ported yet (ROADMAP "
-                f"queue 1: the distributed slice)")
-        if backend != "npy":
+                "checkpoint backend 'orbax' is not ported (ROADMAP queue 1: "
+                "the Orbax half of distributed/checkpoint.py)")
+        if backend not in ("npy", "sharded"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
-        if store is not None or int(world_size) != 1:
-            raise NotImplementedError(
-                "the store-synchronised multi-rank commit is not ported yet "
-                "(ROADMAP queue 1: the distributed slice)")
         self.root = os.path.abspath(root)
         self.keep_last_n = max(int(keep_last_n), 1)
         self.backend = backend
         self.async_save = bool(async_save)
-        self.world_size = 1
+        self.store = store
+        self.rank = int(rank)
+        self.world_size = int(world_size)
+        self.sync_timeout_s = float(sync_timeout_s)
+        self.commit_namespace = str(commit_namespace)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.last_scan_report: List[Tuple[str, str]] = []  # (path, reason)
@@ -358,6 +390,12 @@ class CheckpointManager:
         if asynchronous is None:
             asynchronous = self.async_save
         self.wait()  # one in-flight save at a time; ordered commits
+        if self._sync_enabled and self.rank != 0:
+            if self.backend == "sharded":
+                return self._follower_write_shard(step, state)
+            return self._follower_commit(step)
+        if self.backend == "sharded":
+            return self._write_sharded(step, state, meta)
         raw: list = []
         skeleton = _encode(state, raw)
         leaves = _to_leaves(raw, copy=asynchronous)
@@ -376,6 +414,121 @@ class CheckpointManager:
             target=_worker, name="ckpt-save", daemon=True)
         self._thread.start()
         return self._dir_for(step)
+
+    # -- synchronised multi-rank commit -------------------------------------
+    @property
+    def _sync_enabled(self) -> bool:
+        return self.store is not None and self.world_size > 1
+
+    def _ckpt_key(self, step: int) -> str:
+        ns = f"/{self.commit_namespace}" if self.commit_namespace else ""
+        return f"{_CKPT_KEY_PREFIX}{ns}/{int(step)}"
+
+    def _not_ready(self, key: str) -> List[int]:
+        return [r for r in range(self.world_size)
+                if self.store.get(f"{key}/ready_r{r}", blocking=False)
+                is None]
+
+    def _follower_write_shard(self, step: int, state: Any) -> str:
+        """"sharded", a follower: wait for the leader's nonce (it makes the
+        tmp directory before publishing it), durably write this rank's
+        shard into it, then join the ready/committed handshake."""
+        from ..distributed import checkpoint as _dck
+
+        key = self._ckpt_key(step)
+        try:
+            nonce = self.store.get(key + "/nonce", blocking=True,
+                                   timeout_s=self.sync_timeout_s)
+        except TimeoutError:
+            nonce = None
+        if nonce is None:
+            raise TimeoutError(
+                f"rank {self.rank}: leader never published a shard nonce "
+                f"for step {step} within {self.sync_timeout_s}s")
+        payload = os.path.join(self._dir_for(step) + ".tmp", "shards")
+        _dck.write_rank_shard(payload, self.rank, self.world_size, state,
+                              bytes(nonce).decode())
+        return self._follower_commit(step)
+
+    def _follower_commit(self, step: int) -> str:
+        """A follower's save(): report ready, wait for rank 0's committed
+        marker; returns the committed path rank 0 published."""
+        key = self._ckpt_key(step)
+        with _span("cluster.ckpt_commit", cat="cluster",
+                   args={"step": int(step), "role": "follower"}):
+            self.store.set(f"{key}/ready_r{self.rank}", b"1")
+            self.store.add(key + "/ready", 1)
+            try:
+                committed = self.store.get(key + "/committed",
+                                           blocking=True,
+                                           timeout_s=self.sync_timeout_s)
+            except TimeoutError:
+                committed = None
+        if committed is None:
+            # name who never reported ready: that's where the commit died
+            missing = self._not_ready(key)
+            detail = (f"; ranks that never reported ready: {missing}"
+                      if missing else
+                      "; every rank reported ready but rank 0 never "
+                      "published the commit marker: it likely died "
+                      "between the barrier and the rename")
+            raise TimeoutError(
+                f"rank {self.rank}: no committed marker for step {step} "
+                f"(key {key + '/committed'!r}) within "
+                f"{self.sync_timeout_s}s{detail}")
+        _SYNC_COMMITS.inc(role="follower")
+        return bytes(committed).decode()
+
+    def _leader_barrier(self, step: int) -> None:
+        """Rank 0, just before the commit rename: wait until every rank
+        (itself included) has reported ready for `step`; a timeout names
+        the ranks whose ready marker never appeared."""
+        key = self._ckpt_key(step)
+        self.store.set(f"{key}/ready_r{self.rank}", b"1")
+        self.store.add(key + "/ready", 1)
+        try:
+            self.store.wait_ge(key + "/ready", self.world_size,
+                               timeout_s=self.sync_timeout_s)
+        except TimeoutError:
+            missing = self._not_ready(key)
+            raise TimeoutError(
+                f"ckpt commit barrier for step {step}: not all "
+                f"{self.world_size} ranks ready after "
+                f"{self.sync_timeout_s}s"
+                + (f"; ranks that never reported ready: {missing}"
+                   if missing else "")) from None
+
+    def _leader_publish(self, step: int, final: str) -> None:
+        """Rank 0, after the rename landed: release the followers."""
+        self.store.set(self._ckpt_key(step) + "/committed", final)
+        _SYNC_COMMITS.inc(role="leader")
+
+    def _write_sharded(self, step: int, state: Any, meta: Optional[Dict]):
+        """The rank-sharded payload, leader side (or the whole job at world
+        1). The tmp directory exists and the nonce is published before the
+        followers may write into it; every shard is durable before the
+        ready barrier passes, and only then does the rename land."""
+        import uuid
+
+        from ..distributed import checkpoint as _dck
+
+        final = self._dir_for(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):  # stale debris from a previous crash
+            shutil.rmtree(tmp)
+        payload = os.path.join(tmp, "shards")
+        os.makedirs(payload)
+        chaos.crash_point("ckpt.begin")
+        nonce = uuid.uuid4().hex
+        if self._sync_enabled:
+            self.store.set(self._ckpt_key(step) + "/nonce", nonce)
+        with _span("ckpt.write", cat="io", args={"step": int(step)}):
+            index = _dck.write_rank_shard(payload, 0, self.world_size,
+                                          state, nonce)
+        _dck.write_shard_index(payload, index)
+        chaos.crash_point("ckpt.array")
+        return self._finalize(step, tmp, final, skeleton=None, arrays=[],
+                              meta=meta)
 
     def wait(self):
         """Block until the in-flight async save (if any) commits; re-raise
@@ -448,7 +601,14 @@ class CheckpointManager:
         _fsync_dir(tmp)
 
         chaos.crash_point("ckpt.before_commit")
-        self._commit_rename(step, tmp, final)
+        if self._sync_enabled:
+            with _span("cluster.ckpt_commit", cat="cluster",
+                       args={"step": int(step), "role": "leader"}):
+                self._leader_barrier(step)
+                self._commit_rename(step, tmp, final)
+                self._leader_publish(step, final)
+        else:
+            self._commit_rename(step, tmp, final)
 
         chaos.crash_point("ckpt.before_gc")
         self._gc()
@@ -505,6 +665,10 @@ class CheckpointManager:
             return f"unreadable manifest: {e}"
         if manifest.get("version") != _FORMAT_VERSION:
             return f"unsupported version {manifest.get('version')!r}"
+        if manifest.get("backend") == "sharded":
+            from ..distributed.checkpoint import validate_rank_sharded
+
+            return validate_rank_sharded(os.path.join(path, "shards"))
         if manifest.get("backend", "npy") != "npy":
             return (f"backend {manifest.get('backend')!r} is not ported "
                     f"yet")
@@ -523,9 +687,24 @@ class CheckpointManager:
                 return f"checksum mismatch in {entry['file']}"
         return None
 
-    def _load(self, path: str, template: Optional[Any]) -> Tuple[Any, Dict]:
+    def _load(self, path: str, template: Optional[Any],
+              target_world_size: Optional[int] = None,
+              target_rank: Optional[int] = None) -> Tuple[Any, Dict]:
         with open(os.path.join(path, MANIFEST)) as f:
             manifest = json.load(f)
+        if manifest.get("backend") == "sharded":
+            from ..distributed.checkpoint import load_sharded
+
+            # default to this manager's topology: rank r of W reads back
+            # its own slice; the elastic trainer passes target_world_size
+            # 1 to gather the full state for a reform
+            tws = self.world_size if target_world_size is None \
+                else int(target_world_size)
+            tr = self.rank if target_rank is None else int(target_rank)
+            state = load_sharded(os.path.join(path, "shards"),
+                                 template=template, target_world_size=tws,
+                                 target_rank=min(tr, tws - 1))
+            return state, manifest.get("meta", {})
         leaves = _parallel(
             lambda e: _read_tensor(os.path.join(path, e["file"]), e),
             list(manifest["arrays"]))
@@ -534,12 +713,16 @@ class CheckpointManager:
             state = _place_like(state, template)
         return state, manifest.get("meta", {})
 
-    def restore_latest(self, template: Optional[Any] = None
+    def restore_latest(self, template: Optional[Any] = None, *,
+                       target_world_size: Optional[int] = None,
+                       target_rank: Optional[int] = None
                        ) -> Optional[RestoredCheckpoint]:
         """Newest valid checkpoint (validating manifest + checksums), falling
         back to older ones on corruption; None when nothing valid exists.
         `template` (a tree of tensors matching the saved structure) places
-        each restored leaf on its template leaf's device."""
+        each restored leaf on its template leaf's device. For "sharded"
+        checkpoints `target_world_size` / `target_rank` re-slice on load
+        (default: this manager's own rank and world)."""
         self.wait()  # a just-issued async save must be visible (or raise)
         self.last_scan_report = []
         for step in reversed(self.all_steps()):
@@ -549,7 +732,8 @@ class CheckpointManager:
                 self.last_scan_report.append((path, reason))
                 continue
             try:
-                state, meta = self._load(path, template)
+                state, meta = self._load(path, template, target_world_size,
+                                         target_rank)
             except Exception as e:  # torn beyond what validate caught
                 self.last_scan_report.append((path, f"load failed: {e}"))
                 continue

@@ -1,11 +1,11 @@
 """Preemption-aware shutdown (counterpart of
-paddle_tpu/resilience/preemption.py; `attach_elastic` waits for the
-distributed slice).
+paddle_tpu/resilience/preemption.py).
 
 A scheduler preempts a job with a SIGTERM and a grace window. The
 PreemptionHandler latches SIGTERM/SIGINT into a flag the training loop
 polls between steps, so the ResilientTrainer has one preemption source to
-honour with a final checkpoint and a clean exit.
+honour with a final checkpoint and a clean exit. `attach_elastic` makes a
+shrinking membership one more such source.
 """
 from __future__ import annotations
 
@@ -106,3 +106,22 @@ class PreemptionHandler:
     def __exit__(self, *exc):
         self.uninstall()
         return False
+
+    # -- elastic integration ----------------------------------------------
+    def attach_elastic(self, manager, expected_np: int):
+        """Watch a membership (anything with `add_watch_callback`): a
+        shrink below `expected_np` members latches preemption, so this rank
+        checkpoints and exits cleanly rather than hanging in a collective
+        with a dead peer. The callback's argument is either the alive map
+        of a fleet elastic manager or distributed.elastic's change-info
+        dict (whose "members" are counted; the reference counts that
+        dict's keys)."""
+
+        def _cb(alive):
+            if isinstance(alive, dict) and "members" in alive:
+                alive = alive["members"]
+            if len(alive) < expected_np and not self.requested:
+                self.trigger(f"elastic:{len(alive)}/{expected_np} alive")
+
+        manager.add_watch_callback(_cb)
+        return self

@@ -25,8 +25,13 @@ and the other way round.
 model's own torch.Generators (the dropout masks' source), of torch's CPU
 generator and, on a card, of its CUDA generator, restored on resume.
 
-Left for later: `cluster=` (the cross-rank telemetry of the distributed
-slice). The world-size check is kept; the manager's world size is 1.
+`cluster=` (an observability.ClusterTelemetry) publishes every step
+record (FLAGS_metrics on) through the process-group store for rank 0's
+cross-rank aggregation and straggler flags. A checkpoint saved at another
+world size than the manager's is refused, with the way to reshard it.
+
+`train_state` and `load_train_state` are that tree and its in-place
+restore as functions; resilience.ElasticTrainer checkpoints the same tree.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from ..observability import flight_recorder as _flight
 from ..observability import serve as _serve
 from ..observability import telemetry as _telemetry
 
-__all__ = ["ResilientTrainer"]
+__all__ = ["ResilientTrainer", "train_state", "load_train_state"]
 
 
 def _poison_first_float(batch):
@@ -81,6 +86,64 @@ def _poison_first_float(batch):
     return rec(batch)
 
 
+def _trainable(model):
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+def _frozen(model):
+    return list(model.buffers()) + \
+        [p for p in model.parameters() if not p.requires_grad]
+
+
+def _opt_states(model, optimizer):
+    """The optimizer's live per-parameter state dicts, in parameter order
+    (made, with the flat buffers, if no step has run yet)."""
+    optimizer._materialize_state()
+    return [optimizer._get_state(p) for p in _trainable(model)]
+
+
+def train_state(model, optimizer) -> Dict[str, Any]:
+    """The reference's checkpoint tree (see the module note): live tensors
+    and views, not copies."""
+    opt_state = []
+    for st in _opt_states(model, optimizer):
+        opt_state.append({
+            k: (v if torch.is_tensor(v) else np.asarray(v, np.float32))
+            for k, v in st.items()})
+    return {
+        "params": [p.detach() for p in _trainable(model)],
+        "buffers": [b.detach() for b in _frozen(model)],
+        "opt_state": opt_state,
+    }
+
+
+@torch.no_grad()
+def load_train_state(model, optimizer, state: Dict[str, Any],
+                     where: str = "checkpoint") -> None:
+    """Copy a `train_state` tree into the live parameters, buffers and
+    optimizer state, in place (the flat buffers' views stay intact)."""
+    params, buffers = _trainable(model), _frozen(model)
+    if len(state["params"]) != len(params) or \
+            len(state["buffers"]) != len(buffers):
+        raise RuntimeError(
+            f"{where} holds {len(state['params'])} parameters and "
+            f"{len(state['buffers'])} buffers, the model "
+            f"{len(params)} and {len(buffers)}")
+    for p, v in zip(params, state["params"]):
+        p.copy_(v)
+    for b, v in zip(buffers, state["buffers"]):
+        b.copy_(v)
+    for live, saved in zip(_opt_states(model, optimizer),
+                           state["opt_state"]):
+        for k, v in saved.items():
+            if k not in live:
+                continue
+            if torch.is_tensor(live[k]):
+                live[k].copy_(v)
+            else:
+                live[k] = float(v)
+
+
 def _hex(state: torch.Tensor) -> str:
     return bytes(state.numpy().tobytes()).hex()
 
@@ -104,6 +167,9 @@ class ResilientTrainer:
             on_step(skipped: bool)) fed the guard verdict every step.
         anomaly_engine: observability.AnomalyEngine fed each completed step
             record; built from flags (FLAGS_anomaly) when None.
+        cluster: observability.ClusterTelemetry: every step record is
+            published through the process-group store for rank 0's
+            aggregation and straggler detection.
         step_kwargs: extra TrainStep kwargs (device, telemetry).
     """
 
@@ -116,10 +182,6 @@ class ResilientTrainer:
                  anomaly_engine=None,
                  cluster=None,
                  **step_kwargs):
-        if cluster is not None:
-            raise NotImplementedError(
-                "ResilientTrainer(cluster=) is not ported yet (ROADMAP queue "
-                "1: the distributed slice)")
         if isinstance(manager, str):
             manager = CheckpointManager(manager)
         self.manager = manager
@@ -131,36 +193,14 @@ class ResilientTrainer:
         self.preemption = preemption
         self.backoff = backoff
         self.anomaly_engine = anomaly_engine
+        self.cluster = cluster
         self._epoch = 0
         self._offset = 0  # batches consumed in the current epoch
         self.resumed_from: Optional[int] = None
 
     # -- state <-> checkpoint ---------------------------------------------
-    def _params(self):
-        return [p for p in self.model.parameters() if p.requires_grad]
-
-    def _buffers(self):
-        return list(self.model.buffers()) + \
-            [p for p in self.model.parameters() if not p.requires_grad]
-
-    def _opt_states(self):
-        """The optimizer's live per-parameter state dicts, in parameter
-        order (made, with the flat buffers, if no step has run yet)."""
-        opt = self.optimizer
-        opt._materialize_state()
-        return [opt._get_state(p) for p in self._params()]
-
     def _state(self) -> Dict[str, Any]:
-        opt_state = []
-        for st in self._opt_states():
-            opt_state.append({
-                k: (v if torch.is_tensor(v) else np.asarray(v, np.float32))
-                for k, v in st.items()})
-        return {
-            "params": [p.detach() for p in self._params()],
-            "buffers": [b.detach() for b in self._buffers()],
-            "opt_state": opt_state,
-        }
+        return train_state(self.model, self.optimizer)
 
     def _rng_states(self) -> Dict[str, Any]:
         out = {"generators": [_hex(g.get_state())
@@ -214,27 +254,13 @@ class ResilientTrainer:
                 f"checkpoint {restored.path} (step {restored.step}) was "
                 f"saved at world size {int(saved_world)} but this run has "
                 f"world size {cur_world}: refusing to load misshaped "
-                f"sharded state")
-        params, buffers = self._params(), self._buffers()
-        if len(state["params"]) != len(params) or \
-                len(state["buffers"]) != len(buffers):
-            raise RuntimeError(
-                f"checkpoint {restored.path} holds "
-                f"{len(state['params'])} parameters and "
-                f"{len(state['buffers'])} buffers, the model "
-                f"{len(params)} and {len(buffers)}")
-        for p, v in zip(params, state["params"]):
-            p.copy_(v)
-        for b, v in zip(buffers, state["buffers"]):
-            b.copy_(v)
-        for live, saved in zip(self._opt_states(), state["opt_state"]):
-            for k, v in saved.items():
-                if k not in live:
-                    continue
-                if torch.is_tensor(live[k]):
-                    live[k].copy_(v)
-                else:
-                    live[k] = float(v)
+                f"sharded state. Reshard it explicitly with "
+                f"distributed.checkpoint.load_sharded(path, "
+                f"target_world_size={cur_world}, target_rank=<rank>), or "
+                f"use resilience.elastic.ElasticTrainer, which reforms "
+                f"and reshards on a membership change.")
+        load_train_state(self.model, self.optimizer, state,
+                         where=f"checkpoint {restored.path}")
         self.step._step_i = int(meta.get("step", restored.step))
         self.optimizer._step_count = int(
             meta.get("opt_step_count", self.step._step_i))
@@ -314,9 +340,11 @@ class ResilientTrainer:
                         self.backoff.on_step(self.step.last_skipped)
                     if tele is not None:
                         rec = tele.last_record()
-                        if rec is not None and \
-                                self.anomaly_engine is not None:
-                            self.anomaly_engine.observe(rec)
+                        if rec is not None:
+                            if self.anomaly_engine is not None:
+                                self.anomaly_engine.observe(rec)
+                            if self.cluster is not None:
+                                self.cluster.publish(rec)
                     self._offset = i + 1
                     if self.save_every and \
                             self.step._step_i % self.save_every == 0:

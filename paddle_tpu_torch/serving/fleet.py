@@ -511,6 +511,8 @@ class FleetRouter:
         self.registry = ReplicaRegistry(store if store is not None
                                         else InProcStore(),
                                         prefix=prefix, clock=clock)
+        # add_replica/remove_replica change this dict (under _lock) from
+        # the autoscaler's thread: every scan iterates a snapshot of it
         self.replicas: Dict[str, Replica] = {}
         for i, eng in enumerate(engines):
             rid = f"replica-{i}"
@@ -603,7 +605,7 @@ class FleetRouter:
             self.obs.on_breaker(rep.rid, old, new)
 
     def _refresh_health_gauges(self):
-        for rep in self.replicas.values():
+        for rep in list(self.replicas.values()):
             self._breaker_event(rep)
             if self.replica_dead(rep):
                 v = 0.0
@@ -621,7 +623,7 @@ class FleetRouter:
         """Healthy replicas, best first: longest cached prefix chain,
         then least load, then stable id order."""
         scored = []
-        for rep in self.replicas.values():
+        for rep in list(self.replicas.values()):
             if exclude and rep.rid in exclude:
                 continue
             if not self.routable(rep):
@@ -657,7 +659,7 @@ class FleetRouter:
         t0_ns = time.monotonic_ns()
         probes = []
         scored = []
-        for rep in self.replicas.values():
+        for rep in list(self.replicas.values()):
             if exclude and rep.rid in exclude:
                 continue
             if not self.routable(rep) or not self._role_ok(rep, cause):
@@ -854,7 +856,7 @@ class FleetRouter:
         actually take work — otherwise requests place directly on the
         decode pool (full prefill there, symmetric behavior)."""
         return any(rep.role == "prefill" and self.routable(rep)
-                   for rep in self.replicas.values())
+                   for rep in list(self.replicas.values()))
 
     def _pick_decode_target(self, freq: FleetRequest,
                             exclude: Optional[set] = None
@@ -862,7 +864,7 @@ class FleetRouter:
         """Best decode-capable replica for a KV transfer: longest cached
         chain (it may already hold the prefix), then least load."""
         scored = []
-        for rep in self.replicas.values():
+        for rep in list(self.replicas.values()):
             if exclude and rep.rid in exclude:
                 continue
             if not self.routable(rep) or not self._role_ok(rep, "decode"):
@@ -959,7 +961,7 @@ class FleetRouter:
         # prefer a replica this request has not touched, but fall back
         # to retrying anywhere rather than dropping an accepted request
         fresh = any(self.routable(r) and r.rid not in tried
-                    for r in self.replicas.values())
+                    for r in list(self.replicas.values()))
         att, _ = self._place(freq, "redispatch",
                              exclude=tried if fresh else None)
         if att is not None:

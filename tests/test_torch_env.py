@@ -164,6 +164,10 @@ def test_parallel_env_for_one_process(monkeypatch):
                 "PADDLE_LOCAL_RANK", "PADDLE_CURRENT_ENDPOINT",
                 "PADDLE_TRAINER_ENDPOINTS"):
         monkeypatch.delenv(var, raising=False)
+    # one process that nothing initialised: another test's fleet.init() on
+    # the same worker must not leak its flag into this one
+    for env in (jenv, tenv):
+        monkeypatch.setattr(env, "_initialized", False)
 
     def view(env):
         pe = env.ParallelEnv()

@@ -817,3 +817,25 @@ def test_build_fleet_and_the_fleet_exports():
     for spec, n in (("prefill:1,decode:1", 3), ("oracle:2", 2)):
         with pytest.raises(ValueError):
             tserving.parse_fleet_roles(spec, n)
+
+
+def test_routing_survives_a_replica_removed_mid_scan():
+    """The autoscaler adds and removes replicas from its own thread while
+    requests route: a scan of the replicas must not break when the dict
+    changes under it (here replica-1 goes while _place scores replica-0;
+    iterating the dict itself raised "dictionary changed size during
+    iteration" on the card)."""
+    _, router = _fake(SIDES[1])
+    rep0 = router.replicas["replica-0"]
+    score = rep0.affinity
+
+    def affinity(prompt):
+        with router._lock:
+            router.replicas.pop("replica-1", None)
+        return score(prompt)
+
+    rep0.affinity = affinity
+    f = router.submit(_prompts(3, [12])[0], max_new_tokens=4)
+    assert [a.replica.rid for a in f.attempts] == ["replica-0"]
+    _drive(router, [f])
+    assert f.finish_reason == "length" and len(f.output_tokens) == 4

@@ -237,8 +237,13 @@ class TestCheckpointManager:
         assert torch.equal(r.state["w"], _w(3))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CheckpointManager(str(tmp_path), backend="orbax")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CheckpointManager(str(tmp_path), world_size=2)
+        with pytest.raises(ValueError, match="unknown checkpoint backend"):
+            CheckpointManager(str(tmp_path), backend="zarr")
+        # the sharded backend and the multi-rank commit are ported
+        # (tests/test_torch_elastic.py holds them to the reference)
+        two = CheckpointManager(str(tmp_path), backend="sharded",
+                                world_size=2)
+        assert two.world_size == 2 and not two._sync_enabled
 
 
 # ----------------------------------------------- one format, both packages
@@ -572,6 +577,7 @@ def test_trainer_raises_without_a_gpu_unless_asked_for_the_cpu(
         ResilientTrainer(m, lambda a: m(a).sum(), opt, str(tmp_path))
     ResilientTrainer(m, lambda a: m(a).sum(), opt, str(tmp_path),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResilientTrainer(m, lambda a: m(a).sum(), opt, str(tmp_path),
-                         device="cpu", cluster=object())
+    # cluster= is ported (tests/test_torch_cluster.py exercises it)
+    cluster = object()
+    assert ResilientTrainer(m, lambda a: m(a).sum(), opt, str(tmp_path),
+                            device="cpu", cluster=cluster).cluster is cluster

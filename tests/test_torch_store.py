@@ -7,8 +7,9 @@ and wake-up, counters and the `add(key, 0)` read, wait_ge and its
 diagnostics, delete, num_keys, barrier reuse and the missing ranks named
 in a timeout, an idempotent close), and so do the replica registry's
 lease-clock cases. Then get_store under PADDLE_MASTER with two real
-ranks, a counter overwritten by set, the chaos process helpers, and the
-store partition proxy's stall and drop.
+ranks, a counter overwritten by set, the chaos process helpers, the
+store partition proxy's stall and drop, values past c10d's request
+limit, and writers racing over one chunked key.
 """
 import os
 import signal
@@ -268,4 +269,79 @@ def test_partition_proxy_keeps_an_idle_connection():
     finally:
         ours.close()
         theirs.close()
+        master.close()
+
+
+@pytest.mark.parametrize("mib", [16, 64])
+def test_values_past_c10d_request_limit_round_trip(store, mib):
+    """A 16 and a 64 MiB value (past the 8 MiB that c10d's libuv server
+    takes in one request) write, read, overwrite (by a large and by a
+    short value) and delete through both stores, with num_keys counting
+    logical keys throughout and no chunk of the TCPStore left behind."""
+    n0 = store.num_keys()
+    payload = bytes(range(256)) * (mib << 12)
+    store.set("/big/a", payload)
+    assert store.num_keys() == n0 + 1
+    assert store.get("/big/a", blocking=False) == payload
+    assert store.get("/big/a", timeout_s=5.0) == payload
+    other = payload[::-1][: (mib << 20) - 7]
+    store.set("/big/a", other)                 # overwrite, other length
+    assert store.get("/big/a", blocking=False) == other
+    store.set("/big/b", b"small")
+    assert store.num_keys() == n0 + 2
+    store.delete("/big/a")
+    assert store.get("/big/a", blocking=False) is None
+    assert store.num_keys() == n0 + 1
+    assert store.get("/big/b", blocking=False) == b"small"
+    store.set("/big/b", payload)               # short -> chunked -> short
+    store.set("/big/b", b"short again")
+    assert store.get("/big/b", blocking=False) == b"short again"
+    assert store.num_keys() == n0 + 1
+    if isinstance(store, native.TCPStore):
+        _assert_no_chunks(store, n0 + 1)
+
+
+def _assert_no_chunks(store, logical):
+    """The raw c10d store holds the logical keys and the chunk counter,
+    which reads 0: no chunk key is left."""
+    assert int(store._get_once(native._CHUNK_COUNT).decode()) == 0
+    assert store._s.num_keys() == logical + 1
+
+
+def test_racing_large_sets_of_one_key_leave_one_value():
+    """Two clients overwrite one key with 16 MiB values at once, many
+    times: the key ends holding one writer's whole value, every replaced
+    value's chunks are gone (each dropped by the one writer that replaced
+    it), and a delete leaves no chunk behind."""
+    master = native.TCPStore("127.0.0.1", 0, is_master=True)
+    clients = [native.TCPStore("127.0.0.1", master.port) for _ in range(2)]
+    payloads = [bytes([i + 1]) * (16 << 20) for i in range(2)]
+    errors = []
+
+    def writer(c, payload):
+        try:
+            for _ in range(6):
+                c.set("/race", payload)
+                c.set("/race/short", payload[:9])
+        except Exception as e:          # surfaced by the assert below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=writer, args=(c, p))
+                   for c, p in zip(clients, payloads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not errors
+        assert master.get("/race", blocking=False) in payloads
+        assert master.num_keys() == 2
+        n = -(-(16 << 20) // native.CHUNK_BYTES)
+        assert int(master._get_once(native._CHUNK_COUNT).decode()) == n
+        assert master._s.num_keys() == 2 + 1 + n
+        master.delete("/race")
+        _assert_no_chunks(master, 1)
+    finally:
+        for c in clients:
+            c.close()
         master.close()
