@@ -6,8 +6,9 @@ server, across a fleet of replicas, and GPT, rotary too) and
 training paths (GPT under amp O1 and O2, with and without recompute, and
 Llama on packed documents; the resilient loop with its data feed and
 checkpoints; elastic data-parallel ranks as processes, reforming after a
-SIGKILL) on one H100 and hold each of its hand-written kernels against
-its plain PyTorch version.
+SIGKILL; data parallelism over torch.distributed, two ranks on the card)
+on one H100 and hold each of its hand-written kernels against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -329,7 +330,8 @@ final line):
                cluster=ClusterTelemetry) where rank 0 must flag the rank
                that sleeps in its loss, and its flight dump must carry the
                cluster view
- 29. elastic_slice - GPT-3 1.3B at full width and depth, fp32
+ 29. elastic_slice - GPT-3 1.3B at full width, cut to 8 layers (CUT_LAYERS,
+               room for dp_slice), fp32
                parameters, amp O1, AdamW (the fused kernel's fp32 form),
                2 x 2048 tokens a rank, two rank processes on the card,
                save_every 2; rank 1 SIGKILLed once the step-2 checkpoint
@@ -344,6 +346,29 @@ final line):
                six steps at world 1: its losses from the resumed step on
                within 1e-3, its final parameters within 5e-4 relative,
                a bound that must sit below the clean last update's move
+ 30. dp_slice - GPT-3 1.3B at full width and depth under elastic_slice's
+               settings (fp32 parameters, amp O1, AdamW's fp32 form) with a
+               global-norm clip, sequence 2048, global batch 4, two rank
+               processes on the card (distributed.spawn, init_parallel_env,
+               fleet.init at dp_degree 2) stepping through
+               fleet.dp_train_step: a warm-up and three timed steps with 4 MB
+               buckets, then with one bucket. The backend is named:
+               PADDLE_DISTRI_BACKEND=gloo, because NCCL refuses two ranks on
+               one device; gloo reduces the CUDA tensors by staging them
+               through pinned host memory (the tensors stay on the card, the
+               transport is the host's). Each rank's step wall split into
+               fwd+bwd (the hooks' reduces issued), the wait for the last
+               bucket and apply; reduce_s (the comm-only probe), buckets,
+               bytes reduced and GB/s; peak device memory and sampled RSS a
+               rank; flash and AdamW launches summed over the ranks, which
+               must be 24 of each flash kernel and 1 AdamW a step and rank;
+               which collectives gloo takes on CUDA tensors (all_reduce and
+               broadcast must); elastic_slice's world-2 step beside them.
+               The ranks' flat buffers must be bitwise equal after every
+               step (bit sums through the store); then a world-1 TrainStep
+               runs the same eight steps from the same weights: losses
+               within 1e-3, rank 0's final parameters within 5e-4 relative,
+               a bound that must sit below the world-1 run's last update
 
 Every phase's row carries `at_s`, the script's seconds when it ended. The
 last two lines are the kernel summary {"kernels": [...]} and
@@ -363,7 +388,9 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 # the depth of the Llama-2-7B-width models of graph_tick, fleet_slice and
 # proc_fleet_slice, cut from 32 so that the elastic phases fit the
-# script's time limit (main path 1, the serving slice, keeps all 32)
+# script's time limit (main path 1, the serving slice, keeps all 32), and
+# since dp_slice joined the script the depth of elastic_slice's GPT-3 1.3B
+# (from 24: its store exchange took 323 s of a 1,205 s run)
 CUT_LAYERS = 8
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
                   "torch.float32": 67e12}
@@ -2894,6 +2921,26 @@ def _until(cond, what, timeout=120):
         time.sleep(0.001)
 
 
+def _hold(rep):
+    """Pause a thread replica's loop and let a tick that began before the
+    pause end, so that only this thread steps its engine from here on."""
+    rep.pause()
+    time.sleep(0.05)
+
+
+def _step_held(rep, cond, what, ticks=512):
+    """Tick a held replica's engine from this thread until `cond()`. A
+    state a few ticks wide (every request of a replica past its first
+    token and none finished) is then reached on every host: polling a
+    running loop for it missed it on a loaded one."""
+    for _ in range(ticks):
+        if cond():
+            return
+        rep.engine.step()
+    if not cond():
+        raise AssertionError(f"{what} not reached in {ticks} ticks")
+
+
 def _mid_decode(f):
     """The fleet request's live attempt has its first token (its fetch
     may be deferred) and has not finished."""
@@ -2981,13 +3028,13 @@ def fleet_parity_phase(torch, cfg, new_tokens=48):
     # kill: replica-0 dies mid-decode, its requests move to replica-1
     r = router()
     for rep in r.replicas.values():
-        rep.pause()
+        _hold(rep)
     freqs = [r.submit(toks(n), max_new_tokens=4 * new_tokens)
              for n in (40, 300, 77, 150)]
     doomed = [f for f in freqs if f.attempts[0].replica.rid == "replica-0"]
-    r.replicas["replica-0"].unpause()
-    _until(lambda: all(_mid_decode(f) for f in doomed),
-           "replica-0 decoding")
+    _step_held(r.replicas["replica-0"],
+               lambda: all(_mid_decode(f) for f in doomed),
+               "replica-0 decoding")
     r.kill_replica("replica-0")
     r.replicas["replica-1"].unpause()
     _settle(freqs)
@@ -3001,7 +3048,7 @@ def fleet_parity_phase(torch, cfg, new_tokens=48):
 
     # hedge: replica-0 hangs, the hedge on replica-1 wins
     r = router(hedge_ttft_ms=100.0)
-    r.replicas["replica-0"].pause()
+    _hold(r.replicas["replica-0"])
     h = r.submit(toks(60), max_new_tokens=new_tokens)
     _settle([h])
     check([h], "hedge")
@@ -3036,12 +3083,13 @@ def fleet_parity_phase(torch, cfg, new_tokens=48):
     # a migrating drain mid-decode: block-multiple prompts, so the
     # streamed chain is the whole prompt
     r = router()
+    _hold(r.replicas["replica-0"])
     freqs = [r.submit(toks(n), max_new_tokens=new_tokens)
              for n in (64, 128, 256, 192)]
     on0 = [f for f in freqs if f.attempts[0].replica.rid == "replica-0"]
-    _until(lambda: all(_mid_decode(f) for f in on0),
-           "replica-0 decoding")
-    r.replicas["replica-0"].pause()
+    _step_held(r.replicas["replica-0"],
+               lambda: all(_mid_decode(f) for f in on0),
+               "replica-0 decoding")
     r.drain("replica-0", migrate=True)
     r.replicas["replica-0"].unpause()
     _settle(freqs)
@@ -3079,6 +3127,10 @@ def fleet_parity_phase(torch, cfg, new_tokens=48):
     spawned = []
 
     def spawn():
+        # replica-0 is held until the scaler fires, so the burst's load
+        # crosses `hi` on every host; it replays while the new engine is
+        # built and captured
+        r.replicas["replica-0"].unpause()
         spawned.append(ServingEngine(factory(), **kw))
         return spawned[-1]
 
@@ -3086,6 +3138,7 @@ def fleet_parity_phase(torch, cfg, new_tokens=48):
                              hi=0.75, lo=0.25, cooldown_s=0.5,
                              slots_per_replica=kw["max_slots"])
     r.attach_autoscaler(scaler)
+    _hold(r.replicas["replica-0"])
     freqs = [r.submit(toks(n), max_new_tokens=new_tokens)
              for n in (30, 60, 90, 120, 150, 180, 210, 240)]
     _until(lambda: len(r.replicas) == 2, "the scale-up")
@@ -3258,10 +3311,11 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
     symmetric ones on slice 1's 10 requests (two waves) and on a burst of
     24 short greedy prompts; one replica of 16 slots on both; 1 prefill +
     1 decode on the same burst; two symmetric replicas with a
-    migrate=True drain of replica-0 once a third of another such burst,
-    answered at 128-256 tokens, has finished: once as FleetServer's
-    /drain?migrate=1 and the autoscaler drain do it (replica-0 ticking
-    on: a session that finishes before its transfer does stays) and
+    migrate=True drain of replica-0 once the first request of another
+    such burst, answered at 1024-1536 tokens, has finished: once as
+    FleetServer's /drain?migrate=1 and the autoscaler drain do it
+    (replica-0 ticking on: a session that finishes before its transfer
+    does stays) and
     once with replica-0 paused around the drain (a replica that must go
     now). For each: tokens/s,
     mean TTFT (router arrival to first token), requests re-dispatched,
@@ -3291,10 +3345,15 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
     torch.cuda.synchronize()
     model_init_s = time.perf_counter() - t0
     slice10, burst = _fleet_traffic(cfg.vocab_size, new_tokens)
-    # the drains' burst answers at 128-256 tokens: a session then outlasts
-    # a KV transfer (0.2-0.5 s behind the other replica's queued ticks)
+    # the drains' burst answers at 1024-1536 tokens and drains once its
+    # first request is done: replica-0's sessions then outlast their KV
+    # transfers (0.05-0.8 s each, one after another, behind both
+    # replicas' ticks) by seconds. Draining after a third of the burst,
+    # at 128-256 tokens, the ticking drain found replica-0's sessions
+    # finished before their turn and moved none; at 512-1024 tokens
+    # after the first request, it moved 2-3
     burst_m = [_burst(np.random.default_rng(SEED + 31), cfg.vocab_size,
-                      new=(128, 256))]
+                      new=(1024, 1536))]
     burst_p = [_burst(np.random.default_rng(SEED + 32), cfg.vocab_size)]
     names = ("fleet_requests_redispatched_total",
              "fleet_requests_hedged_total", "fleet_requests_shed_total")
@@ -3302,7 +3361,7 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
     def total(name):
         return registry.REGISTRY.get(name).total()
 
-    def run_arm(n, traces, roles=None, drain_frac=None, pause=False,
+    def run_arm(n, traces, roles=None, drain_after=None, pause=False,
                 slots=8, traced=None):
         release(torch)
         torch.cuda.reset_peak_memory_stats()
@@ -3336,9 +3395,9 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
             for wave in trace:
                 mine = [router.submit(p, max_new_tokens=m) for p, m in wave]
                 freqs += mine
-                if drain_frac is not None:
+                if drain_after is not None:
                     _until(lambda: sum(f.done for f in mine)
-                           >= drain_frac * len(mine), "a third done")
+                           >= drain_after, "the first request done")
                     if pause:
                         router.replicas["replica-0"].pause()
                     router.drain("replica-0", migrate=True)
@@ -3391,7 +3450,7 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
         graphs = [graph_gate(e) for e in engines]
         out = {"replicas": n, "slots": slots,
                "roles": roles or "symmetric",
-               "drain": (None if drain_frac is None else
+               "drain": (None if drain_after is None else
                          "paused" if pause else "ticking"),
                "engine_init_s": init_s, "runs": runs,
                "device_trace": device_trace,
@@ -3405,8 +3464,8 @@ def fleet_slice_phase(torch, reset, counts, kernels, new_tokens=64):
             "two": run_arm(2, [slice10, burst], traced=burst_p),
             "one_16_slots": run_arm(1, [slice10, burst], slots=16),
             "disaggregated": run_arm(2, [burst], roles="prefill:1,decode:1"),
-            "migrate_drain": run_arm(2, [burst_m], drain_frac=1 / 3),
-            "migrate_drain_paused": run_arm(2, [burst_m], drain_frac=1 / 3,
+            "migrate_drain": run_arm(2, [burst_m], drain_after=1),
+            "migrate_drain_paused": run_arm(2, [burst_m], drain_after=1,
                                             pause=True)}
     release(torch)
     dis = arms["disaggregated"]["runs"][0]
@@ -3698,8 +3757,13 @@ def proc_fleet_parity_phase(torch, new_tokens=48):
         "migrate": [(toks(n), 10 * new_tokens) for n in (64, 128, 256, 192)],
         "disagg": [(toks(n), new_tokens) for n in (16, 32, 48, 64, 128,
                                                     256)],
-        "scale": [(toks(n), new_tokens) for n in (30, 60, 90, 120, 150,
-                                                   180, 210, 240)],
+        # a burst that holds the load past the autoscaler's `hi` for
+        # several of its polls on a fast host too: 512 new tokens (at 48
+        # the scale-up was missed once; at 192 the load it saw peaked at
+        # 0.75, just `hi`, once in three runs: the serial submits over
+        # HTTP keep pace with short requests' ends)
+        "scale": [(toks(n), 512) for n in (30, 60, 90, 120, 150, 180,
+                                           210, 240)],
         "scale2": [(toks(n), new_tokens) for n in (50, 70, 90, 110)],
         "after": [(toks(n), new_tokens) for n in (45,)],
     }
@@ -5317,10 +5381,16 @@ def _elastic_model(torch, spec, device):
     else:
         cfg = GPTConfig.gpt3_1p3b()
         cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    cfg.num_layers = spec.get("layers", cfg.num_layers)
     cfg.recompute = bool(spec.get("recompute"))
     model = GPTForCausalLM(cfg, device=device, seed=spec["seed"])
+    clip = None
+    if spec.get("clip"):
+        from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+
+        clip = ClipGradByGlobalNorm(spec["clip"])
     opt = AdamW(spec["lr"], parameters=model.parameters(),
-                weight_decay=0.01)
+                weight_decay=0.01, grad_clip=clip)
     amp_on = bool(spec.get("amp"))
 
     def loss_fn(ids):
@@ -5764,10 +5834,11 @@ def elastic_parity_phase(torch, device="cuda"):
 
 
 def elastic_slice_phase(torch, device="cuda", spec=None):
-    """GPT-3 1.3B at full width and depth (fp32 parameters, amp O1, AdamW
-    through the fused kernel's fp32 form), sequence 2048, global batch 4
-    (two rows a rank), in two rank processes on the one card (distributed.
-    spawn) over a native.TCPStore this process hosts, save_every 2: once
+    """GPT-3 1.3B at full width, cut to CUT_LAYERS layers (fp32 parameters,
+    amp O1, AdamW through the fused kernel's fp32 form), sequence 2048,
+    global batch 4 (two rows a rank), in two rank processes on the one
+    card (distributed.spawn) over a native.TCPStore this process hosts,
+    save_every 2: once
     the step-2 checkpoint's commit marker is in the store, SIGKILL rank 1;
     the survivor finds the loss, reforms at world 1 from the rank-sharded
     checkpoint and finishes step 6, so four updates (steps 2-5) run after
@@ -5805,11 +5876,13 @@ def elastic_slice_phase(torch, device="cuda", spec=None):
     spec = dict(spec or dict(
         model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
         nsteps=6, n_batches=6, save_every=2, lease_ttl_s=5.0,
-        heartbeat_s=0.25, allreduce_timeout_s=20.0, sync_timeout_s=300.0))
+        heartbeat_s=0.25, allreduce_timeout_s=20.0, sync_timeout_s=300.0,
+        layers=CUT_LAYERS))
     spec["device"] = device
     spec["dump_params"] = True
     cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
         else GPTConfig.gpt3_1p3b()
+    cfg.num_layers = spec.get("layers", cfg.num_layers)
     state_bytes = 3 * 4 * gpt_numel(cfg)     # fp32 parameters, m and v
     dump_bytes = 4 * gpt_numel(cfg)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_slice_")
@@ -5977,6 +6050,334 @@ def elastic_slice_phase(torch, device="cuda", spec=None):
         "final_params_rel_dev": param_rel, "param_tolerance": param_tol,
         "clean_last_update_rel": step_rel,
         "launches": launches,
+    }
+
+
+# dp_slice (GPT-3 1.3B, bf16 O1, lr 1e-4, two ranks over gloo): the ranks
+# against a world-1 run of the same eight steps on the same global batches;
+# the parameter bound must stay under the world-1 run's last update (checked
+# in the run)
+DP_SLICE_LOSS_TOL = 1e-3
+DP_SLICE_PARAM_TOL = 5e-4
+# the data-parallel step's training kernels (rows 6, 7, 8 and 13)
+DP = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
+# every collective of distributed.collective, tried on the card's tensors
+# under gloo after the slice's steps (which need all_reduce and broadcast);
+# send/recv last: handed to gloo on an H100 under torch 2.11 it broke the
+# ranks' pair, and once aborted both ranks, so the port now refuses it
+DP_PROBE = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
+            "reduce", "all_to_all", "gather", "scatter", "barrier",
+            "send_recv")
+
+
+def _dp_flat_sums(torch, opt):
+    """bit_sums of AdamW's flat parameter and moment buffers."""
+    return bit_sums(torch, [b for g in opt._groups for b in (g.p, g.m, g.v)])
+
+
+def _dp_collectives(torch, dist, device):
+    """Each collective of the port on this rank's small tensors on
+    `device`: "ok", or the exception the backend raised (every rank raises
+    alike: the device check comes before any communication)."""
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(r + 1), device=device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: dist.all_gather([], x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.ones(2 * n, device=device)),
+        "reduce": lambda: dist.reduce(x.clone(), dst=0),
+        "all_to_all": lambda: dist.all_to_all([], [x.clone()
+                                                    for _ in range(n)]),
+        "gather": lambda: dist.gather(x, [], dst=0),
+        "scatter": lambda: dist.scatter(x.clone(), [x.clone()] * n
+                                        if r == 0 else None, src=0),
+        "send_recv": lambda: dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.clone(), (r + 1) % n),
+            dist.P2POp(dist.irecv, x.clone(), (r - 1) % n)]),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name in DP_PROBE:
+        try:
+            calls[name]()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def dp_rank_main(spec):
+    """One data-parallel rank as a process of its own (distributed.spawn
+    imports this module in the child): init_parallel_env under
+    PADDLE_DISTRI_BACKEND=spec["backend"] (both ranks on the one card, so
+    gloo, which stages CUDA tensors through the host), fleet.init at
+    dp_degree 2, the seeded model, and fleet.dp_train_step at each bucket
+    size of spec["mbs"], `steps_per` steps each (the first a warm-up that
+    also takes the reduce probe) on the global batches. After every step
+    the flat buffers' bit sums go through the store and must equal the
+    other rank's. Returns the steps (wall, parts, loss), reduce_s and the
+    buckets of each size, launches, peak memory and which collectives the
+    backend took on the device's tensors; rank 0 dumps its final
+    parameters for the parent's world-1 comparison."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    os.environ["PADDLE_DISTRI_BACKEND"] = spec["backend"]
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import gpu
+
+    device = spec.get("device", "cuda")
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    dist.init_parallel_env(device=None if on_card else "cpu")
+    import torch.distributed as tdist
+
+    backend = tdist.get_backend()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["dp_degree"] = 2
+    fleet.init(is_collective=True, strategy=strategy)
+    rank = dist.get_rank()
+    store = denv.get_store()
+    model, opt, loss_fn = _elastic_model(torch, spec, device)
+    opt = fleet.distributed_optimizer(opt)
+    batches = _elastic_batches(spec)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t_start
+    gpu.reset_launch_counts()
+    steps, configs = [], {}
+    for mb in spec["mbs"]:
+        strategy.dp_comm_configs.update(bucketed_allreduce=mb >= 0,
+                                        grad_bucket_mb=max(mb, 0))
+        step = fleet.dp_train_step(model, loss_fn, opt, strategy=strategy,
+                                   device=device, telemetry=True)
+        for k in range(spec["steps_per"]):
+            s = len(steps)
+            t0 = time.perf_counter()
+            loss = float(step(*batches[s % len(batches)]))
+            wall = time.perf_counter() - t0
+            sums = _dp_flat_sums(torch, opt)
+            store.set(f"/pt/dp_slice/{s}/{rank}", json.dumps(sums))
+            other = json.loads(bytes(store.get(
+                f"/pt/dp_slice/{s}/{1 - rank}", timeout_s=600)).decode())
+            if other != sums:
+                raise AssertionError(f"step {s}: the ranks' flat buffers "
+                                     f"differ: {sums} against {other}")
+            steps.append({"step": s, "grad_bucket_mb": mb, "warmup": k == 0,
+                          "loss": loss, "wall_s": wall,
+                          "parts_s": dict(step.last_parts)})
+        trigger = step._trigger[1]
+        configs[mb] = {"reduce_s": step._reduce_s,
+                       "buckets": len(trigger.buckets),
+                       "bucket_bytes": step._trigger[0][1]}
+    launches = gpu.launch_counts(DP)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if rank == 0 and spec.get("dump"):
+        with open(spec["dump"], "wb") as f:
+            for p in model.parameters():
+                f.write(p.detach().float().cpu().numpy().tobytes())
+    del model, opt, step
+    if on_card:
+        torch.cuda.empty_cache()
+    probe = _dp_collectives(torch, dist, device)
+    store.barrier("dp_slice_done")      # rank 0 hosts the store
+    return {"rank": rank, "pid": os.getpid(), "backend": backend,
+            "setup_s": setup_s, "steps": steps, "configs": configs,
+            "bytes_reduced": nbytes, "launches": launches,
+            "max_allocated": peak, "collectives": probe}
+
+
+def dp_slice_phase(torch, device="cuda", spec=None, elastic=None):
+    """GPT-3 1.3B at full width and depth (fp32 parameters, amp O1, AdamW
+    through the fused kernel's fp32 form, a global-norm clip), sequence
+    2048, global batch 4 (two rows a rank), data-parallel over two rank
+    processes on the one card (distributed.spawn, init_parallel_env and
+    fleet.init at dp_degree 2), through fleet.dp_train_step: a warm-up and
+    three timed steps with 4 MB buckets, then the same with one bucket.
+    The backend is named, gloo: NCCL refuses two ranks on one device, and
+    gloo reduces CUDA tensors by staging them through the host (the
+    tensors stay on the card; the transport is the host's). Reports each
+    rank's step wall split into fwd+bwd (the hooks' reduces issued), the
+    wait for the last bucket and apply, reduce_s (the comm-only probe),
+    buckets, bytes reduced and GB/s, peak device memory and sampled RSS a
+    rank, flash and AdamW launches summed over the ranks (they must be 24
+    each and 1 a step and rank), which collectives gloo took on CUDA
+    tensors, and elastic_slice's world-2 step beside them (`elastic`, that
+    phase's row). The ranks' flat buffers must be bitwise equal after every
+    step; after they exit a world-1 TrainStep runs the same eight steps on
+    the card from the same weights: the ranks' losses within
+    DP_SLICE_LOSS_TOL, rank 0's final parameters within DP_SLICE_PARAM_TOL
+    (|p - p1| / |p1|), a bound that must sit below the world-1 run's last
+    update |p8 - p7| / |p8|."""
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig
+
+    spec = dict(spec or dict(
+        model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
+        n_batches=8, clip=1.0, mbs=(4, -1), steps_per=4))
+    spec.setdefault("backend", "gloo")
+    spec["device"] = device
+    nsteps = spec["steps_per"] * len(spec["mbs"])
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_slice_")
+    free = shutil.disk_usage(tmp).free
+    if free < 1.2 * 4 * gpt_numel(cfg):
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"{free} bytes free under {tmp}: the parameter "
+                           "dump does not fit")
+    spec["dump"] = os.path.join(tmp, "rank0.params")
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    t0 = time.perf_counter()
+    sampler = None
+    try:
+        ctx = spawn(cs.dp_rank_main, args=(spec,), nprocs=2, join=False,
+                    backend="cuda" if device == "cuda" else "cpu")
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {f"rank{r}": p.pid for r, p in enumerate(ctx.processes)},))
+        sampler.start()
+        try:
+            ranks = ctx.join(900)
+        finally:
+            for p in ctx.processes:
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            sampler.join()
+        ranks_s = time.perf_counter() - t0
+
+        # the world-1 run: the same steps on the same global batches
+        model, opt, loss_fn = _elastic_model(torch, spec, device)
+        step = TrainStep(model, loss_fn, opt, device=device)
+        batches = _elastic_batches(spec)
+        params = list(model.parameters())
+        world1, walls = [], []
+        for s in range(nsteps):
+            if s == nsteps - 1:
+                before = [p.detach().clone() for p in params]
+            t1 = time.perf_counter()
+            world1.append(float(step(*batches[s % len(batches)])))
+            walls.append(time.perf_counter() - t1)
+        step_rel = _rel_dev(torch, before, params)
+        del before
+        words = np.memmap(spec["dump"], dtype=np.float32, mode="r")
+        offs = np.cumsum([0] + [p.numel() for p in params])
+        if words.size != offs[-1]:
+            raise AssertionError(f"rank 0 dumped {words.size} parameters, "
+                                 f"the model has {offs[-1]}")
+        param_rel = _rel_dev(torch, (
+            torch.from_numpy(np.array(words[a:b])).to(p.device).view_as(p)
+            for p, a, b in zip(params, offs[:-1], offs[1:])), params)
+        del words, model, opt, step, params
+        if device == "cuda":
+            release(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [st["loss"] for st in ranks[0]["steps"]]
+    if [st["loss"] for st in ranks[1]["steps"]] != losses:
+        raise AssertionError("the ranks' losses differ")
+    dev = max(abs(a - b) for a, b in zip(losses, world1))
+    loss_tol, param_tol = DP_SLICE_LOSS_TOL, DP_SLICE_PARAM_TOL
+    if not all(np.isfinite(losses)) or dev > loss_tol \
+            or not param_rel <= param_tol < step_rel:
+        raise AssertionError(
+            f"losses {losses} against the world-1 run's {world1}: {dev} "
+            f"(bound {loss_tol}); final parameters {param_rel} from the "
+            f"world-1 run's (bound {param_tol}, which must sit below its "
+            f"last update's {step_rel})")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in DP}
+    want = {k: (1 if k == "adamw" else cfg.num_layers) * nsteps * 2
+            for k in DP}
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"launches over both ranks {launches}, "
+                             f"expected {want}")
+    for r in ranks:
+        refused = [k for k in ("all_reduce", "broadcast")
+                   if r["collectives"][k] != "ok"]
+        if refused:
+            raise AssertionError(f"gloo refused {refused} on {device} "
+                                 f"tensors: {r['collectives']}")
+
+    def summary(r):
+        out = {}
+        for mb, c in r["configs"].items():
+            timed = [st for st in r["steps"]
+                     if st["grad_bucket_mb"] == mb and not st["warmup"]]
+            parts = {k: statistics.median(st["parts_s"][k] for st in timed)
+                     for k in timed[0]["parts_s"]}
+            out[str(mb)] = {
+                "buckets": c["buckets"], "bucket_bytes": c["bucket_bytes"],
+                "step_s": [st["wall_s"] for st in timed],
+                "median_step_s": statistics.median(st["wall_s"]
+                                                   for st in timed),
+                "median_parts_s": parts, "reduce_s": c["reduce_s"],
+                "reduce_gb_per_s": r["bytes_reduced"] / c["reduce_s"] / 1e9,
+                "warmup_s": next(st["wall_s"] for st in r["steps"]
+                                 if st["grad_bucket_mb"] == mb)}
+        return out
+
+    world2 = None
+    if elastic:
+        world2 = [st["wall_s"] for d in elastic["per_rank"].values()
+                  for st in d["steps"] if st["world"] == 2 and st["step"] > 0]
+    tokens = spec["rows"] * spec["seq"]
+    per_rank = {r["rank"]: {"setup_s": r["setup_s"],
+                            "by_bucket_mb": summary(r),
+                            "max_allocated": r["max_allocated"],
+                            "launches": r["launches"]} for r in ranks}
+    med = per_rank[0]["by_bucket_mb"][str(spec["mbs"][0])]["median_step_s"]
+    return {
+        "phase": "dp_slice", "model": ("GPT tiny" if spec["model"] == "tiny"
+                                       else "GPT-3 1.3B"),
+        "layers": cfg.num_layers,
+        "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+        "amp": "O1 bfloat16, fp32 parameters", "batch": [spec["rows"],
+                                                         spec["seq"]],
+        "rows_a_rank": spec["rows"] // 2, "world": 2,
+        "backend": ranks[0]["backend"],
+        "backend_why": "two ranks on one card: NCCL refuses that; gloo "
+                       "stages CUDA tensors through the host",
+        "steps": nsteps, "bytes_reduced": ranks[0]["bytes_reduced"],
+        "per_rank": per_rank, "rss_peak_sampled": rss,
+        "tokens_per_s": tokens / med,
+        "elastic_layers": elastic["layers"] if elastic else None,
+        "elastic_world2_step_s": world2,
+        "elastic_world2_median_s": (statistics.median(world2)
+                                    if world2 else None),
+        "world1_step_s": statistics.median(walls[1:]),
+        "losses": losses, "world1_losses": world1,
+        "max_abs_loss_dev": dev, "loss_tolerance": loss_tol,
+        "final_params_rel_dev": param_rel, "param_tolerance": param_tol,
+        "world1_last_update_rel": step_rel,
+        "collectives_on_device": {r["rank"]: r["collectives"]
+                                  for r in ranks},
+        "launches": launches, "ranks_s": ranks_s,
     }
 
 
@@ -6203,7 +6604,11 @@ def main():
     # store and holds nothing on the card meanwhile
     emit(elastic_parity_phase(torch))
     release(torch)
-    emit(elastic_slice_phase(torch))
+    elastic = elastic_slice_phase(torch)
+    emit(elastic)
+    release(torch)
+    # data parallelism over gloo: two ranks on the card, this process idle
+    emit(dp_slice_phase(torch, elastic=elastic))
     release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged

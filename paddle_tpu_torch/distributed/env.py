@@ -13,11 +13,17 @@ tombstones), which works alike over either store. `ParallelEnv`,
 With PADDLE_MASTER=host:port set and more than one rank, `get_store`
 returns the store across processes (native.TCPStore over
 torch.distributed's c10d store): rank 0 hosts it, the others connect.
+
+`init_parallel_env` joins torch.distributed's default process group at
+that endpoint, one process a rank (see its note), and
+`reform_parallel_env` re-points the rank variables after an elastic
+change.
 """
 from __future__ import annotations
 
 import json
 import os
+import socket
 import threading
 import time
 from typing import Dict, List, Optional
@@ -308,3 +314,152 @@ def get_world_size(group=None) -> int:
 
 def is_initialized() -> bool:
     return _initialized
+
+
+_pg_generation = 0     # process groups this process has initialised
+
+
+def _local_cuda_device(local_rank: int) -> torch.device:
+    """cuda:{local_rank % device_count}, made current; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_parallel_env: this rank sees no CUDA device; pass "
+            "device='cpu' to run it on the CPU")
+    dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _device_identity(dev: torch.device) -> str:
+    """What names a card across processes: the host and the card's UUID
+    (two processes with other CUDA_VISIBLE_DEVICES see one card under two
+    indices, or two cards under one)."""
+    if dev.type != "cuda":
+        return f"{socket.gethostname()}/cpu"
+    props = torch.cuda.get_device_properties(dev)
+    return (f"{socket.gethostname()}/{getattr(props, 'uuid', dev.index)} "
+            f"({dev}, {props.name})")
+
+
+def check_device_clash(backend: str, devices: Dict[int, str]) -> None:
+    """Raise ValueError, naming the device, when `backend` is nccl and two
+    ranks of `devices` (rank -> the identity `_device_identity` gives)
+    share one CUDA device: NCCL refuses that. Nothing here switches the
+    backend; gloo may share a device."""
+    if backend != "nccl":
+        return
+    seen: Dict[str, int] = {}
+    for rank in sorted(devices):
+        ident = devices[rank]
+        if ident.split("/", 1)[-1] == "cpu":
+            continue
+        if ident in seen:
+            raise ValueError(
+                f"backend nccl: ranks {seen[ident]} and {rank} share the "
+                f"device {ident}, and NCCL refuses two ranks on one "
+                "device; give each rank a card of its own "
+                "(PADDLE_LOCAL_RANK), or name another backend in "
+                "PADDLE_DISTRI_BACKEND (gloo)")
+        seen[ident] = rank
+
+
+def init_parallel_env(strategy=None, *, device=None) -> "ParallelEnv":
+    """Reference: paddle_tpu/distributed/env.py:334 (Paddle's
+    parallel.py:914). Idempotent.
+
+    Reads the launcher's variables: PADDLE_MASTER (or
+    COORDINATOR_ADDRESS) as host:port, PADDLE_TRAINERS_NUM and
+    PADDLE_TRAINER_ID. With more than one rank this process joins
+    torch.distributed's default process group at that tcp:// endpoint.
+    The rendezvous store there is the package's process-group store
+    (`get_store`: rank 0 hosts a c10d TCPStore at PADDLE_MASTER, the
+    others connect), handed to `init_process_group` under a prefix of
+    its own, so the store and the process group share one endpoint (a
+    tcp:// init method would bind the port a second time).
+
+    `device=None` binds the rank to cuda:{PADDLE_LOCAL_RANK %
+    device_count} (raising when there is no CUDA device); "cpu" keeps it
+    on the CPU, as the tests ask. The backend is PADDLE_DISTRI_BACKEND
+    (Paddle's own variable) when set, else nccl on CUDA and gloo on the
+    CPU. Before the backend starts, the ranks exchange their devices
+    through the store, and under nccl two ranks on one device raise
+    ValueError naming it: the backend is never switched behind the
+    caller's back. At world 1, or without PADDLE_MASTER, no process group
+    is made and every collective stays the identity, as in the
+    reference. Keeps the span dist.init_parallel_env and the counter
+    distributed_init_total."""
+    global _initialized, _pg_generation
+    if _initialized:
+        return ParallelEnv()
+    import torch.distributed as dist
+
+    from ..observability.registry import counter as _obs_counter
+    from ..observability.spans import span as _span
+
+    coord = os.environ.get("PADDLE_MASTER") or \
+        os.environ.get("COORDINATOR_ADDRESS")
+    nproc = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    pid = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+    env = ParallelEnv()
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        dev = _local_cuda_device(env.local_rank if dev.index is None
+                                 else dev.index)
+    backend = os.environ.get("PADDLE_DISTRI_BACKEND") or \
+        ("nccl" if dev.type == "cuda" else "gloo")
+    with _span("dist.init_parallel_env", cat="dist",
+               args={"nproc": nproc, "rank": pid, "backend": backend}):
+        if coord and nproc > 1 and not dist.is_initialized():
+            os.environ["PADDLE_MASTER"] = coord    # where get_store looks
+            store = get_store(nproc)
+            if isinstance(store, InProcStore):
+                raise RuntimeError(
+                    "init_parallel_env: the process-group store is "
+                    "in-process (torch.distributed is unavailable, or "
+                    "get_store() ran before PADDLE_MASTER was set: "
+                    "reset_store() first), so the ranks cannot meet")
+            prefix = f"/pt/pg/{_pg_generation}"
+            store.set(f"{prefix}/device/{pid}", _device_identity(dev))
+            devices = {r: bytes(store.get(f"{prefix}/device/{r}",
+                                          timeout_s=300.0)).decode()
+                       for r in range(nproc)}
+            check_device_clash(backend, devices)
+            dist.init_process_group(
+                backend, store=dist.PrefixStore(prefix, store._store),
+                rank=pid, world_size=nproc)
+            _pg_generation += 1
+    _obs_counter("distributed_init_total",
+                 "init_parallel_env completions.").inc()
+    _initialized = True
+    return env
+
+
+def reform_parallel_env(rank: int, world_size: int, *,
+                        drop_store: bool = False) -> "ParallelEnv":
+    """Reference: paddle_tpu/distributed/env.py:361. Re-point this
+    process's rank and world after an elastic membership change:
+    rewrites PADDLE_TRAINER_ID and PADDLE_TRAINERS_NUM, which ParallelEnv,
+    get_rank and get_world_size read lazily. `drop_store=True` also drops
+    the cached process-group store (a real multi-host reform whose
+    endpoint set changed; not thread ranks sharing one InProcStore).
+
+    A torch.distributed process group cannot change its size or ranks,
+    so an initialised default group is destroyed here, with the mesh and
+    the groups made over it, and init_parallel_env is armed again: the
+    next call meets the new world under a fresh store prefix. The
+    reference's single-controller world has no such group to drop."""
+    global _initialized
+    os.environ["PADDLE_TRAINER_ID"] = str(int(rank))
+    os.environ["PADDLE_TRAINERS_NUM"] = str(int(world_size))
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        from . import collective, mesh
+
+        mesh.set_mesh(None)
+        collective._reset_groups()
+        dist.destroy_process_group()
+        _initialized = False
+    if drop_store:
+        reset_store()
+    return ParallelEnv()

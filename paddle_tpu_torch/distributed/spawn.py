@@ -17,11 +17,17 @@ that finds none raises before it runs `func`; a child of rank r takes card
 r % the card count as its current device. "cpu" hides every card from the
 children (CUDA_VISIBLE_DEVICES is emptied), so `func` must ask for the
 CPU, as the tests do. PADDLE_SPAWN_BACKEND carries the choice to `func`.
+
+Every child also gets what `init_parallel_env` needs to meet the others:
+PADDLE_MASTER (the parent's, or 127.0.0.1 and a port that was free when
+spawn looked) and PADDLE_LOCAL_RANK (its rank: the children share this
+host).
 """
 from __future__ import annotations
 
 import os
 import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -101,6 +107,12 @@ def _subprocess_main():  # the child's entry (see spawn below)
         sys.exit(1)
 
 
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False,
           backend="cuda", timeout=None, **options):
     """Run func(*args) in `nprocs` processes (default: PADDLE_TRAINERS_NUM,
@@ -123,6 +135,7 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False,
 
             nprocs = torch.cuda.device_count()
         nprocs = nprocs or os.cpu_count() or 1
+    master = os.environ.get("PADDLE_MASTER") or f"127.0.0.1:{_free_port()}"
     tmpdir = tempfile.TemporaryDirectory(prefix="paddle_spawn_")
     procs, out_paths = [], []
     mod_dir = None
@@ -144,6 +157,8 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False,
         env = dict(os.environ)
         env["PADDLE_TRAINER_ID"] = str(rank)
         env["PADDLE_TRAINERS_NUM"] = str(nprocs)
+        env["PADDLE_LOCAL_RANK"] = str(rank)
+        env["PADDLE_MASTER"] = master
         env["PADDLE_SPAWN_BACKEND"] = backend
         env["PADDLE_SPAWN_IN"] = in_path
         env["PADDLE_SPAWN_OUT"] = out_path

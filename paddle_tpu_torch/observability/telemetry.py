@@ -16,7 +16,9 @@ estimated MFU. The assembly protocol is the reference's:
   * the NEXT `on_step` (or `finalize()`) writes the completed record to the
     JSONL event log under FLAGS_metrics_dir.
 
-`reduce` stays 0 here: the port has no data parallelism yet. The MFU's
+`reduce` is the data-parallel TrainStep's `reduce_s`, the time of its
+comm-only probe, carved out of compute as the reference does; it stays
+0 without data parallelism. The MFU's
 denominator is `peak_flops` of the card the process runs on, the H100's
 bf16 dense peak, not the reference's TPU figure; where no CUDA card is
 present (or its peak is not stated) the record carries no MFU.
@@ -164,6 +166,12 @@ class StepTelemetry:
             self._write(prev)
 
         compute_s = float(core.get("compute_s", 0.0))
+        # the data-parallel step's probed reduce time, attributed out of
+        # its measured wall so the phases still sum to it
+        reduce_s = min(float(core.get("reduce_s", 0.0) or 0.0), compute_s)
+        if reduce_s > 0.0:
+            phases["reduce"] = phases.get("reduce", 0.0) + reduce_s
+            compute_s -= reduce_s
         phases["compute"] = phases.get("compute", 0.0) + compute_s
         # step to step wall time covers data + compute + save; throughput
         # and MFU use it when there is one (first step: compute only)

@@ -134,6 +134,19 @@ class AdamW(Optimizer):
         if self._groups is None:
             self._build_groups()
 
+    @torch.no_grad()
+    def _grad_views(self):
+        """Give every parameter its flat buffer's gradient view now (zeros
+        where it had no gradient), so the next backward accumulates in
+        place and a data-parallel bucket of neighbours is one slice of
+        the buffer (distributed/grad_buckets.py)."""
+        self._materialize_state()
+        for group in self._groups:
+            group.adopt_grads()
+            for p, view in zip(group.params, group.grads):
+                if p.grad is None:
+                    p.grad = view
+
     def _runs(self, group):
         """Maximal runs [(start, end, beta1_pow, beta2_pow, params)] of
         neighbouring parameters that have gradients and share beta powers."""

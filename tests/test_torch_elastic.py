@@ -729,13 +729,32 @@ def test_scale_up_join_reforms_like_the_reference(tmp_path):
     """A fourth member request_joins a world of three once it has taken
     four steps: every member ends at world 4 with bitwise-equal
     parameters, and the losses match the reference's uninterrupted
-    world-3 run (the trajectory is a function of the global batch)."""
+    world-3 run (the trajectory is a function of the global batch).
+
+    The incumbents hold at step 5 until the join request is in the
+    store, so they fold the joiner in at step 5 or 6 however late the
+    test's thread gets to request it (a joiner that asked after the
+    incumbents had finished was the failure this guards against)."""
     batches = _batches(6)
     _, clean = _world(JAX, str(tmp_path / "clean"), [0, 1, 2], batches, 12)
     store = InProcStore()
     root = str(tmp_path / "join")
     trainers = {m: _elastic(PORT, root, store, m, [0, 1, 2])
                 for m in (0, 1, 2)}
+
+    def held(tr, loss_fn):
+        def loss(*batch):
+            t0 = time.monotonic()
+            while tr._gstep == 5 and \
+                    store.add("/pt/elastic/join_seq", 0) < 1:
+                if time.monotonic() - t0 > 120:
+                    raise TimeoutError("no join request within 120 s")
+                time.sleep(0.01)
+            return loss_fn(*batch)
+        return loss
+
+    for tr in trainers.values():
+        tr.step.loss_fn = held(tr, tr.step.loss_fn)
     ts, reports = _go(trainers, batches, 12)
     t0 = time.monotonic()
     while trainers[0]._gstep < 4 and time.monotonic() - t0 < 60:
