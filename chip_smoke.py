@@ -6,7 +6,8 @@ server, across a fleet of replicas, and GPT, rotary too) and
 training paths (GPT under amp O1 and O2, with and without recompute, and
 Llama on packed documents; the resilient loop with its data feed and
 checkpoints; elastic data-parallel ranks as processes, reforming after a
-SIGKILL; data parallelism over torch.distributed, two ranks on the card)
+SIGKILL; data parallelism over torch.distributed, two ranks on the card;
+context parallelism, ring and Ulysses, two sequence ranks on the card)
 on one H100 and hold each of its hand-written kernels against its plain
 PyTorch version.
 
@@ -300,7 +301,7 @@ final line):
                memory, shuffle=True): the batch order must equal
                num_workers=0's; then through DevicePrefetcher(depth=2):
                batches/s, the prefetcher's wait, every batch on the card
- 27. resilient_slice - GPT-3 1.3B's widths cut to 2 layers (a ~2.9 GB
+ 27. resilient_slice - GPT-3 1.3B's widths cut to 1 layer (a ~2.2 GB
                checkpoint), amp O2, recompute, hidden dropout 0.1, fed by
                io_feed's loader through the prefetcher, through
                ResilientTrainer over an async CheckpointManager
@@ -330,8 +331,8 @@ final line):
                cluster=ClusterTelemetry) where rank 0 must flag the rank
                that sleeps in its loss, and its flight dump must carry the
                cluster view
- 29. elastic_slice - GPT-3 1.3B at full width, cut to 8 layers (CUT_LAYERS,
-               room for dp_slice), fp32
+ 29. elastic_slice - GPT-3 1.3B at full width, cut to 2 layers
+               (RANK_LAYERS, room for dp_slice and cp_slice), fp32
                parameters, amp O1, AdamW (the fused kernel's fp32 form),
                2 x 2048 tokens a rank, two rank processes on the card,
                save_every 2; rank 1 SIGKILLed once the step-2 checkpoint
@@ -346,7 +347,8 @@ final line):
                six steps at world 1: its losses from the resumed step on
                within 1e-3, its final parameters within 5e-4 relative,
                a bound that must sit below the clean last update's move
- 30. dp_slice - GPT-3 1.3B at full width and depth under elastic_slice's
+ 30. dp_slice - GPT-3 1.3B at full width, cut to 2 layers (RANK_LAYERS,
+               room for cp_slice), under elastic_slice's
                settings (fp32 parameters, amp O1, AdamW's fp32 form) with a
                global-norm clip, sequence 2048, global batch 4, two rank
                processes on the card (distributed.spawn, init_parallel_env,
@@ -369,6 +371,30 @@ final line):
                runs the same eight steps from the same weights: losses
                within 1e-3, rank 0's final parameters within 5e-4 relative,
                a bound that must sit below the world-1 run's last update
+ 31. cp_slice - context parallelism: GPT-3 1.3B at full width and depth
+               (fp32 parameters, amp O1, AdamW's fp32 form, a global-norm
+               clip), global batch 4 x 2048, two sep rank processes on the
+               card (distributed.spawn, init_parallel_env, fleet.init at
+               sep_degree 2), each computing [4, 1024] of every step
+               through TrainStep(dp_axis="dp"): GPT's sequence_parallel
+               'ring', then 'ulysses', in the same processes from the same
+               initial weights, a warm-up and three timed steps each. Over
+               gloo; the K/V permutes and all-to-alls take the stated host
+               route ("transport": "host-staged gloo": pinned host copies,
+               gloo on the CPU tensors, copies back; the kernels stay on
+               the card). Each rank's step wall split into fwd+bwd (the
+               exchanges inside), the wait for the sep gradient sum and
+               apply; the exchange's calls, bytes, seconds and MB/s; peak
+               device memory and sampled RSS a rank; flash and AdamW
+               launches summed over the ranks, which must be exactly 3 of
+               each flash kernel a layer and step for the ring (rank 0 the
+               diagonal chunk, rank 1 the diagonal and one past chunk), 2
+               for Ulysses, and AdamW 1 a step and rank. The ranks' flat
+               buffers must be bitwise equal after every step; then a
+               world-1 TrainStep at sep=1 runs the same four steps on the
+               whole batch from the same weights: each mode's losses within
+               1e-3, rank 0's final parameters within 1e-3 relative, a bound
+               that must sit below the world-1 run's last update
 
 Every phase's row carries `at_s`, the script's seconds when it ended. The
 last two lines are the kernel summary {"kernels": [...]} and
@@ -388,10 +414,16 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 # the depth of the Llama-2-7B-width models of graph_tick, fleet_slice and
 # proc_fleet_slice, cut from 32 so that the elastic phases fit the
-# script's time limit (main path 1, the serving slice, keeps all 32), and
-# since dp_slice joined the script the depth of elastic_slice's GPT-3 1.3B
-# (from 24: its store exchange took 323 s of a 1,205 s run)
+# script's time limit (main path 1, the serving slice, keeps all 32)
 CUT_LAYERS = 8
+# the depth of elastic_slice's and dp_slice's GPT-3 1.3B: 24 until the
+# store exchange took 323 s of a 1,205 s run (elastic) and cp_slice joined
+# the script (dp, 92-126 s); then 8, until runs of 960 and 1,245 s with
+# cp_slice, where their exchanges took 116-138 s and 39-59 s (their time
+# follows the parameters' bytes: 2.05 GB at 8 layers, 1.24 GB at 4); then
+# 4, until a run of 1,155 s on a slow host (elastic 104 s, dp 37 s); now 2
+# (0.83 GB)
+RANK_LAYERS = 2
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
                   "torch.float32": 67e12}
 SEED = 0
@@ -5124,7 +5156,8 @@ def io_feed_phase(torch, rows=64, batch=4, seq=2048, vocab=50304,
 def resilient_slice_phase(torch, steps=8, save_every=2, batch=4, seq=2048,
                           lr=1e-4, poison_step=5, preempt_at=3, cfg=None,
                           device="cuda"):
-    """GPT-3 1.3B's widths cut to 2 layers (a checkpoint of ~2.9 GB), amp
+    """GPT-3 1.3B's widths cut to 1 layer (a checkpoint of ~2.2 GB; 2
+    until cp_slice joined the script), amp
     O2 with recompute, hidden dropout 0.1 from the model's generator, fed
     by io_feed's loader through the DevicePrefetcher, through
     ResilientTrainer(CheckpointManager(tmp, keep_last_n=2,
@@ -5160,7 +5193,7 @@ def resilient_slice_phase(torch, steps=8, save_every=2, batch=4, seq=2048,
 
     if cfg is None:
         cfg = GPTConfig.gpt3_1p3b()
-        cfg.num_layers = 2
+        cfg.num_layers = 1
         cfg.attention_dropout_prob = 0.0      # flash; hidden dropout 0.1
     cfg = copy.deepcopy(cfg)
     cfg.recompute = True
@@ -5316,8 +5349,8 @@ def resilient_slice_phase(torch, steps=8, save_every=2, batch=4, seq=2048,
     tele = rep1.get("telemetry", {})
     return {
         "phase": "resilient_slice",
-        "model": "GPT-3 1.3B widths, 2 layers (depth cut: a checkpoint of "
-                 "~2.9 GB)", "params": n_params, "amp": "O2 bfloat16",
+        "model": f"GPT-3 1.3B widths, {cfg.num_layers} layers (depth cut)",
+        "params": n_params, "amp": "O2 bfloat16",
         "recompute": True, "hidden_dropout": cfg.hidden_dropout_prob,
         "batch": [batch, seq], "steps": steps, "save_every": save_every,
         "poisoned_step": poison_step,
@@ -5834,8 +5867,9 @@ def elastic_parity_phase(torch, device="cuda"):
 
 
 def elastic_slice_phase(torch, device="cuda", spec=None):
-    """GPT-3 1.3B at full width, cut to CUT_LAYERS layers (fp32 parameters,
-    amp O1, AdamW through the fused kernel's fp32 form), sequence 2048,
+    """GPT-3 1.3B at full width, cut to RANK_LAYERS layers (fp32
+    parameters, amp O1, AdamW through the fused kernel's fp32 form),
+    sequence 2048,
     global batch 4 (two rows a rank), in two rank processes on the one
     card (distributed.spawn) over a native.TCPStore this process hosts,
     save_every 2: once
@@ -5877,7 +5911,7 @@ def elastic_slice_phase(torch, device="cuda", spec=None):
         model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
         nsteps=6, n_batches=6, save_every=2, lease_ttl_s=5.0,
         heartbeat_s=0.25, allreduce_timeout_s=20.0, sync_timeout_s=300.0,
-        layers=CUT_LAYERS))
+        layers=RANK_LAYERS))
     spec["device"] = device
     spec["dump_params"] = True
     cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
@@ -6110,6 +6144,15 @@ def _dp_collectives(torch, dist, device):
     return out
 
 
+def _dump_params(model, path):
+    """The parameters' fp32 bytes, in order, to `path`. A function of its
+    own: a loop variable left holding a parameter would keep AdamW's flat
+    parameter and gradient buffers (views) alive after the model."""
+    with open(path, "wb") as f:
+        for p in model.parameters():
+            f.write(p.detach().float().cpu().numpy().tobytes())
+
+
 def dp_rank_main(spec):
     """One data-parallel rank as a process of its own (distributed.spawn
     imports this module in the child): init_parallel_env under
@@ -6185,9 +6228,7 @@ def dp_rank_main(spec):
     launches = gpu.launch_counts(DP)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     if rank == 0 and spec.get("dump"):
-        with open(spec["dump"], "wb") as f:
-            for p in model.parameters():
-                f.write(p.detach().float().cpu().numpy().tobytes())
+        _dump_params(model, spec["dump"])
     del model, opt, step
     if on_card:
         torch.cuda.empty_cache()
@@ -6200,7 +6241,8 @@ def dp_rank_main(spec):
 
 
 def dp_slice_phase(torch, device="cuda", spec=None, elastic=None):
-    """GPT-3 1.3B at full width and depth (fp32 parameters, amp O1, AdamW
+    """GPT-3 1.3B at full width, cut to RANK_LAYERS since cp_slice joined
+    the script (fp32 parameters, amp O1, AdamW
     through the fused kernel's fp32 form, a global-norm clip), sequence
     2048, global batch 4 (two rows a rank), data-parallel over two rank
     processes on the one card (distributed.spawn, init_parallel_env and
@@ -6233,12 +6275,13 @@ def dp_slice_phase(torch, device="cuda", spec=None, elastic=None):
 
     spec = dict(spec or dict(
         model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
-        n_batches=8, clip=1.0, mbs=(4, -1), steps_per=4))
+        n_batches=8, clip=1.0, mbs=(4, -1), steps_per=4, layers=RANK_LAYERS))
     spec.setdefault("backend", "gloo")
     spec["device"] = device
     nsteps = spec["steps_per"] * len(spec["mbs"])
     cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
         else GPTConfig.gpt3_1p3b()
+    cfg.num_layers = spec.get("layers", cfg.num_layers)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_slice_")
     free = shutil.disk_usage(tmp).free
     if free < 1.2 * 4 * gpt_numel(cfg):
@@ -6378,6 +6421,338 @@ def dp_slice_phase(torch, device="cuda", spec=None, elastic=None):
         "collectives_on_device": {r["rank"]: r["collectives"]
                                   for r in ranks},
         "launches": launches, "ranks_s": ranks_s,
+    }
+
+
+# cp_slice (GPT-3 1.3B, bf16 O1, lr 1e-4, two sep ranks over gloo, each on
+# half of every row): the ranks against a world-1 run of the same four
+# steps on the same global batches. On an H100 the ring's losses read
+# 1.9e-4 apart and its final parameters 5.1e-4 apart (relative), where the
+# world-1 run's last update moves them 2.2e-3: each ring chunk's output is
+# rounded to bf16 before the fp32 merge. The parameter bound must stay
+# under the last update's move (checked in the run): a lost or repeated
+# update is a whole one
+CP_SLICE_LOSS_TOL = 1e-3
+CP_SLICE_PARAM_TOL = 1e-3
+CP_MODES = ("ring", "ulysses")
+
+
+def _cp_want(mode, layers, steps):
+    """Launches over both ranks of one mode's steps: the ring runs a causal
+    diagonal chunk on each rank and rank 1's one past chunk (rank 0's only
+    other chunk is in its future: skipped), so 3 of each flash kernel a
+    layer and step; Ulysses one full-sequence attention a rank, 2; AdamW's
+    fp32 form once a step and rank."""
+    n = {"ring": 3, "ulysses": 2}[mode] * layers * steps
+    return {"flash_fwd": n, "flash_dq": n, "flash_dkv": n, "adamw": 2 * steps}
+
+
+def _cp_model(torch, spec, device, mode):
+    """_elastic_model with GPT's sequence_parallel = mode (`None`: the
+    world-1 run on the whole sequence)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    cfg.num_layers = spec.get("layers", cfg.num_layers)
+    cfg.sequence_parallel = mode
+    model = GPTForCausalLM(cfg, device=device, seed=spec["seed"])
+    opt = AdamW(spec["lr"], parameters=model.parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(spec["clip"]))
+    amp_on = bool(spec.get("amp"))
+
+    def loss_fn(ids):
+        with amp.auto_cast(enable=amp_on, level="O1", dtype="bfloat16"):
+            return model(ids, labels=ids)
+
+    return model, opt, loss_fn
+
+
+def cp_rank_main(spec):
+    """One sequence-parallel rank as a process of its own (distributed.spawn
+    imports this module in the child): init_parallel_env under
+    PADDLE_DISTRI_BACKEND=spec["backend"] (gloo: both ranks are on the one
+    card), fleet.init at sep_degree 2, then for each mode of CP_MODES the
+    seeded model (the same initial bits in every mode, checked) through
+    TrainStep(dp_axis="dp"): `steps` steps on the global batches, the
+    first a warm-up. Each rank computes half of every row; the exchanges
+    (ring permutes, Ulysses all-to-alls) take collective.py's host-staged
+    gloo route. After every step the flat buffers' bit sums go through the
+    store and must equal the other rank's. Returns, a mode, the steps
+    (wall, parts, loss, the exchange's calls, bytes and seconds), launches,
+    peak memory; rank 0 dumps each mode's final parameters."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    os.environ["PADDLE_DISTRI_BACKEND"] = spec["backend"]
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import gpu
+
+    device = spec.get("device", "cuda")
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    dist.init_parallel_env(device=None if on_card else "cpu")
+    import torch.distributed as tdist
+
+    backend = tdist.get_backend()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["sep_degree"] = 2
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    group = hcg.get_sep_parallel_group()
+    rank = dist.get_rank()
+    store = denv.get_store()
+    batches = _elastic_batches(spec)
+    route = collective.transport(torch.empty(1, device=device), group)
+    out = {"rank": rank, "pid": os.getpid(), "backend": backend,
+           "transport": route, "sep_rank": group.rank,
+           "sep_ranks": group.ranks, "modes": {}}
+    init_sums = None
+    for mode in CP_MODES:
+        model, opt, loss_fn = _cp_model(torch, spec, device, mode)
+        sums0 = bit_sums(torch, [p.detach() for p in model.parameters()])
+        if init_sums is not None and sums0 != init_sums:
+            raise AssertionError(f"{mode}: initial weights differ from "
+                                 f"{CP_MODES[0]}'s")
+        init_sums = sums0
+        # no comm-only reduce probe (a second 5.26 GB sum in the warm-up):
+        # the step's parts time the sum itself
+        step = TrainStep(model, loss_fn, opt, device=device, dp_axis="dp",
+                         telemetry=True, reduce_probe=False)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        setup_s = time.perf_counter() - t_start
+        steps = []
+        gpu.reset_launch_counts()
+        for s in range(spec["steps"]):
+            collective.reset_transport_stats()
+            t0 = time.perf_counter()
+            loss = float(step(*batches[s % len(batches)]))
+            wall = time.perf_counter() - t0
+            ex = collective.transport_stats()
+            sums = _dp_flat_sums(torch, opt)
+            key = f"/pt/cp_slice/{mode}/{s}"
+            store.set(f"{key}/{rank}", json.dumps(sums))
+            other = json.loads(bytes(store.get(
+                f"{key}/{1 - rank}", timeout_s=600)).decode())
+            if other != sums:
+                raise AssertionError(f"{mode} step {s}: the ranks' flat "
+                                     f"buffers differ: {sums} against "
+                                     f"{other}")
+            steps.append({"step": s, "warmup": s == 0, "loss": loss,
+                          "wall_s": wall, "parts_s": dict(step.last_parts),
+                          "exchange": ex})
+        launches = gpu.launch_counts(DP)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        if rank == 0 and spec.get("dump"):
+            _dump_params(model, f"{spec['dump']}.{mode}")
+        out["modes"][mode] = {
+            "setup_s": setup_s, "steps": steps, "launches": launches,
+            "max_allocated": peak,
+            "grad_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+        del model, opt, step, loss_fn
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t_start = time.perf_counter()
+    store.barrier("cp_slice_done")      # rank 0 hosts the store
+    return out
+
+
+def cp_slice_phase(torch, device="cuda", spec=None):
+    """GPT-3 1.3B at full width and depth (fp32 parameters, amp O1, AdamW's
+    fused fp32 form, a global-norm clip), global batch 4 x 2048, context-
+    parallel over two sep rank processes on the one card (distributed.spawn,
+    init_parallel_env, fleet.init at sep_degree 2): each rank computes
+    [4, 1024], through TrainStep(dp_axis="dp") with GPT's
+    sequence_parallel 'ring' and then 'ulysses' in the same processes
+    from the same initial weights, a warm-up and three timed steps each.
+    The backend is gloo (NCCL refuses two ranks on one device), and the
+    K/V permutes and all-to-alls take collective.py's stated host route,
+    "host-staged gloo". Reports, a mode, each rank's step wall split into
+    fwd+bwd (the exchanges inside), the wait for the sep gradient sum and
+    apply; the exchange's calls, bytes, seconds and MB/s with the
+    transport named; peak device memory and sampled RSS a rank; flash and
+    AdamW launches summed over the ranks, which must be `_cp_want`'s. The
+    ranks' flat buffers must be bitwise equal after every step; then a
+    world-1 TrainStep at sep=1 runs the same four steps on the card on the
+    whole batch from the same weights: each mode's losses within
+    CP_SLICE_LOSS_TOL, rank 0's final parameters within CP_SLICE_PARAM_TOL
+    (|p - p1| / |p1|), a bound that must sit below the world-1 run's last
+    update."""
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig
+
+    spec = dict(spec or dict(
+        model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
+        n_batches=4, clip=1.0, steps=4))
+    spec.setdefault("backend", "gloo")
+    spec["device"] = device
+    nsteps = spec["steps"]
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    cfg.num_layers = spec.get("layers", cfg.num_layers)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_slice_")
+    free = shutil.disk_usage(tmp).free
+    if free < 1.2 * len(CP_MODES) * 4 * gpt_numel(cfg):
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"{free} bytes free under {tmp}: the parameter "
+                           "dumps do not fit")
+    spec["dump"] = os.path.join(tmp, "rank0.params")
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    t0 = time.perf_counter()
+    sampler = None
+    try:
+        ctx = spawn(cs.cp_rank_main, args=(spec,), nprocs=2, join=False,
+                    backend="cuda" if device == "cuda" else "cpu")
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {f"rank{r}": p.pid for r, p in enumerate(ctx.processes)},))
+        sampler.start()
+        try:
+            ranks = ctx.join(900)
+        finally:
+            for p in ctx.processes:
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            sampler.join()
+        ranks_s = time.perf_counter() - t0
+
+        # the world-1 run: sep=1, the same steps on the same global batches
+        model, opt, loss_fn = _cp_model(torch, spec, device, None)
+        step = TrainStep(model, loss_fn, opt, device=device)
+        batches = _elastic_batches(spec)
+        params = list(model.parameters())
+        world1, walls = [], []
+        for s in range(nsteps):
+            if s == nsteps - 1:
+                before = [p.detach().clone() for p in params]
+            t1 = time.perf_counter()
+            world1.append(float(step(*batches[s % len(batches)])))
+            walls.append(time.perf_counter() - t1)
+        step_rel = _rel_dev(torch, before, params)
+        del before
+        offs = np.cumsum([0] + [p.numel() for p in params])
+        param_rel = {}
+        for mode in CP_MODES:
+            words = np.memmap(f"{spec['dump']}.{mode}", dtype=np.float32,
+                              mode="r")
+            if words.size != offs[-1]:
+                raise AssertionError(f"rank 0 dumped {words.size} "
+                                     f"parameters, the model has {offs[-1]}")
+            param_rel[mode] = _rel_dev(torch, (
+                torch.from_numpy(np.array(words[a:b])).to(p.device)
+                .view_as(p) for p, a, b in zip(params, offs[:-1], offs[1:])),
+                params)
+            del words
+        del model, opt, step, params
+        if device == "cuda":
+            release(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_mode = {}
+    for mode in CP_MODES:
+        losses = [st["loss"] for st in ranks[0]["modes"][mode]["steps"]]
+        if [st["loss"] for st in ranks[1]["modes"][mode]["steps"]] != losses:
+            raise AssertionError(f"{mode}: the ranks' losses differ")
+        dev = max(abs(a - b) for a, b in zip(losses, world1))
+        if not all(np.isfinite(losses)) or dev > CP_SLICE_LOSS_TOL \
+                or not param_rel[mode] <= CP_SLICE_PARAM_TOL < step_rel:
+            raise AssertionError(
+                f"{mode}: losses {losses} against the world-1 run's "
+                f"{world1}: {dev} (bound {CP_SLICE_LOSS_TOL}); final "
+                f"parameters {param_rel[mode]} from the world-1 run's "
+                f"(bound {CP_SLICE_PARAM_TOL}, which must sit below its "
+                f"last update's {step_rel})")
+        launches = {k: sum(r["modes"][mode]["launches"][k] for r in ranks)
+                    for k in DP}
+        want = _cp_want(mode, cfg.num_layers, nsteps)
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"{mode}: launches over both ranks "
+                                 f"{launches}, expected {want}")
+
+        def summary(r):
+            d = r["modes"][mode]
+            timed = [st for st in d["steps"] if not st["warmup"]]
+            ex = [sum(v["bytes"] for v in st["exchange"].values())
+                  for st in timed]
+            ex_s = [sum(v["seconds"] for v in st["exchange"].values())
+                    for st in timed]
+            calls = {k: v["calls"] for k, v in timed[0]["exchange"].items()}
+            return {
+                "setup_s": d["setup_s"],
+                "step_s": [st["wall_s"] for st in timed],
+                "median_step_s": statistics.median(st["wall_s"]
+                                                   for st in timed),
+                "median_parts_s": {
+                    k: statistics.median(st["parts_s"][k] for st in timed)
+                    for k in timed[0]["parts_s"]},
+                "warmup_s": d["steps"][0]["wall_s"],
+                "exchange_calls_a_step": calls,
+                "exchange_bytes_a_step": ex[0],
+                "median_exchange_s": statistics.median(ex_s),
+                "exchange_mb_per_s": ex[0] / statistics.median(ex_s) / 1e6,
+                "sum_gb_per_s": d["grad_bytes"] / statistics.median(
+                    st["parts_s"]["reduce_wait_s"] for st in timed) / 1e9,
+                "max_allocated": d["max_allocated"],
+                "launches": d["launches"]}
+
+        per_rank = {r["rank"]: summary(r) for r in ranks}
+        med = per_rank[0]["median_step_s"]
+        per_mode[mode] = {
+            "per_rank": per_rank, "losses": losses,
+            "tokens_per_s": spec["rows"] * spec["seq"] / med,
+            "max_abs_loss_dev": dev, "final_params_rel_dev": param_rel[mode],
+            "launches": launches, "want": want}
+    return {
+        "phase": "cp_slice", "model": ("GPT tiny" if spec["model"] == "tiny"
+                                       else "GPT-3 1.3B"),
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "heads": cfg.num_heads,
+        "amp": ("O1 bfloat16, fp32 parameters" if spec.get("amp")
+                else "off, fp32"),
+        "batch": [spec["rows"], spec["seq"]],
+        "a_rank": [spec["rows"], spec["seq"] // 2], "sep": 2,
+        "backend": ranks[0]["backend"], "transport": ranks[0]["transport"],
+        "transport_why": "two ranks on one card: NCCL refuses that, and "
+                         "gloo refuses all_to_all and send/recv of CUDA "
+                         "tensors; the exchanges stage through pinned host "
+                         "memory, the kernels stay on the card",
+        "sep_group": ranks[0]["sep_ranks"], "steps": nsteps,
+        "modes": per_mode, "rss_peak_sampled": rss,
+        "world1_step_s": statistics.median(walls[1:]),
+        "world1_losses": world1, "loss_tolerance": CP_SLICE_LOSS_TOL,
+        "param_tolerance": CP_SLICE_PARAM_TOL,
+        "world1_last_update_rel": step_rel, "ranks_s": ranks_s,
     }
 
 
@@ -6609,6 +6984,10 @@ def main():
     release(torch)
     # data parallelism over gloo: two ranks on the card, this process idle
     emit(dp_slice_phase(torch, elastic=elastic))
+    release(torch)
+    # context parallelism: two sep ranks on the card, each on half of
+    # every row, ring then Ulysses
+    emit(cp_slice_phase(torch))
     release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged

@@ -13,7 +13,10 @@ torch.distributed process groups (`init_parallel_env` joins them):
     the identity, as in the reference;
   * `TrainStep(dp_axis=...)` and `fleet.dp_train_step` take the global
     batch, keep this rank's rows and all-reduce the gradients in buckets
-    issued from the backward's hooks (`grad_buckets`, `overlap`).
+    issued from the backward's hooks (`grad_buckets`, `overlap`);
+  * context parallelism (`context_parallel`): ring and Ulysses attention
+    over a `sep` group, each rank on its shard of the sequence, and
+    GPT's `sequence_parallel`.
 
 Also here: the single-device `fleet.recompute`; in `env`, the process
 environment, the process-group store (in-process, or native.TCPStore
@@ -46,8 +49,10 @@ from .collective import (  # noqa: F401
     ReduceOp,
     P2POp,
     all_gather,
+    all_gather_autograd,
     all_gather_concat,
     all_reduce,
+    all_reduce_autograd,
     all_to_all,
     alltoall,
     alltoall_single,
@@ -64,6 +69,7 @@ from .collective import (  # noqa: F401
     recv,
     reduce,
     reduce_scatter,
+    reduce_scatter_autograd,
     scatter,
     send,
 )
@@ -75,6 +81,15 @@ from .mesh import (  # noqa: F401
     build_mesh,
     get_mesh,
     set_mesh,
+)
+from .context_parallel import (  # noqa: F401
+    RingAttention,
+    all_gather_seq,
+    gather_seq,
+    reduce_scatter_seq,
+    ring_attention,
+    scatter_seq,
+    ulysses_attention,
 )
 from .parallel import DataParallel  # noqa: F401
 from .overlap import (  # noqa: F401

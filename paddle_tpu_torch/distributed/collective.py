@@ -26,9 +26,34 @@ before gloo sees them: gloo's TCP pair writes from the device pointer,
 fails (EFAULT) on its own thread and aborts the process (torch 2.11 on
 an H100). `split` (the tensor-parallel linear) waits for the mp
 layers (ROADMAP queue 3).
+
+The one stated host route, `HOST_STAGED` ("host-staged gloo"): under
+gloo, `collective_permute` and `alltoall_single` on CUDA tensors copy
+them into pinned host buffers, run gloo on those CPU tensors and copy
+the result back to the device. Gloo cannot send CUDA tensors and has no
+all-to-all (torch 2.11 refuses it on CPU tensors too), so under gloo
+`alltoall_single` is a send and a receive with every other rank. Context
+parallelism (context_parallel.py)
+exchanges K/V chunks and sequence shards through exactly these two
+calls, with two ranks on one card where NCCL refuses to run. It moves
+the bytes between ranks as gloo's own all-reduce of CUDA tensors does;
+the computation stays on the card. Under NCCL the same calls stay on the
+device (`transport()` names the route); every other caller keeps the
+refusal. `transport_stats()` counts the two calls' bytes sent and host
+seconds (from the call to the result on the device, the staging
+included).
+
+JAX differentiates ppermute, all_to_all, psum and all_gather itself;
+here `collective_permute` and `alltoall_single` are differentiable
+(their backward is the inverse permutation and the transposed
+all-to-all), `all_reduce_autograd` is an all-reduce whose backward is
+the identity (each rank's share of a loss summed over the group), and
+`all_gather_autograd` / `reduce_scatter_autograd` are each other's
+backward (the reference's tiled all_gather and psum_scatter).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -39,8 +64,12 @@ __all__ = [
     "reduce", "all_to_all", "alltoall", "alltoall_single", "gather",
     "scatter", "collective_permute", "send", "recv", "isend", "irecv",
     "P2POp", "batch_isend_irecv", "barrier", "get_rank", "get_world_size",
-    "axis_context",
+    "axis_context", "all_reduce_autograd", "all_gather_autograd",
+    "reduce_scatter_autograd", "transport", "transport_stats",
+    "reset_transport_stats", "HOST_STAGED",
 ]
+
+HOST_STAGED = "host-staged gloo"
 
 
 class ReduceOp:
@@ -349,13 +378,71 @@ def alltoall_single(tensor, group: Optional[Group] = None, split_axis=0,
     """One tensor's all-to-all (the reference's tiled lax.all_to_all):
     `tensor` splits into `nranks` blocks along `split_axis`, block j goes
     to rank j, and the blocks received are concatenated along
-    `concat_axis` in rank order."""
+    `concat_axis` in rank order. Differentiable: the backward is the
+    all-to-all with the two axes swapped. CUDA tensors under gloo take
+    the host route (see the module note)."""
     g, pg = _resolve(group)
     if pg is None:
         return tensor
-    outs = all_to_all([], list(torch.chunk(tensor, g.nranks,
-                                           dim=split_axis)), group)
-    return torch.cat(outs, dim=concat_axis)
+    if tensor.requires_grad and torch.is_grad_enabled():
+        return _AllToAll.apply(tensor, g, split_axis, concat_axis)
+    return _alltoall_raw(tensor, g, pg, split_axis, concat_axis)
+
+
+def _alltoall_raw(tensor, g, pg, split_axis, concat_axis):
+    if tensor.shape[split_axis] % g.nranks:
+        raise ValueError(f"alltoall_single: dim {split_axis} of "
+                         f"{tuple(tensor.shape)} does not split into "
+                         f"{g.nranks} ranks")
+    t0 = time.perf_counter()
+    chunks = torch.chunk(tensor, g.nranks, dim=split_axis)
+    me = g.rank
+    if _dist().get_backend(pg) == "gloo":
+        # gloo has no all-to-all (torch 2.11 refuses it on any tensor): a
+        # send and a receive with every other rank; on the host route only
+        # the blocks that travel are staged
+        staged = _staged(tensor, pg)
+        peers = [j for j in range(g.nranks) if j != me]
+        sends = _to_host([chunks[j] for j in peers]) if staged else \
+            [chunks[j].contiguous() for j in peers]
+        recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=staged)
+                 for t in sends]
+        ops: List[P2POp] = []
+        for j, snd, rcv in zip(peers, sends, recvs):
+            ops += [P2POp(isend, snd, g.ranks[j], g),
+                    P2POp(irecv, rcv, g.ranks[j], g)]
+        for work in _p2p_works(ops):
+            work.wait()
+        outs = list(chunks)
+        for j, rcv in zip(peers, recvs):
+            # the host allocator keeps a pinned buffer until its copy ran
+            outs[j] = rcv.to(tensor.device, non_blocking=True) if staged \
+                else rcv
+        nbytes = sum(t.numel() * t.element_size() for t in sends)
+    else:
+        ins = [c.contiguous() for c in chunks]
+        outs = [torch.empty_like(c) for c in ins]
+        _dist().all_to_all(outs, ins, group=pg)
+        nbytes = sum(t.numel() * t.element_size()
+                     for j, t in enumerate(ins) if j != me)
+    out = torch.cat(outs, dim=concat_axis)
+    _note("alltoall_single", nbytes, t0)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g, split_axis, concat_axis):
+        ctx.g, ctx.axes = g, (split_axis, concat_axis)
+        return _alltoall_raw(tensor, g, g.process_group, split_axis,
+                             concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return (_alltoall_raw(grad.contiguous(), ctx.g,
+                              ctx.g.process_group, concat_axis, split_axis),
+                None, None, None)
 
 
 def gather(tensor, gather_list: Optional[list] = None, dst=0,
@@ -506,19 +593,183 @@ def collective_permute(tensor, perm: Sequence[tuple],
                        group: Optional[Group] = None):
     """The reference's ppermute: `perm` holds (source, destination)
     positions in the group; returns what this rank receives, zeros when
-    no pair ends here."""
+    no pair ends here. `tensor` may be a tuple or list of tensors of one
+    dtype (the reference permutes a pytree), sent as one message each
+    way; a tuple comes back. Differentiable: the backward permutes the
+    gradients by the inverse pairs. CUDA tensors under gloo take the host
+    route (see the module note)."""
+    many = isinstance(tensor, (tuple, list))
+    tensors = tuple(tensor) if many else (tensor,)
     g, pg = _resolve(group)
     if pg is None:
         return tensor
+    perm = [(int(s), int(d)) for s, d in perm]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        outs = _Permute.apply(g, perm, *tensors)
+    else:
+        outs = _permute_raw(tensors, perm, g, pg)
+    return tuple(outs) if many else outs[0]
+
+
+def _permute_raw(tensors, perm, g, pg):
+    """The exchange of `collective_permute`: every tensor flattened into
+    one buffer, one send and one receive a pair."""
+    t0 = time.perf_counter()
+    dtype = tensors[0].dtype
+    if any(t.dtype != dtype for t in tensors):
+        raise TypeError("collective_permute: tensors of one dtype only")
+    flat = torch.cat([t.reshape(-1) for t in tensors]) \
+        if len(tensors) > 1 else tensors[0].reshape(-1)
+    staged = _staged(flat, pg)
+    send = _to_host([flat])[0] if staged else flat.contiguous()
+    recv = torch.zeros(send.shape, dtype=send.dtype, pin_memory=staged)
     me = g.rank
-    out = torch.zeros_like(tensor)
     ops: List[P2POp] = []
     for s, d in perm:
         if s == me:
-            ops.append(P2POp(isend, tensor.contiguous(), g.ranks[d], g))
+            ops.append(P2POp(isend, send, g.ranks[d], g))
         if d == me:
-            ops.append(P2POp(irecv, out, g.ranks[s], g))
+            ops.append(P2POp(irecv, recv, g.ranks[s], g))
     if ops:
         for work in _p2p_works(ops):
             work.wait()
-    return out
+    if staged:      # the host allocator keeps `recv` until the copy ran
+        recv = recv.to(flat.device, non_blocking=True)
+    _note("collective_permute", send.numel() * send.element_size()
+          * sum(s == me for s, _ in perm), t0)
+    outs, off = [], 0
+    for t in tensors:
+        outs.append(recv[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return outs
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, perm, *tensors):
+        ctx.g, ctx.perm = g, perm
+        return tuple(_permute_raw(tensors, perm, g, g.process_group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inverse = [(d, s) for s, d in ctx.perm]
+        back = _permute_raw(tuple(gr.contiguous() for gr in grads), inverse,
+                            ctx.g, ctx.g.process_group)
+        return (None, None) + tuple(back)
+
+
+# -- the host route and the exchange's counters ----------------------------
+
+_TRANSPORT: Dict[str, Dict[str, float]] = {}
+
+
+def _staged(tensor, pg) -> bool:
+    """Does this exchange take the host route (CUDA tensors under
+    gloo)?"""
+    return tensor.is_cuda and _dist().get_backend(pg) == "gloo"
+
+
+def transport(tensor, group: Optional[Group] = None) -> str:
+    """The route `collective_permute` and `alltoall_single` take for
+    `tensor` over `group`: HOST_STAGED, "device" or "local" (no process
+    group: the identity)."""
+    _, pg = _resolve(group)
+    if pg is None:
+        return "local"
+    return HOST_STAGED if _staged(tensor, pg) else "device"
+
+
+def _to_host(tensors):
+    """Pinned host copies of CUDA tensors, complete before it returns
+    (gloo reads them from its own threads)."""
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+             for t in tensors]
+    for h, t in zip(hosts, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return hosts
+
+
+def _note(name, nbytes, t0) -> None:
+    ent = _TRANSPORT.setdefault(name, {"calls": 0, "bytes": 0,
+                                       "seconds": 0.0})
+    ent["calls"] += 1
+    ent["bytes"] += int(nbytes)
+    ent["seconds"] += time.perf_counter() - t0
+
+
+def transport_stats() -> Dict[str, Dict[str, float]]:
+    """{call: {calls, bytes sent by this rank, seconds}} for
+    collective_permute and alltoall_single since the last reset."""
+    return {k: dict(v) for k, v in _TRANSPORT.items()}
+
+
+def reset_transport_stats() -> None:
+    _TRANSPORT.clear()
+
+
+# -- differentiable reductions ---------------------------------------------
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g):
+        out = tensor.detach().clone()
+        all_reduce(out, ReduceOp.SUM, g)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def all_reduce_autograd(tensor, group: Optional[Group] = None):
+    """The sum over the group, out of place, with the identity as its
+    backward: each rank's share of a sum that every rank then holds (a
+    loss summed over the ranks) gets the sum's gradient."""
+    g, pg = _resolve(group)
+    if pg is None:
+        return tensor
+    return _AllReduceSum.apply(tensor, g)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g, axis):
+        ctx.g, ctx.axis = g, axis
+        return all_gather_concat(tensor.contiguous(), axis, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad.contiguous(), ReduceOp.SUM, ctx.g,
+                              axis=ctx.axis), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g, axis):
+        ctx.g, ctx.axis = g, axis
+        return reduce_scatter(tensor.contiguous(), ReduceOp.SUM, g,
+                              axis=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_concat(grad.contiguous(), ctx.axis, ctx.g), \
+            None, None
+
+
+def all_gather_autograd(tensor, axis=0, group: Optional[Group] = None):
+    """`all_gather_concat` whose backward is the sum-reduce-scatter of the
+    gradient (the reference's tiled all_gather and its transpose)."""
+    g, pg = _resolve(group)
+    if pg is None:
+        return tensor
+    return _AllGather.apply(tensor, g, axis)
+
+
+def reduce_scatter_autograd(tensor, axis=0, group: Optional[Group] = None):
+    """The sum-`reduce_scatter` whose backward is the all-gather of the
+    gradient (the reference's tiled psum_scatter and its transpose)."""
+    g, pg = _resolve(group)
+    if pg is None:
+        return tensor
+    return _ReduceScatter.apply(tensor, g, axis)

@@ -1,7 +1,9 @@
 """Fleet (counterpart of paddle_tpu/distributed/fleet; reference: Paddle's
 fleet.py:167 init, model.py:30 distributed_model, topology.py): the
 hybrid topology over the ranks and the data-parallel API, and activation
-recomputation.
+recomputation (also as `fleet.utils.recompute`). A `sep_degree` above 1
+makes the sep groups that GPT's `sequence_parallel` shards its sequence
+over (distributed/context_parallel.py).
 
 `init` runs init_parallel_env (a rank that must stay on the CPU calls
 `init_parallel_env(device="cpu")` first: it is idempotent) and builds the
@@ -23,6 +25,7 @@ from .hybrid_optimizer import (  # noqa: F401
     HybridParallelOptimizer,
 )
 from .recompute import recompute, recompute_sequential
+from . import utils  # noqa: F401
 
 __all__ = ["recompute", "recompute_sequential", "DistributedStrategy",
            "Fleet", "fleet", "init", "get_hybrid_communicate_group",

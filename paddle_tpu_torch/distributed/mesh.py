@@ -8,9 +8,11 @@ ranks (processes) are the grid: `build_mesh` lays ranks 0..N-1 out in
 AXIS_ORDER (row-major, dp outermost) and makes, for every axis, the
 process group of each line of ranks along it, on every rank and in one
 order, as torch.distributed.new_group requires. Each rank keeps the
-groups it lies on (`Mesh.group(axis)`); an axis of size 1 is a group of
-one rank, whose collectives are the identity. Ranks past the mesh's size
-lie on no group. `annotate_param` (sharding a parameter over an axis)
+groups it lies on (`Mesh.group(axis)`), and with both dp and sep above
+one rank, its group over the two (`Mesh.joint_group(("dp", "sep"))`,
+data x context parallelism's gradient reduction); an axis of size 1 is
+a group of one rank, whose collectives are the identity. Ranks past the
+mesh's size lie on no group. `annotate_param` (sharding a parameter over an axis)
 waits for a later slice.
 """
 from __future__ import annotations
@@ -43,6 +45,18 @@ class Mesh:
             raise ValueError(f"axis {axis!r} is not an axis of the mesh "
                              f"{self.shape}")
         return self._groups[axis]
+
+    def joint_group(self, axes: Sequence[str]):
+        """This rank's Group over several axes: the one axis's own group
+        when the others are one rank each; otherwise a group that
+        build_mesh made (dp and sep)."""
+        big = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        if len(big) <= 1:
+            return self.group(big[0] if big else axes[0])
+        if big not in self._groups:
+            raise ValueError(f"no group over the axes {big} of the mesh "
+                             f"{self.shape}")
+        return self._groups[big]
 
     def coordinate(self, rank: int) -> Optional[Dict[str, int]]:
         """The grid position of a global rank, or None outside the mesh."""
@@ -79,6 +93,16 @@ def build_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sharding: int = 1,
                 groups[axis] = g
         if axis not in groups:      # this rank lies past the mesh
             groups[axis] = Group(-1, sizes[axis], -1, [], axis_name=axis)
+    if dp > 1 and sep > 1:
+        # the gradient reduction of data x sequence parallelism: every
+        # line of ranks over both axes (jit.TrainStep)
+        lines = np.moveaxis(grid, (0, 3), (-2, -1)).reshape(-1, dp * sep)
+        joint = Group(-1, dp * sep, -1, [], axis_name="dp,sep")
+        for line in lines:
+            g = _make_group(line.tolist(), axis_name="dp,sep")
+            if me in line:
+                joint = g
+        groups[("dp", "sep")] = joint
     return Mesh(grid, AXIS_ORDER, groups)
 
 

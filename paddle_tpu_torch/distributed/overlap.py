@@ -118,16 +118,17 @@ class _RingReduce:
     2*(world-1) exchanges with the ring's neighbours. `start()` begins the
     first exchange; each `step()` completes the one in flight, folds in
     what arrived and starts the next; `finish()` drains the rest and
-    returns the reduced (mean) vector: `flat` itself, written in place,
-    when its length splits evenly into `world` chunks.
+    returns the reduced vector, the sum over `divisor` (the group's size
+    by default, a mean): `flat` itself, written in place, when its
+    length splits evenly into `world` chunks.
 
     Chunk j of the vector is row j of a [world, chunk] view. After round
     r of the reduce-scatter this rank holds chunk (idx - r) summed over
     ranks idx-r..idx, as the reference's `_RingReduce` does, so both add
     in one order."""
 
-    def __init__(self, flat: torch.Tensor, group, mean: bool = True,
-                 tag: int = 0):
+    def __init__(self, flat: torch.Tensor, group,
+                 divisor: Optional[int] = None, tag: int = 0):
         import torch.distributed as dist
 
         from .collective import _check_p2p
@@ -136,7 +137,7 @@ class _RingReduce:
         self._dist = dist
         self.group = group
         self.world = int(group.nranks)
-        self.mean = mean
+        self.divisor = self.world if divisor is None else int(divisor)
         self.tag = int(tag)
         self.flat = flat
         self.size = int(flat.numel())
@@ -188,8 +189,8 @@ class _RingReduce:
             self.acc = recv + self.stack[(self.idx - (s + 1)) % w]
             if s == w - 2:
                 # this rank now owns chunk idx + 1, fully reduced
-                if self.mean:
-                    self.acc = self.acc / w
+                if self.divisor != 1:
+                    self.acc = self.acc / self.divisor
                 self.cur = self.acc
             send = self.acc
         else:
@@ -225,8 +226,8 @@ def ring_all_reduce(x, axis_name, world: Optional[int] = None,
     if world <= 1 or group.rank < 0 or group.process_group is None:
         return x
     flat = x.detach().reshape(-1).clone()
-    return _RingReduce(flat, group, mean=mean).start().finish() \
-        .view(x.shape)
+    return _RingReduce(flat, group, divisor=None if mean else 1).start() \
+        .finish().view(x.shape)
 
 
 def reduce_flush(g_vals, axis_name, bucket_bytes: Optional[int] = None,
@@ -254,7 +255,8 @@ def reduce_flush(g_vals, axis_name, bucket_bytes: Optional[int] = None,
         nbytes = flat.numel() * flat.element_size()
         if choose_schedule(nbytes, world, eqns_remaining=0) == "ring" \
                 and group.rank >= 0 and group.process_group is not None:
-            red = _RingReduce(flat, group, mean=mean).start().finish()
+            red = _RingReduce(flat, group,
+                              divisor=None if mean else 1).start().finish()
         else:
             red = all_reduce(flat, ReduceOp.SUM, group)
             if mean and world > 1 and group.rank >= 0:
@@ -285,17 +287,21 @@ class BucketTrigger:
     parameter list, a group, a bucket size and a mode ('bucketed' or
     'fine'); `run(backward)` arms the hooks for one backward, calls it,
     removes them and drains, leaving every parameter's `.grad` reduced
-    (mean over the group by default). A parameter the backward did not
+    (the sum over `divisor`: the group's size by default, a mean; 1 for
+    a sum, as context_parallel.GradSum takes it; the data-parallel size
+    over a dp x sep group, as jit.TrainStep takes it). `arm()` and
+    `finish()` are its two halves, for a backward that the caller runs
+    (context_parallel.GradSum). A parameter the backward did not
     reach gets a zero gradient first, as the reference's step gives it.
     Every rank must run it for the same step."""
 
     def __init__(self, params, group, bucket_bytes: int, mode: str,
-                 mean: bool = True):
+                 divisor: Optional[int] = None):
         self.params = list(params)
         self.group = group
         self.world = int(group.nranks)
         self.mode = mode
-        self.mean = mean
+        self.divisor = self.world if divisor is None else int(divisor)
         self.shapes = [tuple(p.shape) for p in self.params]
         self.buckets = partition_buckets(
             self.shapes, [p.dtype for p in self.params], bucket_bytes)
@@ -343,7 +349,7 @@ class BucketTrigger:
         ent = {"b": b, "idxs": idxs, "flat": flat}
         if schedule == "ring":
             self._stats["ring_buckets"] += 1
-            ring = _RingReduce(flat, self.group, mean=self.mean, tag=b)
+            ring = _RingReduce(flat, self.group, divisor=self.divisor, tag=b)
             self._stats["ring_steps_total"] += ring.total_steps
             ent.update(ring=ring.start(), next=self._pos + 1,
                        stride=max(1, remaining // (ring.total_steps + 1)))
@@ -388,8 +394,8 @@ class BucketTrigger:
                 red = ent["flat"]
                 if ent["work"] is not None:
                     ent["work"].wait()
-                    if self.mean:
-                        red.div_(self.world)
+                    if self.divisor != 1:
+                        red.div_(self.divisor)
             if red.data_ptr() != self._grads[min(ent["idxs"])].data_ptr():
                 views = [None] * len(self.params)
                 uncoalesce(red, ent["idxs"], self.shapes, views)
@@ -398,16 +404,30 @@ class BucketTrigger:
         self._open, self._rings = [], []
 
     def run(self, backward) -> None:
-        global _LAST_SCHEDULE
-        self._reset()
-        _BUCKETS.set(len(self.buckets))
-        handles = [p.register_post_accumulate_grad_hook(self._hook(i))
-                   for i, p in enumerate(self.params)]
+        self.arm()
         try:
             backward()
         finally:
-            for h in handles:
-                h.remove()
+            self._unhook()
+        self.finish()
+
+    def arm(self) -> None:
+        """Hook the next backward (`run` is arm, backward, finish)."""
+        self._reset()
+        _BUCKETS.set(len(self.buckets))
+        self._handles = [p.register_post_accumulate_grad_hook(self._hook(i))
+                         for i, p in enumerate(self.params)]
+
+    def _unhook(self) -> None:
+        for h in getattr(self, "_handles", ()):
+            h.remove()
+        self._handles = []
+
+    def finish(self) -> None:
+        """Remove the hooks and drain: every bucket issued, reduced and
+        written back."""
+        global _LAST_SCHEDULE
+        self._unhook()
         self._drain()
         if self.mode == "fine":
             _RING_BUCKETS.set(self._stats["ring_buckets"])

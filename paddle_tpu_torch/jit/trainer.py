@@ -41,14 +41,28 @@ or 'fine', default FLAGS_dp_overlap; distributed/overlap.BucketTrigger);
 what is still open drains after the backward. Then the loss is averaged
 over the group, so the clip, the guard's square-sum and telemetry's
 `grad_norm` all see the global gradients (pmean semantics), every rank
-alike: a NaN on one rank skips the step on all of them. The port's AdamW
+alike: a NaN on one rank skips the step on all of them. A model that
+shards its sequence over a mesh axis (context parallelism,
+distributed/context_parallel.py) says so: one of its modules has a
+`sequence_parallel_axis` (GPT's, with `sequence_parallel` set). When that
+axis has more than one rank, the batch is still split over dp only,
+every rank of a sep group computes its sequence shard of the same rows,
+and the hooks reduce over the dp x sep group (`Mesh.joint_group`): the
+gradients summed over sep and averaged over dp in one all-reduce a
+bucket, with the model's own sep hooks off for the step
+(`context_parallel.grad_sum_disabled`), so nothing is reduced twice; the
+loss, already the whole sequence's on every sep rank, is averaged over
+dp. Any other model reduces over dp alone, whatever other axes the mesh
+has: its ranks along them computed the same gradients. The port's AdamW
 gets its gradient views at construction, so a bucket of neighbours is
 one slice of its flat buffer, reduced in place. Every rank must build
 the same step and call it for the same steps, telemetry included.
 Telemetry adds `reduce_s`: as the reference measures it, a comm-only
 probe (`overlap.reduce_flush` of the cleared, zero gradients, in place,
 no memory of its own) timed every `_REDUCE_PROBE_EVERY` steps and carved
-out of compute. With telemetry on, the step also synchronises the device
+out of compute; `reduce_probe=False` leaves it out (no `reduce_s`), for
+a run whose own reduction is too large to repeat. With telemetry on, the
+step also synchronises the device
 after the backward and after the reduction and keeps `last_parts`: the
 seconds of fwd+bwd (with the hooks' reduces in flight), of the wait for
 the last bucket (and the loss's average), and of the update.
@@ -94,7 +108,8 @@ class TrainStep:
     `grad_bucket_mb` and `dp_overlap` are the reference's data-parallel
     arguments (see the module note); `in_shardings` and `out_shardings`
     are accepted only to refuse them as the reference does beside
-    `dp_axis` (GSPMD placements are not ported)."""
+    `dp_axis` (GSPMD placements are not ported). `reduce_probe=False`
+    turns telemetry's comm-only reduce probe off."""
 
     _REDUCE_PROBE_EVERY = 50  # steps between reduce-probe measurements
 
@@ -104,7 +119,7 @@ class TrainStep:
                  dp_axis: Optional[str] = None,
                  grad_bucket_mb: Optional[int] = None,
                  dp_overlap: Optional[str] = None, in_shardings=None,
-                 out_shardings=None):
+                 out_shardings=None, reduce_probe: bool = True):
         if dp_overlap is not None:
             dp_overlap = str(dp_overlap).lower()
             if dp_overlap not in ("bucketed", "fine"):
@@ -115,7 +130,7 @@ class TrainStep:
         self._dp_overlap = dp_overlap
         self._bucket_bytes = None if grad_bucket_mb is None else (
             int(grad_bucket_mb) << 20 if grad_bucket_mb >= 0 else 1 << 62)
-        self._dp_group = None
+        self._dp_group = self._reduce_group = None
         if dp_axis is not None:
             from ..distributed.mesh import get_mesh
 
@@ -134,7 +149,12 @@ class TrainStep:
                 raise ValueError(
                     "dp_axis= replaces in_shardings/out_shardings: the "
                     "shard_map specs define the placement")
-            self._dp_group = dp_mesh.group(dp_axis)
+            self._dp_group = self._reduce_group = dp_mesh.group(dp_axis)
+            sep = _sequence_parallel_axis(model)
+            if sep is not None and sep in dp_mesh.axis_names \
+                    and dp_mesh.shape[sep] > 1:
+                # context parallelism: the gradients are summed over sep too
+                self._reduce_group = dp_mesh.joint_group((dp_axis, sep))
         elif in_shardings is not None or out_shardings is not None:
             raise NotImplementedError(
                 "TrainStep in_shardings/out_shardings: GSPMD placements are "
@@ -161,8 +181,9 @@ class TrainStep:
         self._trigger = None          # (flags, the bucket plan)
         self._reduce_s = None
         self._probe_step = -(1 << 30)
+        self._reduce_probe = bool(reduce_probe)
         self.last_parts = None
-        if self._dp_world > 1:
+        if self._reduce_world > 1:
             views = getattr(optimizer, "_grad_views", None)
             if views is not None:     # AdamW: buckets slice its buffers
                 views()
@@ -170,6 +191,13 @@ class TrainStep:
     @property
     def _dp_world(self) -> int:
         g = self._dp_group
+        return 1 if g is None or g.rank < 0 else int(g.nranks)
+
+    @property
+    def _reduce_world(self) -> int:
+        """The ranks the gradients are reduced over: dp, times sep for a
+        model sequence-parallel over a sep axis of the mesh."""
+        g = self._reduce_group
         return 1 if g is None or g.rank < 0 else int(g.nranks)
 
     def _overlap_mode(self) -> str:
@@ -193,7 +221,8 @@ class TrainStep:
                else default_bucket_bytes(), _overlap.min_ring_bytes())
         if self._trigger is None or self._trigger[0] != cfg:
             self._trigger = (cfg, _overlap.BucketTrigger(
-                self._params, self._dp_group, cfg[1], cfg[0]))
+                self._params, self._reduce_group, cfg[1], cfg[0],
+                divisor=self._dp_world))
             self._reduce_s = None
             self._probe_step = -(1 << 30)
         return self._trigger[1]
@@ -228,12 +257,12 @@ class TrainStep:
         lr = float(np.float32(opt.get_lr()))    # the fp32 lr the update takes
         self._step_i += 1
         t0 = time.perf_counter() if self._telemetry else 0.0
-        marks = [] if self._telemetry and self._dp_world > 1 else None
+        marks = [] if self._telemetry and self._reduce_world > 1 else None
         with _span("jit.train_step", cat="jit"):
             if self._dp_group is not None:
                 batch = self._shard_batch(batch)
             batch = tuple(self._place(x) for x in batch)
-            if self._dp_world > 1:
+            if self._reduce_world > 1:
                 loss = self._dp_fwd_bwd(batch, marks)
             else:
                 loss = self._fwd_bwd(batch)
@@ -271,9 +300,14 @@ class TrainStep:
         after the backward and after the reduction, each after a device
         sync."""
         from ..distributed.collective import ReduceOp, all_reduce
+        from ..distributed.context_parallel import grad_sum_disabled
 
         trigger = self._bucket_trigger()
-        loss = self.loss_fn(*batch)
+        if self._reduce_group is self._dp_group:
+            loss = self.loss_fn(*batch)
+        else:
+            with grad_sum_disabled():      # the trigger reduces over sep too
+                loss = self.loss_fn(*batch)
 
         def backward():
             loss.backward()
@@ -320,7 +354,7 @@ class TrainStep:
         to a device sync. The step's own reduction has warmed the group
         and the host buffers, so no warm call precedes it. Every rank
         probes at the same steps (it is collective)."""
-        if self._dp_world <= 1:
+        if self._reduce_world <= 1 or not self._reduce_probe:
             return None
         if self._step_i - self._probe_step < self._REDUCE_PROBE_EVERY:
             return self._reduce_s
@@ -331,7 +365,8 @@ class TrainStep:
                  for p in self._params]
         self._sync()
         t0 = time.perf_counter()
-        _overlap.reduce_flush(grads, self._dp_group, cfg[1], mode=cfg[0])
+        _overlap.reduce_flush(grads, self._reduce_group, cfg[1],
+                              mode=cfg[0])
         self._sync()
         self._reduce_s = time.perf_counter() - t0
         self._probe_step = self._step_i
@@ -380,3 +415,14 @@ class TrainStep:
         _telemetry.get_telemetry().on_step(core)
         if self._nan_guard and self.last_skipped:
             _flight.on_nan_skip(self._step_i - 1, loss=loss_f)
+
+
+def _sequence_parallel_axis(model) -> Optional[str]:
+    """The mesh axis `model` shards its sequence over (a module's
+    `sequence_parallel_axis`), or None."""
+    axes = {getattr(m, "sequence_parallel_axis", None)
+            for m in model.modules()} - {None}
+    if len(axes) > 1:
+        raise ValueError(f"the model shards its sequence over several axes: "
+                         f"{sorted(axes)}")
+    return axes.pop() if axes else None

@@ -35,9 +35,32 @@ document through ops.nn_ops.segmented_attention (the segmented flash
 kernels) and mask the loss's pairs across documents. With
 `recompute=True` a training forward runs each block through
 distributed.fleet.recompute (gpt.py:310-317), under `recompute_policy`:
-the block's activations are recomputed in the backward pass. The
-reference's `sequence_parallel` branch raises NotImplementedError naming
-the ROADMAP item that brings it.
+the block's activations are recomputed in the backward pass.
+
+`sequence_parallel` 'ring' or 'ulysses' (gpt.py:78-87,130-135) routes
+attention through ops.nn_ops.sequence_parallel_attention over the
+current mesh's `sep_axis` (distributed/context_parallel.py). The
+reference computes on global arrays and shard-maps only the attention;
+here every rank of the sep group takes the same call, `model(ids,
+labels=ids)` with the global ids, and computes only its shard of the
+sequence, s/n tokens, at positions offset by rank * s/n (learned and
+rotary alike). The next-token shift is taken on the global labels, so a
+shard's last token is labelled by the next shard's first; the loss is
+the sum of the ranks' cross-entropy terms (an all-reduce whose backward
+is the identity) over the count of the global labels. Without labels
+the logits, and GPTModel's hidden states, are gathered to the whole
+sequence; every rank computes the same from them, so the gather's
+backward keeps this rank's slice of the cotangent
+(`context_parallel.gather_replicated`). After `backward()` every rank
+holds the gradients of the whole sequence: a `context_parallel.GradSum`
+on the forward's output sums them over the group from the
+post-accumulate hooks. (So a loss that also uses the model's parameters
+outside its forward, a tied head applied to GPTModel's gathered states
+by the caller, would have that use summed n times: GPTForCausalLM
+applies its head to the shard, inside.) With no mesh, or a sep
+axis of one rank, attention is the reference's dense composition on the
+whole sequence. The reference's errors stand: attention dropout, a KV
+cache or packed `segments=` under sequence parallelism raise.
 
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, LayerNorm weights at 1,
@@ -53,6 +76,8 @@ from torch import nn
 
 from ..core.dtype import convert_dtype
 from ..core.place import resolve_device
+from ..distributed import context_parallel as _cp
+from ..distributed.collective import all_reduce_autograd
 from ..distributed.fleet.recompute import recompute
 from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                   RowParallelLinear, VocabParallelEmbedding)
@@ -97,9 +122,11 @@ class GPTConfig:
                          hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"GPT {what} is not ported yet (ROADMAP queue 1: {item})")
+_SP_CACHE = ("KV-cache decoding under sequence_parallel is not "
+             "supported; gather the sequence (sequence_parallel=None) for "
+             "generation")
+_SP_SEGMENTS = ("packed (segments=) batches are not supported under "
+                "sequence_parallel; gather the sequence first")
 
 
 class CausalSelfAttention(nn.Module):
@@ -117,6 +144,18 @@ class CausalSelfAttention(nn.Module):
         self.resid_dropout = Dropout(c.hidden_dropout_prob,
                                      generator=generator)
         self._generator = generator
+        self.sequence_parallel = c.sequence_parallel
+        self.sep_axis = c.sep_axis
+        if c.sequence_parallel and \
+                c.sequence_parallel not in ("ring", "ulysses"):
+            raise ValueError(
+                f"GPTConfig.sequence_parallel must be None, 'ring' or "
+                f"'ulysses', got {c.sequence_parallel!r}")
+        if c.sequence_parallel and c.attention_dropout_prob:
+            raise ValueError(
+                "attention dropout is not supported under context "
+                "parallelism (the ring/Ulysses kernels are deterministic); "
+                "set attention_dropout_prob=0")
 
     def forward(self, x, rope=None, cache=None, pos=None, segments=None):
         b, s, _ = x.shape
@@ -143,6 +182,11 @@ class CausalSelfAttention(nn.Module):
             return self.resid_dropout(self.out_proj(out)), (new_k, new_v)
         if segments is not None:
             out = nn_ops.segmented_attention(q, k, v, segments, causal=True)
+        elif self.sequence_parallel:
+            # this rank's shard of the sequence, over the sep group
+            out = nn_ops.sequence_parallel_attention(
+                q, k, v, axis_name=self.sep_axis,
+                mode=self.sequence_parallel, causal=True)
         else:
             out = nn_ops.scaled_dot_product_attention(
                 q, k, v, is_causal=True,
@@ -188,9 +232,6 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, generator=None, **factory):
         super().__init__()
-        if config.sequence_parallel:
-            raise _not_ported("sequence_parallel",
-                              "distributed and fleet (context parallel)")
         self.config = config
         self.wte = VocabParallelEmbedding(config.vocab_size,
                                           config.hidden_size, **factory)
@@ -267,13 +308,74 @@ class GPTModel(nn.Module):
             new_caches.append(nc)
         return self.ln_f(h), new_caches
 
+    @property
+    def sequence_parallel_axis(self):
+        """The mesh axis the sequence is sharded over, or None: jit.TrainStep
+        reduces the gradients over it too."""
+        c = self.config
+        return c.sep_axis if c.sequence_parallel else None
+
+    def _sp_group(self):
+        """The sep group this model's sequence is sharded over, or None
+        (not sequence-parallel, or no sep axis of more than one rank)."""
+        if not self.config.sequence_parallel:
+            return None
+        return _cp.sep_group(self.config.sep_axis)
+
+    def _sp_check(self, caches, segments):
+        """The reference's refusals under sequence parallelism (its
+        attention raises them; here before anything runs)."""
+        if self.config.sequence_parallel:
+            if caches is not None:
+                raise NotImplementedError(_SP_CACHE)
+            if segments is not None:
+                raise NotImplementedError(_SP_SEGMENTS)
+
+    def _sp_local(self, input_ids, group):
+        """This rank's shard of the final hidden states [b, s/n, hidden]
+        from the GLOBAL ids: tokens rank * s/n onwards, at those
+        positions."""
+        n, r = group.nranks, group.rank
+        b, s = input_ids.shape
+        if s % n:
+            raise ValueError(f"sequence_parallel: sequence length {s} does "
+                             f"not split into {n} ranks of "
+                             f"{self.config.sep_axis!r}")
+        m = s // n
+        off = r * m
+        ids = input_ids[:, off:off + m]
+        h = self.wte(ids)
+        rope = None
+        if self.config.use_rotary:
+            cos, sin = self._tables(s)
+            rope = (cos[off:off + m], sin[off:off + m])
+        else:
+            h = h + self.wpe(torch.arange(off, off + m,
+                                          device=input_ids.device))
+        return self._blocks(self.drop(h), rope, None)
+
+    def _blocks(self, h, rope, segments):
+        for block in self.blocks:
+            if self.config.recompute and self.training:
+                h = recompute(block, h, rope=rope, segments=segments,
+                              policy=self.config.recompute_policy)
+            else:
+                h = block(h, rope=rope, segments=segments)
+        return self.ln_f(h)
+
     def forward(self, input_ids, caches=None, pos=None, segments=None):
+        self._sp_check(caches, segments)
         if caches is not None:
             if segments is not None:
                 raise NotImplementedError(
                     "packed (segments=) batches are not supported with "
                     "KV-cache decoding")
             return self._cached(input_ids, caches, pos)
+        group = self._sp_group()
+        if group is not None:
+            h = _cp.gather_replicated(self._sp_local(input_ids, group),
+                                      group)
+            return _cp.attach_grad_sum(self, group, h)
         s = input_ids.shape[1]
         if segments is not None:
             # positions restart at each packed document (gpt.py:287-300)
@@ -292,14 +394,7 @@ class GPTModel(nn.Module):
                 rope = rope + (positions,)
         else:
             h = h + self.wpe(positions)
-        h = self.drop(h)
-        for block in self.blocks:
-            if self.config.recompute and self.training:
-                h = recompute(block, h, rope=rope, segments=segments,
-                              policy=self.config.recompute_policy)
-            else:
-                h = block(h, rope=rope, segments=segments)
-        return self.ln_f(h)
+        return self._blocks(self.drop(h), rope, segments)
 
 
 class GPTForCausalLM(nn.Module, GenerationMixin):
@@ -358,7 +453,31 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             h, new_caches = self.gpt(input_ids, caches=caches, pos=pos,
                                      segments=segments)
             return self._head(h), new_caches
+        group = self.gpt._sp_group()
+        if group is not None:
+            self.gpt._sp_check(None, segments)
+            logits = self._head(self.gpt._sp_local(input_ids, group))
+            out = _cp.gather_replicated(logits, group) if labels is None \
+                else self._sp_loss(logits, labels, group)
+            return _cp.attach_grad_sum(self, group, out)
         logits = self._head(self.gpt(input_ids, segments=segments))
         if labels is None:
             return logits
         return causal_lm_loss(logits, labels, segments)
+
+    @staticmethod
+    def _sp_loss(logits, labels, group, ignore_index=-100):
+        """The mean next-token cross entropy of the whole sequence from
+        this rank's logits [b, s/n, vocab] and the global labels: the
+        shift is taken on the global labels, the terms are summed over the
+        ranks and divided by the count of the global targets."""
+        m = logits.shape[1]
+        off = group.rank * m
+        labels = labels.to(logits.device)
+        target = labels[:, off + 1:off + m + 1]     # the last rank: m - 1
+        total, _ = nn_ops.cross_entropy_sum(
+            logits[:, :target.shape[1]].reshape(-1, logits.shape[-1]),
+            target.reshape(-1), ignore_index)
+        count = (labels[:, 1:] != ignore_index).sum()
+        total = all_reduce_autograd(total, group)
+        return total / count.clamp(min=1).to(total.dtype)

@@ -34,12 +34,25 @@ last, so a reader never sees half a value. A reader that finds a chunk
 gone (the key was overwritten or deleted meanwhile) starts again from
 the head. Every `set` swaps the key's raw value by `compare_set`, so the
 writer that replaced a chunked value (with a short or a chunked one)
-drops its chunks, also when writers race on one key; `delete` drops
-them too. A `delete` racing a `set` of the same key can delete the head
-that set just wrote and leave its chunks behind (c10d has no
-compare-and-delete; no caller deletes a key another client is writing).
-`num_keys` counts logical keys: the chunks and their counter are
-subtracted. A chunked
+drops its chunks, also when writers race on one key.
+
+c10d has no compare-and-delete, so `delete` first swaps the exact raw
+value it read for a tombstone (unique to that delete) by `compare_set`,
+then removes the key, then drops that value's chunks. A `set` never
+swaps a tombstone: it waits until the key is gone, so the removal can
+only remove the tombstone, and a set racing a delete either lands first
+(the delete then reads again and takes the new value) or after it;
+every head's chunks are dropped by the one client that replaced it.
+Nothing is left behind: a deleted key holds no raw key once `delete`
+returns. Readers and `wait_ge` take a tombstone for a missing key. A
+`set` that still finds the same tombstone after `_TOMB_LEASE_S` takes
+its deleter for dead and swaps it; a deleter stalled that long between
+its two steps would remove that set's value (and orphan its chunks).
+A tombstone starts with "0", so c10d's own `add` reads it as 0: an
+`add` racing a `delete` of the same key may be removed with it (no
+caller adds to a key that another client deletes). `num_keys` counts
+logical keys (the chunks and their counter are subtracted); a key whose
+delete is in flight still counts. A chunked
 value reads back as a `bytearray` (one copy of its bytes, filled chunk by
 chunk), a short one as `bytes`. The server is c10d's own (non-libuv)
 backend: it moved 4 MiB chunks ~1.5x faster than the libuv one on
@@ -63,6 +76,10 @@ _HEAD = b"\x00paddle_tpu_torch.native.TCPStore:chunked\x00"
 # chunk keys and the count of live chunk keys (for num_keys)
 _CHUNK_PREFIX = "/__paddle_tpu_torch_chunks__"
 _CHUNK_COUNT = _CHUNK_PREFIX + "/count"
+# a key being deleted holds "0" (c10d's add parses it as 0), a marker
+# no caller stores and the delete's nonce, until the delete removes it
+_TOMB = b"0\x00paddle_tpu_torch.native.TCPStore:deleted\x00"
+_TOMB_LEASE_S = 10.0
 CHUNK_BYTES = 4 << 20
 _READ_RESTARTS = 100
 
@@ -144,21 +161,42 @@ class TCPStore:
                             bytes(view[i * CHUNK_BYTES:(i + 1) * CHUNK_BYTES]))
             old = self._swap(key, _HEAD + json.dumps(
                 {"nonce": nonce, "n": n, "size": view.nbytes}).encode())
-        if old is not None:
-            self._drop_chunks(old)
+        self._replaced(old)
 
-    def _swap(self, key: str, new: bytes) -> Optional[dict]:
+    def _swap(self, key: str, new: bytes) -> Optional[bytes]:
         """Replace the raw value at `key` by `new` with compare_set, so of
         two writers racing over one chunked value exactly one sees it go;
-        the head of a chunked value replaced, else None."""
+        the raw value replaced (None for a missing key). A tombstone is
+        waited out (see the module note)."""
         cur = self._get_once(key)
         while True:
+            cur = self._past_tomb(key, cur)
             expected = b"" if cur is None else cur
             got = bytes(self._s.compare_set(key, expected, new))
             if got == new:
-                return _head(cur)
+                return cur
             # c10d answers a missing key with `expected` itself: read again
             cur = self._get_once(key) if got == expected else got
+
+    def _past_tomb(self, key: str, cur: Optional[bytes]) -> Optional[bytes]:
+        """`cur`, or once a delete in flight has removed the key, the
+        key's raw value then; a tombstone that outlives `_TOMB_LEASE_S`
+        is returned as the value to replace."""
+        deadline = time.monotonic() + _TOMB_LEASE_S
+        while cur is not None and cur.startswith(_TOMB) \
+                and time.monotonic() < deadline:
+            time.sleep(self._POLL_S)
+            nxt = self._get_once(key)
+            if nxt != cur:
+                deadline = time.monotonic() + _TOMB_LEASE_S
+            cur = nxt
+        return cur
+
+    def _replaced(self, old: Optional[bytes]) -> None:
+        """Drop a replaced chunked value's chunks."""
+        head = _head(old)
+        if head is not None:
+            self._drop_chunks(head)
 
     def _drop_chunks(self, head: dict) -> None:
         # delete_key says whether it deleted, so a head's chunks are
@@ -180,6 +218,8 @@ class TCPStore:
         reassembled); None when the key is missing."""
         for _ in range(_READ_RESTARTS):
             raw = self._get_once(key)
+            if raw is not None and raw.startswith(_TOMB):
+                return None
             head = _head(raw)
             if head is None:
                 return raw
@@ -216,7 +256,7 @@ class TCPStore:
     def _counter(self, key: str) -> int:
         """Read a counter without creating it; a missing key is 0."""
         raw = self._get_once(key)
-        if raw is None:
+        if raw is None or raw.startswith(_TOMB):
             return 0
         try:
             return int(raw.decode())
@@ -242,10 +282,20 @@ class TCPStore:
             time.sleep(min(self._POLL_S, max(remaining, 0.0)))
 
     def delete(self, key: str) -> None:
-        head = _head(self._get_once(key))
-        self._s.delete_key(str(key))
-        if head is not None:
-            self._drop_chunks(head)
+        """Swap the raw value read for a tombstone, remove the key, then
+        drop that value's chunks (see the module note); a missing key,
+        or one another delete is removing, is left to it."""
+        key = str(key)
+        tomb = _TOMB + uuid.uuid4().hex.encode()
+        cur = self._get_once(key)
+        while cur is not None and not cur.startswith(_TOMB):
+            got = bytes(self._s.compare_set(key, cur, tomb))
+            if got == tomb:
+                self._s.delete_key(key)
+                self._replaced(cur)
+                return
+            # c10d answers a missing key with `expected` itself: read again
+            cur = self._get_once(key) if got == cur else got
 
     def num_keys(self) -> int:
         n = int(self._s.num_keys())

@@ -5,7 +5,8 @@ Functions that join them.
 Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (via `_fwd`),
 `_dq_kernel` and `_dkv_kernel` (via `_bwd`), and their segmented siblings
 `_fwd_seg_kernel` (via `_seg_fwd`), `_bwd_seg_kernel` and `_dkv_seg_kernel`
-(via `_seg_bwd`). The source's header says what bounds the kernels on the
+(via `_seg_bwd`). `flash_attention_with_lse` (the ring's chunk: o and a
+differentiable lse) runs the dense three. The source's header says what bounds the kernels on the
 H100 and how their design answers it.
 
 Which kernel runs is chosen in the C dispatch, from the dtype, head_dim and
@@ -391,6 +392,55 @@ def flash_attention(q, k, v, scale=None, causal=False):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, float(scale), bool(causal))
+
+
+class FlashAttentionLSE(torch.autograd.Function):
+    """FlashAttention with the per-row logsumexp as a second output,
+    [b, h, sq] fp32, differentiable too (the reference's
+    `flash_attention_with_lse` custom VJP, the ring's chunk kernel). The
+    lse cotangent folds into delta: the score gradient is
+    p * (dp - delta + dlse), so the unchanged dQ and dK/dV kernels take
+    delta - dlse (the reference's `_bwd` with `dlse`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        b, sq, h, _ = q.shape
+        return o, lse.view(b, h, sq)
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = attention_delta(o, dout)
+        if dlse is not None:
+            delta = delta - dlse.float().reshape(delta.shape)
+        dq = flash_dq(q, k, v, dout, lse, delta, ctx.scale, ctx.causal)
+        dk, dv = flash_dkv(q, k, v, dout, lse, delta, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, scale=None, causal=False):
+    """(o [b, sq, h, d], lse [b, h, sq] fp32) on [b, s, h, d]; both outputs
+    differentiable."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionLSE.apply(q, k, v, float(scale), bool(causal))
+
+
+def ring_block(s_local):
+    """The reference's `_RING_BLOCK`: the block sizes its ring chunks take,
+    the largest of 128, 64, 32, 16 and 8 that divides the local shard
+    (128 when none does, which its gate then refuses). The kernels here
+    take any length; the ring keeps the reference's gate so that both
+    packages send the same chunks to flash."""
+    for blk in (BLOCK_Q, 64, 32, 16, 8):
+        if s_local % blk == 0 and s_local >= blk:
+            return blk, blk
+    return BLOCK_Q, BLOCK_K
 
 
 class FlashSegmentedAttention(torch.autograd.Function):

@@ -1,9 +1,10 @@
 """Counterparts of the paddle_tpu/ops/kernels/nn_ops.py ops the port uses:
 linear and matmul, dropout, GELU, LayerNorm, RMSNorm, cross
-entropy, attention (flash or the reference's composition; dense, and
-segmented over packed documents), RoPE (contiguous and per-token) and the
-cache-carrying decode attentions (contiguous, and paged: the decode step
-and the speculative verify window).
+entropy, attention (flash or the reference's composition; dense,
+segmented over packed documents, and sequence-parallel over a sep
+group), RoPE (contiguous and per-token) and the cache-carrying decode
+attentions (contiguous, and paged: the decode step and the speculative
+verify window).
 
 The ops with a Hopper kernel (ops/gpu/) launch it for CUDA tensors and take
 the kernel's plain version for CPU tensors; the rest are plain torch, as the
@@ -64,6 +65,14 @@ def cross_entropy(input, label, ignore_index=-100):
     by the mean: fp32 log-softmax (a black-list op), entries at
     ignore_index contribute 0 and the mean is over the valid labels (at
     least 1)."""
+    total, valid = cross_entropy_sum(input, label, ignore_index)
+    return total / valid.clamp(min=1).to(total.dtype)
+
+
+def cross_entropy_sum(input, label, ignore_index=-100):
+    """(the sum of cross_entropy's terms, the count of valid labels): its
+    mean before the division, for a mean over labels that several ranks
+    hold (a sequence-parallel loss)."""
     (input,) = cast_inputs("cross_entropy", input)
     logp = torch.log_softmax(input, dim=-1)
     label = label.long()
@@ -71,7 +80,7 @@ def cross_entropy(input, label, ignore_index=-100):
     safe = torch.where(valid, label, torch.zeros_like(label))
     picked = logp.gather(-1, safe[..., None])[..., 0]
     loss = torch.where(valid, -picked, torch.zeros_like(picked))
-    return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+    return loss.sum(), valid.sum()
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -132,6 +141,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _flash.flash_attention(query, key, value, scale, is_causal)
     return _sdpa_xla(query, key, value, attn_mask, dropout_p, is_causal,
                      training, scale, generator)
+
+
+def sequence_parallel_attention(q, k, v, *, axis_name="sep", mode="ring",
+                                causal=True):
+    """The reference's registered op (distributed/context_parallel.py):
+    ring or Ulysses attention over this rank's sequence shards, or the
+    dense composition with no `axis_name` group of more than one rank."""
+    from ..distributed import context_parallel
+
+    return context_parallel.sequence_parallel_attention(
+        q, k, v, axis_name=axis_name, mode=mode, causal=causal)
 
 
 def segmented_attention(q, k, v, segment_ids, causal=True, scale=None):

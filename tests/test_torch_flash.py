@@ -55,8 +55,11 @@ def _close(got, want, tdt):
     tol = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
            torch.float16: 2.0 ** -10}[tdt]
     err = np.abs(got - want)
-    assert (err <= tol * (np.abs(want) + rms)).all(), \
-        (err.max(), rms)
+    bound = tol * (np.abs(want) + rms)
+    worst = np.unravel_index(np.argmax(err / bound), err.shape)
+    assert (err <= bound).all(), \
+        (err.max(), rms, worst, float(got[worst]), float(want[worst]),
+         float(bound[worst]))
 
 
 def _inputs(shape, jdt, tdt, seed=0):

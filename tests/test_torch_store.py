@@ -345,3 +345,87 @@ def test_racing_large_sets_of_one_key_leave_one_value():
         for c in clients:
             c.close()
         master.close()
+
+
+def test_delete_racing_a_chunked_set_orphans_no_chunk(monkeypatch):
+    """Two clients set one key to chunked values while a third deletes it
+    as fast as it can. Without the tombstone, a delete that read the old
+    head could remove the head a set had just written and leave that
+    set's chunks behind. Afterwards the key reads as one writer's whole
+    value or as missing, the chunk counter counts exactly the chunks of
+    what the key holds, and no raw key is unaccounted for (no tombstone
+    is left)."""
+    monkeypatch.setattr(native, "CHUNK_BYTES", 1024)
+    master = native.TCPStore("127.0.0.1", 0, is_master=True)
+    clients = [native.TCPStore("127.0.0.1", master.port) for _ in range(3)]
+    payloads = [bytes([i + 1]) * (4 * 1024 + 7) for i in range(2)]
+    n = -(-len(payloads[0]) // 1024)
+    done = threading.Event()
+    errors = []
+
+    def writer(c, payload):
+        try:
+            for _ in range(300):
+                c.set("/race/del", payload)
+        except Exception as e:          # surfaced by the assert below
+            errors.append(e)
+
+    def deleter(c):
+        try:
+            while not done.is_set():
+                c.delete("/race/del")
+        except Exception as e:
+            errors.append(e)
+
+    try:
+        writers = [threading.Thread(target=writer, args=(c, p))
+                   for c, p in zip(clients, payloads)]
+        killer = threading.Thread(target=deleter, args=(clients[2],))
+        killer.start()
+        for t in writers:
+            t.start()
+        for t in writers:
+            t.join(120)
+        done.set()
+        killer.join(120)
+        assert not errors
+        got = master.get("/race/del", blocking=False)
+        assert got is None or got in payloads
+        live = 0 if got is None else n
+        assert int(master._get_once(native._CHUNK_COUNT).decode()) == live
+        logical = 0 if got is None else 1
+        assert master.num_keys() == logical
+        assert master._s.num_keys() == logical + 1 + live
+        master.delete("/race/del")
+        _assert_no_chunks(master, 0)
+        assert master.get("/race/del", blocking=False) is None
+        master.set("/race/del", payloads[0])     # a set after the delete
+        assert master.get("/race/del", blocking=False) == payloads[0]
+        assert master.num_keys() == 1
+    finally:
+        for c in clients:
+            c.close()
+        master.close()
+
+
+def test_deletes_of_distinct_keys_leave_no_raw_key(monkeypatch):
+    """Every step of an elastic run deletes keys of its own (a reducer's
+    per-step contributions): a delete must leave nothing behind. After
+    short and chunked values under 200 distinct keys are set and deleted,
+    the raw store holds what it held before, the chunk counter aside."""
+    monkeypatch.setattr(native, "CHUNK_BYTES", 1024)
+    master = native.TCPStore("127.0.0.1", 0, is_master=True)
+    try:
+        master.set("/keep", b"1")
+        raw0 = master._s.num_keys()
+        for i in range(200):
+            value = b"x" * (3000 if i % 4 == 0 else 10)
+            master.set(f"/step/{i}", value)
+            assert master.get(f"/step/{i}", blocking=False) == value
+            master.delete(f"/step/{i}")
+            assert master.get(f"/step/{i}", blocking=False) is None
+        assert master.num_keys() == 1
+        _assert_no_chunks(master, 1)
+        assert master._s.num_keys() == raw0 + 1     # the chunk counter
+    finally:
+        master.close()

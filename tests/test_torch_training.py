@@ -423,13 +423,35 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(NotImplementedError, match="segments"):
         lm(torch.zeros(1, 4, dtype=torch.long), caches=[],
            segments=torch.zeros(1, 4, dtype=torch.int32))
-    # a rotary GPT builds (no wpe); context parallel still raises
+    # a rotary GPT builds (no wpe); a sequence-parallel one builds too, and
+    # with no mesh its attention is the dense path: the same loss and
+    # gradients as the plain model's from the same seed
+    from paddle_tpu_torch.distributed import mesh as tmesh
+
     cfg = GPTConfig.tiny()
     cfg.use_rotary = True
-    assert not hasattr(GPTForCausalLM(cfg, device="cpu").gpt, "wpe")
-    cfg.sequence_parallel = "ring"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTForCausalLM(cfg, device="cpu")
+    plain = GPTForCausalLM(cfg, device="cpu")
+    assert not hasattr(plain.gpt, "wpe")
+    cfg_sp = GPTConfig.tiny()
+    cfg_sp.use_rotary = True
+    cfg_sp.sequence_parallel = "ring"
+    sp = GPTForCausalLM(cfg_sp, device="cpu")
+    before = tmesh.get_mesh()
+    tmesh.set_mesh(None)
+    try:
+        ids = torch.randint(0, cfg.vocab_size, (2, 32),
+                            generator=torch.Generator().manual_seed(0))
+        losses = []
+        for m in (plain, sp):
+            loss = m(ids, labels=ids)
+            loss.backward()
+            losses.append(float(loss.detach()))
+    finally:
+        tmesh.set_mesh(before)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-6)
+    for (k, a), b in zip(plain.named_parameters(), sp.parameters()):
+        torch.testing.assert_close(b.grad, a.grad, rtol=1e-5, atol=1e-7,
+                                   msg=k)
     with pytest.raises(NotImplementedError, match="segments"):
         tm(torch.zeros(1, 4, dtype=torch.long), caches=[],
            segments=torch.zeros(1, 4, dtype=torch.int32))
