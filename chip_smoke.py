@@ -7,9 +7,9 @@ training paths (GPT under amp O1 and O2, with and without recompute, and
 Llama on packed documents; the resilient loop with its data feed and
 checkpoints; elastic data-parallel ranks as processes, reforming after a
 SIGKILL; data parallelism over torch.distributed, two ranks on the card;
-context parallelism, ring and Ulysses, two sequence ranks on the card)
-on one H100 and hold each of its hand-written kernels against its plain
-PyTorch version.
+context parallelism, ring and Ulysses, two sequence ranks on the card;
+tensor parallelism, two mp ranks on the card) on one H100 and hold each
+of its hand-written kernels against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,9 @@ final line):
   3. kernels - each kernel against its plain version on the card, in bf16
                and fp32 (and fp16 at the main shapes), at its path's
                shapes: max |error| within the stated tolerance, and median
-               time (CUDA events) beside the plain version's, one PyTorch
+               time (CUDA events; 5 x 20 calls, a plain version or library
+               call slower than 2 ms a call 3 x 3) beside the plain
+               version's, one PyTorch
                library call's where one computes the same function (a
                yardstick only; the port never calls it), and the bound: the
                larger of bytes moved / 3.35 TB/s and operations / the peak
@@ -46,7 +48,8 @@ final line):
                that run past a 4-page table into the null page, and sq = 1
                against the decode kernel at base + 1, plus a sweep of its
                split count; flash attention at GPT-3 1.3B's (b 4, s 2048, h
-               16, d 128, causal), at d 64, non-causal with sq != sk, at d
+               16, d 128, causal) and at an mp rank's (h 8), at d 64,
+               non-causal with sq != sk, at d
                256 and at d 80 (ragged s 300); which template each call
                takes (tensor cores for bf16 at d % 8 == 0 with aligned
                tensors, CUDA cores at d 36, one element off alignment, fp32
@@ -348,7 +351,7 @@ final line):
                within 1e-3, its final parameters within 5e-4 relative,
                a bound that must sit below the clean last update's move
  30. dp_slice - GPT-3 1.3B at full width, cut to 2 layers (RANK_LAYERS,
-               room for cp_slice), under elastic_slice's
+               room for cp_slice and mp_slice), under elastic_slice's
                settings (fp32 parameters, amp O1, AdamW's fp32 form) with a
                global-norm clip, sequence 2048, global batch 4, two rank
                processes on the card (distributed.spawn, init_parallel_env,
@@ -365,13 +368,16 @@ final line):
                rank; flash and AdamW launches summed over the ranks, which
                must be 24 of each flash kernel and 1 AdamW a step and rank;
                which collectives gloo takes on CUDA tensors (all_reduce and
-               broadcast must); elastic_slice's world-2 step beside them.
+               broadcast must; a bf16 all-reduce, all-gather and
+               reduce-scatter, which mp_slice needs, are probed too);
+               elastic_slice's world-2 step beside them.
                The ranks' flat buffers must be bitwise equal after every
                step (bit sums through the store); then a world-1 TrainStep
                runs the same eight steps from the same weights: losses
                within 1e-3, rank 0's final parameters within 5e-4 relative,
                a bound that must sit below the world-1 run's last update
- 31. cp_slice - context parallelism: GPT-3 1.3B at full width and depth
+ 31. cp_slice - context parallelism: GPT-3 1.3B at full width, cut to 2
+               layers (RANK_LAYERS, room for mp_slice; 24 before it)
                (fp32 parameters, amp O1, AdamW's fp32 form, a global-norm
                clip), global batch 4 x 2048, two sep rank processes on the
                card (distributed.spawn, init_parallel_env, fleet.init at
@@ -395,6 +401,36 @@ final line):
                whole batch from the same weights: each mode's losses within
                1e-3, rank 0's final parameters within 1e-3 relative, a bound
                that must sit below the world-1 run's last update
+ 32. mp_slice - tensor parallelism: GPT-3 1.3B at full width and depth
+               (fp32 parameters, amp O1, AdamW's fp32 form, a global-norm
+               clip through fleet's HybridParallelClipGrad), global batch 4
+               x 2048, two mp rank processes on the card (distributed.spawn,
+               init_parallel_env, fleet.init at mp_degree 2), each holding
+               half of every sharded weight (8 heads, half the MLP, half
+               the vocabulary: this rank's blocks of the seeded whole
+               draw) and running the whole batch through TrainStep: a
+               warm-up and three timed steps. Over gloo, whose own
+               all-reduces, all-gathers and reduce-scatters of CUDA tensors
+               stage through host memory (the routes named, "gloo-staged").
+               Each rank's step wall split into fwd+bwd (the mp all-reduces
+               inside), the clip's square-sum (its mp reduce) and apply;
+               the mp collectives' calls, bytes, seconds, GB/s and the
+               dtype each carried; peak device memory and sampled RSS a
+               rank; flash and AdamW launches summed over the ranks, which
+               must be 24 of each flash kernel and 1 AdamW a step and rank.
+               The replicated parameters must be bitwise equal across the
+               ranks after every step (bit sums through the store); then a
+               world-1 TrainStep runs the same four steps from the same
+               seed: losses within 1e-3, the gathered final parameters
+               within 1e-3 relative, a bound that must sit below the
+               world-1 run's last update. On the ranks also: the Megatron
+               pair (ColumnSequenceParallelLinear -> GELU ->
+               RowSequenceParallelLinear at GPT's MLP widths, 2048 -> 8192
+               -> 2048, [4, 2048] tokens, each rank on half the sequence) in
+               fp32 against the dense product and its gradients (5e-5 of
+               the largest value), and dp_slice's probe of which
+               collectives gloo takes on CUDA tensors (a bf16 all-reduce
+               among them)
 
 Every phase's row carries `at_s`, the script's seconds when it ended. The
 last two lines are the kernel summary {"kernels": [...]} and
@@ -422,8 +458,14 @@ CUT_LAYERS = 8
 # cp_slice, where their exchanges took 116-138 s and 39-59 s (their time
 # follows the parameters' bytes: 2.05 GB at 8 layers, 1.24 GB at 4); then
 # 4, until a run of 1,155 s on a slow host (elastic 104 s, dp 37 s); now 2
-# (0.83 GB)
+# (0.83 GB). cp_slice's too since mp_slice joined the script (24 layers:
+# 107-136 s)
 RANK_LAYERS = 2
+# a yardstick (plain version, library call) slower than this a call is
+# timed over 3 x 3 calls (time_ms), not 5 x 20: the slow plain versions
+# took most of the kernels phase, and a run on a slow host passed the
+# script's time limit
+YARDSTICK_MS = 2.0
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
                   "torch.float32": 67e12}
 SEED = 0
@@ -456,14 +498,26 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
 
 
-def time_ms(fn, iters=20, reps=5):
+def time_ms(fn, iters=20, reps=5, long_ms=None):
     """Median over `reps` of the mean time of `iters` back-to-back calls,
-    by CUDA events, after a warm-up."""
+    by CUDA events, after a warm-up. With `long_ms`, a call that takes
+    longer than that (one call timed after the warm-up) is timed over 3
+    x 3 calls: a yardstick of several ms a call needs no hundred calls
+    (the plain versions took most of the kernels phase that way)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if long_ms is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if start.elapsed_time(end) > long_ms:
+            iters, reps = 3, 3
     samples = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1611,8 +1665,9 @@ def run_case(torch, case, dtype):
                       else {str(k).replace("torch.", ""): dict(
                           zip(("rtol", "rms"), v)) for k, v in tol.items()}),
         "ms": time_ms(case["kernel"], **reps),
-        "plain_ms": time_ms(case["plain"], **reps),
-        "library_ms": time_ms(lib, **reps) if lib is not None else None,
+        "plain_ms": time_ms(case["plain"], **reps, long_ms=YARDSTICK_MS),
+        "library_ms": (time_ms(lib, **reps, long_ms=YARDSTICK_MS)
+                       if lib is not None else None),
         "bound_ms": b_ms, "bound_by": b_by,
     }
     if case.get("costs"):
@@ -1717,6 +1772,7 @@ def kernels_phase(torch):
         # preset's head size, and non-causal attention with sq != sk
         # head_dim 256 and 80 (mma depth padded to 96), ragged s 300
         for geo, main in (((4, 2048, 2048, 16, 128, True), True),
+                          ((4, 2048, 2048, 8, 128, True), False),  # mp 2
                           ((8, 1024, 1024, 16, 64, True), False),
                           ((2, 1024, 2048, 16, 128, False), False),
                           ((2, 1024, 1024, 8, 256, True), False),
@@ -6099,9 +6155,9 @@ DP = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
 # under gloo after the slice's steps (which need all_reduce and broadcast);
 # send/recv last: handed to gloo on an H100 under torch 2.11 it broke the
 # ranks' pair, and once aborted both ranks, so the port now refuses it
-DP_PROBE = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
-            "reduce", "all_to_all", "gather", "scatter", "barrier",
-            "send_recv")
+DP_PROBE = ("all_reduce", "all_reduce_bf16", "broadcast", "all_gather",
+            "reduce_scatter", "reduce", "all_to_all", "gather", "scatter",
+            "barrier", "send_recv")
 
 
 def _dp_flat_sums(torch, opt):
@@ -6117,6 +6173,7 @@ def _dp_collectives(torch, dist, device):
     x = torch.full((4,), float(r + 1), device=device)
     calls = {
         "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_bf16": lambda: dist.all_reduce(x.to(torch.bfloat16)),
         "broadcast": lambda: dist.broadcast(x.clone(), src=0),
         "all_gather": lambda: dist.all_gather([], x),
         "reduce_scatter": lambda: dist.reduce_scatter(
@@ -6574,7 +6631,8 @@ def cp_rank_main(spec):
 
 
 def cp_slice_phase(torch, device="cuda", spec=None):
-    """GPT-3 1.3B at full width and depth (fp32 parameters, amp O1, AdamW's
+    """GPT-3 1.3B at full width, cut to RANK_LAYERS since mp_slice joined
+    the script (fp32 parameters, amp O1, AdamW's
     fused fp32 form, a global-norm clip), global batch 4 x 2048, context-
     parallel over two sep rank processes on the one card (distributed.spawn,
     init_parallel_env, fleet.init at sep_degree 2): each rank computes
@@ -6606,7 +6664,7 @@ def cp_slice_phase(torch, device="cuda", spec=None):
 
     spec = dict(spec or dict(
         model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
-        n_batches=4, clip=1.0, steps=4))
+        n_batches=4, clip=1.0, steps=4, layers=RANK_LAYERS))
     spec.setdefault("backend", "gloo")
     spec["device"] = device
     nsteps = spec["steps"]
@@ -6753,6 +6811,361 @@ def cp_slice_phase(torch, device="cuda", spec=None):
         "world1_losses": world1, "loss_tolerance": CP_SLICE_LOSS_TOL,
         "param_tolerance": CP_SLICE_PARAM_TOL,
         "world1_last_update_rel": step_rel, "ranks_s": ranks_s,
+    }
+
+
+# mp_slice (GPT-3 1.3B, bf16 O1, lr 1e-4, two mp ranks over gloo, each with
+# half of every sharded weight and the whole batch): the ranks against a
+# world-1 run of the same four steps on the same batches. The rows' partial
+# products are rounded to bf16 before their sum (the world-1 product
+# rounds once), so the bounds are cp_slice's; the parameter bound must stay
+# under the world-1 run's last update (checked in the run)
+MP_SLICE_LOSS_TOL = 1e-3
+MP_SLICE_PARAM_TOL = 1e-3
+# the Megatron pair at GPT's MLP widths against the dense product, fp32
+# (TF32 off): sums of up to 8,192 products in another order, whose
+# rounding grows as sqrt(8192) x 2^-24 (~5e-6 of max |value|, a few times
+# that at the tails), |error| / max |value|
+MP_PAIR_TOL = 5e-5
+
+
+def _mp_pair(torch, group, device, rows=4, seq=2048, hidden=2048,
+             inter=8192):
+    """ColumnSequenceParallelLinear -> GELU (tanh) -> RowSequenceParallel-
+    Linear on this rank's sequence shard of [rows, seq, hidden] (GPT's MLP
+    widths), fp32, against the dense product on the whole input: the
+    output shard and every gradient (the row bias's summed over the group,
+    as TrainStep sums a sequence-parallel parameter), |error| / max
+    |dense|; the pair's fwd+bwd seconds and the collectives it ran."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.fleet import (
+        ColumnSequenceParallelLinear, RowSequenceParallelLinear)
+    from paddle_tpu_torch.distributed.mesh import shard_block
+    from paddle_tpu_torch.ops import nn_ops
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, device=device, generator=gen) * std
+
+    x, cot = rnd(rows, seq, hidden), rnd(rows, seq, hidden)
+    dense = [rnd(hidden, inter, std=0.02), rnd(inter, std=0.02),
+             rnd(inter, hidden, std=0.02), rnd(hidden, std=0.02)]
+    xd = x.clone().requires_grad_(True)
+    for t in dense:
+        t.requires_grad_(True)
+    w1, b1, w2, b2 = dense
+    y = nn_ops.linear(nn_ops.gelu(nn_ops.linear(xd, w1, b1),
+                                  approximate=True), w2, b2)
+    (y * cot).sum().backward()
+    col = ColumnSequenceParallelLinear(hidden, inter, mp_group=group,
+                                       device=device)
+    row = RowSequenceParallelLinear(inter, hidden, mp_group=group,
+                                    device=device)
+    with torch.no_grad():
+        for p, t in zip((col.weight, col.bias, row.weight, row.bias), dense):
+            p.copy_(shard_block(t.detach(), p))
+    m = seq // group.nranks
+    part = slice(group.rank * m, (group.rank + 1) * m)
+    xs = x[:, part].clone().requires_grad_(True)
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    collective.reset_transport_stats()
+    sync()
+    t0 = time.perf_counter()
+    ys = row(nn_ops.gelu(col(xs), approximate=True))
+    (ys * cot[:, part]).sum().backward()
+    collective.all_reduce(row.bias.grad, group=group)
+    sync()
+    seconds = time.perf_counter() - t0
+    pairs = {"y": (ys, y[:, part]), "dx": (xs.grad, xd.grad[:, part]),
+             "dw1": (col.weight.grad, shard_block(w1.grad, col.weight)),
+             "db1": (col.bias.grad, shard_block(b1.grad, col.bias)),
+             "dw2": (row.weight.grad, shard_block(w2.grad, row.weight)),
+             "db2": (row.bias.grad, b2.grad)}
+    errs = {k: float((got - want).abs().max() / want.abs().max())
+            for k, (got, want) in pairs.items()}
+    if max(errs.values()) > MP_PAIR_TOL:
+        raise AssertionError(f"the Megatron pair against the dense "
+                             f"product: {errs} (bound {MP_PAIR_TOL})")
+    return {"shape": [rows, seq, hidden, inter], "a_rank": [rows, m],
+            "rel_err": errs, "tolerance": MP_PAIR_TOL,
+            "fwd_bwd_s": seconds,
+            "collectives": collective.transport_stats()}
+
+
+def mp_rank_main(spec):
+    """One tensor-parallel rank as a process of its own (distributed.spawn
+    imports this module in the child): init_parallel_env under
+    PADDLE_DISTRI_BACKEND=spec["backend"] (gloo: both ranks are on the one
+    card), fleet.init at mp_degree 2, the seeded model built under the mesh
+    (this rank's blocks of the whole draw), TrainStep on the global
+    batches, `steps` steps, the first a warm-up. After every step the
+    replicated parameters' bit sums go through the store and must equal
+    the other rank's. Returns the steps (wall, parts, loss, the mp
+    collectives' calls, bytes, seconds and dtypes), launches, peak memory,
+    the routes of the collectives, the Megatron pair's check and the
+    gloo probe; rank 0 dumps the gathered parameters."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    os.environ["PADDLE_DISTRI_BACKEND"] = spec["backend"]
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.mesh import mp_group_of
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.convert import gather_state_dict
+    from paddle_tpu_torch.ops import gpu
+
+    device = spec.get("device", "cuda")
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    dist.init_parallel_env(device=None if on_card else "cpu")
+    import torch.distributed as tdist
+
+    backend = tdist.get_backend()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["mp_degree"] = 2
+    fleet.init(is_collective=True, strategy=strategy)
+    group = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    rank = dist.get_rank()
+    store = denv.get_store()
+    batches = _elastic_batches(spec)
+    probe = torch.empty(1, device=device)
+    routes = {op: collective.transport(probe, group, op=op)
+              for op in ("all_reduce", "all_gather", "reduce_scatter")}
+    # built under the mesh: its mp layers hold this rank's blocks
+    model, opt, loss_fn = _cp_model(torch, spec, device, None)
+    opt = fleet.distributed_optimizer(opt)
+    params = list(model.parameters())
+    replicated = [p for p in params if mp_group_of(p) is None]
+    step = TrainStep(model, loss_fn, opt, device=device, dp_axis="dp",
+                     telemetry=True)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t_start
+    steps = []
+    gpu.reset_launch_counts()
+    for s in range(spec["steps"]):
+        collective.reset_transport_stats()
+        t0 = time.perf_counter()
+        loss = float(step(*batches[s % len(batches)]))
+        wall = time.perf_counter() - t0
+        ex = collective.transport_stats()
+        sums = bit_sums(torch, [p.detach() for p in replicated])
+        key = f"/pt/mp_slice/{s}"
+        store.set(f"{key}/{rank}", json.dumps(sums))
+        other = json.loads(bytes(store.get(
+            f"{key}/{1 - rank}", timeout_s=600)).decode())
+        if other != sums:
+            raise AssertionError(f"step {s}: the ranks' replicated "
+                                 f"parameters differ")
+        steps.append({"step": s, "warmup": s == 0, "loss": loss,
+                      "wall_s": wall, "parts_s": dict(step.last_parts),
+                      "collectives": ex})
+    launches = gpu.launch_counts(DP)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    local_bytes = sum(p.numel() * p.element_size() for p in params)
+    gathered = gather_state_dict(model)
+    if rank == 0 and spec.get("dump"):
+        with open(spec["dump"], "wb") as f:
+            for name, _ in model.named_parameters():
+                f.write(gathered[name].tobytes())
+    del gathered, model, opt, step, params, replicated, loss_fn
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()          # rank 0's dump done: the pair times itself
+    pair = _mp_pair(torch, group, device, **spec.get("pair", {}))
+    if on_card:
+        torch.cuda.empty_cache()
+    collectives = _dp_collectives(torch, dist, device)
+    store.barrier("mp_slice_done")      # rank 0 hosts the store
+    return {"rank": rank, "pid": os.getpid(), "backend": backend,
+            "routes": routes, "mp_rank": group.rank, "mp_ranks": group.ranks,
+            "setup_s": setup_s, "steps": steps, "launches": launches,
+            "max_allocated": peak, "param_bytes": local_bytes,
+            "pair": pair, "collectives_on_device": collectives}
+
+
+def mp_slice_phase(torch, device="cuda", spec=None):
+    """Tensor parallelism: GPT-3 1.3B at full width and depth (fp32
+    parameters, amp O1, AdamW's fused fp32 form, a global-norm clip, the
+    hybrid optimizer's clip), global batch 4 x 2048, two mp rank processes
+    on the one card (distributed.spawn, init_parallel_env, fleet.init at
+    mp_degree 2): each holds half of every sharded weight (8 heads, half
+    the MLP, half the vocabulary) and runs the whole batch, a warm-up and
+    three timed steps through TrainStep. Over gloo, whose all-reduces,
+    all-gathers and reduce-scatters of CUDA tensors it stages through host
+    memory itself (the routes named). Reports each rank's step wall split
+    into fwd+bwd (the mp all-reduces inside), the clip's square-sum (its
+    mp reduce) and apply; the mp collectives' calls, bytes, seconds, GB/s
+    and dtypes; peak device memory and sampled RSS a rank; flash and AdamW
+    launches summed over the ranks, which must be 24 of each flash kernel
+    a step and rank and 1 AdamW. The replicated parameters must be bitwise
+    equal across the ranks after every step; then a world-1 TrainStep runs
+    the same four steps on the card from the same seed: losses within
+    MP_SLICE_LOSS_TOL, the gathered final parameters within
+    MP_SLICE_PARAM_TOL (|p - p1| / |p1|), a bound that must sit below the
+    world-1 run's last update. On the ranks also: the Megatron pair at
+    GPT's MLP widths against the dense product (MP_PAIR_TOL) and
+    dp_slice's probe of which collectives gloo takes on CUDA tensors."""
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig
+
+    spec = dict(spec or dict(
+        model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
+        n_batches=4, clip=1.0, steps=4))
+    spec.setdefault("backend", "gloo")
+    spec["device"] = device
+    nsteps = spec["steps"]
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    cfg.num_layers = spec.get("layers", cfg.num_layers)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_slice_")
+    free = shutil.disk_usage(tmp).free
+    if free < 1.2 * 4 * gpt_numel(cfg):
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"{free} bytes free under {tmp}: the parameter "
+                           "dump does not fit")
+    spec["dump"] = os.path.join(tmp, "rank0.params")
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    t0 = time.perf_counter()
+    try:
+        ctx = spawn(cs.mp_rank_main, args=(spec,), nprocs=2, join=False,
+                    backend="cuda" if device == "cuda" else "cpu")
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {f"rank{r}": p.pid for r, p in enumerate(ctx.processes)},))
+        sampler.start()
+        try:
+            ranks = ctx.join(900)
+        finally:
+            for p in ctx.processes:
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            sampler.join()
+        ranks_s = time.perf_counter() - t0
+
+        # the world-1 run: mp=1, the same steps on the same batches
+        model, opt, loss_fn = _cp_model(torch, spec, device, None)
+        step = TrainStep(model, loss_fn, opt, device=device)
+        batches = _elastic_batches(spec)
+        params = list(model.parameters())
+        world1, walls = [], []
+        for s in range(nsteps):
+            if s == nsteps - 1:
+                before = [p.detach().clone() for p in params]
+            t1 = time.perf_counter()
+            world1.append(float(step(*batches[s % len(batches)])))
+            walls.append(time.perf_counter() - t1)
+        step_rel = _rel_dev(torch, before, params)
+        del before
+        words = np.memmap(spec["dump"], dtype=np.float32, mode="r")
+        offs = np.cumsum([0] + [p.numel() for p in params])
+        if words.size != offs[-1]:
+            raise AssertionError(f"rank 0 dumped {words.size} parameters, "
+                                 f"the model has {offs[-1]}")
+        param_rel = _rel_dev(torch, (
+            torch.from_numpy(np.array(words[a:b])).to(p.device).view_as(p)
+            for p, a, b in zip(params, offs[:-1], offs[1:])), params)
+        del words, model, opt, step, params
+        if device == "cuda":
+            release(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [st["loss"] for st in ranks[0]["steps"]]
+    if [st["loss"] for st in ranks[1]["steps"]] != losses:
+        raise AssertionError("the ranks' losses differ")
+    dev = max(abs(a - b) for a, b in zip(losses, world1))
+    if not all(np.isfinite(losses)) or dev > MP_SLICE_LOSS_TOL \
+            or not param_rel <= MP_SLICE_PARAM_TOL < step_rel:
+        raise AssertionError(
+            f"losses {losses} against the world-1 run's {world1}: {dev} "
+            f"(bound {MP_SLICE_LOSS_TOL}); final parameters {param_rel} "
+            f"from the world-1 run's (bound {MP_SLICE_PARAM_TOL}, which "
+            f"must sit below its last update's {step_rel})")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in DP}
+    want = {k: (1 if k == "adamw" else cfg.num_layers) * nsteps * 2
+            for k in DP}
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"launches over both ranks {launches}, "
+                             f"expected {want}")
+
+    def summary(r):
+        timed = [st for st in r["steps"] if not st["warmup"]]
+        kinds = timed[0]["collectives"]
+        ex_s = [sum(v["seconds"] for v in st["collectives"].values())
+                for st in timed]
+        nbytes = sum(v["bytes"] for v in kinds.values())
+        return {
+            "setup_s": r["setup_s"],
+            "step_s": [st["wall_s"] for st in timed],
+            "median_step_s": statistics.median(st["wall_s"] for st in timed),
+            "median_parts_s": {
+                k: statistics.median(st["parts_s"][k] for st in timed)
+                for k in timed[0]["parts_s"]},
+            "warmup_s": r["steps"][0]["wall_s"],
+            "collectives_a_step": {
+                k: {"calls": v["calls"], "bytes": v["bytes"],
+                    "dtypes": v.get("dtypes", {}),
+                    "gb_per_s": v["bytes"] / v["seconds"] / 1e9
+                    if v["seconds"] else None}
+                for k, v in kinds.items()},
+            "collective_bytes_a_step": nbytes,
+            "median_collective_s": statistics.median(ex_s),
+            "collective_gb_per_s": nbytes / statistics.median(ex_s) / 1e9,
+            "max_allocated": r["max_allocated"],
+            "param_bytes": r["param_bytes"], "launches": r["launches"]}
+
+    per_rank = {r["rank"]: summary(r) for r in ranks}
+    med = per_rank[0]["median_step_s"]
+    return {
+        "phase": "mp_slice", "model": ("GPT tiny" if spec["model"] == "tiny"
+                                       else "GPT-3 1.3B"),
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "heads": cfg.num_heads, "heads_a_rank": cfg.num_heads // 2,
+        "amp": ("O1 bfloat16, fp32 parameters" if spec.get("amp")
+                else "off, fp32"),
+        "batch": [spec["rows"], spec["seq"]], "mp": 2,
+        "backend": ranks[0]["backend"], "routes": ranks[0]["routes"],
+        "routes_why": "two ranks on one card: NCCL refuses that; gloo's "
+                      "own collectives copy CUDA tensors through host "
+                      "memory, the kernels stay on the card",
+        "mp_group": ranks[0]["mp_ranks"], "steps": nsteps,
+        "per_rank": per_rank, "rss_peak_sampled": rss,
+        "tokens_per_s": spec["rows"] * spec["seq"] / med,
+        "losses": losses, "world1_losses": world1,
+        "world1_step_s": statistics.median(walls[1:]),
+        "max_abs_loss_dev": dev, "loss_tolerance": MP_SLICE_LOSS_TOL,
+        "final_params_rel_dev": param_rel,
+        "param_tolerance": MP_SLICE_PARAM_TOL,
+        "world1_last_update_rel": step_rel, "launches": launches,
+        "want": want,
+        "pair": {r["rank"]: r["pair"] for r in ranks},
+        "collectives_on_device": {r["rank"]: r["collectives_on_device"]
+                                  for r in ranks},
+        "ranks_s": ranks_s,
     }
 
 
@@ -6988,6 +7401,10 @@ def main():
     # context parallelism: two sep ranks on the card, each on half of
     # every row, ring then Ulysses
     emit(cp_slice_phase(torch))
+    release(torch)
+    # tensor parallelism: two mp ranks on the card, each with half of
+    # every sharded weight and the whole batch
+    emit(mp_slice_phase(torch))
     release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged

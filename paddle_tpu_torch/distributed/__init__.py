@@ -16,14 +16,17 @@ torch.distributed process groups (`init_parallel_env` joins them):
     issued from the backward's hooks (`grad_buckets`, `overlap`);
   * context parallelism (`context_parallel`): ring and Ulysses attention
     over a `sep` group, each rank on its shard of the sequence, and
-    GPT's `sequence_parallel`.
+    GPT's `sequence_parallel`;
+  * tensor parallelism (`fleet.mp_layers`, `split`): each rank of an
+    `mp` group holds its block of the sharded weights (`annotate_param`,
+    `shard_model_parameters`) and issues Megatron's collectives.
 
 Also here: the single-device `fleet.recompute`; in `env`, the process
 environment, the process-group store (in-process, or native.TCPStore
 across processes) and the serving fleet's replica registry; elastic
 membership and the store-based gradient exchange (`elastic`); the
 rank-sharded checkpoint (`checkpoint`); `spawn`; and `DataParallel`.
-Sharding, pipeline and tensor parallelism wait for later slices. The
+ZeRO sharding and pipeline parallelism wait for later slices. The
 package imports torch, never jax or paddle_tpu.
 """
 from . import checkpoint  # noqa: F401
@@ -72,16 +75,20 @@ from .collective import (  # noqa: F401
     reduce_scatter_autograd,
     scatter,
     send,
+    split,
 )
 from .mesh import (  # noqa: F401
     CommunicateTopology,
     HybridCommunicateGroup,
+    PartitionSpec,
     ProcessMesh,
+    annotate_param,
     auto_mesh,
     build_mesh,
     get_mesh,
     set_mesh,
 )
+from .sharding_utils import shard_batch, shard_model_parameters  # noqa: F401
 from .context_parallel import (  # noqa: F401
     RingAttention,
     all_gather_seq,

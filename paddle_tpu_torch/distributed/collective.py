@@ -24,8 +24,7 @@ the tensors' device raises: nothing is routed through a copy the code
 does not state. Point-to-point ops on CUDA tensors under gloo raise here,
 before gloo sees them: gloo's TCP pair writes from the device pointer,
 fails (EFAULT) on its own thread and aborts the process (torch 2.11 on
-an H100). `split` (the tensor-parallel linear) waits for the mp
-layers (ROADMAP queue 3).
+an H100).
 
 The one stated host route, `HOST_STAGED` ("host-staged gloo"): under
 gloo, `collective_permute` and `alltoall_single` on CUDA tensors copy
@@ -50,6 +49,19 @@ all-to-all), `all_reduce_autograd` is an all-reduce whose backward is
 the identity (each rank's share of a loss summed over the group), and
 `all_gather_autograd` / `reduce_scatter_autograd` are each other's
 backward (the reference's tiled all_gather and psum_scatter).
+
+Tensor parallelism's regions (Megatron's mappings; the reference's
+shard_map transposes give them implicitly): `copy_to_model_parallel`
+(identity, its backward the all-reduce of the gradient: a replicated
+input of a column-parallel product), `all_reduce_autograd` (the
+row-parallel product's partial sums), `gather_replicated_autograd`
+(all-gather, its backward this rank's slice of a cotangent every rank
+holds alike) and `scatter_to_model_parallel` (this rank's block, its
+backward the all-gather). Their collectives are gloo's own on CUDA tensors
+under gloo, which copies them through host memory itself
+(`transport(..., op="all_reduce")` names that route, GLOO_STAGED); the
+counters of `transport_stats()` take them too, by dtype. `split` builds
+the reference's per-name tensor-parallel layer on first use.
 """
 from __future__ import annotations
 
@@ -66,10 +78,16 @@ __all__ = [
     "P2POp", "batch_isend_irecv", "barrier", "get_rank", "get_world_size",
     "axis_context", "all_reduce_autograd", "all_gather_autograd",
     "reduce_scatter_autograd", "transport", "transport_stats",
-    "reset_transport_stats", "HOST_STAGED",
+    "reset_transport_stats", "HOST_STAGED", "GLOO_STAGED",
+    "copy_to_model_parallel", "gather_replicated_autograd",
+    "scatter_to_model_parallel", "split",
 ]
 
 HOST_STAGED = "host-staged gloo"
+# gloo's own collectives (all_reduce, all_gather, reduce_scatter) on CUDA
+# tensors: gloo copies them through pinned host memory itself
+GLOO_STAGED = "gloo-staged"
+_HOST_ROUTED = ("collective_permute", "alltoall_single")
 
 
 class ReduceOp:
@@ -669,14 +687,19 @@ def _staged(tensor, pg) -> bool:
     return tensor.is_cuda and _dist().get_backend(pg) == "gloo"
 
 
-def transport(tensor, group: Optional[Group] = None) -> str:
-    """The route `collective_permute` and `alltoall_single` take for
-    `tensor` over `group`: HOST_STAGED, "device" or "local" (no process
-    group: the identity)."""
+def transport(tensor, group: Optional[Group] = None,
+              op: str = "collective_permute") -> str:
+    """The route collective `op` takes for `tensor` over `group`: "local"
+    (no process group: the identity); for `collective_permute` and
+    `alltoall_single`, HOST_STAGED or "device"; for gloo's own collectives
+    (`all_reduce`, `all_gather`, `reduce_scatter`), GLOO_STAGED (CUDA
+    tensors under gloo) or "device"."""
     _, pg = _resolve(group)
     if pg is None:
         return "local"
-    return HOST_STAGED if _staged(tensor, pg) else "device"
+    if not _staged(tensor, pg):
+        return "device"
+    return HOST_STAGED if op in _HOST_ROUTED else GLOO_STAGED
 
 
 def _to_host(tensors):
@@ -690,18 +713,28 @@ def _to_host(tensors):
     return hosts
 
 
-def _note(name, nbytes, t0) -> None:
+def _note(name, nbytes, t0, dtype=None) -> None:
     ent = _TRANSPORT.setdefault(name, {"calls": 0, "bytes": 0,
                                        "seconds": 0.0})
     ent["calls"] += 1
     ent["bytes"] += int(nbytes)
     ent["seconds"] += time.perf_counter() - t0
+    if dtype is not None:
+        by = ent.setdefault("dtypes", {})
+        key = str(dtype).removeprefix("torch.")
+        by[key] = by.get(key, 0) + 1
 
 
 def transport_stats() -> Dict[str, Dict[str, float]]:
-    """{call: {calls, bytes sent by this rank, seconds}} for
-    collective_permute and alltoall_single since the last reset."""
-    return {k: dict(v) for k, v in _TRANSPORT.items()}
+    """{call: {calls, bytes, seconds}} since the last reset: the bytes
+    this rank sent for collective_permute and alltoall_single; the bytes
+    of this rank's tensor for the tensor-parallel regions' collectives
+    ("all_reduce", "all_reduce_grad": a copy region's backward,
+    "all_gather", "reduce_scatter"), which also count their calls by
+    dtype ("dtypes"). Seconds are the host's, from the call to the
+    result."""
+    return {k: {f: dict(v) if isinstance(v, dict) else v
+                for f, v in ent.items()} for k, ent in _TRANSPORT.items()}
 
 
 def reset_transport_stats() -> None:
@@ -710,16 +743,48 @@ def reset_transport_stats() -> None:
 
 # -- differentiable reductions ---------------------------------------------
 
+def _sum_noted(tensor, g, name):
+    """all_reduce (SUM, in place) over `g`, counted under `name`."""
+    t0 = time.perf_counter()
+    all_reduce(tensor, ReduceOp.SUM, g)
+    _note(name, tensor.numel() * tensor.element_size(), t0, tensor.dtype)
+    return tensor
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, g):
-        out = tensor.detach().clone()
-        all_reduce(out, ReduceOp.SUM, g)
-        return out
+        return _sum_noted(tensor.detach().clone(), g, "all_reduce")
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _CopyToModelParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g):
+        ctx.g = g
+        return tensor.view_as(tensor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_noted(grad.contiguous().clone(), ctx.g,
+                          "all_reduce_grad"), None
+
+
+def copy_to_model_parallel(tensor, group: Optional[Group] = None):
+    """The identity whose backward all-reduces the gradient over the
+    group: a replicated input of a computation that each rank does a part
+    of (a column-parallel product) gets the sum of the parts' gradients,
+    the same on every rank. No group (None) is the identity: a whole
+    layer's."""
+    if group is None:
+        return tensor
+    g, pg = _resolve(group)
+    if pg is None:
+        return tensor
+    return _CopyToModelParallel.apply(tensor, g)
 
 
 def all_reduce_autograd(tensor, group: Optional[Group] = None):
@@ -732,29 +797,74 @@ def all_reduce_autograd(tensor, group: Optional[Group] = None):
     return _AllReduceSum.apply(tensor, g)
 
 
+def _gather_noted(tensor, axis, g):
+    t0 = time.perf_counter()
+    out = all_gather_concat(tensor.contiguous(), axis, g)
+    _note("all_gather", tensor.numel() * tensor.element_size(), t0,
+          tensor.dtype)
+    return out
+
+
+def _scatter_noted(tensor, axis, g):
+    t0 = time.perf_counter()
+    out = reduce_scatter(tensor.contiguous(), ReduceOp.SUM, g, axis=axis)
+    _note("reduce_scatter", tensor.numel() * tensor.element_size(), t0,
+          tensor.dtype)
+    return out
+
+
+def _block(tensor, axis, g):
+    """This rank's contiguous block of `nranks` along `axis`."""
+    n = tensor.shape[axis]
+    if n % g.nranks:
+        raise ValueError(f"dim {axis} of {tuple(tensor.shape)} does not "
+                         f"split into {g.nranks} ranks")
+    m = n // g.nranks
+    return tensor.narrow(axis, g.rank * m, m).contiguous()
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, g, axis):
         ctx.g, ctx.axis = g, axis
-        return all_gather_concat(tensor.contiguous(), axis, g)
+        return _gather_noted(tensor, axis, g)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter(grad.contiguous(), ReduceOp.SUM, ctx.g,
-                              axis=ctx.axis), None, None
+        return _scatter_noted(grad, ctx.axis, ctx.g), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, g, axis):
         ctx.g, ctx.axis = g, axis
-        return reduce_scatter(tensor.contiguous(), ReduceOp.SUM, g,
-                              axis=axis)
+        return _scatter_noted(tensor, axis, g)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_gather_concat(grad.contiguous(), ctx.axis, ctx.g), \
-            None, None
+        return _gather_noted(grad, ctx.axis, ctx.g), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g, axis):
+        ctx.g, ctx.axis = g, axis
+        return _gather_noted(tensor, axis, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _block(grad, ctx.axis, ctx.g), None, None
+
+
+class _ScatterToModelParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, g, axis):
+        ctx.g, ctx.axis = g, axis
+        return _block(tensor, axis, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_noted(grad, ctx.axis, ctx.g), None, None
 
 
 def all_gather_autograd(tensor, axis=0, group: Optional[Group] = None):
@@ -773,3 +883,91 @@ def reduce_scatter_autograd(tensor, axis=0, group: Optional[Group] = None):
     if pg is None:
         return tensor
     return _ReduceScatter.apply(tensor, g, axis)
+
+
+def gather_replicated_autograd(tensor, axis=-1,
+                               group: Optional[Group] = None):
+    """`all_gather_concat` along `axis` for a caller whose every rank then
+    computes the same function of the whole (a tensor-parallel layer's
+    gathered output, a sequence-parallel model's output): the cotangent
+    is the same on every rank, and the backward keeps this rank's slice
+    of it (the sum all_gather_autograd's backward takes would count it
+    nranks times). No group (None) is the identity."""
+    if group is None:
+        return tensor
+    g, pg = _resolve(group)
+    if pg is None:
+        return tensor
+    return _GatherReplicated.apply(tensor, g, axis)
+
+
+def scatter_to_model_parallel(tensor, axis=-1,
+                              group: Optional[Group] = None):
+    """This rank's contiguous block of `tensor` along `axis` (a replicated
+    input of a row-parallel product); the backward all-gathers the
+    gradient. No group (None) is the identity."""
+    if group is None:
+        return tensor
+    g, pg = _resolve(group)
+    if pg is None:
+        return tensor
+    return _ScatterToModelParallel.apply(tensor, g, axis)
+
+
+# -- Megatron-style split (reference paddle_tpu/distributed/collective.py
+# :437-471, Paddle's distributed/collective.py split) -------------------
+
+_split_layer_cache: dict = {}
+
+
+def split(x, size, operation="linear", axis=0, num_partitions=None,
+          gather_out=True, weight_attr=None, bias_attr=None, name=None):
+    """A linear or an embedding partitioned over the model-parallel group
+    (the current mesh's mp axis): `size` is the WHOLE (in, out) shape
+    ((vocab, hidden) for "embedding"); "linear" with axis 0 partitions
+    the weight's rows (a RowParallelLinear, its input taken whole and
+    split here), axis 1 its columns (a ColumnParallelLinear, its output
+    gathered unless `gather_out` is False). The layer is built on `x`'s
+    device at the first call of a `name` (a default made from the
+    arguments), with the reference's initialisation drawn whole from
+    torch's default generator (Xavier-uniform linear weights, normal(0,
+    0.02) embeddings, zero biases) and this rank's block kept, and
+    reused by later calls of that name. `bias_attr=False` builds no
+    bias; `weight_attr` and `num_partitions` are accepted for the
+    reference's signature (the mesh sets the partitions)."""
+    from .fleet import mp_layers
+    from .mesh import full_shape, shard_block
+
+    key = name or f"dist_split_{operation}_{axis}_{tuple(size)}"
+    layer = _split_layer_cache.get(key)
+    if layer is None:
+        kw = dict(device=x.device)
+        has_bias = bias_attr is not False
+        if operation == "embedding":
+            layer = mp_layers.VocabParallelEmbedding(int(size[0]),
+                                                     int(size[1]), **kw)
+        elif operation == "linear" and axis == 0:
+            layer = mp_layers.RowParallelLinear(
+                int(size[0]), int(size[1]), has_bias=has_bias,
+                input_is_parallel=False, **kw)
+        elif operation == "linear" and axis == 1:
+            layer = mp_layers.ColumnParallelLinear(
+                int(size[0]), int(size[1]), has_bias=has_bias,
+                gather_output=gather_out, **kw)
+        else:
+            raise ValueError(
+                f"split: unsupported operation={operation!r} axis={axis}")
+        with torch.no_grad():
+            for pname, p in layer.named_parameters():
+                shape = full_shape(p)
+                whole = torch.empty(shape, dtype=p.dtype, device=p.device)
+                if pname == "bias":
+                    whole.zero_()
+                elif operation == "embedding":
+                    whole.normal_(0.0, 0.02)
+                else:
+                    bound = (6.0 / (shape[0] + shape[1])) ** 0.5
+                    whole.uniform_(-bound, bound)
+                p.copy_(shard_block(whole, p))
+        _split_layer_cache[key] = layer
+    return layer(x)

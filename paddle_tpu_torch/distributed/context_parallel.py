@@ -55,8 +55,8 @@ import torch
 
 from ..core.flags import get_flag
 from ..ops.gpu import flash_attention as _flash
-from .collective import (Group, all_gather_autograd, all_gather_concat,
-                         alltoall_single, collective_permute,
+from .collective import (Group, all_gather_autograd, alltoall_single,
+                         collective_permute, gather_replicated_autograd,
                          reduce_scatter_autograd)
 from .grad_buckets import _group_of, default_bucket_bytes
 from .mesh import get_mesh
@@ -268,18 +268,6 @@ def gather_seq(x, axis_name, seq_axis=1):
     return all_gather_seq(x, axis_name, seq_axis)
 
 
-class _GatherReplicated(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, axis):
-        ctx.group, ctx.axis, ctx.m = group, axis, x.shape[axis]
-        return all_gather_concat(x.contiguous(), axis, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.narrow(ctx.axis, ctx.group.rank * ctx.m,
-                           ctx.m).contiguous(), None, None
-
-
 def gather_replicated(x, axis_name, seq_axis=1):
     """The sequence shards gathered to the full sequence, for callers
     whose every rank then computes the same function of it (a
@@ -289,7 +277,7 @@ def gather_replicated(x, axis_name, seq_axis=1):
     group = _resolve(axis_name)
     if group.nranks == 1:
         return x
-    return _GatherReplicated.apply(x, group, seq_axis)
+    return gather_replicated_autograd(x, seq_axis, group)
 
 
 class RingAttention:

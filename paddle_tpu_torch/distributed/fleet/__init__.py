@@ -1,16 +1,20 @@
 """Fleet (counterpart of paddle_tpu/distributed/fleet; reference: Paddle's
 fleet.py:167 init, model.py:30 distributed_model, topology.py): the
-hybrid topology over the ranks and the data-parallel API, and activation
-recomputation (also as `fleet.utils.recompute`). A `sep_degree` above 1
-makes the sep groups that GPT's `sequence_parallel` shards its sequence
-over (distributed/context_parallel.py).
+hybrid topology over the ranks and the data-parallel API, the
+tensor-parallel layers (`mp_layers`), and activation recomputation (also
+as `fleet.utils.recompute`). A `sep_degree` above 1 makes the sep groups
+that GPT's `sequence_parallel` shards its sequence over
+(distributed/context_parallel.py); an `mp_degree` above 1 the mp groups
+whose ranks each hold a block of the mp layers' weights, alone or beside
+dp (dp x mp: the mesh's dp groups are the ranks of one mp position).
 
 `init` runs init_parallel_env (a rank that must stay on the CPU calls
 `init_parallel_env(device="cpu")` first: it is idempotent) and builds the
 HybridCommunicateGroup of the strategy's degrees, which sets the mesh.
-`distributed_model` wraps a model in DataParallel only when dp_degree > 1
-and the world has more than one rank; pipeline parallelism raises (not
-ported). `dp_train_step` builds the TrainStep of the data-parallel path.
+`distributed_model` wraps a model in DataParallel over the dp group only
+when dp_degree > 1 and the world has more than one rank (an mp rank's
+gradients are its own blocks', or alike on every mp rank); pipeline
+parallelism raises (not ported). `dp_train_step` builds the TrainStep of the data-parallel path.
 The role makers, UtilBase and the data generators wait in ROADMAP queue
 1, item 3.
 """
@@ -24,13 +28,24 @@ from .hybrid_optimizer import (  # noqa: F401
     HybridParallelClipGrad,
     HybridParallelOptimizer,
 )
+from .mp_layers import (  # noqa: F401
+    ColumnParallelLinear,
+    ColumnSequenceParallelLinear,
+    ParallelCrossEntropy,
+    RowParallelLinear,
+    RowSequenceParallelLinear,
+    VocabParallelEmbedding,
+)
 from .recompute import recompute, recompute_sequential
 from . import utils  # noqa: F401
 
 __all__ = ["recompute", "recompute_sequential", "DistributedStrategy",
            "Fleet", "fleet", "init", "get_hybrid_communicate_group",
            "distributed_model", "distributed_optimizer", "dp_train_step",
-           "HybridParallelClipGrad", "HybridParallelOptimizer"]
+           "HybridParallelClipGrad", "HybridParallelOptimizer",
+           "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "ParallelCrossEntropy",
+           "ColumnSequenceParallelLinear", "RowSequenceParallelLinear"]
 
 
 class DistributedStrategy:

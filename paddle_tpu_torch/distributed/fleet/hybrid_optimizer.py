@@ -5,12 +5,12 @@ the tensor-parallel-aware gradient clip).
 Data-parallel gradients are reduced by TrainStep (or DataParallel's
 hooks) before the clip, so what this wrapper adds is the clip's global
 norm over the other axes: the square-sum of the tensor-parallel
-parameters' gradients (partial on each mp rank) all-reduced over the mp
+parameters' gradients (each mp rank's blocks) all-reduced over the mp
 group, the replicated ones counted once, and the whole all-reduced over
 the pipeline and sharding groups (disjoint parameters). Over data
 parallelism alone those groups are one rank each and nothing more is
-reduced; the reductions are written as the reference writes them so that
-later slices only turn them on.
+reduced; the pipeline and sharding reductions are written as the
+reference writes them so that later slices only turn them on.
 """
 from __future__ import annotations
 
@@ -61,15 +61,11 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
         return self._over_pp_sharding(sq_dist + sq_rep)
 
     def factor(self, square_sum):
-        """The factor from this rank's square-sum of every gradient (the
-        fused AdamW's path). It cannot tell tensor-parallel gradients from
-        replicated ones, so under an mp group of more than one rank it
-        raises: mp layers wait for a later slice (ROADMAP queue 1)."""
-        if self._hcg.get_model_parallel_group().nranks > 1:
-            raise NotImplementedError(
-                "HybridParallelClipGrad.factor: tensor parallelism (mp "
-                "degree > 1) waits for fleet/mp_layers.py (ROADMAP queue 1, "
-                "item 3)")
+        """The factor from the square-sum of every gradient as the fused
+        AdamW computes it (optimizers.AdamW._square_sum: over tensor
+        parallelism already the mp-global one, nn/clip.py's split of the
+        mp blocks and the replicated parameters), reduced over the
+        pipeline and sharding groups."""
         return super().factor(self._over_pp_sharding(square_sum.clone()))
 
     def __call__(self, params_grads):

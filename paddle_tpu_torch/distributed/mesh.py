@@ -1,7 +1,6 @@
 """Process mesh and hybrid topology (counterpart of paddle_tpu/distributed/
-mesh.py, as far as data parallelism needs it; reference: Paddle's
-CommunicateTopology and HybridCommunicateGroup, fleet/base/topology.py:58,
-:144).
+mesh.py; reference: Paddle's CommunicateTopology and
+HybridCommunicateGroup, fleet/base/topology.py:58, :144).
 
 The reference's mesh is one jax Mesh of devices with named axes. Here the
 ranks (processes) are the grid: `build_mesh` lays ranks 0..N-1 out in
@@ -12,14 +11,29 @@ groups it lies on (`Mesh.group(axis)`), and with both dp and sep above
 one rank, its group over the two (`Mesh.joint_group(("dp", "sep"))`,
 data x context parallelism's gradient reduction); an axis of size 1 is
 a group of one rank, whose collectives are the identity. Ranks past the
-mesh's size lie on no group. `annotate_param` (sharding a parameter over an axis)
-waits for a later slice.
+mesh's size lie on no group.
+
+Parameter sharding (tensor parallelism). The reference annotates a
+whole-shaped parameter with a PartitionSpec and places it with a
+NamedSharding, and GSPMD partitions the program. Here each mp rank holds
+its own block: `annotate_param` records the spec as `p._pspec` and, under
+a mesh whose mp axis has more than one rank, cuts the parameter to this
+rank's contiguous block along the annotated dimension (`shard_param`:
+`p.data` becomes the block; `p._mp_shard` holds the group and the
+dimension, `p._full_shape` the whole shape). `shard_block` takes a
+parameter's block of a whole-shaped tensor or array: a model fills a
+cut parameter with its block of the whole draw from its generator, so a
+model built at mp = n from a seed holds exactly the blocks of the model
+built at mp = 1 from that seed; `models.convert.load_jax_state_dict`
+takes the block of a reference array the same way. Only the mp axis
+cuts: ZeRO's axes wait for sharding.py.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 AXIS_ORDER = ("dp", "pp", "sharding", "sep", "ep", "mp")
 
@@ -125,11 +139,112 @@ def auto_mesh() -> Mesh:
     return _current_mesh
 
 
-def annotate_param(p, spec):
-    """Sharding a parameter over mesh axes is not ported yet."""
-    raise NotImplementedError(
-        "annotate_param: parameter sharding over a mesh axis waits for "
-        "sharding.py (ROADMAP queue 1, item 3: the rest of distributed/)")
+class PartitionSpec(tuple):
+    """The reference's jax.sharding.PartitionSpec: an entry a dimension,
+    None (whole), an axis name or a tuple of axis names."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+_ZERO = ("sharding a parameter over {axis!r} waits for sharding.py "
+         "(ZeRO; ROADMAP queue 1, item 3)")
+
+
+def _spec_axes(entry):
+    return entry if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def annotate_param(p, spec, name=None):
+    """Record `spec` as `p._pspec` and, under the current mesh, cut `p` to
+    this rank's block along every dimension the spec shards over an mp
+    axis of more than one rank (see the module note). An axis the mesh
+    does not have raises, as in the reference; so does a dimension the
+    axis size does not divide (the reference warns and leaves GSPMD to
+    pad: ROADMAP, faults of the reference). `name` names the parameter in
+    that error."""
+    spec = PartitionSpec(*spec)
+    p._pspec = spec
+    if _current_mesh is not None:
+        place_param(p, spec, _current_mesh, name)
+    return p
+
+
+def place_param(p, spec, mesh, name=None):
+    """Cut `p` by `spec` over `mesh` (annotate_param's placement, and
+    sharding_utils.shard_model_parameters'): an axis the mesh lacks
+    raises ValueError; an mp axis of more than one rank cuts; any other
+    axis of more than one rank (ZeRO's) raises NotImplementedError."""
+    for entry in spec:
+        for a in _spec_axes(entry):
+            if a is not None and a not in mesh.axis_names:
+                raise ValueError(
+                    ("" if name is None else f"{name}: ")
+                    + f"sharding spec {spec} names axis {a!r} which is not "
+                    f"in mesh axes {mesh.axis_names}")
+    for dim, entry in enumerate(spec):
+        for a in _spec_axes(entry):
+            if a is None or mesh.shape[a] == 1:
+                continue
+            if a != "mp":
+                raise NotImplementedError(_ZERO.format(axis=a))
+            shard_param(p, dim, mesh.group("mp"), name)
+    return p
+
+
+def shard_param(p, dim, group, name=None):
+    """Cut the whole parameter `p` in place to `group.rank`'s contiguous
+    block of `group.nranks` along `dim` (`p.data` becomes a copy of the
+    block). A group of one rank, or one this rank is outside, leaves it
+    whole; a parameter already cut over `group` along `dim` is left as it
+    is."""
+    if group.nranks <= 1 or group.rank < 0:
+        return p
+    cut = getattr(p, "_mp_shard", None)
+    if cut is not None:
+        if cut == (group, dim):
+            return p
+        raise ValueError(f"parameter {name or tuple(p.shape)} is already "
+                         f"cut along dim {cut[1]} over {cut[0]}")
+    size, n = p.shape[dim], group.nranks
+    if size % n:
+        raise ValueError(
+            f"parameter {name or 'of shape ' + str(tuple(p.shape))}: dim "
+            f"{dim} ({size}) does not divide into {n} ranks of 'mp'")
+    m = size // n
+    full = tuple(p.shape)
+    with torch.no_grad():
+        p.data = p.data.narrow(dim, group.rank * m, m).clone()
+    p._mp_shard = (group, dim)
+    p._full_shape = full
+    return p
+
+
+def mp_group_of(p):
+    """The group `p` is cut over, or None for a whole parameter."""
+    cut = getattr(p, "_mp_shard", None)
+    return None if cut is None else cut[0]
+
+
+def full_shape(p):
+    """The whole shape of parameter `p` (its own shape when whole)."""
+    return getattr(p, "_full_shape", None) or tuple(p.shape)
+
+
+def shard_block(whole, p):
+    """`p`'s block of `whole`, a whole-shaped tensor or numpy array (a view
+    of it; `whole` itself when `p` is whole)."""
+    cut = getattr(p, "_mp_shard", None)
+    if cut is None:
+        return whole
+    group, dim = cut
+    m = whole.shape[dim] // group.nranks
+    idx = [slice(None)] * len(whole.shape)
+    idx[dim] = slice(group.rank * m, (group.rank + 1) * m)
+    return whole[tuple(idx)]
 
 
 class ProcessMesh:

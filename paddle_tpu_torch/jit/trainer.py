@@ -67,6 +67,20 @@ after the backward and after the reduction and keeps `last_parts`: the
 seconds of fwd+bwd (with the hooks' reduces in flight), of the wait for
 the last bucket (and the loss's average), and of the update.
 
+Tensor parallelism (a model whose mp layers were cut over an mp group,
+distributed/fleet/mp_layers.py): every mp rank takes the same rows (the
+batch is split over dp alone), and nothing about the gradients changes:
+an mp block's gradient is complete on its rank, and a replicated
+parameter's is the same on every mp rank (the layers' copy regions sum
+the input gradients); with dp the gradients are reduced over the dp
+group only. The optimizer's square-sum, and so the global-norm clip, the
+guard and telemetry's `grad_norm`, is the global one (nn/clip.py). A
+parameter marked sequence-parallel (`sequence_parallel = True`: the
+Megatron pair's row bias, the norms around it) holds a partial gradient
+on each mp rank, which the step sums over the group after the backward.
+With telemetry on over mp, `last_parts` also holds `square_sum_s`, the
+seconds of that square-sum (its mp reduction inside).
+
 Without the guard and telemetry the step has no host sync inside; the
 caller decides when to read the loss.
 
@@ -178,6 +192,12 @@ class TrainStep:
         self._n_params = None
         self._batch_dims = None
         self._params = [p for p in model.parameters() if p.requires_grad]
+        from ..distributed.mesh import mp_group_of
+
+        self._mp_group = next((g for g in map(mp_group_of, self._params)
+                               if g is not None), None)
+        self._sp_params = [p for p in self._params
+                           if getattr(p, "sequence_parallel", False)]
         self._trigger = None          # (flags, the bucket plan)
         self._reduce_s = None
         self._probe_step = -(1 << 30)
@@ -192,6 +212,11 @@ class TrainStep:
     def _dp_world(self) -> int:
         g = self._dp_group
         return 1 if g is None or g.rank < 0 else int(g.nranks)
+
+    @property
+    def _mp_world(self) -> int:
+        g = self._mp_group
+        return 1 if g is None else int(g.nranks)
 
     @property
     def _reduce_world(self) -> int:
@@ -257,7 +282,8 @@ class TrainStep:
         lr = float(np.float32(opt.get_lr()))    # the fp32 lr the update takes
         self._step_i += 1
         t0 = time.perf_counter() if self._telemetry else 0.0
-        marks = [] if self._telemetry and self._reduce_world > 1 else None
+        marks = [] if self._telemetry and (self._reduce_world > 1 or
+                                           self._mp_world > 1) else None
         with _span("jit.train_step", cat="jit"):
             if self._dp_group is not None:
                 batch = self._shard_batch(batch)
@@ -266,9 +292,13 @@ class TrainStep:
                 loss = self._dp_fwd_bwd(batch, marks)
             else:
                 loss = self._fwd_bwd(batch)
+                self._mark(marks, "fwd_bwd_s")
+            self._sum_sequence_parallel()
             gsq = skip = None
             if self._nan_guard or self._telemetry:
                 gsq = opt.grad_square_sum()
+                if self._mp_world > 1:
+                    self._mark(marks, "square_sum_s")
             if self._nan_guard:
                 ok = torch.isfinite(gsq) & torch.isfinite(loss.float())
                 skip = (~ok).to(torch.int32)
@@ -293,12 +323,30 @@ class TrainStep:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _mark(self, marks, part):
+        """With `marks` (a list, with telemetry): the device synchronised,
+        the end of `part` noted."""
+        if marks is not None:
+            self._sync()
+            marks.append((part, time.perf_counter()))
+
+    @torch.no_grad()
+    def _sum_sequence_parallel(self):
+        """Sum the partial gradients of the parameters marked
+        sequence-parallel over the mp group."""
+        if self._mp_world <= 1:
+            return
+        from ..distributed.collective import ReduceOp, all_reduce
+
+        for p in self._sp_params:
+            if p.grad is not None:
+                all_reduce(p.grad, ReduceOp.SUM, self._mp_group)
+
     def _dp_fwd_bwd(self, batch, marks):
         """The forward and backward with every gradient bucket's reduction
         issued from the hooks and drained, then the loss averaged over the
         group. `marks` (a list, with telemetry) collects the host times
-        after the backward and after the reduction, each after a device
-        sync."""
+        after the backward and after the reduction (`_mark`)."""
         from ..distributed.collective import ReduceOp, all_reduce
         from ..distributed.context_parallel import grad_sum_disabled
 
@@ -311,16 +359,12 @@ class TrainStep:
 
         def backward():
             loss.backward()
-            if marks is not None:
-                self._sync()
-                marks.append(time.perf_counter())
+            self._mark(marks, "fwd_bwd_s")
 
         trigger.run(backward)
         loss = all_reduce(loss.detach().clone(), ReduceOp.SUM,
                           self._dp_group).div_(self._dp_world)
-        if marks is not None:
-            self._sync()
-            marks.append(time.perf_counter())
+        self._mark(marks, "reduce_wait_s")
         return loss
 
     def forward_backward(self, *batch):
@@ -381,9 +425,11 @@ class TrainStep:
         t_end = time.perf_counter()
         compute_s = t_end - t0
         if marks:
-            self.last_parts = {"fwd_bwd_s": marks[0] - t0,
-                               "reduce_wait_s": marks[1] - marks[0],
-                               "apply_s": t_end - marks[1]}
+            parts, prev = {}, t0
+            for part, t in marks:
+                parts[part], prev = t - prev, t
+            parts["apply_s"] = t_end - prev
+            self.last_parts = parts
         if self._n_params is None:
             self._n_params = sum(p.numel() for p in self.model.parameters()
                                  if p.requires_grad)

@@ -66,19 +66,58 @@ def packed_positions(seg, s: int):
     return ar - starts
 
 
-def causal_lm_loss(logits, labels, segments=None, ignore_index=-100):
+_MP_CACHE = ("KV-cache decoding under tensor parallelism (mp > 1) is not "
+             "ported: the reference's serving engine has no mp path")
+
+
+def mesh_mp_size() -> int:
+    """The current mesh's mp axis size (1 without a mesh)."""
+    from ..distributed.mesh import get_mesh
+
+    mesh = get_mesh()
+    return 1 if mesh is None else int(mesh.shape.get("mp", 1))
+
+
+def check_tensor_parallel(config, n, dims) -> None:
+    """Raise unless `n` mp ranks divide each of `dims` ({what: size}), and
+    unless the config leaves sequence parallelism off (the sep x mp
+    product is a later slice)."""
+    if n <= 1:
+        return
+    for what, size in dims.items():
+        if size % n:
+            raise ValueError(f"tensor parallelism: mp={n} does not divide "
+                             f"{what} ({size})")
+    if getattr(config, "sequence_parallel", None):
+        raise NotImplementedError(
+            "sequence_parallel with tensor parallelism (mp > 1): the sep x "
+            "mp product waits for a later slice (ROADMAP queue 1, item 2)")
+
+
+def causal_lm_loss(logits, labels, segments=None, ignore_index=-100,
+                   group=None):
     """The mean next-token cross entropy: logits[:, i] predicts
     labels[:, i + 1]. With packed `segments` [b, s], a pair that crosses a
     document boundary, or whose target is padding (-1), is not an example
-    and is ignored (reference llama.py:294-308, gpt.py:368-375)."""
+    and is ignored (reference llama.py:294-308, gpt.py:368-375). With an
+    mp `group`, `logits` are this rank's block of the vocabulary and the
+    terms are ParallelCrossEntropy's over the group; the mean is over the
+    count of targets, the same on every rank."""
     labels = labels[:, 1:]
     if segments is not None:
         seg = segments.to(labels.device)
         same_doc = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] >= 0)
         labels = torch.where(same_doc, labels,
                              torch.full_like(labels, ignore_index))
-    return cross_entropy(logits[:, :-1, :].reshape(-1, logits.shape[-1]),
-                         labels.reshape(-1), ignore_index=ignore_index)
+    flat = logits[:, :-1, :].reshape(-1, logits.shape[-1])
+    labels = labels.reshape(-1)
+    if group is None:
+        return cross_entropy(flat, labels, ignore_index=ignore_index)
+    from ..distributed.fleet.mp_layers import parallel_cross_entropy
+
+    terms = parallel_cross_entropy(flat, labels, group, ignore_index)
+    count = (labels != ignore_index).sum()
+    return terms.sum() / count.clamp(min=1).to(terms.dtype)
 
 
 class GenerationMixin:

@@ -62,6 +62,23 @@ axis of one rank, attention is the reference's dense composition on the
 whole sequence. The reference's errors stand: attention dropout, a KV
 cache or packed `segments=` under sequence parallelism raise.
 
+Tensor parallelism (gpt.py:74-75, 149-150, 181: the reference's layers
+are the mp layers, and GSPMD partitions them): under a mesh whose mp
+axis has n > 1 ranks (or after distributed.shard_model_parameters), each
+rank holds its block of qkv_proj's and fc_in's columns, of out_proj's
+and fc_out's rows and of wte's vocabulary rows (distributed/fleet/
+mp_layers.py), and runs the whole batch. The qkv projection is
+head-major ([b, s, heads, 3 * head_dim], split on the last axis), so a
+block of its columns holds whole heads' q, k and v: a rank attends with
+num_heads / n heads. The tied head multiplies the hidden states (through
+the copy region: their gradient is summed over the ranks) by wte's
+block, giving this rank's block of the logits; with labels the shifted
+loss is ParallelCrossEntropy's over the group, its mean over the global
+count of targets; without labels the logits are gathered. wpe and the
+LayerNorms stay whole (replicated). n must divide num_heads, the
+intermediate size and the vocabulary; a KV cache, and sequence
+parallelism with mp (the sep x mp product is a later slice), raise.
+
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, LayerNorm weights at 1,
 biases at 0), so a 1.3B model is never built on the host. Dropout draws its
@@ -77,12 +94,20 @@ from torch import nn
 from ..core.dtype import convert_dtype
 from ..core.place import resolve_device
 from ..distributed import context_parallel as _cp
-from ..distributed.collective import all_reduce_autograd
+from ..distributed.collective import (all_reduce_autograd,
+                                      copy_to_model_parallel,
+                                      gather_replicated_autograd)
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding)
 from ..distributed.fleet.recompute import recompute
-from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
-                  RowParallelLinear, VocabParallelEmbedding)
+from ..distributed.mesh import mp_group_of
+from ..nn import Dropout, Embedding, LayerNorm
+from ..nn.layers import init_normal_
 from ..ops import nn_ops
-from .generation import GenerationMixin, causal_lm_loss, packed_positions
+from .generation import (_MP_CACHE, GenerationMixin, causal_lm_loss,
+                         check_tensor_parallel, mesh_mp_size,
+                         packed_positions)
 from .llama import _rope_tables
 
 
@@ -129,6 +154,12 @@ _SP_SEGMENTS = ("packed (segments=) batches are not supported under "
                 "sequence_parallel; gather the sequence first")
 
 
+def _gpt_dims(c):
+    return {"num_heads": c.num_heads,
+            "intermediate_size": c.intermediate_size,
+            "vocab_size": c.vocab_size}
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, config: GPTConfig, generator=None, **factory):
         super().__init__()
@@ -137,9 +168,9 @@ class CausalSelfAttention(nn.Module):
         self.head_dim = c.hidden_size // c.num_heads
         self.hidden_size = c.hidden_size
         self.qkv_proj = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
-                                             **factory)
+                                             gather_output=False, **factory)
         self.out_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
-                                          **factory)
+                                          input_is_parallel=True, **factory)
         self.attn_dropout_p = c.attention_dropout_prob
         self.resid_dropout = Dropout(c.hidden_dropout_prob,
                                      generator=generator)
@@ -160,8 +191,10 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x, rope=None, cache=None, pos=None, segments=None):
         b, s, _ = x.shape
         qkv = self.qkv_proj(x)
-        # [b, s, heads, 3 * head_dim], split on the LAST axis (gpt.py:93-94)
-        qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
+        # [b, s, heads, 3 * head_dim], split on the LAST axis (gpt.py:93-94);
+        # under tensor parallelism this rank's heads
+        heads = qkv.shape[-1] // (3 * self.head_dim)
+        qkv = qkv.reshape(b, s, heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
         if rope is not None:
             if len(rope) == 3:  # per-token: (cos_table, sin_table, pos2d)
@@ -178,7 +211,7 @@ class CausalSelfAttention(nn.Module):
             else:
                 out, new_k, new_v = nn_ops.cached_multihead_attention(
                     q, k, v, cache[0], cache[1], pos)
-            out = out.reshape(b, s, self.hidden_size)
+            out = out.reshape(b, s, heads * self.head_dim)
             return self.resid_dropout(self.out_proj(out)), (new_k, new_v)
         if segments is not None:
             out = nn_ops.segmented_attention(q, k, v, segments, causal=True)
@@ -192,7 +225,7 @@ class CausalSelfAttention(nn.Module):
                 q, k, v, is_causal=True,
                 dropout_p=self.attn_dropout_p if self.training else 0.0,
                 training=self.training, generator=self._generator)
-        out = out.reshape(b, s, self.hidden_size)
+        out = out.reshape(b, s, heads * self.head_dim)
         return self.resid_dropout(self.out_proj(out))
 
 
@@ -200,9 +233,11 @@ class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, generator=None, **factory):
         super().__init__()
         self.fc_in = ColumnParallelLinear(config.hidden_size,
-                                          config.intermediate_size, **factory)
+                                          config.intermediate_size,
+                                          gather_output=False, **factory)
         self.fc_out = RowParallelLinear(config.intermediate_size,
-                                        config.hidden_size, **factory)
+                                        config.hidden_size,
+                                        input_is_parallel=True, **factory)
         self.dropout = Dropout(config.hidden_dropout_prob,
                                generator=generator)
 
@@ -363,8 +398,20 @@ class GPTModel(nn.Module):
                 h = block(h, rope=rope, segments=segments)
         return self.ln_f(h)
 
+    def _mp_check(self, caches):
+        """The group wte is cut over (tensor parallelism), or None; checks
+        the config against it and refuses a KV cache under it."""
+        group = mp_group_of(self.wte.weight)
+        if group is not None:
+            check_tensor_parallel(self.config, group.nranks,
+                                  _gpt_dims(self.config))
+            if caches is not None:
+                raise NotImplementedError(_MP_CACHE)
+        return group
+
     def forward(self, input_ids, caches=None, pos=None, segments=None):
         self._sp_check(caches, segments)
+        self._mp_check(caches)
         if caches is not None:
             if segments is not None:
                 raise NotImplementedError(
@@ -407,14 +454,17 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
                  seed: int = 0):
         super().__init__()
         self.config = config
+        check_tensor_parallel(config, mesh_mp_size(), _gpt_dims(config))
         dev = resolve_device(device)
         factory = {"device": dev, "dtype": convert_dtype(dtype)}
         gen = torch.Generator(device=dev).manual_seed(int(seed) + 1)
         self.gpt = GPTModel(config, gen, **factory)
+        # untied: the logits stay this rank's block of the vocabulary
         self.lm_head = (None if config.tie_word_embeddings else
                         ColumnParallelLinear(config.hidden_size,
                                              config.vocab_size,
-                                             has_bias=False, **factory))
+                                             has_bias=False,
+                                             gather_output=False, **factory))
         self._init_weights(seed)
 
     @torch.no_grad()
@@ -427,7 +477,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             elif name.endswith(".bias"):
                 p.zero_()
             else:
-                p.normal_(0.0, std, generator=gen)
+                init_normal_(p, std, gen)
 
     @property
     def device(self) -> torch.device:
@@ -440,7 +490,9 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
 
     def _head(self, h):
         if self.lm_head is None:
-            return nn_ops.matmul(h, self.gpt.wte.weight, transpose_y=True)
+            w = self.gpt.wte.weight
+            h = copy_to_model_parallel(h, mp_group_of(w))
+            return nn_ops.matmul(h, w, transpose_y=True)
         return self.lm_head(h)
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
@@ -449,6 +501,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         `labels`, the mean next-token cross entropy (logits[:, i] predicts
         labels[:, i + 1]; -100 is ignored, and with packed `segments` so is
         every pair that crosses a document boundary or ends in padding)."""
+        mp = self.gpt._mp_check(caches)
         if caches is not None:
             h, new_caches = self.gpt(input_ids, caches=caches, pos=pos,
                                      segments=segments)
@@ -462,8 +515,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             return _cp.attach_grad_sum(self, group, out)
         logits = self._head(self.gpt(input_ids, segments=segments))
         if labels is None:
-            return logits
-        return causal_lm_loss(logits, labels, segments)
+            return gather_replicated_autograd(logits, -1, mp)
+        return causal_lm_loss(logits, labels, segments, group=mp)
 
     @staticmethod
     def _sp_loss(logits, labels, group, ignore_index=-100):

@@ -19,6 +19,16 @@ With `recompute=True` a training forward without a cache runs each decoder
 layer through distributed.fleet.recompute (llama.py:248-255), under
 `recompute_policy`.
 
+Tensor parallelism (llama.py:83-90, 137-142, 174, 267), as GPT's
+(models/gpt.py): under an mp axis of n > 1 ranks each rank holds its
+block of q/k/v's and gate/up's columns, of o's and down's rows, of the
+embedding's vocabulary rows and of the untied lm_head's columns, and
+attends with num_heads / n query heads over num_key_value_heads / n
+key-value heads; the logits stay this rank's block of the vocabulary
+(ParallelCrossEntropy's loss with labels, gathered without). n must
+divide both head counts, the intermediate size and the vocabulary; a KV
+cache raises.
+
 Parameters are created on the target device and filled there from a seeded
 torch.Generator (normal std `initializer_range`, norms at 1), so a 7B model
 is never built on the host. The rope cos/sin tables are plain fp32 tensors
@@ -36,11 +46,19 @@ from torch import nn
 
 from ..core.dtype import convert_dtype
 from ..core.place import resolve_device
+from ..distributed.collective import (copy_to_model_parallel,
+                                      gather_replicated_autograd)
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding)
 from ..distributed.fleet.recompute import recompute
-from ..nn import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
-                  VocabParallelEmbedding)
+from ..distributed.mesh import mp_group_of
+from ..nn import RMSNorm
+from ..nn.layers import init_normal_
 from ..ops import nn_ops
-from .generation import GenerationMixin, causal_lm_loss, packed_positions
+from .generation import (_MP_CACHE, GenerationMixin, causal_lm_loss,
+                         check_tensor_parallel, mesh_mp_size,
+                         packed_positions)
 
 
 @dataclass
@@ -75,6 +93,13 @@ class LlamaConfig:
                            num_key_value_heads=2, max_position_embeddings=128)
 
 
+def _llama_dims(c):
+    return {"num_heads": c.num_heads,
+            "num_key_value_heads": c.num_key_value_heads,
+            "intermediate_size": c.intermediate_size,
+            "vocab_size": c.vocab_size}
+
+
 def _rope_tables(head_dim, max_len, theta, device):
     inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                         device=device) / head_dim))
@@ -91,24 +116,24 @@ class LlamaAttention(nn.Module):
         self.num_heads = c.num_heads
         self.num_kv_heads = c.num_key_value_heads
         self.head_dim = c.hidden_size // c.num_heads
+        col = dict(has_bias=False, gather_output=False, **factory)
         self.q_proj = ColumnParallelLinear(
-            c.hidden_size, c.num_heads * self.head_dim, has_bias=False,
-            **factory)
+            c.hidden_size, c.num_heads * self.head_dim, **col)
         self.k_proj = ColumnParallelLinear(
-            c.hidden_size, self.num_kv_heads * self.head_dim, has_bias=False,
-            **factory)
+            c.hidden_size, self.num_kv_heads * self.head_dim, **col)
         self.v_proj = ColumnParallelLinear(
-            c.hidden_size, self.num_kv_heads * self.head_dim, has_bias=False,
-            **factory)
+            c.hidden_size, self.num_kv_heads * self.head_dim, **col)
         self.o_proj = RowParallelLinear(
             c.num_heads * self.head_dim, c.hidden_size, has_bias=False,
-            **factory)
+            input_is_parallel=True, **factory)
 
     def forward(self, x, rope, cache=None, pos=None, segments=None):
         b, s, _ = x.shape
-        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        # under tensor parallelism this rank's heads
+        q = self.q_proj(x).reshape(b, s, -1, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, -1, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, -1, self.head_dim)
+        hq, hkv = q.shape[2], k.shape[2]
         if len(rope) == 3:  # per-token: (cos_table, sin_table, pos2d)
             q, k = nn_ops.rotary_position_embedding_packed(q, k, *rope)
         else:
@@ -121,10 +146,10 @@ class LlamaAttention(nn.Module):
             else:
                 out, new_k, new_v = nn_ops.cached_multihead_attention(
                     q, k, v, cache[0], cache[1], pos)
-            out = out.reshape(b, s, self.num_heads * self.head_dim)
+            out = out.reshape(b, s, hq * self.head_dim)
             return self.o_proj(out), (new_k, new_v)
-        if self.num_kv_heads != self.num_heads:
-            rep = self.num_heads // self.num_kv_heads
+        if hkv != hq:
+            rep = hq // hkv
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         if segments is not None:
@@ -132,7 +157,7 @@ class LlamaAttention(nn.Module):
         else:
             out = nn_ops.scaled_dot_product_attention(q, k, v,
                                                       is_causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return self.o_proj(out.reshape(b, s, hq * self.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -141,12 +166,14 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
         c = config
+        col = dict(has_bias=False, gather_output=False, **factory)
         self.gate_proj = ColumnParallelLinear(
-            c.hidden_size, c.intermediate_size, has_bias=False, **factory)
+            c.hidden_size, c.intermediate_size, **col)
         self.up_proj = ColumnParallelLinear(
-            c.hidden_size, c.intermediate_size, has_bias=False, **factory)
+            c.hidden_size, c.intermediate_size, **col)
         self.down_proj = RowParallelLinear(
-            c.intermediate_size, c.hidden_size, has_bias=False, **factory)
+            c.intermediate_size, c.hidden_size, has_bias=False,
+            input_is_parallel=True, **factory)
 
     def forward(self, x):
         return self.down_proj(
@@ -197,9 +224,21 @@ class LlamaModel(nn.Module):
             new_caches.append(nc)
         return self.norm(h), new_caches
 
+    def _mp_check(self, caches):
+        """The group the embedding is cut over (tensor parallelism), or
+        None; checks the config against it and refuses a KV cache."""
+        group = mp_group_of(self.embed_tokens.weight)
+        if group is not None:
+            check_tensor_parallel(self.config, group.nranks,
+                                  _llama_dims(self.config))
+            if caches is not None:
+                raise NotImplementedError(_MP_CACHE)
+        return group
+
     def forward(self, input_ids, caches=None, pos=None, segments=None):
         b, s = input_ids.shape
         cos_t, sin_t = self._rope
+        self._mp_check(caches)
         if caches is not None:
             if segments is not None:
                 raise NotImplementedError(
@@ -258,13 +297,16 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                  seed: int = 0):
         super().__init__()
         self.config = config
+        check_tensor_parallel(config, mesh_mp_size(), _llama_dims(config))
         factory = {"device": resolve_device(device),
                    "dtype": convert_dtype(dtype)}
         self.model = LlamaModel(config, **factory)
+        # the logits stay this rank's block of the vocabulary
         self.lm_head = (None if config.tie_word_embeddings else
                         ColumnParallelLinear(config.hidden_size,
                                              config.vocab_size,
-                                             has_bias=False, **factory))
+                                             has_bias=False,
+                                             gather_output=False, **factory))
         self._init_weights(seed)
 
     @torch.no_grad()
@@ -277,7 +319,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             elif name.endswith(".bias"):
                 p.zero_()
             else:
-                p.normal_(0.0, std, generator=gen)
+                init_normal_(p, std, gen)
 
     @property
     def device(self) -> torch.device:
@@ -290,7 +332,9 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     def _head(self, h):
         if self.lm_head is None:
-            return torch.matmul(h, self.model.embed_tokens.weight.t())
+            w = self.model.embed_tokens.weight
+            return torch.matmul(copy_to_model_parallel(h, mp_group_of(w)),
+                                w.t())
         return self.lm_head(h)
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
@@ -299,11 +343,12 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         `labels`, the mean next-token cross entropy (-100 is ignored, and
         with packed `segments` [b, s] so is every pair that crosses a
         document boundary or ends in padding)."""
+        mp = self.model._mp_check(caches)
         if caches is not None:
             h, new_caches = self.model(input_ids, caches=caches, pos=pos,
                                        segments=segments)
             return self._head(h), new_caches
         logits = self._head(self.model(input_ids, segments=segments))
         if labels is None:
-            return logits
-        return causal_lm_loss(logits, labels, segments)
+            return gather_replicated_autograd(logits, -1, mp)
+        return causal_lm_loss(logits, labels, segments, group=mp)

@@ -1,11 +1,13 @@
-"""Single-device counterparts of paddle_tpu/distributed/fleet/mp_layers.py
-(VocabParallelEmbedding:36, ColumnParallelLinear:73, RowParallelLinear:91)
-and of paddle_tpu/nn/layers.py (Embedding:34, Dropout:52).
+"""Counterparts of paddle_tpu/nn/layers.py (Embedding:34, Dropout:52), and
+the tensor-parallel layers the models build on, re-exported from
+distributed/fleet/mp_layers.py (VocabParallelEmbedding,
+ColumnParallelLinear, RowParallelLinear: one-device layers at mp 1).
 
 Parameter names and shapes are the reference's, so a JAX state_dict maps
 onto the port key by key: linear weights are stored [in, out] and applied as
 x @ W. Parameters are trainable and created uninitialised on the given
-device; the model that owns them fills them from its own torch.Generator.
+device; the model that owns them fills them from its own torch.Generator
+(`init_normal_` for a parameter that may be an mp block).
 """
 from __future__ import annotations
 
@@ -26,11 +28,6 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return self.weight[ids]
-
-
-class VocabParallelEmbedding(Embedding):
-    """The reference's vocab-parallel embedding on one device (the whole
-    vocabulary is local)."""
 
 
 def module_generators(obj) -> list:
@@ -64,29 +61,25 @@ class Dropout(nn.Module):
         return nn_ops.dropout(x, self.p, self.training, self.generator)
 
 
-class _Linear(nn.Module):
-    """Y = X W (+ b), W [in, out]."""
+def init_normal_(p, std, generator):
+    """Fill `p` in place from normal(0, std) drawn by `generator`: the
+    whole parameter, or, for an mp block, its block of the whole draw (so
+    the draws, and every later parameter's, are those of the model at mp
+    1)."""
+    from ..distributed.mesh import full_shape, shard_block
 
-    def __init__(self, in_features, out_features, has_bias=True, *,
-                 device=None, dtype=None):
-        super().__init__()
-        self.in_features = in_features
-        self.out_features = out_features
-        self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype))
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
-                                              dtype=dtype))
-                     if has_bias else None)
-
-    def forward(self, x):
-        return nn_ops.linear(x, self.weight, self.bias)
+    shape = full_shape(p)
+    if shape == tuple(p.shape):
+        return p.normal_(0.0, std, generator=generator)
+    whole = torch.empty(shape, dtype=p.dtype, device=p.device)
+    return p.copy_(shard_block(whole.normal_(0.0, std, generator=generator),
+                               p))
 
 
-class ColumnParallelLinear(_Linear):
-    """The reference's column-parallel linear on one device (no output
-    gather: the whole output dim is local)."""
-
-
-class RowParallelLinear(_Linear):
-    """The reference's row-parallel linear on one device (no all-reduce:
-    the whole input dim is local)."""
+# the tensor-parallel layers (one definition; imported last: the
+# distributed package imports this module's module_generators)
+from ..distributed.fleet.mp_layers import (  # noqa: E402,F401
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..core.flags import get_flag
+from ..distributed.mesh import mp_group_of
 from ..nn.clip import ClipGradByGlobalNorm, grad_square_sum
 from ..ops.gpu.fused_adamw import f32, fused_adamw, fused_adamw_master
 from .optimizer import Optimizer
@@ -174,12 +175,19 @@ class AdamW(Optimizer):
 
     @staticmethod
     def _square_sum(runs):
+        params = [p for _, run in runs for p in run[4]]
+        if any(mp_group_of(p) is not None for p in params):
+            # tensor parallelism: the global square-sum, parameter by
+            # parameter (a run mixes mp blocks and replicated parameters)
+            return grad_square_sum([p.grad for p in params], params)
         return grad_square_sum([g.g[a:b] for g, (a, b, *_) in runs])
 
     @torch.no_grad()
     def grad_square_sum(self):
         """The fp32 square-sum of every present gradient, before any clip,
-        as a 0-d tensor on the parameters' device (no host sync)."""
+        as a 0-d tensor on the parameters' device (no host sync); under
+        tensor parallelism the global one, the same on every mp rank
+        (nn/clip.py grad_square_sum)."""
         runs = self._prepare()
         if not runs:
             return torch.zeros((), dtype=torch.float32,
