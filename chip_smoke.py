@@ -8,8 +8,9 @@ Llama on packed documents; the resilient loop with its data feed and
 checkpoints; elastic data-parallel ranks as processes, reforming after a
 SIGKILL; data parallelism over torch.distributed, two ranks on the card;
 context parallelism, ring and Ulysses, two sequence ranks on the card;
-tensor parallelism, two mp ranks on the card) on one H100 and hold each
-of its hand-written kernels against its plain PyTorch version.
+tensor parallelism, two mp ranks on the card; ZeRO, stages os, os_g and
+p_g_os, two sharding ranks on the card) on one H100 and hold each of its
+hand-written kernels against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,10 @@ final line):
                (amp O2: fp32 master, m and v, a bf16 gradient and a device
                clip factor; the bf16 copy must equal the kernel's master
                cast to bf16 and a launch with the skip flag set must change
-               no byte)
+               no byte), and its fp32 form on ZeRO's shard at two ranks:
+               parameters and gradients as views that start at rank 1's
+               chunk of GPT-3 1.3B's padded flat buffers (zero_slice's
+               stages os and os_g)
   4. parity  - Llama at full width, 2 layers, fp32 (TF32 off), seeded
                weights: ServingEngine.generate must equal model.generate token
                for token, greedy; every tick of a kind replayed its graph;
@@ -401,7 +405,8 @@ final line):
                whole batch from the same weights: each mode's losses within
                1e-3, rank 0's final parameters within 1e-3 relative, a bound
                that must sit below the world-1 run's last update
- 32. mp_slice - tensor parallelism: GPT-3 1.3B at full width and depth
+ 32. mp_slice - tensor parallelism: GPT-3 1.3B at full width, cut to 2
+               layers (RANK_LAYERS, room for zero_slice; 24 before it)
                (fp32 parameters, amp O1, AdamW's fp32 form, a global-norm
                clip through fleet's HybridParallelClipGrad), global batch 4
                x 2048, two mp rank processes on the card (distributed.spawn,
@@ -417,7 +422,8 @@ final line):
                the mp collectives' calls, bytes, seconds, GB/s and the
                dtype each carried; peak device memory and sampled RSS a
                rank; flash and AdamW launches summed over the ranks, which
-               must be 24 of each flash kernel and 1 AdamW a step and rank.
+               must be 1 of each flash kernel a layer, step and rank and 1
+               AdamW a step and rank.
                The replicated parameters must be bitwise equal across the
                ranks after every step (bit sums through the store); then a
                world-1 TrainStep runs the same four steps from the same
@@ -431,6 +437,41 @@ final line):
                the largest value), and dp_slice's probe of which
                collectives gloo takes on CUDA tensors (a bf16 all-reduce
                among them)
+ 33. zero_slice - ZeRO: GPT-3 1.3B at full width (fp32 parameters, amp
+               O1, AdamW's fp32 form, a global-norm clip of 1.0), global
+               batch 4 x 2048, two sharding rank processes on the card
+               (distributed.spawn, init_parallel_env under
+               PADDLE_DISTRI_BACKEND=gloo, fleet.init at sharding_degree
+               2, group_sharded_parallel, TrainStep), each on [2, 2048]
+               of every step: stage os and stage os_g at RANK_LAYERS, a
+               warm-up and three timed steps each, stage p_g_os at
+               ZERO_STAGE3_LAYERS (4: it ran 24, then 8, until the
+               script neared its limit), a warm-up and two timed steps
+               (each unit gathered where it is used). Each rank's step wall split
+               into fwd+bwd (stage 3's gathers and reduce-scatters inside,
+               their host seconds apart), reduce-scatter, square-sum,
+               AdamW and all-gather; the collectives' calls, bytes,
+               seconds, GB/s and dtypes; the bytes allocated between
+               steps, cuBLAS's workspaces freed and measured apart, which
+               must be within 3% of 12, 10 and 8 bytes a parameter (and
+               the batch); peak device memory and sampled RSS; stage 3's
+               peak of live gathered bytes, at most the embeddings' and
+               one block's fp32 bytes; flash and AdamW launches summed
+               over the ranks, exactly 1 of each flash kernel a layer,
+               step and rank and 1 AdamW a step and rank. At os and os_g
+               the ranks' parameters must be bitwise equal after every
+               step (bit sums through the store). Each stage against a
+               world-1 TrainStep from the same seed on the whole batch:
+               losses within 1e-3,
+               the (gathered) final parameters within 5e-4 relative, a
+               bound that must sit below the world-1 run's last update.
+               The ranks save the os_g stage's model and optimizer after
+               its steps with save_group_sharded_model(async_save=True)
+               and wait_all; this process reads it back with
+               load_sharded(target_world_size=1), which must equal the
+               ranks' gathered state bitwise (a digest a leaf), and each
+               rank's chunks of it its own shard buffers (bit sums of
+               parameters, m and v, which no gather touched)
 
 Every phase's row carries `at_s`, the script's seconds when it ended. The
 last two lines are the kernel summary {"kernels": [...]} and
@@ -459,8 +500,20 @@ CUT_LAYERS = 8
 # follows the parameters' bytes: 2.05 GB at 8 layers, 1.24 GB at 4); then
 # 4, until a run of 1,155 s on a slow host (elastic 104 s, dp 37 s); now 2
 # (0.83 GB). cp_slice's too since mp_slice joined the script (24 layers:
-# 107-136 s)
+# 107-136 s), and mp_slice's since zero_slice did (24 layers: 51.8-72.8
+# s, its collectives 4.97 GB a step and rank). zero_slice's stages os and
+# os_g run it too
 RANK_LAYERS = 2
+# the depth of zero_slice's stage p_g_os: 24 until a full run from a git
+# archive took 1,186.3 s of the script's 1,200 on an H100 80GB HBM3 at
+# 700 W (zero_slice 164.1 s, its stage 3 ~100 s of that: 16.65 GB of
+# gathers and reduce-scatters a step and rank at 0.6-0.9 GB/s; 998.4 s
+# on a faster host); then 8, until a run from a git archive took 1,102.2
+# s on a slow host (zero_slice 123.9 s, stage 3 ~40 s of it: 8.8-11.4 s
+# a step); now 4. The per-unit gathers, the backward's reduce-scatters
+# and the gathered-bytes bound (the embeddings and one block) are the
+# same at any depth of 2 or more
+ZERO_STAGE3_LAYERS = 4
 # a yardstick (plain version, library call) slower than this a call is
 # timed over 3 x 3 calls (time_ms), not 5 x 20: the slow plain versions
 # took most of the kernels phase, and a run on a slow host passed the
@@ -1522,19 +1575,35 @@ def gpt_numel(cfg):
             + cfg.num_layers * per_layer + 2 * H)
 
 
-def adamw_case(torch, gen, n):
+def adamw_case(torch, gen, n, zero_shard=False):
     """AdamW over one flat fp32 group of n elements at step 3 with a
     device-scalar gradient scale (the clip's). The kernel updates clones,
     the plain version the originals, both in place; then each is timed in
     place again. Both do the same fp32 operations on the same scalars: 1e-6
-    of the value + 1e-6 of the RMS (an FMA here and there)."""
+    of the value + 1e-6 of the RMS (an FMA here and there). With
+    `zero_shard`, the group is rank 1's ZeRO shard of n parameters at two
+    ranks (distributed/sharding.py, stages os and os_g): p and g are views
+    that start at rank 1's chunk of flat buffers padded to 2 x ALIGN
+    elements, m and v the shard's own buffers."""
+    from paddle_tpu_torch.distributed.sharding import ALIGN
     from paddle_tpu_torch.ops.gpu import fused_adamw as fw
 
-    p = torch.randn(n, device="cuda", generator=gen)
-    g = torch.randn(n, device="cuda", generator=gen)
+    name = "adamw"
+    if zero_shard:
+        name, step = "adamw_zero_shard", 2 * ALIGN
+        n = -(-n // step) * step // 2
+        full_p = torch.randn(2 * n, device="cuda", generator=gen)
+        full_g = torch.randn(2 * n, device="cuda", generator=gen)
+        p, g, kfull = full_p[n:], full_g[n:], full_p.clone()
+        kp = kfull[n:]
+    else:
+        p = torch.randn(n, device="cuda", generator=gen)
+        g = torch.randn(n, device="cuda", generator=gen)
     m = 0.1 * torch.randn(n, device="cuda", generator=gen)
     v = 0.01 * torch.rand(n, device="cuda", generator=gen)
-    kp, km, kv = p.clone(), m.clone(), v.clone()
+    if not zero_shard:
+        kp = p.clone()
+    km, kv = m.clone(), v.clone()
     scale = torch.tensor(0.5, device="cuda")
     kw = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
               bias_correction1=1 - 0.9 ** 3,
@@ -1553,7 +1622,7 @@ def adamw_case(torch, gen, n):
                             grad_scale=None, found_inf=None)
 
     big = n > 1 << 26
-    return dict(name="adamw", shape=[n], check=check,
+    return dict(name=name, shape=[n], check=check,
                 tol={torch.float32: (1e-6, 1e-6)},
                 kernel=lambda: fw.fused_adamw(kp, g, km, kv, **kw),
                 plain=lambda: fw.adamw_plain(p, g, m, v, **kw),
@@ -1844,6 +1913,10 @@ def kernels_phase(torch):
             if main:
                 rows[row["name"]] = row
             release(torch)
+    # the fp32 form as ZeRO hands it rank 1's shard (zero_slice)
+    run_case(torch, adamw_case(torch, gen, gpt_numel(GPTConfig.gpt3_1p3b()),
+                               zero_shard=True), torch.float32)
+    release(torch)
     return rows
 
 
@@ -6995,7 +7068,7 @@ def mp_rank_main(spec):
 
 
 def mp_slice_phase(torch, device="cuda", spec=None):
-    """Tensor parallelism: GPT-3 1.3B at full width and depth (fp32
+    """Tensor parallelism: GPT-3 1.3B at full width, RANK_LAYERS deep (fp32
     parameters, amp O1, AdamW's fused fp32 form, a global-norm clip, the
     hybrid optimizer's clip), global batch 4 x 2048, two mp rank processes
     on the one card (distributed.spawn, init_parallel_env, fleet.init at
@@ -7007,11 +7080,11 @@ def mp_slice_phase(torch, device="cuda", spec=None):
     into fwd+bwd (the mp all-reduces inside), the clip's square-sum (its
     mp reduce) and apply; the mp collectives' calls, bytes, seconds, GB/s
     and dtypes; peak device memory and sampled RSS a rank; flash and AdamW
-    launches summed over the ranks, which must be 24 of each flash kernel
-    a step and rank and 1 AdamW. The replicated parameters must be bitwise
-    equal across the ranks after every step; then a world-1 TrainStep runs
-    the same four steps on the card from the same seed: losses within
-    MP_SLICE_LOSS_TOL, the gathered final parameters within
+    launches summed over the ranks, which must be 1 of each flash kernel
+    a layer, step and rank and 1 AdamW. The replicated parameters must be
+    bitwise equal across the ranks after every step; then a world-1
+    TrainStep runs the same four steps on the card from the same seed:
+    losses within MP_SLICE_LOSS_TOL, the gathered final parameters within
     MP_SLICE_PARAM_TOL (|p - p1| / |p1|), a bound that must sit below the
     world-1 run's last update. On the ranks also: the Megatron pair at
     GPT's MLP widths against the dense product (MP_PAIR_TOL) and
@@ -7028,7 +7101,7 @@ def mp_slice_phase(torch, device="cuda", spec=None):
 
     spec = dict(spec or dict(
         model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
-        n_batches=4, clip=1.0, steps=4))
+        n_batches=4, clip=1.0, steps=4, layers=RANK_LAYERS))
     spec.setdefault("backend", "gloo")
     spec["device"] = device
     nsteps = spec["steps"]
@@ -7165,6 +7238,509 @@ def mp_slice_phase(torch, device="cuda", spec=None):
         "pair": {r["rank"]: r["pair"] for r in ranks},
         "collectives_on_device": {r["rank"]: r["collectives_on_device"]
                                   for r in ranks},
+        "ranks_s": ranks_s,
+    }
+
+
+ZERO_SLICE_LOSS_TOL = 1e-3
+ZERO_SLICE_PARAM_TOL = 5e-4
+# the bytes a rank allocates between steps, against a stage's bytes a
+# parameter at two ranks (fp32: os 4 + 4 + 8/2, os_g 4 + 12/2, p_g_os 16/2)
+# plus the batch; the excess is each unit's padding to 2 x 64 elements and
+# whatever else the step keeps
+ZERO_BYTES_TOL = 0.03
+ZERO_LEVELS = {"os": 12, "os_g": 10, "p_g_os": 8}
+
+
+def _zero_unit_bytes(torch, cfg):
+    """fp32 bytes of the embeddings (wte and wpe) and of one block, the two
+    largest stage-3 units of GPT (the final norm is 2 x hidden)."""
+    H = cfg.hidden_size
+    emb = (cfg.vocab_size + cfg.max_position_embeddings) * H
+    block = (gpt_numel(cfg) - emb - 2 * H) // cfg.num_layers
+    return 4 * emb, 4 * block
+
+
+def _digests(state):
+    """blake2b of every tensor leaf's bytes, by its path in `state`."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}/{k}", v)
+        elif hasattr(x, "shape") and len(x.shape):
+            a = np.ascontiguousarray(x.detach().cpu().numpy()
+                                     if hasattr(x, "detach") else x)
+            out[prefix] = hashlib.blake2b(a.tobytes()).hexdigest()
+
+    walk("", state)
+    return out
+
+
+def _zero_save(torch, model, opt, path):
+    """Save the stage's model and optimizer by save_group_sharded_model
+    (async_save=True) and wait_all into `path`: the seconds; the digests
+    of the ranks' gathered state (state_dict, through the gather that
+    wrote the rows); and, apart from any gather, each group's units
+    (parameter names, padded length, chunk) and the bit sums of this
+    rank's own shard buffers (parameters, m and v), which the parent
+    holds against the same chunks of what it reads back."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ck
+
+    t0 = time.perf_counter()
+    dist.save_group_sharded_model(model, path, opt, async_save=True)
+    returned_s = time.perf_counter() - t0
+    ck.wait_all()
+    save_s = time.perf_counter() - t0
+    names = {id(p): n for n, p in model.named_parameters()}
+    groups = [{"units": [{"params": [(names[id(p)], opt._names[id(p)])
+                                     for p in u.params],
+                          "padded": u.padded, "chunk": u.chunk}
+                         for u in g.units],
+               "sums": bit_sums(torch, [g.p, g.m, g.v])}
+              for g in opt._groups]
+    return {"async_returned_s": returned_s, "saved_s": save_s,
+            "digests": _digests({"model": dict(model.state_dict()),
+                                 "optimizer": opt.state_dict()}),
+            "groups": groups}
+
+
+def _shard_sums(torch, whole, units, rank):
+    """The bit sums of rank `rank`'s chunks of `units` (one group's, as
+    _zero_save lists them), rebuilt from the whole state read back:
+    parameters, m and v."""
+    import numpy as np
+
+    out = []
+    for leaf in ("model", "moment1", "moment2"):
+        parts = []
+        for u in units:
+            flat = torch.zeros(u["padded"], dtype=torch.float32)
+            at = 0
+            for name, key in u["params"]:
+                x = whole["model"][name] if leaf == "model" \
+                    else whole["optimizer"][f"{key}.{leaf}"]
+                x = torch.as_tensor(np.asarray(x)).reshape(-1)
+                flat[at:at + x.numel()] = x
+                at += x.numel()
+            parts.append(flat[rank * u["chunk"]:(rank + 1) * u["chunk"]])
+        out.append(bit_sums(torch, [torch.cat(parts)])[0])
+    return out
+
+
+def _zero_stage(torch, spec, level, layers, nsteps, group, store, rank,
+                device, dump, ckpt=None):
+    """One stage on this rank (see zero_rank_main); with `ckpt`, saved
+    there after its steps (_zero_save)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import gpu
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    model, opt, loss_fn = _cp_model(torch, dict(spec, layers=layers),
+                                    device, None)
+    n_params = sum(p.numel() for p in model.parameters())
+    model, opt, _ = dist.group_sharded_parallel(model, opt, level,
+                                                group=group)
+    step = TrainStep(model, loss_fn, opt, device=device, telemetry=True)
+    zero = opt._zero
+    batches = _elastic_batches(spec)
+    batch_bytes = 8 * spec["rows"] * spec["seq"]
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t0
+    gpu.reset_launch_counts()
+    steps = []
+    for s in range(nsteps):
+        collective.reset_transport_stats()
+        t1 = time.perf_counter()
+        loss = float(step(*batches[s % len(batches)]))
+        wall = time.perf_counter() - t1
+        ex = collective.transport_stats()
+        held = workspaces = 0
+        if on_card:
+            # cuBLAS's workspaces (a handle and stream's each, taken from
+            # the caching allocator by the first products) are counted as
+            # allocated: freed here and measured apart; the next product
+            # takes them again
+            torch.cuda.synchronize()
+            raw = torch.cuda.memory_allocated()
+            torch._C._cuda_clearCublasWorkspaces()
+            held = torch.cuda.memory_allocated()
+            workspaces = raw - held
+        if level != "p_g_os":
+            sums = bit_sums(torch, [g.full_p for g in opt._groups])
+            key = f"/pt/zero_slice/{level}/{s}"
+            store.set(f"{key}/{rank}", json.dumps(sums))
+            other = json.loads(bytes(store.get(
+                f"{key}/{1 - rank}", timeout_s=600)).decode())
+            if other != sums:
+                raise AssertionError(f"{level} step {s}: the ranks' "
+                                     f"parameters differ")
+        steps.append({"step": s, "warmup": s == 0, "loss": loss,
+                      "wall_s": wall, "parts_s": dict(step.last_parts),
+                      "collectives": ex, "allocated_between_steps": held,
+                      "cublas_workspace_bytes": workspaces})
+    launches = gpu.launch_counts(DP)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    saved = None if ckpt is None else _zero_save(torch, model, opt, ckpt)
+    t2 = time.perf_counter()
+    with zero.gathered():
+        if rank == 0:
+            with open(dump, "wb") as f:
+                for p in model.parameters():
+                    # a copy: a CPU tensor's numpy view would pin the
+                    # gathered storage, which the release frees
+                    f.write(p.detach().float().to("cpu", copy=True)
+                            .numpy().tobytes())
+    dump_s = time.perf_counter() - t2
+    padded = sum(u.padded for g in opt._groups for u in g.units)
+    del model, opt, step, zero, loss_fn
+    gc.collect()
+    want = ZERO_LEVELS[level] * n_params + batch_bytes
+    held = [st["allocated_between_steps"] for st in steps]
+    if on_card and not all(abs(h - want) <= ZERO_BYTES_TOL * want
+                           for h in held):
+        raise AssertionError(f"{level}: {held} bytes allocated between "
+                             f"steps (cuBLAS's workspaces apart), "
+                             f"expected {want} within {ZERO_BYTES_TOL}")
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"zero_slice rank {rank}: {level} done", file=sys.stderr,
+          flush=True)
+    return {"level": level, "layers": layers, "n_params": n_params,
+            "padded_elements": padded, "setup_s": setup_s, "steps": steps,
+            "launches": launches, "max_allocated": peak,
+            "bytes_per_param": ZERO_LEVELS[level], "want_bytes": want,
+            "allocated_between_steps": held,
+            "cublas_workspace_bytes": [st["cublas_workspace_bytes"]
+                                       for st in steps], "dump_s": dump_s,
+            "checkpoint": saved}
+
+
+def zero_rank_main(spec):
+    """One ZeRO sharding rank as a process of its own (distributed.spawn
+    imports this module in the child): init_parallel_env under
+    PADDLE_DISTRI_BACKEND=spec["backend"] (gloo: both ranks are on the one
+    card), fleet.init at sharding_degree 2, then each stage of
+    spec["stages"] ((level, layers, steps)): the seeded model and AdamW
+    through group_sharded_parallel over the hybrid group's sharding group
+    and TrainStep on the global batches, the first step a warm-up. At os
+    and os_g the parameters' bit sums go through the store after every
+    step and must equal the other rank's. Rank 0 dumps each stage's final
+    (gathered) parameters. The os_g stage's model and optimizer are saved
+    after its steps by save_group_sharded_model(async_save=True) and
+    wait_all into spec["ckpt"] (_zero_save), for the parent's read."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    os.environ["PADDLE_DISTRI_BACKEND"] = spec["backend"]
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.distributed import fleet
+
+    device = spec.get("device", "cuda")
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    dist.init_parallel_env(device=None if on_card else "cpu")
+    import torch.distributed as tdist
+
+    backend = tdist.get_backend()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["sharding_degree"] = 2
+    fleet.init(is_collective=True, strategy=strategy)
+    group = fleet.get_hybrid_communicate_group().get_sharding_parallel_group()
+    rank = dist.get_rank()
+    store = denv.get_store()
+    probe = torch.empty(1, device=device)
+    routes = {op: collective.transport(probe, group, op=op)
+              for op in ("all_gather", "reduce_scatter", "all_reduce")}
+    init_s = time.perf_counter() - t_start
+    stages = [_zero_stage(torch, spec, level, layers, nsteps, group, store,
+                          rank, device, f"{spec['dump']}.{level}",
+                          spec["ckpt"] if level == "os_g" else None)
+              for level, layers, nsteps in spec["stages"]]
+    saved = [st.pop("checkpoint") for st in stages]
+    store.barrier("zero_slice_done")    # rank 0 hosts the store
+    return {"rank": rank, "pid": os.getpid(), "backend": backend,
+            "routes": routes, "sharding_ranks": group.ranks,
+            "init_s": init_s, "stages": stages,
+            "checkpoint": next(c for c in saved if c is not None)}
+
+
+def zero_slice_phase(torch, device="cuda", spec=None):
+    """ZeRO: GPT-3 1.3B at full width (fp32 parameters, amp O1, AdamW's
+    fused fp32 form, a global-norm clip of 1.0), global batch 4 x 2048,
+    two sharding rank processes on the card (zero_rank_main), each on
+    [2, 2048] of every step: stages os and os_g at RANK_LAYERS (a warm-up
+    and three timed steps), p_g_os at ZERO_STAGE3_LAYERS (a warm-up and
+    two). Over
+    gloo, whose own reduce-scatters and all-gathers of CUDA buffers stage
+    through host memory (the routes named). Reports each rank's step wall
+    split into fwd+bwd (stage 3's gathers and reduce-scatters inside),
+    reduce-scatter, square-sum, AdamW and all-gather; the collectives'
+    calls, bytes, seconds, GB/s and dtypes; bytes allocated between steps
+    (cuBLAS's workspaces freed and measured apart; within ZERO_BYTES_TOL
+    of 12, 10 and 8 bytes a parameter and the batch), peak device memory
+    and sampled RSS; stage 3's peak of live
+    gathered bytes (at most the embeddings' and one block's); flash and
+    AdamW launches summed over the ranks, 1 of each flash kernel a layer,
+    step and rank and 1 AdamW a step and rank. Each stage against a
+    world-1 TrainStep from the same seed on the whole batches: losses
+    within ZERO_SLICE_LOSS_TOL, the final parameters within
+    ZERO_SLICE_PARAM_TOL relative, a bound below the world-1 run's last
+    update. Then the os_g stage's async checkpoint, read back here by
+    load_sharded(target_world_size=1): every leaf's digest equal to the
+    ranks' gathered state's, and each rank's chunks of it bitwise its own
+    shard buffers (parameters, m and v; bit sums)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig
+
+    spec = dict(spec or dict(
+        model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
+        n_batches=4, clip=1.0,
+        stages=[("os", RANK_LAYERS, 4), ("os_g", RANK_LAYERS, 4),
+                ("p_g_os", ZERO_STAGE3_LAYERS, 3)]))
+    spec.setdefault("backend", "gloo")
+    spec["device"] = device
+    base = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+
+    def cfg_at(layers):
+        cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+            else GPTConfig.gpt3_1p3b()
+        cfg.num_layers = layers
+        return cfg
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero_slice_")
+    need = 4 * sum(gpt_numel(cfg_at(layers)) for _, layers, _ in
+                   spec["stages"]) + 12 * gpt_numel(cfg_at(RANK_LAYERS))
+    free = shutil.disk_usage(tmp).free
+    if free < 1.2 * need:
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"{free} bytes free under {tmp}: the dumps and "
+                           f"the checkpoint ({need} bytes) do not fit")
+    spec["dump"] = os.path.join(tmp, "rank0.params")
+    spec["ckpt"] = os.path.join(tmp, "ckpt")
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    t0 = time.perf_counter()
+    try:
+        ctx = spawn(cs.zero_rank_main, args=(spec,), nprocs=2, join=False,
+                    backend="cuda" if device == "cuda" else "cpu")
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {f"rank{r}": p.pid for r, p in enumerate(ctx.processes)},))
+        sampler.start()
+        try:
+            ranks = ctx.join(900)
+        finally:
+            for p in ctx.processes:
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            sampler.join()
+        ranks_s = time.perf_counter() - t0
+
+        # the checkpoint, read back whole in this process
+        t1 = time.perf_counter()
+        whole = ck.load_sharded(spec["ckpt"], target_world_size=1)
+        load_s = time.perf_counter() - t1
+        got = _digests(whole)
+        digests = ranks[0]["checkpoint"]["digests"]
+        if got != digests or ranks[1]["checkpoint"]["digests"] != digests:
+            bad = sorted(k for k in set(got) | set(digests)
+                         if got.get(k) != digests.get(k))
+            raise AssertionError(f"the checkpoint read back differs from "
+                                 f"the ranks' state at {bad[:5]}")
+        # and each rank's own shard buffers, which no gather touched
+        for r in ranks:
+            for i, g in enumerate(r["checkpoint"]["groups"]):
+                want = _shard_sums(torch, whole, g["units"], r["rank"])
+                if want != g["sums"]:
+                    raise AssertionError(
+                        f"rank {r['rank']}'s shard of group {i} (bit sums "
+                        f"of parameters, m, v {g['sums']}) differs from "
+                        f"its chunks of the checkpoint read back {want}")
+        del whole
+
+        # each stage against world 1 (os and os_g share one run: the same
+        # depth, seed, batches and steps)
+        world1 = {}
+        for level, layers, nsteps in spec["stages"]:
+            key = (layers, nsteps)
+            if key not in world1:
+                model, opt, loss_fn = _cp_model(
+                    torch, dict(spec, layers=layers), device, None)
+                step = TrainStep(model, loss_fn, opt, device=device)
+                batches = _elastic_batches(spec)
+                params = list(model.parameters())
+                losses, walls = [], []
+                for s in range(nsteps):
+                    if s == nsteps - 1:
+                        before = [p.detach().clone() for p in params]
+                    t1 = time.perf_counter()
+                    losses.append(float(step(*batches[s % len(batches)])))
+                    walls.append(time.perf_counter() - t1)
+                step_rel = _rel_dev(torch, before, params)
+                del before
+                world1[key] = {"losses": losses, "step_s": walls,
+                               "last_update_rel": step_rel,
+                               "params": params, "model": model}
+            w = world1[key]
+            params = w["params"]
+            words = np.memmap(f"{spec['dump']}.{level}", dtype=np.float32,
+                              mode="r")
+            offs = np.cumsum([0] + [p.numel() for p in params])
+            if words.size != offs[-1]:
+                raise AssertionError(f"{level}: rank 0 dumped {words.size} "
+                                     f"parameters, the model has "
+                                     f"{offs[-1]}")
+            w[level] = _rel_dev(torch, (
+                torch.from_numpy(np.array(words[a:b])).to(p.device)
+                .view_as(p) for p, a, b in zip(params, offs[:-1], offs[1:])),
+                params)
+            del words
+        for w in world1.values():
+            del w["params"], w["model"]
+        if device == "cuda":
+            release(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    emb_b, block_b = _zero_unit_bytes(torch, base)
+    gathered_bound = emb_b + block_b
+    rows = {}
+    for i, (level, layers, nsteps) in enumerate(spec["stages"]):
+        per = [r["stages"][i] for r in ranks]
+        w = world1[(layers, nsteps)]
+        losses = [st["loss"] for st in per[0]["steps"]]
+        if [st["loss"] for st in per[1]["steps"]] != losses:
+            raise AssertionError(f"{level}: the ranks' losses differ")
+        dev = max(abs(a - b) for a, b in zip(losses, w["losses"]))
+        param_rel = w[level]
+        if not all(np.isfinite(losses)) or dev > ZERO_SLICE_LOSS_TOL \
+                or not param_rel <= ZERO_SLICE_PARAM_TOL \
+                < w["last_update_rel"]:
+            raise AssertionError(
+                f"{level}: losses {losses} against the world-1 run's "
+                f"{w['losses']}: {dev} (bound {ZERO_SLICE_LOSS_TOL}); final "
+                f"parameters {param_rel} from the world-1 run's (bound "
+                f"{ZERO_SLICE_PARAM_TOL}, which must sit below its last "
+                f"update's {w['last_update_rel']})")
+        launches = {k: sum(r["launches"][k] for r in per) for k in DP}
+        want = {k: (1 if k == "adamw" else layers) * nsteps * 2 for k in DP}
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"{level}: launches over both ranks "
+                                 f"{launches}, expected {want}")
+        peaks = [st["parts_s"].get("gathered_peak_bytes", 0)
+                 for r in per for st in r["steps"]]
+        if level == "p_g_os" and device == "cuda" and \
+                max(peaks) > gathered_bound:
+            raise AssertionError(f"p_g_os: {max(peaks)} live gathered "
+                                 f"bytes, more than the embeddings' and "
+                                 f"one block's {gathered_bound}")
+
+        def summary(r):
+            timed = [st for st in r["steps"] if not st["warmup"]]
+            kinds = timed[0]["collectives"]
+            ex_s = [sum(v["seconds"] for v in st["collectives"].values())
+                    for st in timed]
+            nbytes = sum(v["bytes"] for v in kinds.values())
+            held = r["allocated_between_steps"]
+            return {
+                "setup_s": r["setup_s"], "dump_s": r["dump_s"],
+                "step_s": [st["wall_s"] for st in timed],
+                "median_step_s": statistics.median(
+                    st["wall_s"] for st in timed),
+                "median_parts_s": {
+                    k: statistics.median(st["parts_s"][k] for st in timed)
+                    for k in timed[0]["parts_s"]},
+                "warmup_s": r["steps"][0]["wall_s"],
+                "collectives_a_step": {
+                    k: {"calls": v["calls"], "bytes": v["bytes"],
+                        "dtypes": v.get("dtypes", {}),
+                        "gb_per_s": v["bytes"] / v["seconds"] / 1e9
+                        if v["seconds"] else None}
+                    for k, v in kinds.items()},
+                "collective_bytes_a_step": nbytes,
+                "median_collective_s": statistics.median(ex_s),
+                "collective_gb_per_s": nbytes / statistics.median(ex_s)
+                / 1e9 if statistics.median(ex_s) else None,
+                "allocated_between_steps": held,
+                "cublas_workspace_bytes": r["cublas_workspace_bytes"],
+                "want_bytes": r["want_bytes"],
+                "excess_bytes": max(held) - r["want_bytes"],
+                "max_allocated": r["max_allocated"],
+                "launches": r["launches"]}
+
+        per_rank = {r["rank"]: summary(r["stages"][i]) for r in ranks}
+        rows[level] = {
+            "layers": layers, "steps": nsteps,
+            "n_params": per[0]["n_params"],
+            "padded_elements": per[0]["padded_elements"],
+            "bytes_per_param": per[0]["bytes_per_param"],
+            "per_rank": per_rank, "losses": losses,
+            "world1_losses": w["losses"],
+            "world1_step_s": statistics.median(w["step_s"][1:]),
+            "tokens_per_s": spec["rows"] * spec["seq"]
+            / per_rank[0]["median_step_s"],
+            "max_abs_loss_dev": dev, "final_params_rel_dev": param_rel,
+            "world1_last_update_rel": w["last_update_rel"],
+            "launches": launches, "want": want,
+            "gathered_peak_bytes": max(peaks) if level == "p_g_os"
+            else None}
+    return {
+        "phase": "zero_slice", "model": ("GPT tiny" if spec["model"] == "tiny"
+                                         else "GPT-3 1.3B"),
+        "hidden": base.hidden_size,
+        "amp": ("O1 bfloat16, fp32 parameters" if spec.get("amp")
+                else "off, fp32"),
+        "batch": [spec["rows"], spec["seq"]], "a_rank": [spec["rows"] // 2,
+                                                         spec["seq"]],
+        "sharding": 2, "backend": ranks[0]["backend"],
+        "routes": ranks[0]["routes"],
+        "routes_why": "two ranks on one card: NCCL refuses that; gloo's "
+                      "own collectives copy CUDA tensors through host "
+                      "memory, the kernels stay on the card",
+        "sharding_group": ranks[0]["sharding_ranks"],
+        "stages": rows, "rss_peak_sampled": rss,
+        "loss_tolerance": ZERO_SLICE_LOSS_TOL,
+        "param_tolerance": ZERO_SLICE_PARAM_TOL,
+        "bytes_tolerance": ZERO_BYTES_TOL,
+        "gathered_bound_bytes": gathered_bound,
+        "gathered_bound_parts": {"embeddings": emb_b, "block": block_b},
+        "checkpoint": {"leaves": len(digests),
+                       "load_s": load_s,
+                       **{k: v for k, v in ranks[0]["checkpoint"].items()
+                          if k not in ("digests", "groups")}},
         "ranks_s": ranks_s,
     }
 
@@ -7405,6 +7981,10 @@ def main():
     # tensor parallelism: two mp ranks on the card, each with half of
     # every sharded weight and the whole batch
     emit(mp_slice_phase(torch))
+    release(torch)
+    # ZeRO: two sharding ranks on the card, each on half of the batch with
+    # its shard of the optimizer state (and gradients, and parameters)
+    emit(zero_slice_phase(torch))
     release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged

@@ -19,18 +19,29 @@ torch.distributed process groups (`init_parallel_env` joins them):
     GPT's `sequence_parallel`;
   * tensor parallelism (`fleet.mp_layers`, `split`): each rank of an
     `mp` group holds its block of the sharded weights (`annotate_param`,
-    `shard_model_parameters`) and issues Megatron's collectives.
+    `shard_model_parameters`) and issues Megatron's collectives;
+  * ZeRO (`sharding.group_sharded_parallel`, stages "os", "os_g" and
+    "p_g_os"): the ranks of a `sharding` group split the batch, and each
+    keeps and updates its shard of the optimizer state, the gradients
+    and, at stage 3, the parameters (gathered where they are used).
 
 Also here: the single-device `fleet.recompute`; in `env`, the process
 environment, the process-group store (in-process, or native.TCPStore
 across processes) and the serving fleet's replica registry; elastic
 membership and the store-based gradient exchange (`elastic`); the
-rank-sharded checkpoint (`checkpoint`); `spawn`; and `DataParallel`.
-ZeRO sharding and pipeline parallelism wait for later slices. The
+rank-sharded checkpoint (`checkpoint`: also `save_sharded`,
+`save_model_sharded` and their loads, in the same layout); `spawn`; and
+`DataParallel`. Pipeline parallelism waits for a later slice. The
 package imports torch, never jax or paddle_tpu.
 """
 from . import checkpoint  # noqa: F401
-from .checkpoint import load_sharded, split_bounds  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    load_model_sharded,
+    load_sharded,
+    save_model_sharded,
+    save_sharded,
+    split_bounds,
+)
 from .elastic import (  # noqa: F401
     ElasticMembership,
     MembershipView,
@@ -89,6 +100,10 @@ from .mesh import (  # noqa: F401
     set_mesh,
 )
 from .sharding_utils import shard_batch, shard_model_parameters  # noqa: F401
+from .sharding import (  # noqa: F401
+    group_sharded_parallel,
+    save_group_sharded_model,
+)
 from .context_parallel import (  # noqa: F401
     RingAttention,
     all_gather_seq,

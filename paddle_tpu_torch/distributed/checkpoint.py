@@ -26,22 +26,49 @@ small pool of threads (crc32 and the file calls release the GIL). Loads
 return host torch tensors, or tensors on the device of the matching
 `template` leaf.
 
-The reference's Orbax half (save_sharded, wait_all, save_model_sharded,
-load_model_sharded: device-sharded arrays under one writer) is not ported.
+The reference's other half (save_sharded, wait_all, save_model_sharded,
+load_model_sharded, CheckpointSaveError) writes device-sharded arrays
+with Orbax. The port cannot import Orbax, so `save_sharded` writes this
+layout: every rank of the world (torch.distributed's default group; one
+process is world 1) writes its rows of every leaf, and a leaf that the
+ranks hold in parts (ZeRO's sharded entries, distributed/sharding.py:
+anything with `rows(a, b)`) is gathered leaf by leaf first, a collective
+in leaf order. The reference's `load_sharded` reads this layout back
+(it dispatches on `is_rank_sharded`), at the saved world size or
+re-sliced. The write keeps the reference's crash-consistent overwrite:
+the shards land in `path + ".saving"`; rank 0 waits until every rank's
+shard is there, writes the index and swaps the directory in (the old
+checkpoint is moved aside and deleted only after); the other ranks wait
+for the commit, so when `save_sharded` (or, for `async_save`, `wait_all`)
+returns on any rank the checkpoint is whole. A rank that fails leaves a
+marker in the `.saving` directory that stops the others' waits. With
+`async_save` the snapshot (each rank's rows, on the host) is taken before
+the call returns and the files are written by a thread; `wait_all` joins
+every pending save and raises one CheckpointSaveError with every cause.
+A directory the reference wrote with Orbax raises in `load_sharded`,
+naming it.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
+import time
+import uuid
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["load_sharded", "split_bounds", "write_rank_shard",
-           "write_shard_index", "validate_rank_sharded", "is_rank_sharded"]
+__all__ = ["save_sharded", "load_sharded", "save_model_sharded",
+           "load_model_sharded", "wait_all", "CheckpointSaveError",
+           "split_bounds", "write_rank_shard", "write_shard_index",
+           "validate_rank_sharded", "is_rank_sharded"]
+
+COMMIT_TIMEOUT_S = 600.0    # a rank's wait for the others' shards
+_POLL_S = 0.02
 
 _SHARD_INDEX = "shards.json"
 _SHARD_JSON = "shard.json"
@@ -76,11 +103,24 @@ def _fsync_write(fpath: str, data) -> None:
         os.fsync(f.fileno())
 
 
+class _Rows:
+    """A leaf snapshotted for one rank's shard: the whole leaf's `shape`
+    and `dtype` name, and this rank's rows (the whole of a 0-d leaf) as a
+    host array, `data`."""
+
+    __slots__ = ("shape", "dtype", "data")
+
+    def __init__(self, shape, dtype, data):
+        self.shape, self.dtype, self.data = tuple(shape), dtype, data
+
+
 def _host_rows(leaf, a: Optional[int], b: Optional[int]):
     """(C-contiguous host array of rows [a, b) of `leaf`, or the whole
     0-d leaf, dtype name)."""
     from ..resilience.checkpoint_manager import _np_leaf, _tensor_leaf
 
+    if isinstance(leaf, _Rows):
+        return leaf.data, leaf.dtype
     if torch.is_tensor(leaf):
         t = leaf.detach()
         if a is not None:
@@ -95,7 +135,9 @@ def _host_rows(leaf, a: Optional[int], b: Optional[int]):
 def _spec(leaf) -> Dict[str, Any]:
     from ..resilience.checkpoint_manager import _TORCH_TO_NP
 
-    if torch.is_tensor(leaf):
+    if isinstance(leaf, _Rows):
+        name = leaf.dtype
+    elif isinstance(getattr(leaf, "dtype", None), torch.dtype):
         name = _TORCH_TO_NP[leaf.dtype][1]
     else:
         name = np.asarray(leaf).dtype.name
@@ -272,6 +314,260 @@ def _load_rank_sharded(path: str, template, *,
     return state
 
 
+def _snapshot(leaf, rank: int, world: int) -> _Rows:
+    """Rank `rank`'s rows of `leaf` at `world` ranks as a host copy (the
+    whole of a 0-d leaf; a leaf with `rows` gathers them: a collective)."""
+    spec = _spec(leaf)
+    lazy = hasattr(leaf, "rows")
+    if spec["scalar"]:
+        arr, name = _host_rows(leaf.full() if lazy else leaf, None, None)
+    else:
+        a, b = split_bounds(spec["shape"][0], world)[rank]
+        if lazy:
+            arr, name = _host_rows(leaf.rows(a, b), None, None)
+        else:
+            arr, name = _host_rows(leaf, a, b)
+    return _Rows(spec["shape"], spec["dtype"], np.array(arr, copy=True))
+
+
+class CheckpointSaveError(RuntimeError):
+    """One or more (async) checkpoint saves failed; carries every cause."""
+
+    def __init__(self, errors):
+        super().__init__(
+            "checkpoint save failed: "
+            + "; ".join(f"{type(e).__name__}: {e}" for e in errors))
+        self.errors = list(errors)
+
+
+def _commit_swap(tmp: str, final: str) -> None:
+    """Promote `tmp` to `final`; the old checkpoint is moved aside first
+    and deleted only after the new one is in place."""
+    old = None
+    if os.path.exists(final):
+        old = final + ".old"
+        if os.path.exists(old):
+            shutil.rmtree(old)
+        os.rename(final, old)
+    os.rename(tmp, final)
+    if old is not None:
+        shutil.rmtree(old)
+
+
+def _failure(tmp: str) -> Optional[str]:
+    """The first failure marker a rank left in `tmp`, or None."""
+    try:
+        names = sorted(n for n in os.listdir(tmp) if n.startswith("failed_"))
+    except OSError:
+        return None
+    for n in names:
+        try:
+            with open(os.path.join(tmp, n)) as f:
+                return f"{n[len('failed_'):]}: {f.read()}"
+        except OSError:
+            return n
+    return None
+
+
+def _index_nonce(path: str) -> Optional[str]:
+    try:
+        with open(os.path.join(path, _SHARD_INDEX)) as f:
+            return json.load(f).get("nonce")
+    except (OSError, ValueError):
+        return None
+
+
+def _shard_nonce(path: str, rank: int) -> Optional[str]:
+    try:
+        with open(os.path.join(_shard_dir(path, rank), _SHARD_JSON)) as f:
+            return json.load(f).get("nonce")
+    except (OSError, ValueError):
+        return None
+
+
+class _PendingSave:
+    """One rank's part of a save: its shard written into `tmp`, then rank
+    0's commit (every shard present, the index, the swap) or another
+    rank's wait for it. `run` on the caller's thread, or `start` and
+    later `finish` (which re-raises the thread's error); `close` is the
+    reference's, a no-op here."""
+
+    def __init__(self, state, tmp, final, rank, world, nonce):
+        self.state, self.tmp, self.final = state, tmp, final
+        self.rank, self.world, self.nonce = rank, world, nonce
+        self.thread = None
+        self.error = None
+
+    def run(self):
+        try:
+            os.makedirs(self.tmp, exist_ok=True)
+            index = write_rank_shard(self.tmp, self.rank, self.world,
+                                     self.state, self.nonce)
+            if self.rank == 0:
+                self._wait(lambda: all(
+                    _shard_nonce(self.tmp, r) == self.nonce
+                    for r in range(self.world)), "every rank's shard")
+                write_shard_index(self.tmp, index)
+                _commit_swap(self.tmp, self.final)
+            else:
+                self._wait(lambda: _index_nonce(self.final) == self.nonce,
+                           "rank 0's commit")
+        except BaseException as e:
+            try:
+                with open(os.path.join(self.tmp,
+                                       f"failed_{self.rank}"), "w") as f:
+                    f.write(f"{type(e).__name__}: {e}")
+            except OSError:
+                pass
+            raise
+
+    def _wait(self, done, what):
+        deadline = time.monotonic() + COMMIT_TIMEOUT_S
+        while not done():
+            failed = _failure(self.tmp)
+            if failed is not None:
+                raise RuntimeError(f"save of {self.final}: rank {failed}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"save of {self.final}: no {what} after "
+                                   f"{COMMIT_TIMEOUT_S} s")
+            time.sleep(_POLL_S)
+
+    def start(self):
+        def body():
+            try:
+                self.run()
+            except BaseException as e:  # surfaced by finish()
+                self.error = e
+
+        self.thread = threading.Thread(target=body, name="sharded-save",
+                                       daemon=True)
+        self.thread.start()
+
+    def finish(self):
+        if self.thread is not None:
+            self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+    def close(self):
+        pass
+
+
+_pending: List[Any] = []
+
+
+def _agree_nonce(rank: int, world: int) -> str:
+    """Rank 0's fresh nonce, on every rank of the world."""
+    nonce = [uuid.uuid4().hex]
+    if world > 1:
+        import torch.distributed as tdist
+
+        tdist.broadcast_object_list(nonce, src=0)
+    return nonce[0]
+
+
+def save_sharded(state: Any, path: str, async_save: bool = False,
+                 overwrite: bool = True):
+    """Write a (nested) state of tensors and arrays rank-sharded under
+    `path`: every rank of the world calls it with the same structure and
+    writes its rows (see the module note). With async_save=True it
+    returns once this rank's rows are on the host; call wait_all() (or
+    save again) to join the write and the commit."""
+    from .collective import _global_rank_world
+
+    rank, world = _global_rank_world()
+    _save(state, path, async_save, overwrite, rank, world)
+
+
+def _save(state, path, async_save, overwrite, rank, world):
+    """save_sharded as rank `rank` of `world` writers."""
+    from ..resilience.checkpoint_manager import _decode, _encode
+
+    path = os.path.abspath(path)
+    # an in-flight save's swap must not race this one's
+    wait_all()
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(path)
+    leaves: List[Any] = []
+    skeleton = _encode(state, leaves)
+    snap = _decode(skeleton, [_snapshot(x, rank, world) for x in leaves])
+    nonce = _agree_nonce(rank, world)
+    tmp = path + ".saving"
+    if rank == 0 and os.path.exists(tmp):   # debris of a crashed save
+        shutil.rmtree(tmp)
+    if world > 1:
+        from .collective import barrier
+
+        barrier()               # the debris is gone before any rank writes
+    pending = _PendingSave(snap, tmp, path, rank, world, nonce)
+    if async_save:
+        pending.start()
+        _pending.append(pending)
+    else:
+        pending.run()
+
+
+def wait_all():
+    """Join every pending async save: each is finished and closed, then
+    the failures re-raise as one CheckpointSaveError."""
+    errors = []
+    while _pending:
+        c = _pending.pop()
+        try:
+            c.finish()
+        except Exception as e:  # noqa: BLE001 - aggregated below
+            errors.append(e)
+        finally:
+            try:
+                c.close()
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+    if errors:
+        raise CheckpointSaveError(errors)
+
+
+def save_model_sharded(model, path: str, optimizer=None, async_save=False):
+    """Save the model's (and the optimizer's) state rank-sharded under
+    `path` as {"model": ..., "optimizer": ...} (the reference's keys;
+    its save_group_sharded_model). A model that ZeRO stage 3 shards
+    (distributed/sharding.py) gives its parameters in parts, as the
+    optimizer its sharded state: each is gathered leaf by leaf."""
+    zero = getattr(model, "_zero", None)
+    state = {"model": zero.model_state(model) if zero is not None
+             else dict(model.state_dict())}
+    if optimizer is not None:
+        state["optimizer"] = optimizer._state_dict(lazy=True)
+    save_sharded(state, path, async_save=async_save)
+
+
+@torch.no_grad()
+def load_model_sharded(model, path: str, optimizer=None):
+    """Restore `save_model_sharded`'s checkpoint (or the reference's
+    rank-sharded write of the same keys) into the model's current
+    placement: the whole state is read on the host (target world 1),
+    and under ZeRO each rank keeps its part. Returns the model."""
+    restored = load_sharded(path, target_world_size=1)
+    zero = getattr(model, "_zero", None)
+    sd = model.state_dict()
+    params = dict(model.named_parameters())
+    missing = sorted(set(sd) - set(restored["model"]))
+    if missing:
+        raise KeyError(f"{path} lacks the model's {missing}")
+    for k, v in restored["model"].items():
+        if k not in sd:
+            raise KeyError(f"{path} holds {k!r}, which the model lacks")
+        p = params.get(k)
+        if zero is not None and p is not None and id(p) in zero.where \
+                and zero.level == "p_g_os":
+            group = zero.where[id(p)][0].group
+            zero.assign(group.p, p, v)
+        else:
+            sd[k].copy_(v.to(sd[k].device))
+    if optimizer is not None:
+        optimizer.set_state_dict(restored["optimizer"])
+    return model
+
+
 def load_sharded(path: str, template: Optional[Any] = None, *,
                  target_world_size: Optional[int] = None,
                  target_rank: int = 0):
@@ -285,8 +581,9 @@ def load_sharded(path: str, template: Optional[Any] = None, *,
     path = os.path.abspath(path)
     if not is_rank_sharded(path):
         raise NotImplementedError(
-            f"{path} is not a rank-sharded checkpoint; the Orbax layout is "
-            f"not ported (ROADMAP queue 1)")
+            f"{path} is not a rank-sharded checkpoint: a directory the "
+            "reference wrote with Orbax cannot be read without Orbax, "
+            "which the port does not use")
     return _load_rank_sharded(path, template,
                               target_world_size=target_world_size,
                               target_rank=target_rank)

@@ -79,6 +79,7 @@ __all__ = [
     "axis_context", "all_reduce_autograd", "all_gather_autograd",
     "reduce_scatter_autograd", "transport", "transport_stats",
     "reset_transport_stats", "HOST_STAGED", "GLOO_STAGED",
+    "reduce_scatter_flat", "all_gather_flat",
     "copy_to_model_parallel", "gather_replicated_autograd",
     "scatter_to_model_parallel", "split",
 ]
@@ -730,15 +731,61 @@ def transport_stats() -> Dict[str, Dict[str, float]]:
     this rank sent for collective_permute and alltoall_single; the bytes
     of this rank's tensor for the tensor-parallel regions' collectives
     ("all_reduce", "all_reduce_grad": a copy region's backward,
-    "all_gather", "reduce_scatter"), which also count their calls by
-    dtype ("dtypes"). Seconds are the host's, from the call to the
-    result."""
+    "all_gather", "reduce_scatter"); the whole flat buffer's bytes for
+    ZeRO's "reduce_scatter_flat" and "all_gather_flat" (the buffer
+    reduced, the buffer gathered into). All but the first two also count
+    their calls by dtype ("dtypes"). Seconds are the host's, from the
+    call to the result."""
     return {k: {f: dict(v) if isinstance(v, dict) else v
                 for f, v in ent.items()} for k, ent in _TRANSPORT.items()}
 
 
 def reset_transport_stats() -> None:
     _TRANSPORT.clear()
+
+
+# -- flat buffers (ZeRO, distributed/sharding.py) ---------------------------
+
+def reduce_scatter_flat(out, flat, group: Optional[Group] = None):
+    """The sum over the group's ranks of the 1-D buffer `flat`, cut into
+    `nranks` equal chunks, of which this rank's chunk lands in `out`
+    (returned). Under gloo a CUDA buffer takes gloo's own staging through
+    host memory (`transport(..., op="reduce_scatter")`). Counted under
+    "reduce_scatter_flat" by dtype."""
+    g, pg = _resolve(group)
+    if g is None:
+        return out
+    if flat.dim() != 1 or flat.numel() != g.nranks * out.numel():
+        raise ValueError(f"reduce_scatter_flat: {tuple(flat.shape)} is not "
+                         f"{g.nranks} chunks of {tuple(out.shape)}")
+    if pg is None:
+        return out.copy_(flat)
+    t0 = time.perf_counter()
+    _dist().reduce_scatter(out, list(flat.chunk(g.nranks)), group=pg)
+    _note("reduce_scatter_flat", flat.numel() * flat.element_size(), t0,
+          flat.dtype)
+    return out
+
+
+def all_gather_flat(out, chunk, group: Optional[Group] = None):
+    """Every rank's 1-D `chunk` into the 1-D `out` (`nranks` chunks in
+    group order; returned). `chunk` may be `out`'s own chunk: the gather
+    is then in place. Counted under "all_gather_flat" by dtype."""
+    g, pg = _resolve(group)
+    if g is None:
+        return out
+    if out.dim() != 1 or out.numel() != g.nranks * chunk.numel():
+        raise ValueError(f"all_gather_flat: {tuple(out.shape)} is not "
+                         f"{g.nranks} chunks of {tuple(chunk.shape)}")
+    if pg is None:
+        if out.data_ptr() != chunk.data_ptr():
+            out.copy_(chunk)
+        return out
+    t0 = time.perf_counter()
+    _dist().all_gather(list(out.chunk(g.nranks)), chunk, group=pg)
+    _note("all_gather_flat", out.numel() * out.element_size(), t0,
+          out.dtype)
+    return out
 
 
 # -- differentiable reductions ---------------------------------------------

@@ -6,7 +6,10 @@ as `fleet.utils.recompute`). A `sep_degree` above 1 makes the sep groups
 that GPT's `sequence_parallel` shards its sequence over
 (distributed/context_parallel.py); an `mp_degree` above 1 the mp groups
 whose ranks each hold a block of the mp layers' weights, alone or beside
-dp (dp x mp: the mesh's dp groups are the ranks of one mp position).
+dp (dp x mp: the mesh's dp groups are the ranks of one mp position); a
+`sharding_degree` above 1 the sharding groups that
+distributed.group_sharded_parallel (ZeRO) shards over, alone or beside
+dp (`get_hybrid_communicate_group().get_sharding_parallel_group()`).
 
 `init` runs init_parallel_env (a rank that must stay on the CPU calls
 `init_parallel_env(device="cpu")` first: it is idempotent) and builds the

@@ -7,10 +7,14 @@ hooks) before the clip, so what this wrapper adds is the clip's global
 norm over the other axes: the square-sum of the tensor-parallel
 parameters' gradients (each mp rank's blocks) all-reduced over the mp
 group, the replicated ones counted once, and the whole all-reduced over
-the pipeline and sharding groups (disjoint parameters). Over data
-parallelism alone those groups are one rank each and nothing more is
-reduced; the pipeline and sharding reductions are written as the
-reference writes them so that later slices only turn them on.
+the pipeline group (disjoint parameters). The sharding group is not
+reduced over here, though the reference does it: under ZeRO
+(distributed/sharding.py) the optimizer's square-sum is already its
+shard's summed once over the sharding group, and at stage "os" a rank's
+whole gradient summed over the group would count every element W times;
+without ZeRO the sharding ranks hold the same gradients. Over data
+parallelism alone the pipeline group is one rank and nothing more is
+reduced.
 """
 from __future__ import annotations
 
@@ -28,18 +32,17 @@ def _is_mp_sharded(p) -> bool:
 
 
 class HybridParallelClipGrad(ClipGradByGlobalNorm):
-    """Global-norm clip whose square-sum is all-reduced over the mp, pp
-    and sharding groups, so every rank scales by the same global norm."""
+    """Global-norm clip whose square-sum is all-reduced over the mp and pp
+    groups (the sharding group's sum is the ZeRO optimizer's, once), so
+    every rank scales by the same global norm."""
 
     def __init__(self, clip_norm, hcg):
         super().__init__(clip_norm)
         self._hcg = hcg
 
-    def _over_pp_sharding(self, sq):
-        for group in (self._hcg.get_pipe_parallel_group(),
-                      self._hcg.get_sharding_parallel_group()):
-            sq = all_reduce(sq, ReduceOp.SUM, group)
-        return sq
+    def _over_pp(self, sq):
+        return all_reduce(sq, ReduceOp.SUM,
+                          self._hcg.get_pipe_parallel_group())
 
     def global_square_sum(self, grads, params=None):
         """The reference's `functional_clip` square-sum: over the mp group
@@ -58,15 +61,15 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
         sq_rep = grad_square_sum(rep_g) if rep_g else zero.clone()
         if mp.nranks > 1:
             sq_dist = all_reduce(sq_dist.clone(), ReduceOp.SUM, mp)
-        return self._over_pp_sharding(sq_dist + sq_rep)
+        return self._over_pp(sq_dist + sq_rep)
 
     def factor(self, square_sum):
         """The factor from the square-sum of every gradient as the fused
         AdamW computes it (optimizers.AdamW._square_sum: over tensor
         parallelism already the mp-global one, nn/clip.py's split of the
-        mp blocks and the replicated parameters), reduced over the
-        pipeline and sharding groups."""
-        return super().factor(self._over_pp_sharding(square_sum.clone()))
+        mp blocks and the replicated parameters; under ZeRO already summed
+        over the sharding group), reduced over the pipeline group."""
+        return super().factor(self._over_pp(square_sum.clone()))
 
     def __call__(self, params_grads):
         if not params_grads:

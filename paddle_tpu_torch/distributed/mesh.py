@@ -26,7 +26,10 @@ cut parameter with its block of the whole draw from its generator, so a
 model built at mp = n from a seed holds exactly the blocks of the model
 built at mp = 1 from that seed; `models.convert.load_jax_state_dict`
 takes the block of a reference array the same way. Only the mp axis
-cuts: ZeRO's axes wait for sharding.py.
+cuts. A spec over the `sharding` axis (ZeRO stage 3's placement,
+sharding_utils.shard_model_parameters) is recorded and cuts nothing
+here: the port's ZeRO partition is a contiguous range of the optimizer's
+flat buffer, which distributed/sharding.py makes and gathers at use.
 """
 from __future__ import annotations
 
@@ -150,10 +153,6 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
-_ZERO = ("sharding a parameter over {axis!r} waits for sharding.py "
-         "(ZeRO; ROADMAP queue 1, item 3)")
-
-
 def _spec_axes(entry):
     return entry if isinstance(entry, (tuple, list)) else (entry,)
 
@@ -176,8 +175,9 @@ def annotate_param(p, spec, name=None):
 def place_param(p, spec, mesh, name=None):
     """Cut `p` by `spec` over `mesh` (annotate_param's placement, and
     sharding_utils.shard_model_parameters'): an axis the mesh lacks
-    raises ValueError; an mp axis of more than one rank cuts; any other
-    axis of more than one rank (ZeRO's) raises NotImplementedError."""
+    raises ValueError; an mp axis of more than one rank cuts; a sharding
+    axis is recorded only (see the module note); any other axis of more
+    than one rank raises NotImplementedError, naming it."""
     for entry in spec:
         for a in _spec_axes(entry):
             if a is not None and a not in mesh.axis_names:
@@ -187,10 +187,14 @@ def place_param(p, spec, mesh, name=None):
                     f"in mesh axes {mesh.axis_names}")
     for dim, entry in enumerate(spec):
         for a in _spec_axes(entry):
-            if a is None or mesh.shape[a] == 1:
+            if a is None or mesh.shape[a] == 1 or a == "sharding":
                 continue
             if a != "mp":
-                raise NotImplementedError(_ZERO.format(axis=a))
+                raise NotImplementedError(
+                    ("" if name is None else f"{name}: ")
+                    + f"placing a parameter over the {a!r} axis "
+                    f"({mesh.shape[a]} ranks) is not ported (ROADMAP "
+                    "queue 1, item 3)")
             shard_param(p, dim, mesh.group("mp"), name)
     return p
 

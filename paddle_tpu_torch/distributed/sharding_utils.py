@@ -1,12 +1,14 @@
 """Parameter and batch placement (counterpart of paddle_tpu/distributed/
-sharding_utils.py:49-92).
+sharding_utils.py:20-92).
 
 The reference places every parameter on the mesh with a NamedSharding of
-its `_pspec` (replicated without one) and shards a batch's leading
-dimension over the data axes; XLA moves the bytes. With a process a rank,
-placing is cutting: `shard_model_parameters` cuts each annotated
-parameter to this rank's block (mesh.shard_param), and `shard_batch`
-returns this rank's rows.
+its `_pspec` (replicated without one), adds ZeRO's axis to it at stage 3
+(`_compose_zero`), and shards a batch's leading dimension over the data
+axes; XLA moves the bytes. With a process a rank, placing an mp spec is
+cutting: `shard_model_parameters` cuts each annotated parameter to this
+rank's block (mesh.shard_param). ZeRO's axis takes no spec here:
+distributed/sharding.py cuts each unit's flat span, not a dimension, and
+gathers the parameters itself. `shard_batch` returns this rank's rows.
 """
 from __future__ import annotations
 
@@ -15,7 +17,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .mesh import _ZERO, place_param
+from .mesh import place_param
+
+
+def refuse_zero_beside(mesh, axis: str):
+    """Raise when ZeRO over `axis` would sit beside an mp, sep, pp or ep
+    axis of more than one rank: the product is not ported."""
+    for other in ("mp", "sep", "pp", "ep"):
+        if mesh.shape.get(other, 1) > 1:
+            raise NotImplementedError(
+                f"ZeRO (sharding.py) over {axis!r} beside an {other!r} axis "
+                f"of {mesh.shape[other]} ranks: the sharding x {other} "
+                "product is not ported (ROADMAP queue 1, item 3)")
 
 
 def shard_model_parameters(model: torch.nn.Module, mesh,
@@ -26,10 +39,12 @@ def shard_model_parameters(model: torch.nn.Module, mesh,
     parameters without a spec stay whole (replicated). A spec naming an
     axis the mesh lacks, or a dimension the axis does not divide, raises
     naming the parameter (the reference warns and replicates: ROADMAP,
-    faults of the reference). `zero_axis` (ZeRO's parameter partitioning)
-    raises: it waits for sharding.py."""
+    faults of the reference). `zero_axis` (ZeRO stage 3) cuts nothing
+    here: distributed/sharding.py partitions the parameters over it as
+    flat spans (its module note), so no spec names it; beside an mp, sep,
+    pp or ep axis of more than one rank it raises (refuse_zero_beside)."""
     if zero_axis is not None:
-        raise NotImplementedError(_ZERO.format(axis=zero_axis))
+        refuse_zero_beside(mesh, zero_axis)
     for name, p in model.named_parameters():
         spec = getattr(p, "_pspec", None)
         if spec is not None:

@@ -81,6 +81,21 @@ on each mp rank, which the step sums over the group after the backward.
 With telemetry on over mp, `last_parts` also holds `square_sum_s`, the
 seconds of that square-sum (its mp reduction inside).
 
+ZeRO (an optimizer that distributed/sharding.group_sharded_parallel
+sharded, the reference's `_zero_level`; without `dp_axis`, which it
+refuses as the reference does): the global batch is split over the
+mesh's dp x sharding ranks, the forward and backward run (at "p_g_os"
+each unit gathered at use and its gradient reduce-scattered as its
+backward ends, from the hooks), the gradients are reduce-scattered into
+this rank's shard and averaged over dp x sharding, the loss averaged
+too, the square-sum taken over the shards (once over the sharding
+group), AdamW updates the shard in one launch a group, and at "os" and
+"os_g" the shards are all-gathered into the parameters. With telemetry
+on, `last_parts` holds the seconds of fwd+bwd, reduce_scatter (and the
+loss's average), square_sum, adamw and all_gather, and at "p_g_os" the
+gathers' and the backward's reduce-scatters' host seconds inside fwd+bwd
+and the peak of live gathered bytes (`gathered_peak_bytes`).
+
 Without the guard and telemetry the step has no host sync inside; the
 caller decides when to read the loss.
 
@@ -140,6 +155,12 @@ class TrainStep:
                 raise ValueError(
                     f"dp_overlap={dp_overlap!r}: expected 'bucketed' or "
                     "'fine'")
+        self._zero = getattr(optimizer, "_zero", None)
+        if self._zero is not None and dp_axis is not None:
+            raise ValueError(
+                "bucketed DP (dp_axis=) and ZeRO stages are mutually "
+                "exclusive: the ZeRO step reduces over the mesh's dp and "
+                "sharding axes itself")
         self._dp_axis = dp_axis
         self._dp_overlap = dp_overlap
         self._bucket_bytes = None if grad_bucket_mb is None else (
@@ -282,13 +303,19 @@ class TrainStep:
         lr = float(np.float32(opt.get_lr()))    # the fp32 lr the update takes
         self._step_i += 1
         t0 = time.perf_counter() if self._telemetry else 0.0
-        marks = [] if self._telemetry and (self._reduce_world > 1 or
-                                           self._mp_world > 1) else None
+        zero = self._zero
+        marks = [] if self._telemetry and (
+            self._reduce_world > 1 or self._mp_world > 1
+            or zero is not None) else None
         with _span("jit.train_step", cat="jit"):
-            if self._dp_group is not None:
+            if zero is not None:
+                batch = zero.shard_batch(batch)
+            elif self._dp_group is not None:
                 batch = self._shard_batch(batch)
             batch = tuple(self._place(x) for x in batch)
-            if self._reduce_world > 1:
+            if zero is not None:
+                loss = self._zero_fwd_bwd(batch, marks)
+            elif self._reduce_world > 1:
                 loss = self._dp_fwd_bwd(batch, marks)
             else:
                 loss = self._fwd_bwd(batch)
@@ -297,12 +324,16 @@ class TrainStep:
             gsq = skip = None
             if self._nan_guard or self._telemetry:
                 gsq = opt.grad_square_sum()
-                if self._mp_world > 1:
+                if self._mp_world > 1 or zero is not None:
                     self._mark(marks, "square_sum_s")
             if self._nan_guard:
                 ok = torch.isfinite(gsq) & torch.isfinite(loss.float())
                 skip = (~ok).to(torch.int32)
             skipped = opt._update(skip=skip, square_sum=gsq)
+            if zero is not None:
+                self._mark(marks, "adamw_s")
+                zero.gather_parameters()
+                self._mark(marks, "all_gather_s")
             opt.clear_grad()
         if self._nan_guard:
             self.last_skipped = bool(skipped)
@@ -367,6 +398,25 @@ class TrainStep:
         self._mark(marks, "reduce_wait_s")
         return loss
 
+    def _zero_fwd_bwd(self, batch, marks):
+        """The ZeRO step's forward and backward, the gradients in this
+        rank's shard, averaged, and the loss averaged over dp x
+        sharding."""
+        from ..distributed.collective import ReduceOp, all_reduce
+
+        zero = self._zero
+        zero.begin_step()
+        loss = self.loss_fn(*batch)
+        loss.backward()
+        self._mark(marks, "fwd_bwd_s")
+        zero.reduce_gradients()
+        loss = loss.detach().clone()
+        for group in (zero.group, zero.dp):
+            all_reduce(loss, ReduceOp.SUM, group)
+        loss = loss.div_(zero.data_world)
+        self._mark(marks, "reduce_scatter_s")
+        return loss
+
     def forward_backward(self, *batch):
         """(loss, grads): the forward and backward of one step, nothing
         applied (see the module note)."""
@@ -429,6 +479,8 @@ class TrainStep:
             for part, t in marks:
                 parts[part], prev = t - prev, t
             parts["apply_s"] = t_end - prev
+            if self._zero is not None:
+                parts.update(self._zero.stats())
             self.last_parts = parts
         if self._n_params is None:
             self._n_params = sum(p.numel() for p in self.model.parameters()

@@ -350,6 +350,14 @@ class GPTModel(nn.Module):
         c = self.config
         return c.sep_axis if c.sequence_parallel else None
 
+    def zero_units(self):
+        """ZeRO stage 3's units (distributed/sharding.py), in forward
+        order: the embeddings, each block, the final norm."""
+        emb = [self.wte] + ([self.wpe] if hasattr(self, "wpe") else [])
+        return ([(emb, emb[0], emb[-1], ())]
+                + [([b], b, b, ()) for b in self.blocks]
+                + [([self.ln_f], self.ln_f, self.ln_f, ())])
+
     def _sp_group(self):
         """The sep group this model's sequence is sharded over, or None
         (not sequence-parallel, or no sep axis of more than one rank)."""
@@ -482,6 +490,15 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
     @property
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
+
+    def zero_units(self):
+        """GPTModel's units, the final norm's with the head: the tied
+        head gathers the embeddings (unit 0) again."""
+        units = self.gpt.zero_units()
+        norm = units.pop()[0]
+        tied = self.lm_head is None
+        return units + [(norm + ([] if tied else [self.lm_head]), norm[0],
+                         self, (0,) if tied else ())]
 
     def _decode_geometry(self):
         c = self.config

@@ -224,6 +224,14 @@ class LlamaModel(nn.Module):
             new_caches.append(nc)
         return self.norm(h), new_caches
 
+    def zero_units(self):
+        """ZeRO stage 3's units (distributed/sharding.py), in forward
+        order: the embedding, each decoder layer, the final norm."""
+        e = self.embed_tokens
+        return ([([e], e, e, ())]
+                + [([layer], layer, layer, ()) for layer in self.layers]
+                + [([self.norm], self.norm, self.norm, ())])
+
     def _mp_check(self, caches):
         """The group the embedding is cut over (tensor parallelism), or
         None; checks the config against it and refuses a KV cache."""
@@ -324,6 +332,15 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     @property
     def device(self) -> torch.device:
         return self.model.embed_tokens.weight.device
+
+    def zero_units(self):
+        """LlamaModel's units, the final norm's with the head: the tied
+        head gathers the embedding (unit 0) again."""
+        units = self.model.zero_units()
+        norm = units.pop()[0]
+        tied = self.lm_head is None
+        return units + [(norm + ([] if tied else [self.lm_head]), norm[0],
+                         self, (0,) if tied else ())]
 
     def _decode_geometry(self):
         c = self.config

@@ -1,6 +1,8 @@
 """Gradient clipping by the global norm (counterpart of paddle_tpu/nn/clip.py
 ClipGradByGlobalNorm:43). Plain torch: the reference computes it in XLA.
-Under tensor parallelism the norm is the global one (grad_square_sum)."""
+Under tensor parallelism the norm is the global one (grad_square_sum);
+under ZeRO the optimizer hands `factor` the global square-sum, its
+shard's summed once over the sharding group (optimizer/optimizers.py)."""
 from __future__ import annotations
 
 import torch

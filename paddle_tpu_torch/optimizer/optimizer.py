@@ -24,7 +24,11 @@ from .lr import LRScheduler
 
 def _assign(current, value):
     """`value` written into the live state entry `current` (a tensor, in
-    place, or a host float)."""
+    place; a ZeRO-sharded entry, this rank's part of it; or a host
+    float)."""
+    if hasattr(current, "assign"):
+        current.assign(value)
+        return current
     if torch.is_tensor(current):
         current.copy_(torch.as_tensor(value))
         return current
@@ -97,7 +101,15 @@ class Optimizer:
         """The reference's layout: "{name}.{slot}" per state entry, the fp32
         masters under "master_weights", the scheduler's state under
         "LR_Scheduler" and the step count under "step". Tensors are the
-        live state (views of the flat buffers), not copies."""
+        live state (views of the flat buffers), not copies; under ZeRO
+        (distributed/sharding.py) an entry the ranks hold in parts is
+        gathered whole, with the parameter's shape: a collective that every
+        rank of the sharding group calls."""
+        return self._state_dict(lazy=False)
+
+    def _state_dict(self, lazy):
+        """state_dict(); with `lazy`, ZeRO's sharded entries stay as they
+        are (their `rows` is what a rank-sharded checkpoint writes)."""
         out = {"LR_Scheduler": {}, "master_weights": {}}
         sched = self._lr_scheduler
         if sched is not None:
@@ -105,6 +117,8 @@ class Optimizer:
         for p in self._parameter_list:
             name = self._names[id(p)]
             for k, v in (self._state.get(id(p)) or {}).items():
+                if not lazy and hasattr(v, "full"):
+                    v = v.full()
                 if k == "master":
                     out["master_weights"][name] = v
                 else:
@@ -115,7 +129,8 @@ class Optimizer:
     @torch.no_grad()
     def set_state_dict(self, state):
         """Load a `state_dict()`: tensors are copied into the live state in
-        place, so the flat buffers' views stay intact."""
+        place, so the flat buffers' views stay intact (under ZeRO each rank
+        keeps its part of every whole entry)."""
         sched = self._lr_scheduler
         if sched is not None and state.get("LR_Scheduler"):
             sched.set_state_dict(state["LR_Scheduler"])

@@ -34,6 +34,14 @@ clear_grad does, and the next step copies them in again.
 With FLAGS_use_fused_adamw off, each parameter takes the reference's plain
 per-parameter rule (`_adam_step`, optimizers.py:79-91, through the master
 where there is one) instead.
+
+Under ZeRO (distributed/sharding.py group_sharded_parallel) a group is a
+sharding._ShardGroup: its `p`, `g`, `m`, `v` and `master` are this rank's
+shard of the group's flat buffers (a contiguous chunk of each unit's
+padded span), so the update is still one launch a group over one run,
+the gradient square-sum is the shard's summed once over the sharding
+group, and `step()` reduce-scatters the gradients first and all-gathers
+the parameters after (distributed/sharding.py's module note).
 """
 from __future__ import annotations
 
@@ -52,6 +60,8 @@ class _FlatGroup:
     """One (dtype, device, wd_on) group: parameters, gradients, moments and,
     in the master form, the fp32 masters as views of flat buffers, in
     parameter-list order."""
+
+    sharded = False     # distributed/sharding.py's _ShardGroup: True
 
     def __init__(self, params, states, wd_on, multi_precision):
         p0 = params[0]
@@ -93,6 +103,9 @@ class _FlatGroup:
                 view.copy_(p.grad)
                 p.grad = view
 
+    def zero_grads(self):
+        self.g.zero_()
+
 
 class AdamW(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -110,6 +123,7 @@ class AdamW(Optimizer):
                               else 0.01)
         self._apply_decay_param_fun = apply_decay_param_fun
         self._groups = None
+        self._zero = None           # distributed/sharding.py's runtime
 
     def _init_state(self, p):
         wd_on = 1.0
@@ -126,9 +140,10 @@ class AdamW(Optimizer):
                 st = self._get_state(p)
                 keyed.setdefault((p.dtype, p.device, st["wd_on"]),
                                  []).append(p)
+        make = _FlatGroup if self._zero is None else self._zero.make_group
         self._groups = [
-            _FlatGroup(ps, [self._state[id(p)] for p in ps], key[2],
-                       self._multi_precision)
+            make(ps, [self._state[id(p)] for p in ps], key[2],
+                 self._multi_precision)
             for key, ps in keyed.items()]
 
     def _materialize_state(self):
@@ -150,7 +165,17 @@ class AdamW(Optimizer):
 
     def _runs(self, group):
         """Maximal runs [(start, end, beta1_pow, beta2_pow, params)] of
-        neighbouring parameters that have gradients and share beta powers."""
+        neighbouring parameters that have gradients and share beta powers;
+        under ZeRO one run over the group's shard (every parameter takes
+        part in every step)."""
+        if group.sharded:
+            pows = {(self._state[id(p)]["beta1_pow"],
+                     self._state[id(p)]["beta2_pow"]) for p in group.params}
+            if len(pows) != 1:
+                raise RuntimeError("ZeRO: a group's parameters differ in "
+                                   "their beta powers")
+            (b1p, b2p), = pows
+            return [[0, group.p.numel(), b1p, b2p, list(group.params)]]
         runs = []
         for p, (a, b) in zip(group.params, group.bounds):
             if p.grad is None:
@@ -173,21 +198,28 @@ class AdamW(Optimizer):
         return [(group, run) for group in self._groups
                 for run in self._runs(group)]
 
-    @staticmethod
-    def _square_sum(runs):
+    def _square_sum(self, runs):
         params = [p for _, run in runs for p in run[4]]
         if any(mp_group_of(p) is not None for p in params):
             # tensor parallelism: the global square-sum, parameter by
             # parameter (a run mixes mp blocks and replicated parameters)
             return grad_square_sum([p.grad for p in params], params)
-        return grad_square_sum([g.g[a:b] for g, (a, b, *_) in runs])
+        sq = grad_square_sum([g.g[a:b] for g, (a, b, *_) in runs])
+        if self._zero is not None:
+            # this rank's shard's, summed once over the sharding group (dp
+            # ranks hold the same shard)
+            from ..distributed.collective import ReduceOp, all_reduce
+
+            sq = all_reduce(sq, ReduceOp.SUM, self._zero.group)
+        return sq
 
     @torch.no_grad()
     def grad_square_sum(self):
         """The fp32 square-sum of every present gradient, before any clip,
         as a 0-d tensor on the parameters' device (no host sync); under
         tensor parallelism the global one, the same on every mp rank
-        (nn/clip.py grad_square_sum)."""
+        (nn/clip.py grad_square_sum); under ZeRO the global one from the
+        reduce-scattered shards (a collective over the sharding group)."""
         runs = self._prepare()
         if not runs:
             return torch.zeros((), dtype=torch.float32,
@@ -195,7 +227,12 @@ class AdamW(Optimizer):
         return self._square_sum(runs)
 
     def step(self):
+        zero = self._zero
+        if zero is not None:
+            zero.reduce_gradients()
         self._update()
+        if zero is not None:
+            zero.gather_parameters()
 
     @torch.no_grad()
     def _update(self, skip=None, square_sum=None):
@@ -221,6 +258,11 @@ class AdamW(Optimizer):
         lr = self.get_lr()
         b1, b2 = f32(self._beta1), f32(self._beta2)
         fused = get_flag("use_fused_adamw")
+        if not fused and self._zero is not None:
+            raise NotImplementedError(
+                "FLAGS_use_fused_adamw off under ZeRO: the plain rule runs "
+                "parameter by parameter, and a rank holds no parameter's "
+                "whole state")
         # the plain rule reads the flag first: it has no device-side skip
         skipped = not fused and skip is not None and bool(skip)
         for group, (a, b, b1p, b2p, params) in ([] if skipped else runs):
@@ -275,6 +317,6 @@ class AdamW(Optimizer):
     def clear_grad(self, set_to_zero=True):
         if set_to_zero and self._groups is not None:
             for group in self._groups:
-                group.g.zero_()
+                group.zero_grads()
             return
         super().clear_grad(set_to_zero)

@@ -63,7 +63,15 @@ ready. Every coordination key carries `commit_namespace` (the elastic
 trainer passes its membership generation), so a save that died in one
 generation can never satisfy or poison another's barrier.
 
-The reference's "orbax" backend is not ported (it raises).
+`backend="orbax"` writes the payload through distributed/checkpoint.py
+`save_sharded` under `step_N/arrays/`, synchronously and as one writer,
+as the reference's `_write_orbax` does; the port cannot import Orbax, so
+the payload is the rank-sharded layout at world 1, which the reference's
+manager reads back (its `load_sharded` dispatches on the layout). The
+manifest keeps the backend's name "orbax"; validation checks the
+payload's shards and checksums (the reference only that the directory
+exists), and a payload the reference wrote with Orbax is reported as
+unreadable, so a restore falls back past it.
 """
 from __future__ import annotations
 
@@ -317,8 +325,9 @@ class CheckpointManager:
         root: directory holding all `step_*` checkpoints.
         keep_last_n: committed checkpoints retained by GC (the newest valid
             checkpoint is NEVER removed regardless of this value).
-        backend: "npy" (raw array files + crc32 checksums) or "sharded"
-            (the rank-sharded layout; see the module note).
+        backend: "npy" (raw array files + crc32 checksums), "sharded"
+            (the rank-sharded layout) or "orbax" (its payload through
+            distributed/checkpoint.save_sharded; see the module note).
         async_save: snapshot on the caller's thread, write and commit on a
             background thread ("npy" only; see the module note).
         store / rank / world_size: the process-group store (distributed.env
@@ -335,11 +344,7 @@ class CheckpointManager:
                  async_save: bool = False, store=None, rank: int = 0,
                  world_size: int = 1, sync_timeout_s: float = 60.0,
                  commit_namespace: str = ""):
-        if backend == "orbax":
-            raise NotImplementedError(
-                "checkpoint backend 'orbax' is not ported (ROADMAP queue 1: "
-                "the Orbax half of distributed/checkpoint.py)")
-        if backend not in ("npy", "sharded"):
+        if backend not in ("npy", "orbax", "sharded"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.root = os.path.abspath(root)
         self.keep_last_n = max(int(keep_last_n), 1)
@@ -396,6 +401,8 @@ class CheckpointManager:
             return self._follower_commit(step)
         if self.backend == "sharded":
             return self._write_sharded(step, state, meta)
+        if self.backend == "orbax":
+            return self._write_orbax(step, state, meta)
         raw: list = []
         skeleton = _encode(state, raw)
         leaves = _to_leaves(raw, copy=asynchronous)
@@ -526,6 +533,24 @@ class CheckpointManager:
             index = _dck.write_rank_shard(payload, 0, self.world_size,
                                           state, nonce)
         _dck.write_shard_index(payload, index)
+        chaos.crash_point("ckpt.array")
+        return self._finalize(step, tmp, final, skeleton=None, arrays=[],
+                              meta=meta)
+
+    def _write_orbax(self, step: int, state: Any, meta: Optional[Dict]):
+        """The reference's orbax payload: save_sharded's layout written by
+        this process alone, synchronously (see the module note)."""
+        from ..distributed import checkpoint as _dck
+
+        final = self._dir_for(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):  # stale debris from a previous crash
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        chaos.crash_point("ckpt.begin")
+        with _span("ckpt.write", cat="io", args={"step": int(step)}):
+            _dck._save(state, os.path.join(tmp, "arrays"), False, True, 0,
+                       1)
         chaos.crash_point("ckpt.array")
         return self._finalize(step, tmp, final, skeleton=None, arrays=[],
                               meta=meta)
@@ -669,6 +694,17 @@ class CheckpointManager:
             from ..distributed.checkpoint import validate_rank_sharded
 
             return validate_rank_sharded(os.path.join(path, "shards"))
+        if manifest.get("backend") == "orbax":
+            from ..distributed.checkpoint import (is_rank_sharded,
+                                                  validate_rank_sharded)
+
+            arrays = os.path.join(path, "arrays")
+            if not os.path.isdir(arrays):
+                return "missing orbax payload"
+            if not is_rank_sharded(arrays):
+                return ("orbax payload written with Orbax, which the port "
+                        "cannot read")
+            return validate_rank_sharded(arrays)
         if manifest.get("backend", "npy") != "npy":
             return (f"backend {manifest.get('backend')!r} is not ported "
                     f"yet")
@@ -704,6 +740,12 @@ class CheckpointManager:
             state = load_sharded(os.path.join(path, "shards"),
                                  template=template, target_world_size=tws,
                                  target_rank=min(tr, tws - 1))
+            return state, manifest.get("meta", {})
+        if manifest.get("backend") == "orbax":
+            from ..distributed.checkpoint import load_sharded
+
+            state = load_sharded(os.path.join(path, "arrays"),
+                                 template=template, target_world_size=1)
             return state, manifest.get("meta", {})
         leaves = _parallel(
             lambda e: _read_tensor(os.path.join(path, e["file"]), e),
