@@ -9,8 +9,9 @@ checkpoints; elastic data-parallel ranks as processes, reforming after a
 SIGKILL; data parallelism over torch.distributed, two ranks on the card;
 context parallelism, ring and Ulysses, two sequence ranks on the card;
 tensor parallelism, two mp ranks on the card; ZeRO, stages os, os_g and
-p_g_os, two sharding ranks on the card) on one H100 and hold each of its
-hand-written kernels against its plain PyTorch version.
+p_g_os, two sharding ranks on the card; pipeline parallelism, two stages
+on the card) on one H100 and hold each of its hand-written kernels
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -126,7 +127,7 @@ final line):
                temperature 0.8, fuse_steps 4: tokens/s, TTFT, replays and
                ticks by kind, launches a replay; every sampled tick must
                have replayed the sampled graph, with paged decode 32 a step
- 10. graph_tick - Llama-2-7B's widths cut to 8 layers (CUT_LAYERS, to
+ 10. graph_tick - Llama-2-7B's widths cut to 4 layers (CUT_LAYERS, to
                fit the time limit beside the elastic phases), bf16, 8 slots
                decoding at 512 context: each
                graph body run eagerly against its replay from one saved
@@ -177,7 +178,7 @@ final line):
                shrinking back; no breaker strike, no unfinished request;
                then a rotary GPT (GPT-3 1.3B widths, 2 layers):
                generate() and the engine equal, RoPE launched by both
- 14. fleet_slice - two replicas of Llama-2-7B's widths cut to 8 layers
+ 14. fleet_slice - two replicas of Llama-2-7B's widths cut to 4 layers
                (CUT_LAYERS) in bf16 (8
                slots, 16-token blocks, 256-token chunks, 2048 context)
                under a FleetRouter with real threads, fresh engines an
@@ -223,7 +224,7 @@ final line):
                gone); every child launched every serving kernel; no
                breaker strike, no unplanned respawn or exit, no child
                alive after router.stop()
- 16. proc_fleet_slice - Llama-2-7B's widths cut to 8 layers (CUT_LAYERS) in
+ 16. proc_fleet_slice - Llama-2-7B's widths cut to 4 layers (CUT_LAYERS) in
                bf16, each replica a
                child process (proc_llama_7b; 8 slots, 16-token blocks,
                256-token chunks, 2048 context), fresh children an arm:
@@ -338,7 +339,7 @@ final line):
                cluster=ClusterTelemetry) where rank 0 must flag the rank
                that sleeps in its loss, and its flight dump must carry the
                cluster view
- 29. elastic_slice - GPT-3 1.3B at full width, cut to 2 layers
+ 29. elastic_slice - GPT-3 1.3B at full width, cut to 1 layer
                (RANK_LAYERS, room for dp_slice and cp_slice), fp32
                parameters, amp O1, AdamW (the fused kernel's fp32 form),
                2 x 2048 tokens a rank, two rank processes on the card,
@@ -354,7 +355,7 @@ final line):
                six steps at world 1: its losses from the resumed step on
                within 1e-3, its final parameters within 5e-4 relative,
                a bound that must sit below the clean last update's move
- 30. dp_slice - GPT-3 1.3B at full width, cut to 2 layers (RANK_LAYERS,
+ 30. dp_slice - GPT-3 1.3B at full width, cut to 1 layer (RANK_LAYERS,
                room for cp_slice and mp_slice), under elastic_slice's
                settings (fp32 parameters, amp O1, AdamW's fp32 form) with a
                global-norm clip, sequence 2048, global batch 4, two rank
@@ -380,8 +381,8 @@ final line):
                runs the same eight steps from the same weights: losses
                within 1e-3, rank 0's final parameters within 5e-4 relative,
                a bound that must sit below the world-1 run's last update
- 31. cp_slice - context parallelism: GPT-3 1.3B at full width, cut to 2
-               layers (RANK_LAYERS, room for mp_slice; 24 before it)
+ 31. cp_slice - context parallelism: GPT-3 1.3B at full width, cut to 1
+               layer (RANK_LAYERS, room for mp_slice; 24 before it)
                (fp32 parameters, amp O1, AdamW's fp32 form, a global-norm
                clip), global batch 4 x 2048, two sep rank processes on the
                card (distributed.spawn, init_parallel_env, fleet.init at
@@ -405,8 +406,8 @@ final line):
                whole batch from the same weights: each mode's losses within
                1e-3, rank 0's final parameters within 1e-3 relative, a bound
                that must sit below the world-1 run's last update
- 32. mp_slice - tensor parallelism: GPT-3 1.3B at full width, cut to 2
-               layers (RANK_LAYERS, room for zero_slice; 24 before it)
+ 32. mp_slice - tensor parallelism: GPT-3 1.3B at full width, cut to 1
+               layer (RANK_LAYERS, room for zero_slice; 24 before it)
                (fp32 parameters, amp O1, AdamW's fp32 form, a global-norm
                clip through fleet's HybridParallelClipGrad), global batch 4
                x 2048, two mp rank processes on the card (distributed.spawn,
@@ -445,7 +446,7 @@ final line):
                2, group_sharded_parallel, TrainStep), each on [2, 2048]
                of every step: stage os and stage os_g at RANK_LAYERS, a
                warm-up and three timed steps each, stage p_g_os at
-               ZERO_STAGE3_LAYERS (4: it ran 24, then 8, until the
+               ZERO_STAGE3_LAYERS (2: it ran 24, then 8, then 4, until the
                script neared its limit), a warm-up and two timed steps
                (each unit gathered where it is used). Each rank's step wall split
                into fwd+bwd (stage 3's gathers and reduce-scatters inside,
@@ -472,6 +473,33 @@ final line):
                ranks' gathered state bitwise (a digest a leaf), and each
                rank's chunks of it its own shard buffers (bit sums of
                parameters, m and v, which no gather touched)
+ 34. pp_slice - pipeline parallelism: GPT-3 1.3B at full width, cut to 8
+               layers (PIPE_LAYERS) (fp32 parameters, amp O1, AdamW's fp32
+               form, a global-norm clip of 1.0 through fleet's hybrid
+               optimizer), global batch 4 x 2048 in 4 microbatches of
+               [1, 2048], two pp rank processes on the card
+               (distributed.spawn, init_parallel_env, fleet.init at
+               pp_degree 2): GPTForCausalLM.pipeline_descs into a
+               PipelineLayer of two stages, copy_weights,
+               fleet.distributed_model, train_batch; a warm-up and three
+               timed steps at V = 1 (the tied head takes the interleave
+               engine), then at virtual_pp_degree 2 from the same
+               weights. The stage handoffs are collective_permutes over
+               gloo's host route. Each rank's step wall split into the
+               forward and backward slots, the handoffs, the tied ends'
+               gradient sum, the clip's square-sum and AdamW; the
+               handoffs' calls, bytes, MB/s and how many carried a
+               microbatch; idle ticks; the most microbatch graphs held at
+               once; peak device memory, bytes allocated between steps,
+               sampled RSS; flash and AdamW launches summed over the
+               ranks, exactly PIPE_LAYERS x 4 of each flash kernel a step
+               and 1 AdamW a step and rank. The shared parameters must be
+               bitwise equal across the ranks after every step; then a
+               world-1 TrainStep runs the same steps on the whole batch
+               from the same weights: each schedule's losses within 1e-3,
+               its final parameters (the stages broadcast into rank 0's
+               state_dict) within 5e-4 relative, a bound that must sit
+               below the world-1 run's last update
 
 Every phase's row carries `at_s`, the script's seconds when it ended. The
 last two lines are the kernel summary {"kernels": [...]} and
@@ -491,8 +519,12 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 # the depth of the Llama-2-7B-width models of graph_tick, fleet_slice and
 # proc_fleet_slice, cut from 32 so that the elastic phases fit the
-# script's time limit (main path 1, the serving slice, keeps all 32)
-CUT_LAYERS = 8
+# script's time limit (main path 1, the serving slice, keeps all 32): 8
+# until pp_slice joined the script after a full run from a git archive of
+# 1,061 s on an H100 80GB HBM3 at 700 W (graph_tick 24 s, fleet_slice 56
+# s, proc_fleet_slice 79 s at 8); now 4. Their counts follow the depth
+# (RMSNorm 2L + 1, RoPE L and paged decode L a replay)
+CUT_LAYERS = 4
 # the depth of elastic_slice's and dp_slice's GPT-3 1.3B: 24 until the
 # store exchange took 323 s of a 1,205 s run (elastic) and cp_slice joined
 # the script (dp, 92-126 s); then 8, until runs of 960 and 1,245 s with
@@ -502,18 +534,27 @@ CUT_LAYERS = 8
 # (0.83 GB). cp_slice's too since mp_slice joined the script (24 layers:
 # 107-136 s), and mp_slice's since zero_slice did (24 layers: 51.8-72.8
 # s, its collectives 4.97 GB a step and rank). zero_slice's stages os and
-# os_g run it too
-RANK_LAYERS = 2
+# os_g run it too. 1 since pp_slice joined the script (a full run of
+# 1,127 s on an H100 80GB HBM3 at 700 W: elastic_slice 69 s, dp 35, cp
+# 36, mp 27, zero 101 at 2 layers; their exchanges follow the parameters'
+# bytes, 0.83 GB at 2 layers, 0.63 at 1)
+RANK_LAYERS = 1
 # the depth of zero_slice's stage p_g_os: 24 until a full run from a git
 # archive took 1,186.3 s of the script's 1,200 on an H100 80GB HBM3 at
 # 700 W (zero_slice 164.1 s, its stage 3 ~100 s of that: 16.65 GB of
 # gathers and reduce-scatters a step and rank at 0.6-0.9 GB/s; 998.4 s
 # on a faster host); then 8, until a run from a git archive took 1,102.2
 # s on a slow host (zero_slice 123.9 s, stage 3 ~40 s of it: 8.8-11.4 s
-# a step); now 4. The per-unit gathers, the backward's reduce-scatters
-# and the gathered-bytes bound (the embeddings and one block) are the
-# same at any depth of 2 or more
-ZERO_STAGE3_LAYERS = 4
+# a step); then 4, until pp_slice joined the script (a run from a git
+# archive of 1,061 s: zero_slice 94 s, a stage-3 step 5.2-8.2 s); now 2.
+# The per-unit gathers, the backward's reduce-scatters and the
+# gathered-bytes bound (the embeddings and one block) are the same at any
+# depth of 2 or more
+ZERO_STAGE3_LAYERS = 2
+# the depth of pp_slice's GPT-3 1.3B (24 in the reference preset): its
+# exchanges, the stage handoffs ([1, 2048, 2048] fp32 a microbatch) and
+# the tied ends' gradient sum, are the same bytes at any depth
+PIPE_LAYERS = 8
 # a yardstick (plain version, library call) slower than this a call is
 # timed over 3 x 3 calls (time_ms), not 5 x 20: the slow plain versions
 # took most of the kernels phase, and a run on a slow host passed the
@@ -7745,6 +7786,340 @@ def zero_slice_phase(torch, device="cuda", spec=None):
     }
 
 
+PP_SLICE_LOSS_TOL = 1e-3
+PP_SLICE_PARAM_TOL = 5e-4
+# the pipeline's kernels: each GPT block's flash forward, dQ and dK/dV in
+# its stage's slots, AdamW's fp32 form over a rank's stage and the shared
+# ends
+PP = ("flash_fwd", "flash_dq", "flash_dkv", "adamw")
+
+
+def _pp_run(torch, spec, vpp, store, rank, device, dump):
+    """One schedule of pp_slice on this rank: the seeded GPT through
+    pipeline_descs, a PipelineLayer of two stages (V = vpp chunks a rank),
+    copy_weights, fleet.distributed_model and the hybrid optimizer; then
+    spec["steps"] train_batch steps, the first a warm-up, the shared
+    parameters' bit sums through the store after each. Rank 0 dumps the
+    final parameters (state_dict, in the model's order) to `dump`."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed import pipeline as engine
+    from paddle_tpu_torch.distributed.fleet import PipelineLayer
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import gpu
+    from paddle_tpu_torch.optimizer import AdamW
+
+    on_card = device == "cuda"
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["pp_degree"] = 2
+    strategy.pipeline_configs.update(accumulate_steps=spec["micro"],
+                                     virtual_pp_degree=vpp)
+    fleet.init(is_collective=True, strategy=strategy)
+    t0 = time.perf_counter()
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    cfg.num_layers = spec["layers"]
+    # seeded on the card as the world-1 run is, then kept on the host: the
+    # pipeline's layers are built there and each rank moves its stage over
+    model = GPTForCausalLM(cfg, device=device, seed=spec["seed"]).to("cpu")
+    descs, loss_fn, copy_weights = model.pipeline_descs()
+    pl = PipelineLayer(descs, num_stages=2, loss_fn=loss_fn,
+                       num_virtual_pipeline_stages=vpp)
+    copy_weights(pl)
+    pp = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(AdamW(
+        spec["lr"], parameters=pp.parameters(), weight_decay=0.01,
+        grad_clip=ClipGradByGlobalNorm(spec["clip"])))
+    n_params = sum(p.numel() for p in pp.parameters())
+    # the parameters themselves: AdamW's first step moves their storage
+    # into its flat buffers, so a tensor taken before it reads stale bits
+    shared = list(pp._shared_params)
+    batches = _elastic_batches(spec)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    build_s = time.perf_counter() - t0
+    steps = []
+    gpu.reset_launch_counts()
+    for s in range(spec["steps"]):
+        collective.reset_transport_stats()
+        ids = torch.from_numpy(batches[s % len(batches)][0])
+        t1 = time.perf_counter()
+        with amp.auto_cast(enable=bool(spec.get("amp")), level="O1",
+                           dtype="bfloat16"):
+            loss = float(pp.train_batch((ids, ids), opt))
+        wall = time.perf_counter() - t1
+        st = engine.last_stats()
+        between = torch.cuda.memory_allocated() if on_card else 0
+        sums = bit_sums(torch, [p.detach() for p in shared])
+        key = f"/pt/pp_slice/{vpp}/{s}"
+        store.set(f"{key}/{rank}", json.dumps(sums))
+        other = json.loads(bytes(store.get(
+            f"{key}/{1 - rank}", timeout_s=600)).decode())
+        if other != sums:
+            raise AssertionError(f"V {vpp} step {s}: the ranks' shared "
+                                 f"parameters differ")
+        steps.append({"step": s, "warmup": s == 0, "loss": loss,
+                      "wall_s": wall, "parts_s": dict(pp.last_parts),
+                      "engine": st, "allocated_between": between,
+                      "handoffs": collective.transport_stats().get(
+                          "collective_permute", {})})
+    launches = gpu.launch_counts(PP)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    state = pp.state_dict()          # every stage broadcast to every rank
+    if rank == 0:
+        copy_weights(pl, reverse=True)
+        with open(dump, "wb") as f:
+            for _, p in model.named_parameters():
+                f.write(p.detach().float().cpu().numpy().tobytes())
+    del state, pp, pl, opt, model, shared
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"vpp": vpp, "build_s": build_s, "steps": steps,
+            "launches": launches, "max_allocated": peak,
+            "n_params": n_params,
+            "transport": collective.transport(
+                torch.empty(1, device=device),
+                fleet.get_hybrid_communicate_group()
+                .get_pipe_parallel_group())}
+
+
+def pp_rank_main(spec):
+    """One pipeline stage as a process of its own (distributed.spawn
+    imports this module in the child): init_parallel_env under
+    PADDLE_DISTRI_BACKEND=spec["backend"] (gloo: both ranks are on the one
+    card), then for each V of spec["vpps"] fleet.init at pp_degree 2 and
+    _pp_run. Returns each run's steps (wall, parts, loss, the engine's
+    counters and the handoffs'), launches, peak and between-step memory."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    os.environ["PADDLE_DISTRI_BACKEND"] = spec["backend"]
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env as denv
+
+    device = spec.get("device", "cuda")
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    dist.init_parallel_env(device=None if device == "cuda" else "cpu")
+    import torch.distributed as tdist
+
+    rank = dist.get_rank()
+    store = denv.get_store()
+    init_s = time.perf_counter() - t_start
+    runs = [_pp_run(torch, spec, vpp, store, rank, device,
+                    f"{spec['dump']}.{vpp}") for vpp in spec["vpps"]]
+    store.barrier("pp_slice_done")      # rank 0 hosts the store
+    return {"rank": rank, "pid": os.getpid(),
+            "backend": tdist.get_backend(), "init_s": init_s, "runs": runs}
+
+
+def _pp_want(layers, micro, steps):
+    """Launches over both ranks of one schedule's steps: every layer lives
+    on one rank and runs once a microbatch (no recompute), so each flash
+    kernel layers x micro a step; AdamW's fp32 form once a step and rank
+    (one group over the stage and the shared ends)."""
+    n = layers * micro * steps
+    return {"flash_fwd": n, "flash_dq": n, "flash_dkv": n,
+            "adamw": 2 * steps}
+
+
+def pp_slice_phase(torch, device="cuda", spec=None):
+    """Pipeline parallelism: GPT-3 1.3B at full width, PIPE_LAYERS deep
+    (fp32 parameters, amp O1, AdamW's fused fp32 form, a global-norm clip
+    of 1.0 through fleet's hybrid optimizer), global batch 4 x 2048 in 4
+    microbatches of [1, 2048], two pp rank processes on the one card
+    (distributed.spawn, init_parallel_env, fleet.init at pp_degree 2):
+    GPTForCausalLM.pipeline_descs into PipelineLayer(num_stages=2),
+    copy_weights, fleet.distributed_model, train_batch: a warm-up and
+    three timed steps at V = 1 (the tied head makes it the interleave
+    engine), then at virtual_pp_degree 2 from the same weights. The
+    handoffs are collective_permutes over gloo's host route. Reports each
+    rank's step wall split into the forward and backward slots' compute,
+    the handoffs, the tied ends' gradient sum, the clip's square-sum and
+    AdamW; the handoffs' calls, bytes, seconds, MB/s and how many carried
+    a microbatch; the share of idle ticks; the most microbatch graphs held
+    at once; peak device memory, bytes allocated between steps and
+    sampled RSS; flash and AdamW launches summed over the ranks, exactly
+    PIPE_LAYERS x 4 of each flash kernel a step and 1 AdamW a step and
+    rank. The shared parameters must be bitwise equal across the ranks
+    after every step; then a world-1 TrainStep runs the same steps on the
+    whole batch from the same weights: each schedule's losses within
+    PP_SLICE_LOSS_TOL, its final parameters (rank 0's state_dict after the
+    stages' broadcast) within PP_SLICE_PARAM_TOL relative, a bound that
+    must sit below the world-1 run's last update."""
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig
+
+    spec = dict(spec or dict(
+        model="gpt3_1p3b", amp=True, rows=4, seq=2048, lr=1e-4, seed=SEED,
+        n_batches=4, clip=1.0, steps=4, micro=4, vpps=(1, 2),
+        layers=PIPE_LAYERS))
+    spec.setdefault("backend", "gloo")
+    spec["device"] = device
+    nsteps = spec["steps"]
+    cfg = GPTConfig.tiny() if spec["model"] == "tiny" \
+        else GPTConfig.gpt3_1p3b()
+    cfg.num_layers = spec["layers"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_slice_")
+    free = shutil.disk_usage(tmp).free
+    if free < 1.2 * 4 * gpt_numel(cfg) * len(spec["vpps"]):
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"{free} bytes free under {tmp}: the parameter "
+                           "dumps do not fit")
+    spec["dump"] = os.path.join(tmp, "rank0.params")
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    t0 = time.perf_counter()
+    try:
+        ctx = spawn(cs.pp_rank_main, args=(spec,), nprocs=2, join=False,
+                    backend="cuda" if device == "cuda" else "cpu")
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {f"rank{r}": p.pid for r, p in enumerate(ctx.processes)},))
+        sampler.start()
+        try:
+            ranks = ctx.join(900)
+        finally:
+            for p in ctx.processes:
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            sampler.join()
+        ranks_s = time.perf_counter() - t0
+
+        # the world-1 run: the whole batch a step, the same weights
+        spec1 = dict(spec, layers=cfg.num_layers)
+        model, opt, loss_fn = _cp_model(torch, spec1, device, None)
+        step = TrainStep(model, loss_fn, opt, device=device)
+        batches = _elastic_batches(spec)
+        params = list(model.parameters())
+        world1, walls = [], []
+        for s in range(nsteps):
+            if s == nsteps - 1:
+                before = [p.detach().clone() for p in params]
+            t1 = time.perf_counter()
+            world1.append(float(step(*batches[s % len(batches)])))
+            walls.append(time.perf_counter() - t1)
+        step_rel = _rel_dev(torch, before, params)
+        del before
+        offs = np.cumsum([0] + [p.numel() for p in params])
+        param_rel = {}
+        for vpp in spec["vpps"]:
+            words = np.memmap(f"{spec['dump']}.{vpp}", dtype=np.float32,
+                              mode="r")
+            if words.size != offs[-1]:
+                raise AssertionError(f"rank 0 dumped {words.size} "
+                                     f"parameters, the model has "
+                                     f"{offs[-1]}")
+            param_rel[vpp] = _rel_dev(torch, (
+                torch.from_numpy(np.array(words[a:b])).to(p.device)
+                .view_as(p)
+                for p, a, b in zip(params, offs[:-1], offs[1:])), params)
+            del words
+        del model, opt, step, params
+        if device == "cuda":
+            release(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = _pp_want(cfg.num_layers, spec["micro"], nsteps)
+    rows = {}
+    for i, vpp in enumerate(spec["vpps"]):
+        runs = [r["runs"][i] for r in ranks]
+        losses = [st["loss"] for st in runs[0]["steps"]]
+        if [st["loss"] for st in runs[1]["steps"]] != losses:
+            raise AssertionError(f"V {vpp}: the ranks' losses differ")
+        dev = max(abs(a - b) for a, b in zip(losses, world1))
+        if not all(np.isfinite(losses)) or dev > PP_SLICE_LOSS_TOL \
+                or not param_rel[vpp] <= PP_SLICE_PARAM_TOL < step_rel:
+            raise AssertionError(
+                f"V {vpp}: losses {losses} against the world-1 run's "
+                f"{world1}: {dev} (bound {PP_SLICE_LOSS_TOL}); final "
+                f"parameters {param_rel[vpp]} from the world-1 run's "
+                f"(bound {PP_SLICE_PARAM_TOL}, which must sit below its "
+                f"last update's {step_rel})")
+        launches = {k: sum(r["launches"][k] for r in runs) for k in PP}
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"V {vpp}: launches over both ranks "
+                                 f"{launches}, expected {want}")
+        per_rank = {r["rank"]: _pp_summary(r["runs"][i]) for r in ranks}
+        rows[vpp] = {"losses": losses, "max_abs_loss_dev": dev,
+                     "final_params_rel_dev": param_rel[vpp],
+                     "launches": launches, "per_rank": per_rank,
+                     "tokens_per_s": spec["rows"] * spec["seq"]
+                     / per_rank[0]["median_step_s"]}
+    return {
+        "phase": "pp_slice", "model": ("GPT tiny" if spec["model"] == "tiny"
+                                       else "GPT-3 1.3B"),
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "amp": ("O1 bfloat16, fp32 parameters" if spec.get("amp")
+                else "off, fp32"),
+        "batch": [spec["rows"], spec["seq"]], "microbatches": spec["micro"],
+        "pp": 2, "backend": ranks[0]["backend"],
+        "transport": ranks[0]["runs"][0]["transport"],
+        "transport_why": "two ranks on one card: NCCL refuses that; the "
+                         "handoffs' permutes copy through pinned host "
+                         "memory, the kernels stay on the card",
+        "steps": nsteps, "schedules": rows, "rss_peak_sampled": rss,
+        "world1_losses": world1,
+        "world1_step_s": statistics.median(walls[1:]),
+        "loss_tolerance": PP_SLICE_LOSS_TOL,
+        "param_tolerance": PP_SLICE_PARAM_TOL,
+        "world1_last_update_rel": step_rel, "want": want,
+        "ranks_s": ranks_s,
+    }
+
+
+def _pp_summary(run):
+    """A rank's timed steps of one schedule: medians of the wall and its
+    parts, the handoffs' calls, bytes and MB/s, the engine's counters."""
+    timed = [st for st in run["steps"] if not st["warmup"]]
+    eng = timed[-1]["engine"]
+    hand_s = statistics.median(st["engine"]["handoff_s"] for st in timed)
+    return {
+        "build_s": run["build_s"],
+        "step_s": [st["wall_s"] for st in timed],
+        "median_step_s": statistics.median(st["wall_s"] for st in timed),
+        "warmup_s": run["steps"][0]["wall_s"],
+        "warmup_parts_s": run["steps"][0]["parts_s"],
+        "median_parts_s": {
+            k: statistics.median(st["parts_s"][k] for st in timed)
+            for k in timed[0]["parts_s"]},
+        "ticks": eng["ticks"], "idle_ticks": eng["idle_ticks"],
+        "idle_share": eng["idle_ticks"] / eng["ticks"],
+        "slots": [eng["fwd_slots"], eng["bwd_slots"]],
+        "max_inflight": eng["max_inflight"],
+        "handoffs_a_step": eng["permutes"],
+        "handoff_bytes_a_step": eng["permute_bytes"],
+        "handoffs_carrying": eng["carried"],
+        "median_handoff_s": hand_s,
+        "handoff_mb_per_s": eng["permute_bytes"] / hand_s / 1e6
+        if hand_s else None,
+        "shared_sum_bytes": eng["sum_bytes"],
+        "allocated_between": [st["allocated_between"] for st in timed],
+        "max_allocated": run["max_allocated"], "n_params": run["n_params"],
+        "bytes_per_param": timed[-1]["allocated_between"] / run["n_params"],
+        "launches": run["launches"]}
+
+
 KERNELS = {
     "rms_norm": ("cuda", "paddle_tpu_torch/csrc/fused_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
@@ -7985,6 +8360,10 @@ def main():
     # ZeRO: two sharding ranks on the card, each on half of the batch with
     # its shard of the optimizer state (and gradients, and parameters)
     emit(zero_slice_phase(torch))
+    release(torch)
+    # pipeline parallelism: two pp ranks on the card, each with its stage
+    # (and the tied ends), handing microbatches on
+    emit(pp_slice_phase(torch))
     release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 import torch
 
 _initialized = False
+_device: Optional[torch.device] = None     # what init_parallel_env bound
 
 
 class InProcStore:
@@ -316,6 +317,17 @@ def is_initialized() -> bool:
     return _initialized
 
 
+def rank_device() -> torch.device:
+    """The device init_parallel_env bound this rank to (cuda:i, or the CPU
+    when it was asked for); before it ran, the current CUDA device (raising
+    when there is none, as core.place.resolve_device does)."""
+    if _device is not None:
+        return _device
+    from ..core.place import resolve_device
+
+    return resolve_device(None)
+
+
 _pg_generation = 0     # process groups this process has initialised
 
 
@@ -388,7 +400,7 @@ def init_parallel_env(strategy=None, *, device=None) -> "ParallelEnv":
     is made and every collective stays the identity, as in the
     reference. Keeps the span dist.init_parallel_env and the counter
     distributed_init_total."""
-    global _initialized, _pg_generation
+    global _initialized, _pg_generation, _device
     if _initialized:
         return ParallelEnv()
     import torch.distributed as dist
@@ -405,6 +417,7 @@ def init_parallel_env(strategy=None, *, device=None) -> "ParallelEnv":
     if dev.type == "cuda":
         dev = _local_cuda_device(env.local_rank if dev.index is None
                                  else dev.index)
+    _device = dev
     backend = os.environ.get("PADDLE_DISTRI_BACKEND") or \
         ("nccl" if dev.type == "cuda" else "gloo")
     with _span("dist.init_parallel_env", cat="dist",

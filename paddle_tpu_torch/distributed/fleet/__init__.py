@@ -14,10 +14,12 @@ dp (`get_hybrid_communicate_group().get_sharding_parallel_group()`).
 `init` runs init_parallel_env (a rank that must stay on the CPU calls
 `init_parallel_env(device="cpu")` first: it is idempotent) and builds the
 HybridCommunicateGroup of the strategy's degrees, which sets the mesh.
-`distributed_model` wraps a model in DataParallel over the dp group only
-when dp_degree > 1 and the world has more than one rank (an mp rank's
-gradients are its own blocks', or alike on every mp rank); pipeline
-parallelism raises (not ported). `dp_train_step` builds the TrainStep of the data-parallel path.
+`distributed_model` wraps a PipelineLayer in PipelineParallel when
+pp_degree > 1 (fleet/pipeline_parallel.py: one rank a stage, the
+strategy's pipeline_configs), else a model in DataParallel over the dp
+group only when dp_degree > 1 and the world has more than one rank (an
+mp rank's gradients are its own blocks', or alike on every mp rank).
+`dp_train_step` builds the TrainStep of the data-parallel path.
 The role makers, UtilBase and the data generators wait in ROADMAP queue
 1, item 3.
 """
@@ -39,6 +41,12 @@ from .mp_layers import (  # noqa: F401
     RowSequenceParallelLinear,
     VocabParallelEmbedding,
 )
+from .pipeline_parallel import (  # noqa: F401
+    LayerDesc,
+    PipelineLayer,
+    PipelineParallel,
+    SharedLayerDesc,
+)
 from .recompute import recompute, recompute_sequential
 from . import utils  # noqa: F401
 
@@ -48,7 +56,9 @@ __all__ = ["recompute", "recompute_sequential", "DistributedStrategy",
            "HybridParallelClipGrad", "HybridParallelOptimizer",
            "ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelCrossEntropy",
-           "ColumnSequenceParallelLinear", "RowSequenceParallelLinear"]
+           "ColumnSequenceParallelLinear", "RowSequenceParallelLinear",
+           "LayerDesc", "SharedLayerDesc", "PipelineLayer",
+           "PipelineParallel"]
 
 
 class DistributedStrategy:
@@ -117,16 +127,14 @@ class _Fleet:
         return get_rank()
 
     def distributed_model(self, model):
-        """DataParallel over the dp group when dp_degree > 1 and the world
-        has more than one rank, else the model itself."""
+        """PipelineParallel over the pp group when pp_degree > 1;
+        DataParallel over the dp group when dp_degree > 1 and the world
+        has more than one rank; else the model itself."""
         from ..parallel import DataParallel
 
         hc = self._strategy.hybrid_configs if self._strategy else {}
         if hc.get("pp_degree", 1) > 1:
-            raise NotImplementedError(
-                "distributed_model: pipeline parallelism (pp_degree > 1) "
-                "is not ported: fleet/pipeline_parallel.py waits in ROADMAP "
-                "queue 1, item 3")
+            return PipelineParallel(model, self._hcg, self._strategy)
         if hc.get("dp_degree", 1) > 1 and get_world_size() > 1:
             return DataParallel(
                 model, group=self._hcg.get_data_parallel_group())

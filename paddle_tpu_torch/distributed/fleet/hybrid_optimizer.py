@@ -6,21 +6,24 @@ Data-parallel gradients are reduced by TrainStep (or DataParallel's
 hooks) before the clip, so what this wrapper adds is the clip's global
 norm over the other axes: the square-sum of the tensor-parallel
 parameters' gradients (each mp rank's blocks) all-reduced over the mp
-group, the replicated ones counted once, and the whole all-reduced over
-the pipeline group (disjoint parameters). The sharding group is not
-reduced over here, though the reference does it: under ZeRO
-(distributed/sharding.py) the optimizer's square-sum is already its
-shard's summed once over the sharding group, and at stage "os" a rank's
-whole gradient summed over the group would count every element W times;
-without ZeRO the sharding ranks hold the same gradients. Over data
-parallelism alone the pipeline group is one rank and nothing more is
-reduced.
+group, the replicated ones counted once; under pipeline parallelism
+(fleet/pipeline_parallel.py) the square-sum of this rank's stage
+parameters all-reduced over the pp group, the tied ends and the loss
+parameters, which every stage holds alike, counted once (the marks
+PipelineParallel puts on its parameters, nn/clip.py pp_mark). Summing
+every gradient over the pp group would count the tied ends once a stage.
+The sharding group is not reduced over here, though the reference does
+it: under ZeRO (distributed/sharding.py) the optimizer's square-sum is
+already its shard's summed once over the sharding group, and at stage
+"os" a rank's whole gradient summed over the group would count every
+element W times; without ZeRO the sharding ranks hold the same
+gradients.
 """
 from __future__ import annotations
 
 import torch
 
-from ...nn.clip import ClipGradByGlobalNorm, grad_square_sum
+from ...nn.clip import ClipGradByGlobalNorm, grad_square_sum, pp_mark
 from ..collective import ReduceOp, all_reduce
 
 
@@ -32,23 +35,24 @@ def _is_mp_sharded(p) -> bool:
 
 
 class HybridParallelClipGrad(ClipGradByGlobalNorm):
-    """Global-norm clip whose square-sum is all-reduced over the mp and pp
-    groups (the sharding group's sum is the ZeRO optimizer's, once), so
-    every rank scales by the same global norm."""
+    """Global-norm clip whose square-sum is all-reduced over the mp group
+    (the mp blocks') and the pp group (the stages'), the sharding group's
+    sum being the ZeRO optimizer's, once, so every rank scales by the
+    same global norm."""
 
     def __init__(self, clip_norm, hcg):
         super().__init__(clip_norm)
         self._hcg = hcg
 
-    def _over_pp(self, sq):
-        return all_reduce(sq, ReduceOp.SUM,
-                          self._hcg.get_pipe_parallel_group())
-
     def global_square_sum(self, grads, params=None):
         """The reference's `functional_clip` square-sum: over the mp group
         only the tensor-parallel parameters' part is partial and reduced;
         replicated parameters (layernorms, row-parallel biases) carry the
-        same gradient on every mp rank and count once."""
+        same gradient on every mp rank and count once. Under pipeline
+        parallelism (pp runs alone) only this rank's stage parameters'
+        part is reduced, over the pp group (nn/clip.py grad_square_sum)."""
+        if params is not None and any(pp_mark(p) for p in params):
+            return grad_square_sum(grads, params)
         mp = self._hcg.get_model_parallel_group()
         split = mp.nranks > 1 and params is not None
         dist_g = [g for i, g in enumerate(grads)
@@ -61,15 +65,7 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
         sq_rep = grad_square_sum(rep_g) if rep_g else zero.clone()
         if mp.nranks > 1:
             sq_dist = all_reduce(sq_dist.clone(), ReduceOp.SUM, mp)
-        return self._over_pp(sq_dist + sq_rep)
-
-    def factor(self, square_sum):
-        """The factor from the square-sum of every gradient as the fused
-        AdamW computes it (optimizers.AdamW._square_sum: over tensor
-        parallelism already the mp-global one, nn/clip.py's split of the
-        mp blocks and the replicated parameters; under ZeRO already summed
-        over the sharding group), reduced over the pipeline group."""
-        return super().factor(self._over_pp(square_sum.clone()))
+        return sq_dist + sq_rep
 
     def __call__(self, params_grads):
         if not params_grads:

@@ -108,7 +108,7 @@ from ..ops import nn_ops
 from .generation import (_MP_CACHE, GenerationMixin, causal_lm_loss,
                          check_tensor_parallel, mesh_mp_size,
                          packed_positions)
-from .llama import _rope_tables
+from .llama import _copy_pairs, _rope_tables
 
 
 @dataclass
@@ -551,3 +551,106 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         count = (labels[:, 1:] != ignore_index).sum()
         total = all_reduce_autograd(total, group)
         return total / count.clamp(min=1).to(total.dtype)
+
+
+# --------------------------------------------------- pipeline decomposition
+class _GPTPipeEmbed(nn.Module):
+    """Stage-0 pre layer (gpt.py:382-411): token and learned positional
+    embedding and dropout, and, tied, the final LayerNorm the head applies,
+    so the pipeline's stages are GPTBlocks alone. Built on the host,
+    uninitialised: `copy_weights` fills it."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.wte = Embedding(config.vocab_size, config.hidden_size)
+        self.wpe = Embedding(config.max_position_embeddings,
+                             config.hidden_size)
+        self.drop = Dropout(config.hidden_dropout_prob)
+        if config.tie_word_embeddings:
+            self.ln_f = LayerNorm(config.hidden_size)
+
+    @property
+    def weight(self):
+        return self.wte.weight
+
+    def forward(self, ids):
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        return self.drop(self.wte(ids) + self.wpe(pos))
+
+
+class _GPTPipeHead(nn.Module):
+    """Untied head: the final norm and the projection (shared_post)."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.ln_f = LayerNorm(config.hidden_size)
+        self.proj = ColumnParallelLinear(config.hidden_size,
+                                         config.vocab_size, has_bias=False,
+                                         gather_output=True)
+
+    @property
+    def weight(self):
+        return self.proj.weight
+
+    def forward(self, h):
+        return self.proj(self.ln_f(h))
+
+
+def _gpt_tied_head_fwd(layer, h):
+    return nn_ops.matmul(layer.ln_f(h), layer.wte.weight, transpose_y=True)
+
+
+def _gpt_untied_head_fwd(layer, h):
+    return layer(h)
+
+
+def _gpt_pipeline_loss(out, label):
+    """The shifted next-token cross entropy of GPTForCausalLM.forward."""
+    return causal_lm_loss(out, label)
+
+
+def _gpt_pipeline_descs(self):
+    """The LayerDesc decomposition for pipeline parallelism (gpt.py:
+    443-499): [embedding] + [GPTBlock] * L + [tied or untied head].
+    Returns (descs, loss_fn, copy_weights); copy_weights(pipeline_layer)
+    copies this model's weights into the built PipelineLayer (each to the
+    device its destination is on), reverse=True back into the model.
+    Rotary configs are refused: the rope tables are shared state the desc
+    layers do not carry."""
+    from ..distributed.fleet.pipeline_parallel import (LayerDesc,
+                                                       SharedLayerDesc)
+
+    cfg = self.config
+    if cfg.use_rotary:
+        raise ValueError("pipeline_descs: rotary GPT configs are not "
+                         "pipeline-decomposable (rope is shared state)")
+    descs = [SharedLayerDesc("embed", _GPTPipeEmbed, None, "weight", cfg)]
+    descs += [LayerDesc(GPTBlock, cfg) for _ in range(cfg.num_layers)]
+    if cfg.tie_word_embeddings:
+        descs.append(SharedLayerDesc("embed", _GPTPipeEmbed,
+                                     _gpt_tied_head_fwd, "weight", cfg))
+    else:
+        descs.append(SharedLayerDesc("head", _GPTPipeHead,
+                                     _gpt_untied_head_fwd, "weight", cfg))
+    model = self
+
+    def copy_weights(pl, reverse=False):
+        pre, gpt = pl.shared_pre, model.gpt
+        pairs = [(gpt.wte.weight, pre.wte.weight),
+                 (gpt.wpe.weight, pre.wpe.weight)]
+        if cfg.tie_word_embeddings:
+            pairs += [(gpt.ln_f.weight, pre.ln_f.weight),
+                      (gpt.ln_f.bias, pre.ln_f.bias)]
+        for src, dst in zip(gpt.blocks, pl.run_function):
+            pairs += list(zip(src.parameters(), dst.parameters()))
+        if not cfg.tie_word_embeddings:
+            head = pl.shared_post[0]
+            pairs += [(gpt.ln_f.weight, head.ln_f.weight),
+                      (gpt.ln_f.bias, head.ln_f.bias),
+                      (model.lm_head.weight, head.proj.weight)]
+        _copy_pairs(pairs, reverse)
+
+    return descs, _gpt_pipeline_loss, copy_weights
+
+
+GPTForCausalLM.pipeline_descs = _gpt_pipeline_descs

@@ -369,3 +369,122 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if labels is None:
             return gather_replicated_autograd(logits, -1, mp)
         return causal_lm_loss(logits, labels, segments, group=mp)
+
+
+# --------------------------------------------------- pipeline decomposition
+class _LlamaPipeBlock(nn.Module):
+    """LlamaDecoderLayer with rope tables of its own, so a stage is
+    self-contained (llama.py:312-328): buffers, not saved in the
+    state_dict, that move with the layer to its stage's device."""
+
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.block = LlamaDecoderLayer(config)
+        cos, sin = _rope_tables(config.hidden_size // config.num_heads,
+                                config.max_position_embeddings,
+                                config.rope_theta, None)
+        self.register_buffer("_rope_cos", cos, persistent=False)
+        self.register_buffer("_rope_sin", sin, persistent=False)
+
+    def forward(self, h):
+        s = h.shape[1]
+        return self.block(h, (self._rope_cos[:s], self._rope_sin[:s]))
+
+
+class _LlamaPipeEmbed(nn.Module):
+    """Stage-0 pre: the token embedding and, tied, the final RMSNorm the
+    head applies (llama.py:331-351)."""
+
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.embed = VocabParallelEmbedding(config.vocab_size,
+                                            config.hidden_size)
+        if config.tie_word_embeddings:
+            self.norm = RMSNorm(config.hidden_size,
+                                epsilon=config.rms_norm_eps)
+
+    @property
+    def weight(self):
+        return self.embed.weight
+
+    def forward(self, ids):
+        return self.embed(ids)
+
+
+class _LlamaPipeHead(nn.Module):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
+        self.proj = ColumnParallelLinear(config.hidden_size,
+                                         config.vocab_size, has_bias=False)
+
+    @property
+    def weight(self):
+        return self.proj.weight
+
+    def forward(self, h):
+        return self.proj(self.norm(h))
+
+
+def _llama_tied_head_fwd(layer, h):
+    return torch.matmul(layer.norm(h), layer.embed.weight.t())
+
+
+def _llama_untied_head_fwd(layer, h):
+    return layer(h)
+
+
+def _llama_pipeline_loss(out, label):
+    return causal_lm_loss(out, label)
+
+
+def _copy_pairs(pairs, reverse):
+    """Copy each (model, pipeline) parameter pair's values one way, each to
+    its destination's device."""
+    with torch.no_grad():
+        for m_p, p_p in pairs:
+            if tuple(m_p.shape) != tuple(p_p.shape):
+                raise ValueError(f"copy_weights: {tuple(m_p.shape)} != "
+                                 f"{tuple(p_p.shape)}")
+            if reverse:
+                m_p.copy_(p_p)
+            else:
+                p_p.copy_(m_p)
+
+
+def _llama_pipeline_descs(self):
+    """The LayerDesc decomposition (llama.py:376-425; see
+    GPTForCausalLM.pipeline_descs). Returns (descs, loss_fn,
+    copy_weights)."""
+    from ..distributed.fleet.pipeline_parallel import (LayerDesc,
+                                                       SharedLayerDesc)
+
+    cfg = self.config
+    descs = [SharedLayerDesc("embed", _LlamaPipeEmbed, None, "weight", cfg)]
+    descs += [LayerDesc(_LlamaPipeBlock, cfg)
+              for _ in range(cfg.num_layers)]
+    if cfg.tie_word_embeddings:
+        descs.append(SharedLayerDesc("embed", _LlamaPipeEmbed,
+                                     _llama_tied_head_fwd, "weight", cfg))
+    else:
+        descs.append(SharedLayerDesc("head", _LlamaPipeHead,
+                                     _llama_untied_head_fwd, "weight", cfg))
+    model = self
+
+    def copy_weights(pl, reverse=False):
+        pre, m = pl.shared_pre, model.model
+        pairs = [(m.embed_tokens.weight, pre.embed.weight)]
+        if cfg.tie_word_embeddings:
+            pairs.append((m.norm.weight, pre.norm.weight))
+        for src, dst in zip(m.layers, pl.run_function):
+            pairs += list(zip(src.parameters(), dst.block.parameters()))
+        if not cfg.tie_word_embeddings:
+            head = pl.shared_post[0]
+            pairs += [(m.norm.weight, head.norm.weight),
+                      (model.lm_head.weight, head.proj.weight)]
+        _copy_pairs(pairs, reverse)
+
+    return descs, _llama_pipeline_loss, copy_weights
+
+
+LlamaForCausalLM.pipeline_descs = _llama_pipeline_descs

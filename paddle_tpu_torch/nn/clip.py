@@ -1,8 +1,9 @@
 """Gradient clipping by the global norm (counterpart of paddle_tpu/nn/clip.py
 ClipGradByGlobalNorm:43). Plain torch: the reference computes it in XLA.
-Under tensor parallelism the norm is the global one (grad_square_sum);
-under ZeRO the optimizer hands `factor` the global square-sum, its
-shard's summed once over the sharding group (optimizer/optimizers.py)."""
+Under tensor and pipeline parallelism the norm is the global one
+(grad_square_sum); under ZeRO the optimizer hands `factor` the global
+square-sum, its shard's summed once over the sharding group
+(optimizer/optimizers.py)."""
 from __future__ import annotations
 
 import torch
@@ -14,20 +15,16 @@ def _square_sum(grads):
     return norms.square().sum()
 
 
-def grad_square_sum(grads, params=None):
-    """The fp32 sum of squares of every element of `grads`, a 0-d tensor on
-    their device, computed without a host sync (one fp32-accumulating norm
-    a tensor; a low-precision gradient is not copied to fp32 first).
+def pp_mark(p):
+    """(pp group, owned) of a PipelineParallel's parameter, else None:
+    owned for this rank's stage parameters, not for the tied ends and the
+    loss parameters, which every stage holds alike."""
+    return getattr(p, "_pp_group", None)
 
-    With `params` (`params[i]` owns `grads[i]`), under tensor parallelism
-    it is the global square-sum, the same on every mp rank: the part of
-    the parameters cut over an mp group is summed over that group, and
-    the whole (replicated) parameters, whose gradients every rank holds
-    alike, count once. (The reference's plain clip gets that from GSPMD;
-    a square-sum of this rank's gradients alone would scale the ranks
-    differently.)"""
-    if params is None:
-        return _square_sum(grads)
+
+def _mp_square_sum(grads, params):
+    """The square-sum of `grads`, the part of the parameters cut over an
+    mp group summed over that group (one all-reduce a group)."""
     from ..distributed.collective import ReduceOp, all_reduce
     from ..distributed.mesh import mp_group_of
 
@@ -41,6 +38,41 @@ def grad_square_sum(grads, params=None):
             part = all_reduce(part, ReduceOp.SUM, group)
         total = part if total is None else total + part
     return total
+
+
+def grad_square_sum(grads, params=None):
+    """The fp32 sum of squares of every element of `grads`, a 0-d tensor on
+    their device, computed without a host sync (one fp32-accumulating norm
+    a tensor; a low-precision gradient is not copied to fp32 first).
+
+    With `params` (`params[i]` owns `grads[i]`) it is the global
+    square-sum, the same on every rank (the reference's plain clip gets it
+    from GSPMD; a square-sum of this rank's gradients alone would scale
+    the ranks differently):
+      * tensor parallelism: the part of the parameters cut over an mp
+        group is summed over that group; the whole (replicated)
+        parameters, whose gradients every mp rank holds alike, count once;
+      * pipeline parallelism (parameters marked by PipelineParallel,
+        `pp_mark`): this rank's stage parameters' part is summed over the
+        pp group; the tied ends and the loss parameters, whose gradients
+        every stage holds alike after the pipeline's sum, count once."""
+    if params is None:
+        return _square_sum(grads)
+    marks = [pp_mark(p) for p in params]
+    if not any(marks):
+        return _mp_square_sum(grads, params)
+    from ..distributed.collective import ReduceOp, all_reduce
+
+    group = next(m for m in marks if m)[0]
+    owned = [i for i, m in enumerate(marks) if m and m[1]]
+    rest = [i for i, m in enumerate(marks) if not (m and m[1])]
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+
+    def part(idx):
+        return _mp_square_sum([grads[i] for i in idx],
+                              [params[i] for i in idx]) if idx \
+            else zero.clone()
+    return all_reduce(part(owned), ReduceOp.SUM, group) + part(rest)
 
 
 class ClipGradByGlobalNorm:

@@ -49,7 +49,7 @@ import torch
 
 from ..core.flags import get_flag
 from ..distributed.mesh import mp_group_of
-from ..nn.clip import ClipGradByGlobalNorm, grad_square_sum
+from ..nn.clip import ClipGradByGlobalNorm, grad_square_sum, pp_mark
 from ..ops.gpu.fused_adamw import f32, fused_adamw, fused_adamw_master
 from .optimizer import Optimizer
 
@@ -200,9 +200,10 @@ class AdamW(Optimizer):
 
     def _square_sum(self, runs):
         params = [p for _, run in runs for p in run[4]]
-        if any(mp_group_of(p) is not None for p in params):
-            # tensor parallelism: the global square-sum, parameter by
-            # parameter (a run mixes mp blocks and replicated parameters)
+        if any(mp_group_of(p) is not None or pp_mark(p) for p in params):
+            # tensor or pipeline parallelism: the global square-sum,
+            # parameter by parameter (a run mixes mp blocks and replicated
+            # parameters, or a stage's and the tied ends')
             return grad_square_sum([p.grad for p in params], params)
         sq = grad_square_sum([g.g[a:b] for g, (a, b, *_) in runs])
         if self._zero is not None:

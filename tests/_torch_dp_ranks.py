@@ -294,8 +294,8 @@ def _data_parallel(dist, state, ids, lr, tmp):
     try:
         fleet.distributed_model(_Lin(w, b))
         out["pp"] = None
-    except NotImplementedError as e:
-        out["pp"] = str(e)
+    except TypeError as e:
+        out["pp"] = f"{type(e).__name__}: {e}"
     return out
 
 

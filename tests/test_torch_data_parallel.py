@@ -327,15 +327,17 @@ def test_fleet_strategy_and_dp_train_step_knob():
 
 def test_fleet_at_world_two(runs):
     """fleet.init(dp_degree=2): the hybrid group's sizes and this rank's
-    place; distributed_model wraps only with dp_degree > 1 and refuses a
-    pipeline; worker_num and worker_index."""
+    place; distributed_model wraps only with dp_degree > 1, and with
+    pp_degree > 1 hands the model to PipelineParallel, which refuses one
+    that is not a PipelineLayer; worker_num and worker_index."""
     _, port = runs
     for r, got in enumerate(port[2]):
         d = got["data_parallel"]
         assert d["hcg"] == {"dp": 2, "dp_rank": r, "dp_group": [0, 1],
                             "worker": [2, r]}
         assert d["wrapped"] == "DataParallel" and d["unwrapped"] == "_Lin"
-        assert "pipeline parallelism" in d["pp"] and "ROADMAP" in d["pp"]
+        assert d["pp"].startswith("TypeError: PipelineParallel wraps a "
+                                  "PipelineLayer") and "_Lin" in d["pp"]
 
 
 def test_init_parallel_env_reads_the_launcher_variables(runs):
