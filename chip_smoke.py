@@ -127,7 +127,7 @@ final line):
                temperature 0.8, fuse_steps 4: tokens/s, TTFT, replays and
                ticks by kind, launches a replay; every sampled tick must
                have replayed the sampled graph, with paged decode 32 a step
- 10. graph_tick - Llama-2-7B's widths cut to 4 layers (CUT_LAYERS, to
+ 10. graph_tick - Llama-2-7B's widths cut to 2 layers (CUT_LAYERS, to
                fit the time limit beside the elastic phases), bf16, 8 slots
                decoding at 512 context: each
                graph body run eagerly against its replay from one saved
@@ -178,7 +178,7 @@ final line):
                shrinking back; no breaker strike, no unfinished request;
                then a rotary GPT (GPT-3 1.3B widths, 2 layers):
                generate() and the engine equal, RoPE launched by both
- 14. fleet_slice - two replicas of Llama-2-7B's widths cut to 4 layers
+ 14. fleet_slice - two replicas of Llama-2-7B's widths cut to 2 layers
                (CUT_LAYERS) in bf16 (8
                slots, 16-token blocks, 256-token chunks, 2048 context)
                under a FleetRouter with real threads, fresh engines an
@@ -224,7 +224,7 @@ final line):
                gone); every child launched every serving kernel; no
                breaker strike, no unplanned respawn or exit, no child
                alive after router.stop()
- 16. proc_fleet_slice - Llama-2-7B's widths cut to 4 layers (CUT_LAYERS) in
+ 16. proc_fleet_slice - Llama-2-7B's widths cut to 2 layers (CUT_LAYERS) in
                bf16, each replica a
                child process (proc_llama_7b; 8 slots, 16-token blocks,
                256-token chunks, 2048 context), fresh children an arm:
@@ -250,7 +250,8 @@ final line):
                request's windows run past the table too); no output logit
                may be non-finite, paged decode and verify must launch, and
                every tick must have replayed its graph
- 18. train_parity - GPT at GPT-3 1.3B's width, 2 layers, fp32 (TF32 off):
+ 18. train_parity - GPT at GPT-3 1.3B's width, 1 layer (CPU_PARITY_LAYERS),
+               fp32 (TF32 off):
                three TrainSteps (AdamW, global-norm clip) on the card and the
                same three on the CPU (plain versions) from the same weights
                and batch; losses and parameters must agree (bounds below)
@@ -259,7 +260,7 @@ final line):
                three timed steps on one repeated batch; loss, step time,
                tokens/s, peak memory and launches per step; every training
                kernel's launch count over this phase must be > 0
- 20. train_o2_parity - GPT at GPT-3 1.3B's width, 2 layers, amp O2
+ 20. train_o2_parity - GPT at GPT-3 1.3B's width, 1 layer, amp O2
                (decorate: bf16 parameters, fp32 masters): three TrainSteps
                on the card and on the CPU from the same weights and batch;
                losses and masters must agree (bounds below)
@@ -276,7 +277,7 @@ final line):
                H100 peak; then GradScaler over two eager steps (an
                overflowing one skipped with the scale halved, a clean one
                that updates)
- 22. train_parity (packed Llama) - Llama-2-7B's width, 2 layers, fp32, one
+ 22. train_parity (packed Llama) - Llama-2-7B's width, 1 layer, fp32, one
                packed row of 256 tokens (four documents and a padding tail):
                three TrainSteps on the card and on the CPU, as in 18
  23. train_packed_slice - main path 3: Llama-2-7B at its published widths
@@ -473,7 +474,7 @@ final line):
                ranks' gathered state bitwise (a digest a leaf), and each
                rank's chunks of it its own shard buffers (bit sums of
                parameters, m and v, which no gather touched)
- 34. pp_slice - pipeline parallelism: GPT-3 1.3B at full width, cut to 8
+ 34. pp_slice - pipeline parallelism: GPT-3 1.3B at full width, cut to 4
                layers (PIPE_LAYERS) (fp32 parameters, amp O1, AdamW's fp32
                form, a global-norm clip of 1.0 through fleet's hybrid
                optimizer), global batch 4 x 2048 in 4 microbatches of
@@ -500,6 +501,35 @@ final line):
                its final parameters (the stages broadcast into rank 0's
                state_dict) within 5e-4 relative, a bound that must sit
                below the world-1 run's last update
+ 35. hybrid_pp_slice - pipeline parallelism beside tensor and data
+               parallelism, four rank processes on the card over gloo
+               (distributed.spawn, init_parallel_env, fleet.init with
+               each mesh's hybrid configs in turn): mesh A, pp 2 x mp 2,
+               Llama-2-7B at its published widths; mesh B, dp 2 x pp 2,
+               GPT-3 1.3B at its published widths; both cut to 2 layers
+               (HYBRID_LAYERS, one a stage), fp32 parameters, amp O1,
+               AdamW's fp32 form, a global-norm clip of 1.0 through
+               fleet's hybrid optimizer, 4 microbatches of [1, 2048] a
+               rank (A: batch 4 x 2048; B: 8 x 2048, 4 rows a dp rank):
+               pipeline_descs into a PipelineLayer of two stages built
+               under the mesh (each rank's mp blocks), copy_weights,
+               fleet.distributed_model, train_batch; a warm-up and three
+               timed steps. Each rank's step wall split into the forward
+               and backward slots (the mp all-reduces inside), the
+               handoffs, the tied ends' sum, the dp reduce, the
+               square-sum and AdamW; the handoffs' and mp collectives'
+               calls, bytes and MB/s; peak and between-step memory and
+               sampled RSS; every kernel's launches summed over the
+               ranks, exact (A: flash, RMSNorm forward and backward,
+               contiguous RoPE and AdamW; B: flash and AdamW). After
+               every step the dp replicas must be bitwise equal, each mp
+               pair's whole parameters and each pp pair's shared ends;
+               then a world-1 TrainStep runs each mesh's steps on the
+               whole batch from the same seed: losses within 1e-3, final
+               parameters (gathered over mp) within 1e-3 (A) and 5e-4 (B)
+               relative, a bound that must sit below the world-1 run's
+               last update. `python3 chip_smoke.py hybrid_pp_slice A=8
+               B=12` runs the build and this phase alone at those depths
 
 Every phase's row carries `at_s`, the script's seconds when it ended. The
 last two lines are the kernel summary {"kernels": [...]} and
@@ -522,9 +552,18 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 # script's time limit (main path 1, the serving slice, keeps all 32): 8
 # until pp_slice joined the script after a full run from a git archive of
 # 1,061 s on an H100 80GB HBM3 at 700 W (graph_tick 24 s, fleet_slice 56
-# s, proc_fleet_slice 79 s at 8); now 4. Their counts follow the depth
-# (RMSNorm 2L + 1, RoPE L and paged decode L a replay)
-CUT_LAYERS = 4
+# s, proc_fleet_slice 79 s at 8); then 4, until hybrid_pp_slice joined
+# the script (a full run of 1,135 s on an H100 80GB HBM3 at 700 W:
+# graph_tick 15.6 s, fleet_slice 35.2 s, proc_fleet_slice 69.7 s at 4);
+# now 2. Their counts follow the depth (RMSNorm 2L + 1, RoPE L and paged
+# decode L a replay)
+CUT_LAYERS = 2
+# the depth of the models that train_parity, train_o2_parity and the
+# packed Llama's train_parity train on the card and again on the host's
+# CPU: 2 until hybrid_pp_slice joined the script (the same full run:
+# 10.8, 18.6 and 30.9 s, most of it the CPU's steps, whose embedding and
+# head do not shrink with depth); now 1, a block of each kernel's path
+CPU_PARITY_LAYERS = 1
 # the depth of elastic_slice's and dp_slice's GPT-3 1.3B: 24 until the
 # store exchange took 323 s of a 1,205 s run (elastic) and cp_slice joined
 # the script (dp, 92-126 s); then 8, until runs of 960 and 1,245 s with
@@ -553,8 +592,12 @@ RANK_LAYERS = 1
 ZERO_STAGE3_LAYERS = 2
 # the depth of pp_slice's GPT-3 1.3B (24 in the reference preset): its
 # exchanges, the stage handoffs ([1, 2048, 2048] fp32 a microbatch) and
-# the tied ends' gradient sum, are the same bytes at any depth
-PIPE_LAYERS = 8
+# the tied ends' gradient sum, are the same bytes at any depth. 8 until
+# hybrid_pp_slice joined the script (full runs took 1,031.5-
+# 1,127.1 s of the 1,200 on an H100 80GB HBM3 at 700 W, pp_slice
+# 54.3-70.4 s of them); now 4, the least that V = 2's four chunks of
+# equal blocks allow
+PIPE_LAYERS = 4
 # a yardstick (plain version, library call) slower than this a call is
 # timed over 3 x 3 calls (time_ms), not 5 x 20: the slow plain versions
 # took most of the kernels phase, and a run on a slow host passed the
@@ -625,26 +668,71 @@ def time_ms(fn, iters=20, reps=5, long_ms=None):
     return statistics.median(samples)
 
 
+# the host's wait inside each profiler session before and after the
+# profiled call (cuda_events): the room a kernel's device timestamp has
+# around the call on the host's clock
+PROFILE_PAD_S = 0.005
+# every profiler session of the run (cuda_events): how many, how many came
+# back empty, and where each session's first and last kernel sat in it
+# (microseconds from the session's start, and to its end)
+PROFILER_SESSIONS = {"sessions": 0, "empty": 0, "first_kernel_us": [],
+                     "last_kernel_to_end_us": []}
+
+
 def cuda_events(torch, fn, sessions=3):
     """The CUDA kernel events of one run of fn, by torch.profiler. Every fn
-    profiled here launches at least one kernel, but on the H100 (torch
-    2.11) a session deep into a full run of this script now and then
-    records none at all: a session that records no kernel is run again,
-    up to `sessions` in all, and the last empty one raises. fn must bear
-    running more than once."""
+    profiled here launches at least one kernel.
+
+    On the H100 (torch 2.11) a session deep into a full run now and then
+    came back with no kernel, three in a row in one full run, which
+    stopped it. The likely cause: Kineto keeps a device event only when
+    it falls inside the session's capture window, which the host's clock
+    bounds (it drops the others as out of range), and a device timestamp
+    reaches the host's clock through a conversion whose offset can move
+    over a long run; a session that held only the call (tens of
+    microseconds for a RoPE launch) left no room for that offset. So
+    each session waits PROFILE_PAD_S on the host before the call and
+    after its synchronise, and a session that still records no kernel is
+    run again with four times the wait, up to `sessions` in all; the
+    last empty one raises. Every session's count, emptiness and its
+    kernels' place in the window go to PROFILER_SESSIONS, which the
+    kernels phase reports, so a run shows how far the kernels sat from
+    the window's edges. fn must bear running more than once."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
+    pad = PROFILE_PAD_S
     for _ in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            time.sleep(pad)
             fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
+            window_us = (time.perf_counter() - t0) * 1e6
         events = [e for e in prof.events() if e.device_type == cuda]
+        PROFILER_SESSIONS["sessions"] += 1
         if events:
+            PROFILER_SESSIONS["first_kernel_us"].append(
+                min(e.time_range.start for e in events))
+            PROFILER_SESSIONS["last_kernel_to_end_us"].append(
+                window_us - max(e.time_range.end for e in events))
             return events
+        PROFILER_SESSIONS["empty"] += 1
+        pad *= 4
     raise AssertionError(f"torch.profiler recorded no kernel of the call "
-                         f"in {sessions} sessions")
+                         f"in {sessions} sessions (PROFILER_SESSIONS: "
+                         f"{_profiler_summary()})")
+
+
+def _profiler_summary():
+    """PROFILER_SESSIONS with each list as its least, median and most."""
+    out = {"pad_s": PROFILE_PAD_S}
+    for k, v in PROFILER_SESSIONS.items():
+        out[k] = ([min(v), statistics.median(v), max(v)] if v else None) \
+            if isinstance(v, list) else v
+    return out
 
 
 def device_ms(fn, calls=20):
@@ -1756,7 +1844,10 @@ def _tables(torch, P, d, theta=10000.0):
     return emb.cos().contiguous(), emb.sin().contiguous()
 
 
-def run_case(torch, case, dtype):
+def run_case(torch, case, dtype, timed=True):
+    """Hold the case's kernel against its plain version (max |error|
+    within the tolerance) and, `timed`, time the kernel, the plain version
+    and the library call; one JSON row."""
     if "check" in case:
         got, want = case["check"]()
     else:
@@ -1774,12 +1865,15 @@ def run_case(torch, case, dtype):
         "tolerance": (dict(zip(("atol", "rtol"), _tol(dtype))) if tol is None
                       else {str(k).replace("torch.", ""): dict(
                           zip(("rtol", "rms"), v)) for k, v in tol.items()}),
+        "bound_ms": b_ms, "bound_by": b_by}
+    if not timed:
+        emit(row)
+        return row
+    row.update({
         "ms": time_ms(case["kernel"], **reps),
         "plain_ms": time_ms(case["plain"], **reps, long_ms=YARDSTICK_MS),
         "library_ms": (time_ms(lib, **reps, long_ms=YARDSTICK_MS)
-                       if lib is not None else None),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+                       if lib is not None else None)})
     if case.get("costs"):
         # a short call's host cost (its device time: short_rows_device)
         row.update(host_us=host_us(case["kernel"]),
@@ -1907,6 +2001,8 @@ def kernels_phase(torch):
             emit(short_rows_device(torch, gen, rows))
             emit(verify_split_sweep(torch, gen))
             emit(decode_split_sweep(torch, gen))
+            emit({"phase": "kernels", "name": "profiler_sessions",
+                  **_profiler_summary()})
         # segmented: the packed slice's attention (b 2, s 4096, h 32,
         # d 128, causal, bf16), and the small case with dead rows and keys
         seg_cases = no_live_key_check(torch, gen, dtype)
@@ -1922,7 +2018,11 @@ def kernels_phase(torch):
         torch.cuda.empty_cache()
     # fp16 (the CUDA-core templates) at the main paths' shapes: paged decode
     # and verify, dense flash at GPT-3 1.3B's, segmented at the packed
-    # slice's, and the small segmented case with dead rows and keys
+    # slice's, and the small segmented case with dead rows and keys; each
+    # held against its plain version, untimed since hybrid_pp_slice joined
+    # the script (timing them took 19.8 s of a full run of 1,135 s on an
+    # H100 80GB HBM3 at 700 W; no main path runs fp16, PERF.md keeps their
+    # earlier times)
     dtype = torch.float16
     cases = [rope_case(torch, gen, dtype, 256, hkv=32),
              rope_packed_case(torch, gen, dtype, 8, 1, hkv=32),
@@ -1938,7 +2038,7 @@ def kernels_phase(torch):
     cases += seg_flash_cases(torch, gen, dtype, seg, 32, 128, True)
     cases += no_live_key_check(torch, gen, dtype)
     for case in cases:
-        run_case(torch, case, dtype)
+        run_case(torch, case, dtype, timed=False)
     cases = None
     torch.cuda.empty_cache()
     for dtype, case in wide_bh_cases(torch, gen):
@@ -4530,7 +4630,8 @@ def _parity(torch, phase, models, make_loss, batch, steps, lr):
 
 
 def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
-    """Three fp32 TrainSteps of a 2-layer full-width GPT on the card
+    """Three fp32 TrainSteps of a CPU_PARITY_LAYERS-deep full-width GPT on
+    the card
     (kernels) and on the CPU (plain versions) from the same weights and
     batch (`_parity`'s bounds). Parameters: Adam divides
     each first moment by the root of the second, so its first step moves
@@ -4548,7 +4649,7 @@ def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig.gpt3_1p3b()
-    cfg.num_layers = 2
+    cfg.num_layers = CPU_PARITY_LAYERS
     cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
     ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
                                                (batch, seq))
@@ -4565,7 +4666,8 @@ def train_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
 
 
 def packed_parity_phase(torch, steps=3, lr=1e-5, seq=256):
-    """The packed Llama's `_parity`: Llama-2-7B widths, 2 layers, fp32, one
+    """The packed Llama's `_parity`: Llama-2-7B widths, CPU_PARITY_LAYERS
+    deep, fp32, one
     packed row of `seq` tokens holding four documents and a padding tail
     (segmented flash, per-token RoPE and RMSNorm backward on the card, their
     plain versions on the CPU), three TrainSteps at lr 1e-5 as the GPT
@@ -4575,7 +4677,7 @@ def packed_parity_phase(torch, steps=3, lr=1e-5, seq=256):
     from paddle_tpu_torch.tools.profile_training import packed_llama_config
     from paddle_tpu_torch.models import LlamaForCausalLM
 
-    cfg = packed_llama_config(layers=2)
+    cfg = packed_llama_config(layers=CPU_PARITY_LAYERS)
     rng = np.random.default_rng(SEED + 3)
     docs = [rng.integers(0, cfg.vocab_size, n) for n in (70, 50, 90, 30)]
     ids, seg, labels = pack_examples(docs, seq)
@@ -4684,7 +4786,8 @@ def _o2_step(torch, model, opt, device, **kw):
 
 def train_o2_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
     """Three amp O2 TrainSteps (bf16 parameters, fp32 masters through the
-    kernel's master form, global-norm clip) of a 2-layer GPT at GPT-3
+    kernel's master form, global-norm clip) of a CPU_PARITY_LAYERS-deep
+    GPT at GPT-3
     1.3B's width on the card and on the CPU (plain versions), from the
     same weights and batch. Losses to 1e-3 relative, the bound the CPU O1
     and O2 parity tests hold against the reference (the matmuls, attention
@@ -4702,7 +4805,7 @@ def train_o2_parity_phase(torch, steps=3, lr=1e-5, batch=2, seq=128):
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = GPTConfig.gpt3_1p3b()
-    cfg.num_layers = 2
+    cfg.num_layers = CPU_PARITY_LAYERS
     cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
     ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
                                                (batch, seq))
@@ -8120,6 +8223,484 @@ def _pp_summary(run):
         "launches": run["launches"]}
 
 
+# -- pipeline beside data and tensor parallelism: four ranks on the card -----
+
+HYBRID_SLICE_LOSS_TOL = 1e-3
+# the final parameters against the world-1 run: mesh B's as pp_slice's;
+# mesh A's as mp_slice's (its mp all-reduces add bf16 partial products in
+# another order than the world-1 run's one product)
+HYBRID_PARAM_TOL = {"A": 1e-3, "B": 5e-4}
+# the depth of both meshes' models: 2, one decoder layer a stage. The
+# handoffs, the tied ends' sum, the mp collectives a layer and the dp
+# reduce of the ends are the same at any depth; Llama-2-7B at 24 layers
+# (12 a stage: 21.5 GB of state a rank, 86 GB over the four) does not fit
+# the card
+HYBRID_LAYERS = 2
+# the two meshes of hybrid_pp_slice, each over the same four processes
+HYBRID_MESHES = {
+    "A": dict(model="llama2_7b", dp=1, pp=2, mp=2, rows=4),
+    "B": dict(model="gpt3_1p3b", dp=2, pp=2, mp=1, rows=8)}
+# the kernels of each mesh's path: every block's flash forward, dQ and
+# dK/dV; Llama's RMSNorm forward and backward (two a layer, and the final
+# norm on the last stage) and contiguous RoPE (q and k in one launch,
+# forward, and the backward at sign -1), which must not take the
+# per-token kernel; AdamW's fp32 form, once a step and rank
+HYBRID_KERNELS = {
+    "A": ("flash_fwd", "flash_dq", "flash_dkv", "rms_norm", "rms_norm_bwd",
+          "rope", "rope_packed", "adamw"),
+    "B": ("flash_fwd", "flash_dq", "flash_dkv", "adamw")}
+
+
+def _hybrid_cfg(spec):
+    """The model config of a mesh: the published widths (or a tiny one for
+    a CPU rehearsal), spec["layers"] deep, no dropout."""
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
+
+    cfg = {"llama2_7b": LlamaConfig.llama2_7b, "llama_tiny": LlamaConfig.tiny,
+           "gpt3_1p3b": GPTConfig.gpt3_1p3b,
+           "gpt_tiny": GPTConfig.tiny}[spec["model"]]()
+    if isinstance(cfg, GPTConfig):
+        cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    cfg.num_layers = spec["layers"]
+    return cfg
+
+
+def _hybrid_model(spec, device):
+    """The seeded model of a mesh: under a mesh with an mp axis each rank's
+    blocks of the model built at mp 1 from the same seed."""
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaConfig,
+                                         LlamaForCausalLM)
+
+    cfg = _hybrid_cfg(spec)
+    cls = LlamaForCausalLM if isinstance(cfg, LlamaConfig) \
+        else GPTForCausalLM
+    return cls(cfg, device=device, seed=spec["seed"])
+
+
+def _hybrid_numel(cfg):
+    """Parameters of the mesh's model (whole) from its config."""
+    from paddle_tpu_torch.models import GPTConfig
+
+    if isinstance(cfg, GPTConfig):
+        return gpt_numel(cfg)
+    H, kv = cfg.hidden_size, cfg.num_key_value_heads * (
+        cfg.hidden_size // cfg.num_heads)
+    per_layer = 2 * H * H + 2 * H * kv + 3 * H * cfg.intermediate_size \
+        + 2 * H
+    heads = 1 if cfg.tie_word_embeddings else 2
+    return cfg.num_layers * per_layer + heads * cfg.vocab_size * H + H
+
+
+def _hybrid_batches(spec):
+    """`n_batches` global batches of token ids [rows, seq], from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(spec["seed"])
+    ids = rng.integers(0, _hybrid_cfg(spec).vocab_size,
+                       (spec["n_batches"], spec["rows"], spec["seq"]))
+    return [ids[i] for i in range(spec["n_batches"])]
+
+
+def _hybrid_peers(store, key, rank, group, mine, what):
+    """Publish this rank's bit sums under `key` and check them against
+    every other rank of `group`'s."""
+    store.set(f"{key}/{rank}", json.dumps(mine))
+    for peer in group.ranks:
+        if peer == rank:
+            continue
+        other = json.loads(bytes(store.get(f"{key}/{peer}",
+                                           timeout_s=600)).decode())
+        if other != mine:
+            raise AssertionError(f"{key}: rank {rank}'s {what} differ "
+                                 f"from rank {peer}'s")
+
+
+def _hybrid_run(torch, spec, name, store, rank, device, dump):
+    """One mesh of hybrid_pp_slice on this rank: fleet.init with the mesh's
+    hybrid configs, the seeded model (under the mesh: this rank's mp
+    blocks) through pipeline_descs, a PipelineLayer of two stages,
+    copy_weights, fleet.distributed_model and the hybrid optimizer; then
+    spec["steps"] train_batch steps on this rank's dp rows, the first a
+    warm-up. After every step the bit sums go through the store: the dp
+    replicas' whole state, each mp pair's whole (uncut) parameters and
+    each pp pair's shared ends must be equal. Rank 0 dumps the final
+    parameters, gathered over its mp group, in the model's order."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import collective, fleet, get_mesh
+    from paddle_tpu_torch.distributed import pipeline as engine
+    from paddle_tpu_torch.distributed.fleet import PipelineLayer
+    from paddle_tpu_torch.distributed.sharding_utils import shard_batch
+    from paddle_tpu_torch.models.convert import gather_state_dict
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import gpu
+    from paddle_tpu_torch.optimizer import AdamW
+
+    on_card = device == "cuda"
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(dp_degree=spec["dp"],
+                                   pp_degree=spec["pp"],
+                                   mp_degree=spec["mp"])
+    strategy.pipeline_configs["accumulate_steps"] = spec["micro"]
+    fleet.init(is_collective=True, strategy=strategy)
+    mesh = get_mesh()
+    coord = mesh.coordinate(rank)
+    t0 = time.perf_counter()
+    # seeded on the card, then kept on the host: the pipeline's layers are
+    # built there and each rank moves its stage over
+    model = _hybrid_model(spec, device).to("cpu")
+    descs, loss_fn, copy_weights = model.pipeline_descs()
+    pl = PipelineLayer(descs, num_stages=spec["pp"], loss_fn=loss_fn)
+    copy_weights(pl)
+    pp = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(AdamW(
+        spec["lr"], parameters=pp.parameters(), weight_decay=0.01,
+        grad_clip=ClipGradByGlobalNorm(spec["clip"])))
+    # the parameters themselves: AdamW's first step moves their storage
+    # into its flat buffers, so a tensor taken before it reads stale bits
+    params = pp.parameters()
+    shared = list(pp._shared_params)
+    whole = [p for p in params if getattr(p, "_mp_shard", None) is None]
+    n_params = sum(p.numel() for p in params)
+    batches = _hybrid_batches(spec)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    build_s = time.perf_counter() - t0
+    steps = []
+    gpu.reset_launch_counts()
+    for s in range(spec["steps"]):
+        collective.reset_transport_stats()
+        ids = shard_batch(torch.from_numpy(batches[s % len(batches)]), mesh,
+                          ("dp",))
+        t1 = time.perf_counter()
+        with amp.auto_cast(enable=bool(spec.get("amp")), level="O1",
+                           dtype="bfloat16"):
+            loss = float(pp.train_batch((ids, ids), opt))
+        wall = time.perf_counter() - t1
+        st = engine.last_stats()
+        between = torch.cuda.memory_allocated() if on_card else 0
+        key = f"/pt/hybrid_pp_slice/{name}/{s}"
+        for axis, what, tensors in (("dp", "parameters", params),
+                                    ("mp", "whole parameters", whole),
+                                    ("pp", "shared ends", shared)):
+            if mesh.shape[axis] > 1:
+                _hybrid_peers(store, f"{key}/{axis}", rank,
+                              mesh.group(axis), bit_sums(
+                                  torch, [p.detach() for p in tensors]),
+                              what)
+        steps.append({"step": s, "warmup": s == 0, "loss": loss,
+                      "wall_s": wall, "parts_s": dict(pp.last_parts),
+                      "engine": st, "allocated_between": between,
+                      "transport": collective.transport_stats()})
+    launches = gpu.launch_counts(HYBRID_KERNELS[name])
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    pp.state_dict()                  # every stage broadcast to every rank
+    if coord["dp"] == 0 and coord["pp"] == 0:
+        # rank 0's mp group gathers the whole model; rank 0 writes it
+        copy_weights(pl, reverse=True)
+        state = gather_state_dict(model)
+        if rank == 0:
+            with open(dump, "wb") as f:
+                for n, _ in model.named_parameters():
+                    f.write(state[n].tobytes())
+        del state
+    out = {"mesh": name, "coord": coord, "build_s": build_s, "steps": steps,
+           "launches": launches, "max_allocated": peak,
+           "n_params": n_params, "n_whole": sum(p.numel() for p in whole),
+           # the dp reduce: every gradient of the rank, fp32, once a step
+           "dp_reduce_bytes": 4 * n_params if mesh.shape["dp"] > 1 else 0,
+           "n_shared": sum(p.numel() for p in shared),
+           "transport": collective.transport(
+               torch.empty(1, device=device), mesh.group("pp"))}
+    del pp, pl, opt, model, params, shared, whole
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_rank_main(spec):
+    """One rank of hybrid_pp_slice as a process of its own (distributed.
+    spawn imports this module in the child): init_parallel_env under
+    PADDLE_DISTRI_BACKEND=spec["backend"] (gloo: the four ranks are on the
+    one card), then each mesh of spec["meshes"] in turn (_hybrid_run).
+    Returns each mesh's steps, launches and memory."""
+    sys.stdout = sys.stderr      # the parent's stdout carries its own lines
+    os.environ["PADDLE_DISTRI_BACKEND"] = spec["backend"]
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env as denv
+
+    device = spec.get("device", "cuda")
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    dist.init_parallel_env(device=None if device == "cuda" else "cpu")
+    import torch.distributed as tdist
+
+    rank = dist.get_rank()
+    store = denv.get_store()
+    init_s = time.perf_counter() - t_start
+    runs = {name: _hybrid_run(torch, {**spec, **mesh}, name, store, rank,
+                              device, f"{spec['dump']}.{name}")
+            for name, mesh in spec["meshes"].items()}
+    store.barrier("hybrid_pp_slice_done")     # rank 0 hosts the store
+    return {"rank": rank, "pid": os.getpid(),
+            "backend": tdist.get_backend(), "init_s": init_s, "runs": runs}
+
+
+def _hybrid_want(name, spec, cfg):
+    """Launches over the four ranks of one mesh's steps: every layer lives
+    on one stage and runs once a microbatch on each of its mp ranks and
+    dp replicas (no recompute), so each flash kernel layers x micro x dp x
+    mp a step; Llama's RMSNorm forward and backward 2 a layer and 1 (the
+    final norm, on the last stage) a microbatch and mp rank, contiguous
+    RoPE 1 forward and 1 backward a layer, microbatch and mp rank, the
+    per-token kernel never; AdamW's fp32 form once a step and rank."""
+    steps, micro = spec["steps"], spec["micro"]
+    lanes = spec["dp"] * spec["mp"]
+    n = cfg.num_layers * micro * lanes * steps
+    want = {"flash_fwd": n, "flash_dq": n, "flash_dkv": n,
+            "adamw": spec["dp"] * spec["pp"] * spec["mp"] * steps}
+    if name == "A":
+        norms = (2 * cfg.num_layers + 1) * micro * lanes * steps
+        want.update(rms_norm=norms, rms_norm_bwd=norms, rope=2 * n,
+                    rope_packed=0)
+    return want
+
+
+def _hybrid_world1(torch, spec, device):
+    """The world-1 run of a mesh: the seeded model whole on one device,
+    TrainStep on the whole global batch a step, the same optimizer, clip
+    and amp; (losses, step walls, the model's parameters, the relative
+    size of the last update)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = _hybrid_model(spec, device)
+    opt = AdamW(spec["lr"], parameters=model.parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(spec["clip"]))
+    amp_on = bool(spec.get("amp"))
+
+    def loss_fn(ids):
+        with amp.auto_cast(enable=amp_on, level="O1", dtype="bfloat16"):
+            return model(ids, labels=ids)
+
+    step = TrainStep(model, loss_fn, opt, device=device)
+    params = list(model.parameters())
+    losses, walls = [], []
+    batches = _hybrid_batches(spec)
+    for s in range(spec["steps"]):
+        if s == spec["steps"] - 1:
+            before = [p.detach().clone() for p in params]
+        t1 = time.perf_counter()
+        losses.append(float(step(batches[s % len(batches)])))
+        walls.append(time.perf_counter() - t1)
+    step_rel = _rel_dev(torch, before, params)
+    return losses, walls, model, step_rel
+
+
+def hybrid_pp_slice_phase(torch, device="cuda", spec=None,
+                          meshes=HYBRID_MESHES):
+    """Pipeline parallelism beside tensor and data parallelism, four rank
+    processes on the one card (distributed.spawn, init_parallel_env over
+    gloo, fleet.init with the hybrid configs of each mesh in turn, the
+    child starts paid once): mesh A, pp 2 x mp 2, Llama-2-7B at its
+    published widths; mesh B, dp 2 x pp 2, GPT-3 1.3B at its published
+    widths; both HYBRID_LAYERS deep (one layer a stage), fp32 parameters,
+    amp O1, AdamW's fused fp32 form, a global-norm clip of 1.0 through
+    fleet's hybrid optimizer, 4 microbatches of [1, 2048] a rank (A: the
+    global batch 4 x 2048; B: 8 x 2048, 4 rows a dp rank). Each mesh
+    takes pipeline_descs into a PipelineLayer of two stages (built under
+    the mesh: each rank's mp blocks), copy_weights,
+    fleet.distributed_model and train_batch: a warm-up and three timed
+    steps. Reports each rank's step wall split into the forward and
+    backward slots (the mp all-reduces inside), the handoffs, the tied
+    ends' sum, the dp reduce, the square-sum and AdamW; the handoffs' and
+    mp collectives' calls, bytes, seconds and MB/s; peak device memory,
+    bytes between steps and sampled RSS; every kernel's launches summed
+    over the ranks (exact, or the phase raises). After every step the dp
+    replicas must be bitwise equal, each mp pair's whole parameters and
+    each pp pair's shared ends. Then a world-1 TrainStep runs each mesh's
+    steps on the whole batch from the same seed: losses within
+    HYBRID_SLICE_LOSS_TOL, final parameters (gathered over mp) within
+    HYBRID_PARAM_TOL relative, a bound that must sit below the world-1
+    run's last update."""
+    import shutil
+    import tempfile
+    import threading
+
+    import chip_smoke as cs
+    import numpy as np
+    from paddle_tpu_torch.distributed import spawn
+
+    spec = dict(spec or dict(
+        amp=True, seq=2048, lr=1e-4, seed=SEED, n_batches=4, clip=1.0,
+        steps=4, micro=4, layers=HYBRID_LAYERS, meshes=meshes))
+    spec.setdefault("backend", "gloo")
+    spec["device"] = device
+    world = {spec["meshes"][m]["dp"] * spec["meshes"][m]["pp"]
+             * spec["meshes"][m]["mp"] for m in spec["meshes"]}
+    if len(world) != 1:
+        raise ValueError(f"the meshes need {world} ranks: one world only")
+    world = world.pop()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_pp_slice_")
+    need = sum(4 * _hybrid_numel(_hybrid_cfg({**spec, **m}))
+               for m in spec["meshes"].values())
+    spec["dump"] = os.path.join(tmp, "rank0.params")
+    rss = {}
+    stop = threading.Event()
+
+    def sample(pids):
+        while not stop.wait(0.25):
+            for name, pid in pids.items():
+                rss[name] = max(rss.get(name, 0), _vm(pid, "VmRSS"))
+
+    t0 = time.perf_counter()
+    try:
+        if shutil.disk_usage(tmp).free < 1.2 * need:
+            raise RuntimeError(f"too little disk under {tmp} for the "
+                               "parameter dumps")
+        ctx = spawn(cs.hybrid_rank_main, args=(spec,), nprocs=world,
+                    join=False, backend="cuda" if device == "cuda" else "cpu")
+        sampler = threading.Thread(target=sample, daemon=True, args=(
+            {f"rank{r}": p.pid for r, p in enumerate(ctx.processes)},))
+        sampler.start()
+        try:
+            ranks = ctx.join(900)
+        finally:
+            for p in ctx.processes:
+                if p.poll() is None:
+                    p.kill()
+            stop.set()
+            sampler.join()
+        ranks_s = time.perf_counter() - t0
+        meshes = {}
+        for name, mesh in spec["meshes"].items():
+            mspec = {**spec, **mesh}
+            cfg = _hybrid_cfg(mspec)
+            world1, walls, model, step_rel = _hybrid_world1(torch, mspec,
+                                                            device)
+            params = list(model.parameters())
+            offs = np.cumsum([0] + [p.numel() for p in params])
+            words = np.memmap(f"{spec['dump']}.{name}", dtype=np.float32,
+                              mode="r")
+            if words.size != offs[-1]:
+                raise AssertionError(f"{name}: rank 0 dumped {words.size} "
+                                     f"parameters, the model has "
+                                     f"{offs[-1]}")
+            param_rel = _rel_dev(torch, (
+                torch.from_numpy(np.array(words[a:b])).to(p.device)
+                .view_as(p)
+                for p, a, b in zip(params, offs[:-1], offs[1:])), params)
+            del words, model, params
+            if device == "cuda":
+                release(torch)
+            runs = [r["runs"][name] for r in ranks]
+            losses = [st["loss"] for st in runs[0]["steps"]]
+            for r in runs[1:]:
+                if [st["loss"] for st in r["steps"]] != losses:
+                    raise AssertionError(f"mesh {name}: the ranks' losses "
+                                         f"differ")
+            dev = max(abs(a - b) for a, b in zip(losses, world1))
+            tol = HYBRID_PARAM_TOL[name]
+            if not all(np.isfinite(losses)) or dev > HYBRID_SLICE_LOSS_TOL \
+                    or not param_rel <= tol < step_rel:
+                raise AssertionError(
+                    f"mesh {name}: losses {losses} against the world-1 "
+                    f"run's {world1}: {dev} (bound {HYBRID_SLICE_LOSS_TOL});"
+                    f" final parameters {param_rel} from the world-1 run's "
+                    f"(bound {tol}, which must sit below its last "
+                    f"update's {step_rel})")
+            want = _hybrid_want(name, mspec, cfg)
+            launches = {k: sum(r["launches"][k] for r in runs)
+                        for k in HYBRID_KERNELS[name]}
+            if device == "cuda" and launches != want:
+                raise AssertionError(f"mesh {name}: launches over the ranks "
+                                     f"{launches}, expected {want}")
+            per_rank = {r["rank"]: _hybrid_summary(r["runs"][name])
+                        for r in ranks}
+            meshes[name] = {
+                "model": ("Llama-2-7B" if mspec["model"] == "llama2_7b"
+                          else "GPT-3 1.3B" if mspec["model"] == "gpt3_1p3b"
+                          else mspec["model"]),
+                "dp": mesh["dp"], "pp": mesh["pp"], "mp": mesh["mp"],
+                "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                "batch": [mesh["rows"], spec["seq"]],
+                "rows_a_rank": mesh["rows"] // mesh["dp"],
+                "microbatches": spec["micro"], "losses": losses,
+                "max_abs_loss_dev": dev, "final_params_rel_dev": param_rel,
+                "param_tolerance": tol, "world1_losses": world1,
+                "world1_step_s": statistics.median(walls[1:]),
+                "world1_last_update_rel": step_rel,
+                "launches": launches, "want": want, "per_rank": per_rank,
+                "tokens_per_s": mesh["rows"] * spec["seq"]
+                / per_rank[0]["median_step_s"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "phase": "hybrid_pp_slice", "ranks": world,
+        "amp": ("O1 bfloat16, fp32 parameters" if spec.get("amp")
+                else "off, fp32"),
+        "backend": ranks[0]["backend"],
+        "transport": ranks[0]["runs"][next(iter(spec["meshes"]))]
+        ["transport"],
+        "transport_why": "four ranks on one card: NCCL refuses that; the "
+                         "handoffs' permutes copy through pinned host "
+                         "memory, gloo stages its all-reduces through the "
+                         "host, the kernels stay on the card",
+        "steps": spec["steps"], "meshes": meshes,
+        "init_s": {r["rank"]: r["init_s"] for r in ranks},
+        "rss_peak_sampled": rss, "loss_tolerance": HYBRID_SLICE_LOSS_TOL,
+        "ranks_s": ranks_s,
+    }
+
+
+def _hybrid_summary(run):
+    """A rank's timed steps of one mesh: medians of the wall and its parts,
+    the engine's counters, the handoffs' and mp collectives' calls, bytes
+    and MB/s, memory."""
+    timed = [st for st in run["steps"] if not st["warmup"]]
+    eng = timed[-1]["engine"]
+    colls = {}
+    for k in timed[-1]["transport"]:
+        secs = statistics.median(st["transport"].get(k, {}).get(
+            "seconds", 0.0) for st in timed)
+        ent = timed[-1]["transport"][k]
+        colls[k] = {"calls": ent["calls"], "bytes": ent["bytes"],
+                    "median_s": secs,
+                    "mb_per_s": ent["bytes"] / secs / 1e6 if secs else None}
+    return {
+        "coord": run["coord"], "build_s": run["build_s"],
+        "step_s": [st["wall_s"] for st in timed],
+        "median_step_s": statistics.median(st["wall_s"] for st in timed),
+        "warmup_s": run["steps"][0]["wall_s"],
+        # where a fresh process's first step spends its extra seconds
+        "warmup_parts_s": run["steps"][0]["parts_s"],
+        "warmup_collectives_s": {
+            k: v["seconds"]
+            for k, v in run["steps"][0]["transport"].items()},
+        "median_parts_s": {
+            k: statistics.median(st["parts_s"][k] for st in timed)
+            for k in timed[0]["parts_s"]},
+        "ticks": eng["ticks"], "idle_ticks": eng["idle_ticks"],
+        "max_inflight": eng["max_inflight"],
+        "handoffs_carrying": eng["carried"],
+        "shared_sum_bytes": eng["sum_bytes"],
+        "dp_reduce_bytes": run["dp_reduce_bytes"],
+        "collectives": colls,
+        "allocated_between": [st["allocated_between"] for st in timed],
+        "max_allocated": run["max_allocated"], "n_params": run["n_params"],
+        "n_whole": run["n_whole"], "n_shared": run["n_shared"],
+        "bytes_per_param": timed[-1]["allocated_between"] / run["n_params"],
+        "launches": run["launches"]}
+
+
 KERNELS = {
     "rms_norm": ("cuda", "paddle_tpu_torch/csrc/fused_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:24"),
@@ -8365,6 +8946,11 @@ def main():
     # (and the tied ends), handing microbatches on
     emit(pp_slice_phase(torch))
     release(torch)
+    # pipeline beside tensor and data parallelism: four ranks on the card,
+    # Llama-2-7B at pp 2 x mp 2, then GPT-3 1.3B at dp 2 x pp 2
+    hybrid = hybrid_pp_slice_phase(torch)
+    emit(hybrid)
+    release(torch)
     # each kernel's launches on the path it was ported for: the HTTP
     # server over the engine's graphs for RMSNorm, per-token RoPE and paged
     # decode (replays included), generate() for contiguous RoPE,
@@ -8396,9 +8982,40 @@ def main():
     return 0
 
 
+def hybrid_alone(args):
+    """`chip_smoke.py hybrid_pp_slice [A=<layers>] [B=<layers>]`: the build
+    and hybrid_pp_slice alone, each mesh at the depth given (HYBRID_LAYERS
+    otherwise), for the deeper runs that the whole script has no time
+    for."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.ops.gpu import _build
+
+    card = nvidia_smi()
+    print(card, flush=True)
+    emit({"phase": "device", "nvidia_smi": card,
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    depths = dict(a.split("=", 1) for a in args)
+    meshes = {k: dict(m, layers=int(depths.get(k, HYBRID_LAYERS)))
+              for k, m in HYBRID_MESHES.items()}
+    emit(hybrid_pp_slice_phase(torch, meshes=meshes))
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        code = main()
+        code = hybrid_alone(sys.argv[2:]) \
+            if sys.argv[1:2] == ["hybrid_pp_slice"] else main()
     except Exception:           # any failed phase: report it, exit non-zero
         traceback.print_exc()
         code = 1

@@ -23,7 +23,12 @@ torch.distributed process groups (`init_parallel_env` joins them):
   * ZeRO (`sharding.group_sharded_parallel`, stages "os", "os_g" and
     "p_g_os"): the ranks of a `sharding` group split the batch, and each
     keeps and updates its shard of the optimizer state, the gradients
-    and, at stage 3, the parameters (gathered where they are used).
+    and, at stage 3, the parameters (gathered where they are used);
+  * pipeline parallelism (`pipeline`: the 1F1B, F-then-B and interleaved
+    engines; `fleet.PipelineLayer`, `fleet.PipelineParallel`): one
+    process a stage hands microbatches on over its `pp` group, alone or
+    beside dp and mp (each stage's blocks cut over its mp group, its
+    gradients averaged over its dp group).
 
 Also here: the single-device `fleet.recompute`; in `env`, the process
 environment, the process-group store (in-process, or native.TCPStore
@@ -31,8 +36,7 @@ across processes) and the serving fleet's replica registry; elastic
 membership and the store-based gradient exchange (`elastic`); the
 rank-sharded checkpoint (`checkpoint`: also `save_sharded`,
 `save_model_sharded` and their loads, in the same layout); `spawn`; and
-`DataParallel`. Pipeline parallelism waits for a later slice. The
-package imports torch, never jax or paddle_tpu.
+`DataParallel`. The package imports torch, never jax or paddle_tpu.
 """
 from . import checkpoint  # noqa: F401
 from .checkpoint import (  # noqa: F401

@@ -189,6 +189,10 @@ def _make_group(ranks: Sequence[int], axis_name=None, backend=None,
         if ranks == list(range(world)) and backend is None:
             pg = dist.group.WORLD
         else:
+            if timeout is None:
+                from .env import pg_timeout
+
+                timeout = pg_timeout()
             kw = {} if timeout is None else {"timeout": timeout}
             pg = dist.new_group(ranks, backend=backend, **kw)
     gid = _next_group_id[0]

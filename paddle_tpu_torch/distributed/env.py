@@ -375,6 +375,16 @@ def check_device_clash(backend: str, devices: Dict[int, str]) -> None:
         seen[ident] = rank
 
 
+def pg_timeout():
+    """The process groups' collective timeout: PADDLE_PG_TIMEOUT seconds
+    when set (a collective that waits longer raises, where gloo would
+    wait its default half hour), else None (the backend's default)."""
+    import datetime
+
+    value = os.environ.get("PADDLE_PG_TIMEOUT")
+    return None if not value else datetime.timedelta(seconds=float(value))
+
+
 def init_parallel_env(strategy=None, *, device=None) -> "ParallelEnv":
     """Reference: paddle_tpu/distributed/env.py:334 (Paddle's
     parallel.py:914). Idempotent.
@@ -398,7 +408,9 @@ def init_parallel_env(strategy=None, *, device=None) -> "ParallelEnv":
     ValueError naming it: the backend is never switched behind the
     caller's back. At world 1, or without PADDLE_MASTER, no process group
     is made and every collective stays the identity, as in the
-    reference. Keeps the span dist.init_parallel_env and the counter
+    reference. PADDLE_PG_TIMEOUT (seconds) bounds every collective of
+    the default group and of the groups made after it (`pg_timeout`).
+    Keeps the span dist.init_parallel_env and the counter
     distributed_init_total."""
     global _initialized, _pg_generation, _device
     if _initialized:
@@ -437,9 +449,11 @@ def init_parallel_env(strategy=None, *, device=None) -> "ParallelEnv":
                                           timeout_s=300.0)).decode()
                        for r in range(nproc)}
             check_device_clash(backend, devices)
+            timeout = pg_timeout()
+            kw = {} if timeout is None else {"timeout": timeout}
             dist.init_process_group(
                 backend, store=dist.PrefixStore(prefix, store._store),
-                rank=pid, world_size=nproc)
+                rank=pid, world_size=nproc, **kw)
             _pg_generation += 1
     _obs_counter("distributed_init_total",
                  "init_parallel_env completions.").inc()

@@ -16,12 +16,14 @@ dp (`get_hybrid_communicate_group().get_sharding_parallel_group()`).
 HybridCommunicateGroup of the strategy's degrees, which sets the mesh.
 `distributed_model` wraps a PipelineLayer in PipelineParallel when
 pp_degree > 1 (fleet/pipeline_parallel.py: one rank a stage, the
-strategy's pipeline_configs), else a model in DataParallel over the dp
+strategy's pipeline_configs; beside dp_degree or mp_degree > 1 too, and
+then it averages its gradients over the dp group itself, so it is never
+wrapped in a DataParallel), else a model in DataParallel over the dp
 group only when dp_degree > 1 and the world has more than one rank (an
 mp rank's gradients are its own blocks', or alike on every mp rank).
 `dp_train_step` builds the TrainStep of the data-parallel path.
 The role makers, UtilBase and the data generators wait in ROADMAP queue
-1, item 3.
+1 (the rest of `distributed/`).
 """
 from __future__ import annotations
 
@@ -127,9 +129,10 @@ class _Fleet:
         return get_rank()
 
     def distributed_model(self, model):
-        """PipelineParallel over the pp group when pp_degree > 1;
-        DataParallel over the dp group when dp_degree > 1 and the world
-        has more than one rank; else the model itself."""
+        """PipelineParallel over the pp group when pp_degree > 1 (which
+        reduces over the dp group itself, beside dp); DataParallel over
+        the dp group when dp_degree > 1 and the world has more than one
+        rank; else the model itself."""
         from ..parallel import DataParallel
 
         hc = self._strategy.hybrid_configs if self._strategy else {}

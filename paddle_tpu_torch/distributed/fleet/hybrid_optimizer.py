@@ -49,8 +49,11 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
         only the tensor-parallel parameters' part is partial and reduced;
         replicated parameters (layernorms, row-parallel biases) carry the
         same gradient on every mp rank and count once. Under pipeline
-        parallelism (pp runs alone) only this rank's stage parameters'
-        part is reduced, over the pp group (nn/clip.py grad_square_sum)."""
+        parallelism, alone or beside dp and mp, this rank's stage
+        parameters' part is reduced over the pp group after its mp part
+        over the mp group, the tied ends count once, and the dp replicas,
+        which hold the averaged gradients, add nothing (nn/clip.py
+        grad_square_sum)."""
         if params is not None and any(pp_mark(p) for p in params):
             return grad_square_sum(grads, params)
         mp = self._hcg.get_model_parallel_group()

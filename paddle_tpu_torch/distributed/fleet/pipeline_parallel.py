@@ -20,7 +20,7 @@ one process a stage:
     ones (the group, False), so a global-norm clip sums the stages'
     square-sums over the pp group and counts the tied ends once
     (nn/clip.py grad_square_sum);
-  * `train_batch((inputs, labels), optimizer)` cuts the global batch into
+  * `train_batch((inputs, labels), optimizer)` cuts the batch into
     `accumulate_steps` microbatches, runs the engine (tied ends or V > 1:
     the interleave engine, as in the reference) with the layers' own
     parameters swapped in by torch.func.functional_call, sets each
@@ -31,11 +31,30 @@ one process a stage:
     `state_dict()` and `forward` see the trained model, with the
     reference's keys, on every rank.
 
+Beside dp and mp (fleet's hybrid configs; the reference runs its pipeline
+in a shard_map over pp alone and lets GSPMD place dp and mp around it):
+
+  * dp: `train_batch` takes this rank's rows of the global batch (what
+    sharding_utils.shard_batch(batch, mesh, ("dp",)) returns, as each dp
+    rank's loader gives them); after the engine, every gradient (the
+    stage's, the tied ends' after the engine's pp sum, the loss
+    parameters') is averaged over the rank's dp group by the bucketed
+    reduce (grad_buckets.bucket_reduce), and the loss too: every rank
+    returns the global mean;
+  * mp: a stage's blocks are cut over the rank's mp group when the
+    PipelineLayer builds them under the mesh (annotate_param); the
+    engine's leaves keep the cut (distributed/pipeline.py), so the mp
+    layers issue their collectives inside a stage's slots. Both mp ranks
+    of a stage run the same ticks and compute nothing in a bubble, so
+    every group's members issue their collectives in one order (gloo
+    hangs otherwise). The scaler's found-inf flag is the maximum over the
+    pp, mp and dp groups (the whole mesh), so every rank skips alike.
+
 As in the reference, the stages must be structurally identical: one
-stage function serves every chunk. pp beside a dp, mp, sep, sharding or ep
-axis of more than one rank is refused here (the reference composes them
-under GSPMD): ROADMAP queue 1. At pp = 1 `train_batch` is plain
-microbatched gradient accumulation on the device.
+stage function serves every chunk. pp beside a sep, sharding or ep axis
+of more than one rank is refused (ROADMAP queue 1: pp beside sep,
+sharding or ep). At pp = 1 `train_batch` is plain microbatched gradient
+accumulation on the device.
 """
 from __future__ import annotations
 
@@ -225,7 +244,8 @@ def _swapped(module, names, prefix=""):
     return fn
 
 
-_OTHER_AXES = ("dp", "mp", "sep", "sharding", "ep")
+# the axes pp does not run beside yet (dp and mp it does)
+_REFUSED_AXES = ("sep", "sharding", "ep")
 
 
 class PipelineParallel(nn.Module):
@@ -281,12 +301,15 @@ class PipelineParallel(nn.Module):
         if pp <= 1:
             layers.to(self._device)
             return
-        others = {a: mesh.shape[a] for a in _OTHER_AXES
+        others = {a: mesh.shape[a] for a in _REFUSED_AXES
                   if mesh.shape.get(a, 1) > 1}
         if others:
             raise NotImplementedError(
                 f"pipeline parallelism beside the {sorted(others)} axes "
-                f"{others} is not ported (ROADMAP queue 1): pp runs alone")
+                f"{others} is not ported (ROADMAP queue 1: pp beside sep, "
+                "sharding or ep): pp runs alone or beside dp and mp")
+        self._dp_group = mesh.group("dp") if mesh.shape["dp"] > 1 else None
+        self._mp_group = mesh.group("mp") if mesh.shape["mp"] > 1 else None
         if layers._num_stages != pp:
             raise ValueError(
                 f"PipelineLayer has {layers._num_stages} stages but the "
@@ -428,16 +451,20 @@ class PipelineParallel(nn.Module):
         return loss, grads + list(d_lp)
 
     def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None):
-        """One optimizer step over the global batch `data` = (inputs,
-        labels), cut into accumulate_steps microbatches; returns the mean
-        microbatch loss (whole on every rank). With an enabled `scaler`
-        the gradients of the unscaled loss are multiplied by its scale,
-        so scaler.step's unscale cancels and its skip still applies; the
-        found-inf flag is the pp group's maximum, so every stage skips
-        alike. `last_parts` holds the step's seconds: the engine's forward
-        and backward slots, handoffs and end sum (pipeline.last_stats()),
-        the gradients' hand-over, the clip's square-sum and the update."""
+        """One optimizer step over `data` = (inputs, labels), the global
+        batch (beside dp: this rank's rows of it), cut into
+        accumulate_steps microbatches; returns the mean microbatch loss,
+        over every dp rank's rows (the same on every rank). With an
+        enabled `scaler` the gradients of the unscaled loss are multiplied
+        by its scale, so scaler.step's unscale cancels and its skip still
+        applies; the found-inf flag is the maximum over the pp, mp and dp
+        groups, so every rank skips alike. `last_parts` holds the step's
+        seconds: the engine's forward and backward slots, handoffs and end
+        sum (pipeline.last_stats()), the gradients' hand-over, the dp
+        reduce (`dp_reduce_s`, 0 without dp), the clip's square-sum and
+        the update."""
         from .. import pipeline as eng
+        from ..collective import ReduceOp, all_reduce
 
         inputs, labels = data
         if self._pp_degree <= 1:
@@ -452,6 +479,17 @@ class PipelineParallel(nn.Module):
         parts = {k: st[k] for k in ("fwd_s", "bwd_s", "handoff_s",
                                     "sum_s")}
         t1 = time.perf_counter()
+        if self._dp_group is not None:
+            # every gradient and the loss averaged over this stage's dp
+            # replicas
+            from ..grad_buckets import bucket_reduce
+
+            grads = bucket_reduce(grads, self._dp_group)
+            loss = all_reduce(loss.clone(), ReduceOp.SUM, self._dp_group) \
+                / self._dp_group.nranks
+            sync()
+        t2 = time.perf_counter()
+        parts["dp_reduce_s"] = t2 - t1
         scale = None
         if scaler is not None and scaler.is_enable():
             scaler._to(self._device)
@@ -461,14 +499,14 @@ class PipelineParallel(nn.Module):
                 p.grad = g if scale is None else g.mul_(scale.to(g.dtype))
         del grads
         sync()
-        t2 = time.perf_counter()
+        t1, t2 = t2, time.perf_counter()
         parts["grads_s"] = t2 - t1
         if scaler is not None:
             if scaler.is_enable():
-                from ..collective import ReduceOp, all_reduce
-
                 scaler.unscale_(optimizer)
-                all_reduce(scaler._found_inf_t, ReduceOp.MAX, self._group)
+                for g in (self._group, self._mp_group, self._dp_group):
+                    if g is not None:
+                        all_reduce(scaler._found_inf_t, ReduceOp.MAX, g)
             scaler.step(optimizer)
         elif hasattr(optimizer, "_update") and \
                 getattr(optimizer, "_zero", None) is None:

@@ -172,6 +172,11 @@ def annotate_param(p, spec, name=None):
     return p
 
 
+# the ROADMAP queue 1 item that a placement over each axis waits for
+_GSPMD_ITEM = "the rest of distributed/, GSPMD placements"
+_PLACEMENT_ITEM = {"ep": "MoE and expert parallelism"}
+
+
 def place_param(p, spec, mesh, name=None):
     """Cut `p` by `spec` over `mesh` (annotate_param's placement, and
     sharding_utils.shard_model_parameters'): an axis the mesh lacks
@@ -194,7 +199,7 @@ def place_param(p, spec, mesh, name=None):
                     ("" if name is None else f"{name}: ")
                     + f"placing a parameter over the {a!r} axis "
                     f"({mesh.shape[a]} ranks) is not ported (ROADMAP "
-                    "queue 1, item 3)")
+                    f"queue 1: {_PLACEMENT_ITEM.get(a, _GSPMD_ITEM)})")
             shard_param(p, dim, mesh.group("mp"), name)
     return p
 

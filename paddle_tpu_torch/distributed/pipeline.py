@@ -37,10 +37,11 @@ Each engine takes the reference's arguments; `mesh` is the port's
 pp group. `stage_fn(params, x)` and `loss_fn(loss_params, y, label)` are
 torch functions of pytrees of tensors. The backward passes run with amp's
 auto_cast off, as TrainStep's do. NCCL handoffs (ranks on several cards)
-are refused: they wait in ROADMAP queue 1. `last_stats()` reports this
-rank's last run: ticks, slots computed, idle ticks, the handoffs' calls,
-bytes, the ones that carried a microbatch and their seconds, the end sum,
-compute seconds and the most microbatch graphs held at once.
+are refused: they wait in ROADMAP queue 1 (NCCL, and stages on several
+cards). `last_stats()` reports this rank's last run: ticks, slots
+computed, idle ticks, the handoffs' calls, bytes, the ones that carried a
+microbatch and their seconds, the end sum, compute seconds and the most
+microbatch graphs held at once.
 """
 from __future__ import annotations
 
@@ -94,13 +95,24 @@ def _pp_group(mesh, axis, n_stages):
         if dist.get_backend(pg) == "nccl":
             raise NotImplementedError(
                 "pipeline handoffs over NCCL (stages on several cards) are "
-                "not ported (ROADMAP queue 1): run the pp group over gloo "
+                "not ported (ROADMAP queue 1: NCCL, and stages on several "
+                "cards): run the pp group over gloo "
                 "(PADDLE_DISTRI_BACKEND=gloo)")
     return group
 
 
+def _leaf(t):
+    """A fresh autograd leaf of `t`'s values that keeps `t`'s mp cut
+    (`_mp_shard`, distributed/mesh.py): the mp layers find their group by
+    it, also on the leaves functional_call swaps into them for a stage."""
+    leaf = t.detach().requires_grad_(True)
+    if hasattr(t, "_mp_shard"):
+        leaf._mp_shard = t._mp_shard
+    return leaf
+
+
 def _leaves(tree):
-    return pytree.tree_map(lambda t: t.detach().requires_grad_(True), tree)
+    return pytree.tree_map(_leaf, tree)
 
 
 def _grads(tree):

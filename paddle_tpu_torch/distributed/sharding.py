@@ -111,7 +111,7 @@ def group_sharded_parallel(model, optimizer, level: str, scaler=None,
         if value != off:
             raise NotImplementedError(
                 f"group_sharded_parallel({name}={value!r}) is not ported "
-                "(ROADMAP queue 1, item 3)")
+                "(ROADMAP queue 1: what ZeRO still lacks)")
     mesh = get_mesh()
     if mesh is None:
         raise RuntimeError("group_sharded_parallel needs a device mesh "
@@ -125,7 +125,8 @@ def group_sharded_parallel(model, optimizer, level: str, scaler=None,
         raise NotImplementedError(
             f"group_sharded_parallel(dp_group=) of ranks {dp_group.ranks}: "
             "the data-parallel group is the mesh's dp axis, ranks "
-            f"{mesh.group('dp').ranks} here (ROADMAP queue 1, item 3)")
+            f"{mesh.group('dp').ranks} here (ROADMAP queue 1: what ZeRO "
+            "still lacks)")
     refuse_zero_beside(mesh, axis)
     from ..optimizer.optimizers import AdamW
 

@@ -25,10 +25,12 @@ def refuse_zero_beside(mesh, axis: str):
     axis of more than one rank: the product is not ported."""
     for other in ("mp", "sep", "pp", "ep"):
         if mesh.shape.get(other, 1) > 1:
+            item = "MoE and expert parallelism" if other == "ep" \
+                else "ZeRO beside mp, sep or pp"
             raise NotImplementedError(
                 f"ZeRO (sharding.py) over {axis!r} beside an {other!r} axis "
                 f"of {mesh.shape[other]} ranks: the sharding x {other} "
-                "product is not ported (ROADMAP queue 1, item 3)")
+                f"product is not ported (ROADMAP queue 1: {item})")
 
 
 def shard_model_parameters(model: torch.nn.Module, mesh,

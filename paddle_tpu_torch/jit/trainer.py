@@ -193,7 +193,8 @@ class TrainStep:
         elif in_shardings is not None or out_shardings is not None:
             raise NotImplementedError(
                 "TrainStep in_shardings/out_shardings: GSPMD placements are "
-                "not ported (ROADMAP queue 1, item 3: sharding.py)")
+                "not ported (ROADMAP queue 1: the rest of distributed/, "
+                "TrainStep's GSPMD placements)")
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
             if p.device != self.device:

@@ -81,7 +81,7 @@ def mesh_mp_size() -> int:
 def check_tensor_parallel(config, n, dims) -> None:
     """Raise unless `n` mp ranks divide each of `dims` ({what: size}), and
     unless the config leaves sequence parallelism off (the sep x mp
-    product is a later slice)."""
+    product is not ported)."""
     if n <= 1:
         return
     for what, size in dims.items():
@@ -91,7 +91,7 @@ def check_tensor_parallel(config, n, dims) -> None:
     if getattr(config, "sequence_parallel", None):
         raise NotImplementedError(
             "sequence_parallel with tensor parallelism (mp > 1): the sep x "
-            "mp product waits for a later slice (ROADMAP queue 1, item 2)")
+            "mp product is not ported (ROADMAP queue 1: sep x mp)")
 
 
 def causal_lm_loss(logits, labels, segments=None, ignore_index=-100,
@@ -118,6 +118,24 @@ def causal_lm_loss(logits, labels, segments=None, ignore_index=-100,
     terms = parallel_cross_entropy(flat, labels, group, ignore_index)
     count = (labels != ignore_index).sum()
     return terms.sum() / count.clamp(min=1).to(terms.dtype)
+
+
+def pipeline_lm_loss(vocab_size: int, ignore_index=-100):
+    """The loss of GPT's and Llama's pipeline_descs: causal_lm_loss of a
+    microbatch's logits. Where the logits are this rank's block of the
+    vocabulary (Llama's tied head over its vocabulary-parallel embedding
+    at mp > 1), the terms are ParallelCrossEntropy's over the current
+    mesh's mp group, as the model's own forward takes them: the loss of
+    the whole vocabulary."""
+    def loss(out, label):
+        group = None
+        if out.shape[-1] != vocab_size:
+            from ..distributed.mesh import get_mesh
+
+            group = get_mesh().group("mp")
+        return causal_lm_loss(out, label, ignore_index=ignore_index,
+                              group=group)
+    return loss
 
 
 class GenerationMixin:

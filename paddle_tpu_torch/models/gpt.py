@@ -107,7 +107,7 @@ from ..nn.layers import init_normal_
 from ..ops import nn_ops
 from .generation import (_MP_CACHE, GenerationMixin, causal_lm_loss,
                          check_tensor_parallel, mesh_mp_size,
-                         packed_positions)
+                         packed_positions, pipeline_lm_loss)
 from .llama import _copy_pairs, _rope_tables
 
 
@@ -558,7 +558,9 @@ class _GPTPipeEmbed(nn.Module):
     """Stage-0 pre layer (gpt.py:382-411): token and learned positional
     embedding and dropout, and, tied, the final LayerNorm the head applies,
     so the pipeline's stages are GPTBlocks alone. Built on the host,
-    uninitialised: `copy_weights` fills it."""
+    uninitialised: `copy_weights` fills it. Its embeddings are whole at
+    any mp degree, as the reference's plain nn.Embedding: the tied ends
+    are replicated over the mp group."""
 
     def __init__(self, config: GPTConfig):
         super().__init__()
@@ -579,7 +581,8 @@ class _GPTPipeEmbed(nn.Module):
 
 
 class _GPTPipeHead(nn.Module):
-    """Untied head: the final norm and the projection (shared_post)."""
+    """Untied head: the final norm and the projection (shared_post), its
+    columns cut over the mp group and the logits gathered whole."""
 
     def __init__(self, config: GPTConfig):
         super().__init__()
@@ -604,17 +607,14 @@ def _gpt_untied_head_fwd(layer, h):
     return layer(h)
 
 
-def _gpt_pipeline_loss(out, label):
-    """The shifted next-token cross entropy of GPTForCausalLM.forward."""
-    return causal_lm_loss(out, label)
-
-
 def _gpt_pipeline_descs(self):
     """The LayerDesc decomposition for pipeline parallelism (gpt.py:
     443-499): [embedding] + [GPTBlock] * L + [tied or untied head].
     Returns (descs, loss_fn, copy_weights); copy_weights(pipeline_layer)
     copies this model's weights into the built PipelineLayer (each to the
-    device its destination is on), reverse=True back into the model.
+    device its destination is on, and, at mp > 1, in its layout: a whole
+    model's blocks into the cut layers, a cut model's embedding gathered
+    into the whole pipe embedding), reverse=True back into the model.
     Rotary configs are refused: the rope tables are shared state the desc
     layers do not carry."""
     from ..distributed.fleet.pipeline_parallel import (LayerDesc,
@@ -650,7 +650,7 @@ def _gpt_pipeline_descs(self):
                       (model.lm_head.weight, head.proj.weight)]
         _copy_pairs(pairs, reverse)
 
-    return descs, _gpt_pipeline_loss, copy_weights
+    return descs, pipeline_lm_loss(cfg.vocab_size), copy_weights
 
 
 GPTForCausalLM.pipeline_descs = _gpt_pipeline_descs

@@ -46,19 +46,20 @@ from torch import nn
 
 from ..core.dtype import convert_dtype
 from ..core.place import resolve_device
-from ..distributed.collective import (copy_to_model_parallel,
+from ..distributed.collective import (all_gather_concat,
+                                      copy_to_model_parallel,
                                       gather_replicated_autograd)
 from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
                                            VocabParallelEmbedding)
 from ..distributed.fleet.recompute import recompute
-from ..distributed.mesh import mp_group_of
+from ..distributed.mesh import full_shape, mp_group_of, shard_block
 from ..nn import RMSNorm
 from ..nn.layers import init_normal_
 from ..ops import nn_ops
 from .generation import (_MP_CACHE, GenerationMixin, causal_lm_loss,
                          check_tensor_parallel, mesh_mp_size,
-                         packed_positions)
+                         packed_positions, pipeline_lm_loss)
 
 
 @dataclass
@@ -393,7 +394,8 @@ class _LlamaPipeBlock(nn.Module):
 
 class _LlamaPipeEmbed(nn.Module):
     """Stage-0 pre: the token embedding and, tied, the final RMSNorm the
-    head applies (llama.py:331-351)."""
+    head applies (llama.py:331-351). The embedding is vocabulary-parallel,
+    as the reference's: at mp > 1 a cut of the vocabulary's rows."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -427,29 +429,45 @@ class _LlamaPipeHead(nn.Module):
 
 
 def _llama_tied_head_fwd(layer, h):
-    return torch.matmul(layer.norm(h), layer.embed.weight.t())
+    """The tied head, as LlamaForCausalLM._head: at mp > 1 the embedding
+    is a vocabulary cut, the logits this rank's block of the vocabulary
+    and the hidden states' gradient the sum over the mp group."""
+    w = layer.embed.weight
+    return torch.matmul(copy_to_model_parallel(layer.norm(h),
+                                               mp_group_of(w)), w.t())
 
 
 def _llama_untied_head_fwd(layer, h):
     return layer(h)
 
 
-def _llama_pipeline_loss(out, label):
-    return causal_lm_loss(out, label)
+def _in_layout(src, dst):
+    """`src`'s values in `dst`'s layout: themselves when the shapes
+    match; the block of a whole `src` that an mp-cut `dst` holds
+    (mesh.shard_block); or a cut `src` gathered over its mp group into a
+    whole `dst` (a collective of the group's ranks)."""
+    if tuple(src.shape) == tuple(dst.shape):
+        return src
+    if full_shape(src) == full_shape(dst):
+        if mp_group_of(src) is None:
+            return shard_block(src, dst)
+        if mp_group_of(dst) is None:
+            group, dim = src._mp_shard
+            return all_gather_concat(src.detach().contiguous(), dim, group)
+    raise ValueError(f"copy_weights: {tuple(src.shape)} (whole "
+                     f"{full_shape(src)}) != {tuple(dst.shape)} (whole "
+                     f"{full_shape(dst)})")
 
 
 def _copy_pairs(pairs, reverse):
     """Copy each (model, pipeline) parameter pair's values one way, each to
-    its destination's device."""
+    its destination's device and mp layout (_in_layout): a whole model
+    into a pipeline cut over the mp group, a cut model into a whole pipe
+    embedding (GPT's), and back. Every rank of an mp group calls it."""
     with torch.no_grad():
         for m_p, p_p in pairs:
-            if tuple(m_p.shape) != tuple(p_p.shape):
-                raise ValueError(f"copy_weights: {tuple(m_p.shape)} != "
-                                 f"{tuple(p_p.shape)}")
-            if reverse:
-                m_p.copy_(p_p)
-            else:
-                p_p.copy_(m_p)
+            src, dst = (p_p, m_p) if reverse else (m_p, p_p)
+            dst.copy_(_in_layout(src, dst))
 
 
 def _llama_pipeline_descs(self):
@@ -484,7 +502,7 @@ def _llama_pipeline_descs(self):
                       (model.lm_head.weight, head.proj.weight)]
         _copy_pairs(pairs, reverse)
 
-    return descs, _llama_pipeline_loss, copy_weights
+    return descs, pipeline_lm_loss(cfg.vocab_size), copy_weights
 
 
 LlamaForCausalLM.pipeline_descs = _llama_pipeline_descs

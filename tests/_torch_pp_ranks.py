@@ -167,11 +167,21 @@ def _square_sums(model, opt, batch):
 
 
 def _train(model, opt, batches):
-    losses = [float(model.train_batch(b, opt)) for b in batches]
+    """train_batch over `batches`: the losses, the engine's counters, this
+    rank's mesh coordinate, the whole state (every stage broadcast to
+    every rank, each mp block gathered) and this rank's own state_dict
+    (its mp blocks)."""
+    from paddle_tpu_torch.distributed import get_mesh, get_rank
     from paddle_tpu_torch.distributed import pipeline as pl
+    from paddle_tpu_torch.models.convert import gather_state_dict
 
+    losses = [float(model.train_batch(b, opt)) for b in batches]
+    local = _np(dict(model.state_dict()))
     return {"losses": losses, "stats": pl.last_stats(),
-            "state": _np(dict(model.state_dict()))}
+            "coord": get_mesh().coordinate(get_rank()),
+            "state": gather_state_dict(model._layers), "local": local,
+            "cut": sorted(n for n, p in model._layers.named_parameters()
+                          if getattr(p, "_mp_shard", None) is not None)}
 
 
 def _errors(fn):
@@ -182,20 +192,28 @@ def _errors(fn):
     return None
 
 
-def _lm(kind, cfg_kw, state):
+def _lm(kind, cfg_kw, state, whole=False):
     """A port GPT or Llama on the CPU holding the reference's weights, its
     pipeline_descs and a PipelineLayer of two stages filled by
-    copy_weights."""
+    copy_weights. The model is built under the current mesh (its mp
+    blocks), or `whole` with no mesh; the PipelineLayer under the mesh."""
+    from paddle_tpu_torch.distributed import get_mesh, set_mesh
     from paddle_tpu_torch.distributed.fleet import PipelineLayer
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          LlamaConfig, LlamaForCausalLM)
     from paddle_tpu_torch.models.convert import load_jax_state_dict
 
-    if kind == "llama":
-        model = LlamaForCausalLM(LlamaConfig(**cfg_kw), device="cpu")
-    else:
-        model = GPTForCausalLM(GPTConfig(**cfg_kw), device="cpu")
-    load_jax_state_dict(model, state)
+    mesh = get_mesh()
+    if whole:
+        set_mesh(None)
+    try:
+        if kind == "llama":
+            model = LlamaForCausalLM(LlamaConfig(**cfg_kw), device="cpu")
+        else:
+            model = GPTForCausalLM(GPTConfig(**cfg_kw), device="cpu")
+        load_jax_state_dict(model, state)
+    finally:
+        set_mesh(mesh)
     descs, loss, copy_weights = model.pipeline_descs()
     pl = PipelineLayer(descs, num_stages=2, loss_fn=loss)
     copy_weights(pl)
@@ -268,18 +286,76 @@ def _mapped(model, pl, kind, cfg_kw):
             yield f"{i}.{n}", p, f"run_function.{i}.{prefix}{n}"
 
 
+def _reverse_dev(model, pl, kind):
+    """The largest |model - pipeline| over the block weights after
+    copy_weights(reverse=True), each pipeline block against the model's
+    block of it (a whole model against a cut pipeline)."""
+    from paddle_tpu_torch.distributed.mesh import shard_block
+
+    named = dict(pl.named_parameters())
+    devs = []
+    for _, p, n_pl in _mapped(model, pl, kind, None):
+        q = named[n_pl].detach()
+        m = p.detach()
+        m = m if m.shape == q.shape else shard_block(m, named[n_pl])
+        devs.append(float((m - q).abs().max()))
+    return max(devs)
+
+
+def _lm_run(kind, cfg_kw, state, batch, spec, via_fleet, whole, probe):
+    """One LM through pipeline_descs on the current hybrid mesh: the
+    copied state (gathered), the square-sum probe (without dp), one
+    train_batch on this rank's rows and the reverse copy's deviation."""
+    from paddle_tpu_torch.distributed import fleet, get_mesh
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+    from paddle_tpu_torch.distributed.sharding_utils import shard_batch
+    from paddle_tpu_torch.models.convert import gather_state_dict
+
+    model, pl, copy_weights = _lm(kind, cfg_kw, state, whole)
+    copied = gather_state_dict(pl)
+    hcg = fleet.get_hybrid_communicate_group()
+    if via_fleet:
+        pp = fleet.distributed_model(pl)
+        opt = fleet.distributed_optimizer(_adamw(pp.parameters(), spec))
+    else:
+        pp = PipelineParallel(pl, hcg, fleet.fleet._strategy)
+        opt = _adamw(pp.parameters(), spec)
+    mine = shard_batch(tuple(torch.from_numpy(b) for b in batch),
+                       get_mesh(), ("dp",))
+    sq = _square_sums(pp, opt, mine) if probe else None
+    out = _train(pp, opt, [mine])
+    copy_weights(pl, reverse=True)
+    return {**out, "copied": copied, "square_sums": sq,
+            "reverse_max_dev": _reverse_dev(model, pl, kind),
+            "wrapper": type(pp).__name__,
+            "clip": type(opt._grad_clip).__name__,
+            "whole_model": whole}
+
+
+def _hybrid(fleet, M, **degrees):
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs.update(degrees)
+    st.pipeline_configs["accumulate_steps"] = M
+    fleet.init(is_collective=True, strategy=st)
+
+
 def world4(engine_cases, block_state, tied_state, block_batch, tied_batch,
-           spec):
+           spec, lms, lm_batch, lm_spec):
     """pp 4: the engines' cases; the block model (1F1B, then F-then-B) and
     the tied-embedding model (S = 4, V = 2) from the reference's
-    PipelineLayer state_dict, one train_batch each; then dp 2 x pp 2,
-    which PipelineParallel refuses."""
+    PipelineLayer state_dict, one train_batch each. dp 2 x pp 2: the
+    block model (two blocks a stage, 1F1B) and the tied GPT through
+    fleet.distributed_model, on this rank's rows. pp 2 x mp 2: GPT and
+    Llama, tied and untied, through pipeline_descs (Llama's model whole,
+    GPT's cut, so copy_weights takes blocks one way and gathers the
+    other). Then pp beside sep, which PipelineParallel refuses."""
     dist = _init()
     from paddle_tpu_torch import nn as tnn
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet import (LayerDesc, PipelineLayer,
                                                     PipelineParallel,
                                                     SharedLayerDesc)
+    from paddle_tpu_torch.distributed.sharding_utils import shard_batch
     from paddle_tpu_torch.models.convert import load_jax_state_dict
 
     mesh = dist.build_mesh(pp=4)
@@ -313,10 +389,29 @@ def world4(engine_cases, block_state, tied_state, block_batch, tied_batch,
     res["tied_schedule"] = pp.schedule
     res["tied"] = _train(pp, _adamw(pp.parameters(), spec),
                          [tuple(torch.from_numpy(b) for b in tied_batch)])
-    both = fleet.DistributedStrategy()
-    both.hybrid_configs.update(dp_degree=2, pp_degree=2)
-    fleet.init(is_collective=True, strategy=both)
-    res["beside_dp"] = _errors(lambda: fleet.distributed_model(
+
+    _hybrid(fleet, spec["M"], dp_degree=2, pp_degree=2)
+    pl = PipelineLayer([Block(d) for _ in range(S)], num_stages=2,
+                       loss_fn=mse)
+    load_jax_state_dict(pl, block_state)
+    pp = PipelineParallel(pl, fleet.get_hybrid_communicate_group(),
+                          _strategy(fleet, accumulate_steps=spec["M"],
+                                    schedule="1F1B"))
+    res[("dp_pp", "block")] = _train(
+        pp, _adamw(pp.parameters(), spec),
+        [shard_batch(batch, dist.get_mesh(), ("dp",))])
+    res[("dp_pp", "gpt")] = _lm_run(
+        "gpt", *lms["gpt"][1:], lm_batch, lm_spec, via_fleet=True,
+        whole=False, probe=False)
+
+    _hybrid(fleet, lm_spec["M"], pp_degree=2, mp_degree=2)
+    for kind, (family, cfg_kw, state) in lms.items():
+        res[("pp_mp", kind)] = _lm_run(
+            family, cfg_kw, state, lm_batch, lm_spec,
+            via_fleet=kind == "gpt", whole=family == "llama", probe=True)
+
+    _hybrid(fleet, spec["M"], pp_degree=2, sep_degree=2)
+    res["beside_sep"] = _errors(lambda: fleet.distributed_model(
         PipelineLayer([LayerDesc(Block, d) for _ in range(2)],
                       num_stages=2, loss_fn=mse)))
     return res

@@ -6,10 +6,12 @@ GPT's and Llama's pipeline_descs; fleet.distributed_model at pp_degree >
 against the reference on the conftest's 8-device CPU mesh.
 
 Two rank worlds run while this process computes the reference (their
-bodies are in tests/_torch_pp_ranks.py): world 4 (pp 4, then dp 2 x pp 2)
-and world 2 (pp 2). Each rank holds only its stage's block. A child
-process computes the reference's engines meanwhile (`_child_refs`), this
-one its layer-level pipelines.
+bodies are in tests/_torch_pp_ranks.py): world 4 (pp 4, then dp 2 x pp 2,
+then pp 2 x mp 2, then pp beside sep, refused) and world 2 (pp 2). Each
+rank holds only its stage's block (beside mp, its mp block of it; beside
+dp, it trains on its rows of the global batch). A child process computes
+the reference's engines meanwhile (`_child_refs`), this one its
+layer-level pipelines.
 
 Tolerances (fp32), the reference's own (tests/test_pipeline.py):
   * the engines on the reference's rigs: the loss 1e-5 relative; each
@@ -26,6 +28,17 @@ Tolerances (fp32), the reference's own (tests/test_pipeline.py):
     far off). The GPT and Llama cases run AdamW with epsilon 1, so the
     update follows the clipped gradient's scale and the parameters see
     the clip too.
+
+The dp 2 x pp 2 and pp 2 x mp 2 runs are held, at the same tolerances,
+to the reference's train_batch on the same weights and global batch as
+the pp 2 (LMs) and dp 2 x pp 4 (block model) runs above. The
+reference's value does not depend on its mesh: its PipelineParallel
+gives the same loss, bit for bit, at pp 2, pp 2 x mp 2, dp 2 x pp 2 and
+dp 2 x pp 2 x mp 2 on the GPT and the Llama, and its own tests hold
+every mesh to one sequential program;
+tests/test_torch_hybrid_parallel.py runs it at dp 2 x pp 2 x mp 2
+itself. Beside dp the replicas must be bitwise equal, beside mp each
+pair's whole (replicated) entries.
 """
 import os
 import pickle
@@ -79,6 +92,20 @@ CASES4 = {("1F1B", 6): True, ("1F1B", 3): False, ("1F1B", 1): False,
           ("Interleave", 4, 2, 8): True, ("Interleave", 4, 2, 6): False,
           ("Interleave", 4, 1, 6): False, ("tied",): True}
 CASES2 = {("1F1B", 2, 4): False, ("Interleave", 2, 3, 5): False}
+
+
+# the LMs of the pp 2 x mp 2 runs (world 4); the first three also at pp 2
+# (world 2)
+LM_KINDS = ("gpt", "gpt_untied", "llama", "llama_tied")
+
+
+def _lm_spec(kind):
+    """(family, port config, the reference's weights) of an LM kind."""
+    if kind.startswith("llama"):
+        cfg = dict(LLAMA, tie_word_embeddings=kind == "llama_tied")
+        return "llama", cfg, _jax_state(_jlm(kind))
+    return "gpt", dict(GPT, tie_word_embeddings=kind != "gpt_untied"), \
+        _jax_state(_jlm(kind))
 
 
 class _Strat:
@@ -204,8 +231,9 @@ class _Mesh:
 
 def _jlm(kind, seed=3):
     paddle.seed(seed)
-    if kind == "llama":
-        return JaxLlama(JaxLlamaConfig(**LLAMA))
+    if kind.startswith("llama"):
+        return JaxLlama(JaxLlamaConfig(
+            **LLAMA, tie_word_embeddings=kind == "llama_tied"))
     cfg = dict(GPT, tie_word_embeddings=kind != "gpt_untied")
     return JaxGPT(JaxGPTConfig(**cfg))
 
@@ -367,21 +395,18 @@ def runs(tmp_path_factory):
         cases = _cases()
         block_b, tied_b, lm_b = _batches()
         with _Mesh(None):
-            lms = {k: (("llama" if k == "llama" else "gpt"),
-                       dict(LLAMA) if k == "llama" else
-                       dict(GPT, tie_word_embeddings=k != "gpt_untied"),
-                       _jax_state(_jlm(k)))
-                   for k in ("gpt", "gpt_untied", "llama")}
+            lms = {k: _lm_spec(k) for k in LM_KINDS}
         block_state, block_train = _ref_small("block", block_b)
         tied_state, tied_train = _ref_small("tied", tied_b)
         np_case = {k: _np_tree(c[0]) for k, c in cases.items()}
         ctxs = {
             4: spawn(ranks.world4, args=(
                 {k: np_case[k] for k in CASES4}, block_state, tied_state,
-                block_b, tied_b, SMALL_SPEC), nprocs=4, backend="cpu",
-                join=False),
+                block_b, tied_b, SMALL_SPEC, lms, lm_b, LM_SPEC), nprocs=4,
+                backend="cpu", join=False),
             2: spawn(ranks.world2, args=(
-                {k: np_case[k] for k in CASES2}, lms, [lm_b], LM_SPEC),
+                {k: np_case[k] for k in CASES2},
+                {k: lms[k] for k in LM_KINDS[:3]}, [lm_b], LM_SPEC),
                 nprocs=2, backend="cpu", join=False)}
         ref = {"lm": {k: _ref_lm(k, lm_b) for k in lms},
                "block": block_train(), "tied": tied_train()}
@@ -529,16 +554,92 @@ def test_tied_embedding_interleave_train_batch(runs):
 
 def test_refusals(runs):
     """Heterogeneous stages, a virtual_pp_degree mismatch, a stage count
-    other than pp, and pp beside a dp axis of two ranks raise, each naming
-    its cause."""
+    other than pp, and pp beside a sep axis of two ranks raise, each naming
+    its cause (pp beside sep names its ROADMAP item by title)."""
     errs = runs["port"][2][0]["errors"]
     assert errs["heterogeneous"].startswith("ValueError") and \
         "identical stages" in errs["heterogeneous"]
     assert "virtual_pp_degree=2" in errs["vpp_mismatch"]
     assert "4 stages but the mesh 'pp' axis has 2" in errs["stage_count"]
     for res in runs["port"][4]:
-        assert res["beside_dp"].startswith("NotImplementedError") and \
-            "'dp'" in res["beside_dp"]
+        assert res["beside_sep"].startswith("NotImplementedError") and \
+            "'sep'" in res["beside_sep"] and \
+            "ROADMAP queue 1: pp beside sep, sharding or ep" in \
+            res["beside_sep"]
+
+
+def _replicas_equal(ranks, key, peers, entries):
+    """Each rank's own state_dict entries `entries(res)` bitwise equal to
+    those of every rank that `peers` maps to the same group."""
+    groups = {}
+    for r in ranks:
+        groups.setdefault(peers(r[key]["coord"]), []).append(r)
+    for members in groups.values():
+        first = members[0]
+        for other in members[1:]:
+            for k in entries(first[key]):
+                np.testing.assert_array_equal(
+                    other[key]["local"][k], first[key]["local"][k],
+                    err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["block", "gpt"])
+def test_dp_pp_train_batch(runs, kind):
+    """dp 2 x pp 2: the block model (two blocks a stage, 1F1B) and the tied
+    GPT through fleet.distributed_model and the hybrid clip, each rank on
+    its rows of the global batch: the reference's loss and state on every
+    rank, and the dp replicas bitwise equal."""
+    ref = runs["ref"]["block"] if kind == "block" \
+        else runs["ref"]["lm"]["gpt"]
+    ranks = runs["port"][4]
+    for res in ranks:
+        got = res[("dp_pp", kind)]
+        _close(got["losses"][0], ref["loss"], rtol=LOSS_RTOL, atol=0)
+        assert sorted(got["state"]) == sorted(ref["state"])
+        for k, w in ref["state"].items():
+            _close(got["state"][k], w, msg=k)
+        if kind == "gpt":
+            assert got["wrapper"] == "PipelineParallel"
+            assert got["clip"] == "HybridParallelClipGrad"
+            assert got["reverse_max_dev"] == 0.0
+    assert {r[("dp_pp", kind)]["coord"]["dp"] for r in ranks} == {0, 1}
+    _replicas_equal(ranks, ("dp_pp", kind),
+                    lambda c: (c["pp"], c["mp"]),
+                    lambda res: res["local"])
+
+
+@pytest.mark.parametrize("kind", LM_KINDS)
+def test_pp_mp_train_batch(runs, kind):
+    """pp 2 x mp 2: GPT (its embedding whole, the untied head's columns
+    cut) and Llama (its embedding a vocabulary cut; the tied head's logits
+    a block of the vocabulary, its loss ParallelCrossEntropy's) through
+    pipeline_descs. copy_weights carries the reference's weights (a
+    whole Llama's blocks into the cut layers; a cut GPT's embedding
+    gathered into the whole pipe embedding), and back; the clip's
+    square-sum is the whole model's; one train_batch gives the
+    reference's loss and every gathered state_dict() entry; each mp
+    pair's whole entries are bitwise equal."""
+    ref = runs["ref"]["lm"][kind]
+    ranks = runs["port"][4]
+    for res in ranks:
+        got = res[("pp_mp", kind)]
+        assert sorted(got["copied"]) == sorted(ref["copied"])
+        for k, w in ref["copied"].items():
+            np.testing.assert_array_equal(got["copied"][k], w, err_msg=k)
+        for name, sq in got["square_sums"].items():
+            _close(sq, ref["square_sum"], rtol=1e-5, atol=0, msg=name)
+        _close(got["losses"][0], ref["loss"], rtol=LOSS_RTOL, atol=0)
+        assert sorted(got["state"]) == sorted(ref["state"])
+        for k, w in ref["state"].items():
+            _close(got["state"][k], w, msg=k)
+        assert got["reverse_max_dev"] == 0.0
+        assert got["whole_model"] == kind.startswith("llama")
+        assert got["cut"], "no parameter is cut over the mp group"
+    key = ("pp_mp", kind)
+    assert {r[key]["coord"]["mp"] for r in ranks} == {0, 1}
+    _replicas_equal(ranks, key, lambda c: (c["dp"], c["pp"]),
+                    lambda res: [k for k in res["local"]
+                                 if k not in res["cut"]])
 
 
 def test_rotary_gpt_is_refused():
@@ -615,14 +716,14 @@ def test_accumulation_at_pp_one():
 
 def test_the_slices_modules_import_neither_jax_nor_the_reference():
     """The slice's modules, imported in a fresh process with
-    chip_smoke.py and the rank bodies: nothing of jax or paddle_tpu comes
-    in."""
+    chip_smoke.py and the rank bodies (the pipeline's and the hybrid
+    mesh's): nothing of jax or paddle_tpu comes in."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys\n"
         "sys.path.insert(0, 'tests')\n"
         "before = set(sys.modules)\n"
-        "import chip_smoke, _torch_pp_ranks\n"
+        "import chip_smoke, _torch_pp_ranks, _torch_hybrid_ranks\n"
         "import paddle_tpu_torch.distributed.pipeline\n"
         "import paddle_tpu_torch.distributed.fleet.pipeline_parallel\n"
         "import paddle_tpu_torch.models\n"
